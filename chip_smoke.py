@@ -1,29 +1,49 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (parsec_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--profile]
 
 Phases, each reporting on its own lines:
 
 1. device   the card's name, and its name and power limit from nvidia-smi;
-2. build    the CUDA kernel, compiled from this checkout's sources;
-3. kernel   the kernel against its plain PyTorch version on the card, at
-            the main path's tile shape (nb = 1024): matmul, gemm_nt,
-            syrk_ln, a batched z = 8 launch, a ragged 1000^3 product and
-            the gradient; relative max error under 1e-4 (the two sum in
-            different orders in fp32);
-4. main     the port's main path at full size, through the entry points
-            a user calls: init() -> TwoDimBlockCyclic.from_numpy ->
-            ops.dpotrf on a 16384^2 fp32 matrix in 1024^2 tiles (816
-            tasks); every task on cuda:0, the kernel launched, and the
-            factor's matvec residual under 1e-4;
-5. bitexact batched and per-task dispatch give identical factors
+2. build    every CUDA source of this checkout (csrc/*.cu), one nvcc for
+            each, all started together;
+3. kernel   the GEMM kernel against its plain PyTorch version on the
+            card, at the dpotrf path's tile shape (nb = 1024): matmul,
+            gemm_nt, syrk_ln, a batched z = 8 launch, a ragged 1000^3
+            product and the gradient; relative max error under 1e-4
+            (the two sum in different orders in fp32);
+4. attention both flash kernels against their plain versions on the
+            card: [8, 12, 1024, 64] causal (the forward's shape) and
+            non-causal, ragged T = Tk = 1000 with D = 40, T = 256 with
+            Tk = 384 and 200; the stats kernel's m and l too, and the
+            merge rule over two key sets against attention over their
+            concatenation; relative max error under 1e-4;
+5. main     the dpotrf path at full size, through the entry points a user
+            calls: init() -> TwoDimBlockCyclic.from_numpy -> ops.dpotrf
+            on a 16384^2 fp32 matrix in 1024^2 tiles (816 tasks); every
+            task on cuda:0, the GEMM kernel launched, and the factor's
+            matvec residual under 1e-4;
+6. bitexact batched and per-task dispatch give identical factors
             (N = 4096, NB = 512);
-6. timing   the nb = 1024 gemm_nt tile: the kernel, its bound, its plain
-            version and torch.addmm as a yardstick, by CUDA events;
-7. profile  with --profile only: the main path once more under
-            torch.profiler, with device time by kernel and the device's
-            busy share of the wall time.
+7. forward  the transformer path at GPT-2-small widths (vocab 50257,
+            d_model 768, 12 heads of 64, 12 layers, d_ff 3072, sequence
+            1024, batch 8, fp32, seeded random weights) through
+            models.make_forward, once with attention="ring" (the stats
+            kernel) and once with "flash" (the forward kernel): one
+            warm-up and 3 seeded batches each, seconds and tokens/s per
+            forward, 12 launches of the path's kernel per forward and
+            none of the other, finite logits, ring and flash logits
+            within 2e-4 of each other, and sequence 0 of the first batch
+            within 2e-4 of the port's CPU run (plain versions, fp32);
+8. timing   each kernel at its path's shape, by CUDA events: the GEMM
+            at nb = 1024 against torch.addmm, each flash kernel at
+            [8, 12, 1024, 64] causal against
+            F.scaled_dot_product_attention (fp32; it returns o alone),
+            beside its bound and its plain version;
+9. profile  with --profile only: the dpotrf path and one forward once
+            more under torch.profiler, with device time by kernel and
+            the device's busy share of the wall time.
 
 Any failure raises and exits non-zero; so does a machine where PyTorch
 sees no CUDA device.  The line before the last is the kernels' record
@@ -34,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,8 +65,11 @@ import torch
 
 N_MAIN, NB_MAIN = 16384, 1024
 N_BITEXACT, NB_BITEXACT = 4096, 512
+ATTN_SHAPE = (8, 12, 1024, 64)   # B, H, T, D of the forward's attention
+N_BATCHES = 3          # timed forwards per attention, after one warm-up
 RTOL = 1e-4            # kernel vs plain version, relative max error
 RESID_TOL = 1e-4       # matvec residual of the factor, fp32
+LOGITS_RTOL = 2e-4     # forward logits: ring vs flash, card vs CPU, fp32
 F32_FLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 
@@ -63,6 +87,20 @@ def check(ok: bool, msg: str) -> None:
 def rel_err(out: torch.Tensor, ref: torch.Tensor):
     d = (out.double() - ref.double()).abs().max().item()
     return d / ref.double().abs().max().item(), d
+
+
+COUNTERS = ("matmul_launches", "flash_launches", "flash_stats_launches")
+
+
+def reset_counts() -> None:
+    from parsec_tpu_torch.ops import kernels
+    for name in COUNTERS:
+        setattr(kernels, name, 0)
+
+
+def counts() -> dict:
+    from parsec_tpu_torch.ops import kernels
+    return {name: getattr(kernels, name) for name in COUNTERS}
 
 
 # ---------------------------------------------------------------------- #
@@ -84,9 +122,11 @@ def phase_device() -> str:
 def phase_build() -> None:
     from parsec_tpu_torch.ops import kernels
     t0 = time.perf_counter()
-    so = kernels.build()
-    kernels.load()
-    log("build", seconds=f"{time.perf_counter() - t0:.3f}", library=so.name)
+    libs = kernels.build()
+    for name in libs:
+        kernels.load(name)
+    log("build", seconds=f"{time.perf_counter() - t0:.3f}",
+        libraries=",".join(so.name for so in libs.values()))
 
 
 def phase_kernel(dev: torch.device, seed: int) -> float:
@@ -152,6 +192,61 @@ def phase_kernel(dev: torch.device, seed: int) -> float:
     return worst
 
 
+def phase_attention(dev: torch.device, seed: int) -> dict:
+    """Both flash kernels vs their plain versions on the card; returns
+    each kernel's max abs error at the forward's shape."""
+    from parsec_tpu_torch.ops import kernels
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+
+    def qkv(B, H, T, Tk, D):
+        return tuple(torch.randn(B, H, t, D, generator=g, device=dev)
+                     for t in (T, Tk, Tk))
+
+    B, H, T, D = ATTN_SHAPE
+    # (case, q/k/v, causal, at the forward's shape)
+    cases = [("fwd_causal", qkv(B, H, T, T, D), True, True),
+             ("fwd_noncausal", qkv(B, H, T, T, D), False, False),
+             ("ragged_1000_d40", qkv(2, 4, 1000, 1000, 40), True, False),
+             ("t256_tk384", qkv(2, 4, 256, 384, 64), True, False),
+             ("t256_tk200", qkv(2, 4, 256, 200, 64), True, False)]
+    worst = {"flash": 0.0, "flash_stats": 0.0}
+    for name, (q, k, v), causal, on_path in cases:
+        o = kernels.flash_attention(q, k, v, causal=causal)
+        stats = kernels.flash_attention_stats(q, k, v, causal=causal)
+        ref = kernels.flash_attention_plain(q, k, v, causal=causal)
+        ref_stats = kernels.flash_attention_stats_plain(q, k, v,
+                                                        causal=causal)
+        torch.cuda.synchronize()
+        results = [("flash", "o", o, ref)] + [
+            ("flash_stats", part, a, b)
+            for part, a, b in zip("oml", stats, ref_stats)]
+        for kernel, part, a, b in results:
+            rel, absd = rel_err(a, b)
+            if on_path:
+                worst[kernel] = max(worst[kernel], absd)
+            log("attention", kernel=kernel, case=name, out=part,
+                shape=tuple(a.shape), causal=causal, rel_err=rel,
+                max_abs_err=absd)
+            check(rel < RTOL, f"{kernel} {name} {part}: relative error "
+                              f"{rel} >= {RTOL}")
+    # the merge rule over two key sets == attention over their union
+    q, k1, v1 = qkv(2, 4, 256, 384, 64)
+    _q, k2, v2 = qkv(2, 4, 256, 200, 64)
+    o1, m1, l1 = kernels.flash_attention_stats(q, k1, v1)
+    o2, m2, l2 = kernels.flash_attention_stats(q, k2, v2)
+    m = torch.maximum(m1, m2)
+    w1, w2 = torch.exp(m1 - m) * l1, torch.exp(m2 - m) * l2
+    merged = (o1 * w1[..., None] + o2 * w2[..., None]) / (w1 + w2)[..., None]
+    ref = kernels.flash_attention_plain(q, torch.cat([k1, k2], 2),
+                                        torch.cat([v1, v2], 2), causal=False)
+    torch.cuda.synchronize()
+    rel, absd = rel_err(merged, ref)
+    log("attention", kernel="flash_stats", case="merge_384+200",
+        rel_err=rel, max_abs_err=absd)
+    check(rel < RTOL, f"stats merge: relative error {rel} >= {RTOL}")
+    return worst
+
+
 def synth_spd(n: int, seed: int) -> np.ndarray:
     """A = (B + B^T)/2 + n I with B uniform in [-0.5, 0.5), in O(n^2)."""
     rng = np.random.default_rng(seed)
@@ -202,7 +297,7 @@ def phase_main(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
     """Drive dpotrf at full size; returns the kernel's launches."""
     from parsec_tpu_torch.ops import kernels
     M = synth_spd(n, seed)
-    kernels.matmul_launches = 0
+    reset_counts()
     L, st, seconds = run_dpotrf(M, nb, nb_cores=4, device=device)
     launches = kernels.matmul_launches
     nt = st["nt"]
@@ -243,6 +338,130 @@ def phase_bitexact(seed: int, n: int = N_BITEXACT, nb: int = NB_BITEXACT,
     check(same, "batched and per-task factors differ")
 
 
+def gpt2_small(attention: str):
+    """GPT-2 small's widths (OpenAI's gpt2 config: n_embd 768, n_head 12,
+    n_layer 12, n_positions 1024, vocab_size 50257, FFN 4 x 768) as the
+    JAX model's config, fp32, batch 8."""
+    from parsec_tpu_torch.models import TransformerConfig
+    return TransformerConfig(vocab=50257, d_model=768, n_heads=12,
+                             d_head=64, n_stages=1, layers_per_stage=12,
+                             d_ff=3072, n_experts=0, seq_len=1024, batch=8,
+                             n_micro=1, attention=attention,
+                             dtype=torch.float32)
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {name: tree_map(fn, a) for name, a in tree.items()}
+    return fn(tree)
+
+
+def check_against_cpu(cfg, params, host_params, seq0, card_logits) -> None:
+    """Sequence 0 of the first batch against the port on the CPU (plain
+    versions).  The seeded model amplifies rounding from layer to layer
+    (its scores are large: wqkv is drawn at 1/sqrt(H)), so whole-depth
+    fp32 logits that sum in another order drift far apart; they are
+    reported beside the CPU's own fp32-vs-fp64 drift.  The gate holds
+    each layer and the head to the CPU on the same input."""
+    from parsec_tpu_torch import models
+    t0 = time.perf_counter()
+    cpu32 = models.make_forward(cfg, device="cpu")(host_params, seq0)
+    cpu_seconds = time.perf_counter() - t0
+    cpu64 = models.make_forward(
+        dataclasses.replace(cfg, dtype=torch.float64), device="cpu")(
+            tree_map(torch.Tensor.double, host_params), seq0)
+    log("forward", case="cpu_fp32_vs_cpu_fp64", layers=cfg.n_layers,
+        rel_err=rel_err(cpu32, cpu64)[0], cpu_seconds=f"{cpu_seconds:.3f}")
+    for attention, logits in card_logits.items():
+        log("forward", case=f"{attention}_vs_cpu_whole_depth",
+            rel_err=rel_err(logits[:1].cpu(), cpu32)[0],
+            rel_err_vs_fp64=rel_err(logits[:1].cpu(), cpu64)[0])
+    # each layer and the head on the card vs the CPU, on the card's input
+    card = models.Transformer(cfg)
+    worst = 0.0
+    with torch.inference_mode():
+        tokens = torch.as_tensor(seq0, dtype=torch.int64)
+        x = card._embed(params, tokens.to(params["embed"].device))
+        ref = card._embed(host_params, tokens)
+        check(torch.equal(x.cpu(), ref), "embeddings differ from the CPU's")
+        def layer(tree, i):
+            return tree_map(lambda a: a.reshape(-1, *a.shape[2:])[i], tree)
+
+        for i in range(cfg.n_layers):
+            y = card._layer(layer(params["stages"], i), x)
+            rel, absd = rel_err(y.cpu(), card._layer(
+                layer(host_params["stages"], i), x.cpu()))
+            log("forward", case="layer_vs_cpu", layer=i, rel_err=rel,
+                max_abs_err=absd)
+            worst = max(worst, rel)
+            x = y
+        rel, absd = rel_err(card._head(params, x).cpu(),
+                            card._head(host_params, x.cpu()))
+    log("forward", case="head_vs_cpu", rel_err=rel, max_abs_err=absd)
+    worst = max(worst, rel)
+    check(worst < LOGITS_RTOL, f"card vs CPU on the same input: relative "
+                               f"error {worst} >= {LOGITS_RTOL}")
+
+
+def phase_forward(dev: torch.device, seed: int) -> dict:
+    """The transformer path through make_forward with attention="ring"
+    and "flash"; returns each flash kernel's launches on its path."""
+    from parsec_tpu_torch import models
+    cfg = gpt2_small("ring")
+    t0 = time.perf_counter()
+    host_params = models.init_params(cfg, seed)
+    params = models.params_to(host_params, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in (params["embed"], params["pos"],
+                                       params["ln_f"],
+                                       *params["stages"].values()))
+    log("forward", params=n_params,
+        init_seconds=f"{time.perf_counter() - t0:.3f}")
+    rng = np.random.RandomState(seed + 5)
+    batches = [rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
+               for _ in range(1 + N_BATCHES)]
+    per_layer = {"ring": "flash_stats_launches", "flash": "flash_launches"}
+    first = {}
+    launches = {}
+    for attention, counter in per_layer.items():
+        fwd = models.make_forward(dataclasses.replace(cfg,
+                                                      attention=attention))
+        reset_counts()
+        fwd(params, batches[0])                   # warm-up
+        torch.cuda.synchronize()
+        seconds = []
+        for i, tokens in enumerate(batches[1:]):
+            t0 = time.perf_counter()
+            logits = fwd(params, tokens)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            check(tuple(logits.shape) == (cfg.batch, cfg.seq_len, cfg.vocab)
+                  and bool(torch.isfinite(logits).all()),
+                  f"{attention}: logits of shape {tuple(logits.shape)} "
+                  f"or not finite")
+            if i == 0:
+                first[attention] = logits
+        got = counts()
+        n_fwd = 1 + N_BATCHES
+        want = {name: cfg.n_layers * n_fwd if name == counter else 0
+                for name in COUNTERS}
+        launches[attention] = got[counter]
+        mean = sum(seconds) / len(seconds)
+        log("forward", attention=attention, forwards=n_fwd,
+            seconds=",".join(f"{x:.6f}" for x in seconds),
+            mean_seconds=f"{mean:.6f}",
+            tokens_per_s=f"{cfg.batch * cfg.seq_len / mean:.1f}",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            **got)
+        check(got == want, f"{attention}: launches {got}, expected {want}")
+    rel, absd = rel_err(first["ring"], first["flash"])
+    log("forward", case="ring_vs_flash", rel_err=rel, max_abs_err=absd)
+    check(rel < LOGITS_RTOL, f"ring vs flash logits: {rel} >= "
+                             f"{LOGITS_RTOL}")
+    check_against_cpu(cfg, params, host_params, batches[1][:1], first)
+    return launches
+
+
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     for _ in range(warmup):
         fn()
@@ -257,42 +476,73 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the fp32 peak and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
 def phase_timing(dev: torch.device, seed: int) -> dict:
+    """Each kernel at its path's shape by CUDA events, beside its bound,
+    its plain version and one library call; returns the records."""
+    import torch.nn.functional as F
     from parsec_tpu_torch.ops import kernels, linalg
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     nb = NB_MAIN
     a, b, c = (torch.randn(nb, nb, generator=g, device=dev)
                for _ in range(3))
-    kernel_ms = time_ms(lambda: linalg.gemm_nt(c, a, b))
-    plain_ms = time_ms(lambda: kernels.gemm_plain(a, b, c, trans_b=True,
-                                                  alpha=-1.0, beta=1.0))
-    library_ms = time_ms(lambda: torch.addmm(c, a, b.mT, alpha=-1))
-    flops = 2.0 * nb ** 3
-    nbytes = 4 * nb * nb * 4      # A, B, C read once, Out written once
-    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    rec = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-               library_ms=library_ms)
-    log("timing", case=f"gemm_nt nb={nb} fp32", kernel_ms=kernel_ms,
-        bound_ms=bound_ms, plain_ms=plain_ms, library_ms=library_ms,
-        kernel_tflops=f"{flops / kernel_ms / 1e9:.3f}",
-        roofline_share=f"{bound_ms / kernel_ms:.4f}")
-    return rec
+    recs = {"gemm": dict(
+        ms=time_ms(lambda: linalg.gemm_nt(c, a, b)),
+        plain_ms=time_ms(lambda: kernels.gemm_plain(
+            a, b, c, trans_b=True, alpha=-1.0, beta=1.0)),
+        library_ms=time_ms(lambda: torch.addmm(c, a, b.mT, alpha=-1)),
+        # A, B, C read once, Out written once
+        **bound(2.0 * nb ** 3, 4 * nb * nb * 4))}
+    B, H, T, D = ATTN_SHAPE
+    q, k, v = (torch.randn(B, H, T, D, generator=g, device=dev)
+               for _ in range(3))
+    # causal: 4 D flops (Q.K^T and P.V) for each of the T(T+1)/2 visible
+    # (query, key) pairs of a row block; Q, K, V read once, O written once
+    flops = 4.0 * B * H * D * T * (T + 1) / 2
+    qkvo = 4 * B * H * T * D * 4
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=20)
+    recs["flash"] = dict(
+        ms=time_ms(lambda: kernels.flash_attention(q, k, v), iters=20),
+        plain_ms=time_ms(lambda: kernels.flash_attention_plain(q, k, v),
+                         iters=20),
+        library_ms=library_ms, **bound(flops, qkvo))
+    recs["flash_stats"] = dict(
+        ms=time_ms(lambda: kernels.flash_attention_stats(q, k, v,
+                                                         causal=True),
+                   iters=20),
+        plain_ms=time_ms(lambda: kernels.flash_attention_stats_plain(
+            q, k, v, causal=True), iters=20),
+        library_ms=library_ms,            # o alone: no call returns m, l
+        **bound(flops, qkvo + 2 * B * H * T * 4))
+    cases = {"gemm": (f"gemm_nt nb={nb} fp32", 2.0 * nb ** 3),
+             "flash": (f"flash_attention {list(ATTN_SHAPE)} causal fp32",
+                       flops),
+             "flash_stats": (f"flash_attention_stats {list(ATTN_SHAPE)} "
+                             f"causal fp32", flops)}
+    for key, (case, work) in cases.items():
+        rec = recs[key]
+        log("timing", case=case, kernel_ms=rec["ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            plain_ms=rec["plain_ms"], library_ms=rec["library_ms"],
+            kernel_tflops=f"{work / rec['ms'] / 1e9:.3f}",
+            roofline_share=f"{rec['bound_ms'] / rec['ms']:.4f}")
+    return recs
 
 
-def phase_profile(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
-                  top: int = 12) -> None:
-    """The main path once more under torch.profiler: device time by
-    kernel, and the device's busy share of the factorization's wall
-    time (the union of its kernel and copy intervals)."""
+def profile_report(label: str, prof, seconds: float, top: int = 12) -> None:
+    """Device time by kernel from a profiler run, and the device's busy
+    share of the wall time (the union of its kernel and copy intervals)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    _L, _st, seconds = run_dpotrf(synth_spd(n, seed), nb, nb_cores=4,
-                                  around=lambda: prof)
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(evs), "the profiler recorded no device activity")
+    check(bool(evs), f"{label}: the profiler recorded no device activity")
     by_name: dict = {}
     for e in evs:
         calls, us = by_name.get(e.name, (0, 0.0))
@@ -306,21 +556,47 @@ def phase_profile(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
         else:
             e0 = max(e0, e)
     busy_us += e0 - s0
-    log("profile", seconds=f"{seconds:.4f}", device_events=len(evs),
-        device_busy_ms=f"{busy_us / 1e3:.3f}",
+    log("profile", path=label, seconds=f"{seconds:.4f}",
+        device_events=len(evs), device_busy_ms=f"{busy_us / 1e3:.3f}",
         busy_share=f"{busy_us / 1e6 / seconds:.4f}")
     for name, (calls, us) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][1])[:top]:
-        log("profile", calls=calls, ms=f"{us / 1e3:.3f}",
+        log("profile", path=label, calls=calls, ms=f"{us / 1e3:.3f}",
             share_of_busy=f"{us / busy_us:.4f}", kernel=repr(name[:100]))
+
+
+def phase_profile(dev: torch.device, seed: int, n: int = N_MAIN,
+                  nb: int = NB_MAIN) -> None:
+    """The dpotrf path and one ring forward (after a warm-up) once more
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from parsec_tpu_torch import models
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    prof = profile(activities=acts)
+    _L, _st, seconds = run_dpotrf(synth_spd(n, seed), nb, nb_cores=4,
+                                  around=lambda: prof)
+    profile_report("dpotrf", prof, seconds)
+    cfg = gpt2_small("ring")
+    params = models.params_to(models.init_params(cfg, seed), dev)
+    tokens = np.random.RandomState(seed + 5).randint(
+        0, cfg.vocab, (cfg.batch, cfg.seq_len))
+    fwd = models.make_forward(cfg)
+    fwd(params, tokens)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fwd(params, tokens)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    profile_report("forward_ring", prof, seconds)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also run the main path under torch.profiler and "
-                         "print device time by kernel")
+                    help="also run the dpotrf path and one forward under "
+                         "torch.profiler and print device time by kernel")
     args = ap.parse_args(argv)
     # the package must come from this checkout; importing it first means a
     # directory holding only this script fails before any result
@@ -331,17 +607,29 @@ def main(argv=None) -> int:
     kind = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    max_abs_err = phase_kernel(dev, args.seed)
-    launches = phase_main(args.seed)
+    gemm_err = phase_kernel(dev, args.seed)
+    attn_err = phase_attention(dev, args.seed)
+    gemm_launches = phase_main(args.seed)
     phase_bitexact(args.seed)
-    rec = phase_timing(dev, args.seed)
+    attn_launches = phase_forward(dev, args.seed)
+    recs = phase_timing(dev, args.seed)
     if args.profile:
-        phase_profile(args.seed)
-    print(json.dumps({"kernels": [dict(
-        name="gemm_f32", route="cuda",
-        source="parsec_tpu_torch/csrc/matmul.cu",
-        replaces="parsec_tpu/ops/pallas_kernels.py:395",
-        launches=launches, max_abs_err=max_abs_err, **rec)]}), flush=True)
+        phase_profile(dev, args.seed)
+    src = "parsec_tpu_torch/csrc/"
+    tpu = "parsec_tpu/ops/pallas_kernels.py:"
+    print(json.dumps({"kernels": [
+        dict(name="gemm_f32", route="cuda", source=src + "matmul.cu",
+             replaces=tpu + "395", launches=gemm_launches,
+             max_abs_err=gemm_err, **recs["gemm"]),
+        dict(name="flash_fwd_f32", route="cuda",
+             source=src + "flash_attention.cu", replaces=tpu + "68",
+             launches=attn_launches["flash"], max_abs_err=attn_err["flash"],
+             **recs["flash"]),
+        dict(name="flash_fwd_stats_f32", route="cuda",
+             source=src + "flash_attention.cu", replaces=tpu + "115",
+             launches=attn_launches["ring"],
+             max_abs_err=attn_err["flash_stats"], **recs["flash_stats"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

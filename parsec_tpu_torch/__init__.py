@@ -11,8 +11,15 @@ in the same repository:
     parsec_tpu_torch.ops.dpotrf(ctx, A)
     ctx.fini()
 
-``init(device="cpu")`` runs the same device module over host tensors with
-each kernel's plain PyTorch version; without it, a missing card raises.
+and the flagship transformer's forward (``models``, over ``parallel``):
+
+    cfg = models.TransformerConfig(...)
+    forward = models.make_forward(cfg)              # on cuda:0
+    logits = forward(models.init_params(cfg, seed), tokens)
+
+``init(device="cpu")`` and ``make_forward(cfg, device="cpu")`` run the
+same code over host tensors with each kernel's plain PyTorch version;
+without them, a missing card raises.
 """
 from .runtime.context import Context, init
 from .runtime.taskpool import (Chore, Dep, Flow, HookReturn, Task, TaskClass,
@@ -24,6 +31,8 @@ from .utils.params import params
 from . import dsl
 from .dsl import ptg
 from . import ops
+from . import parallel
+from . import models
 
 __version__ = "0.1.0"
 
@@ -31,5 +40,5 @@ __all__ = [
     "Context", "init", "Taskpool", "TaskClass", "Task", "Chore", "Flow",
     "Dep", "HookReturn", "TaskStatus", "Data", "DataCopy", "Coherency",
     "FlowAccess", "Datatype", "Arena", "params", "dsl", "ptg", "ops",
-    "data_new_with_payload", "dtt_of_array", "__version__",
+    "parallel", "models", "data_new_with_payload", "dtt_of_array", "__version__",
 ]

@@ -1,0 +1,196 @@
+"""Flagship model: the decoder-only transformer's forward.
+
+The port of the JAX package's ``models/transformer.py`` on one device,
+where every mesh axis (dp, pp, tp, sp, ep) has size 1: the psums over tp
+are the identity, the GPipe schedule runs the microbatches in order, and
+attention runs through parallel/ (ring, Ulysses) or straight through the
+flash kernel.  The parameters are the same tree as the JAX package's
+(``init_params`` makes the same draws; ``params_from_numpy`` carries a
+JAX tree across), passed to each call like JAX's functional forward.
+The plain products (QKV, output projection, FFN, tied logits) are
+``torch.matmul`` in the config dtype, as the JAX package leaves them to
+XLA; the attention is the hand-written flash kernel on the card.
+
+Pre-norm RMSNorm, no biases, tanh-GELU, learned positions and a tied
+embedding, as in the JAX model.  MoE (``n_experts > 0``) and training
+are later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import kernels
+from ..parallel.pipeline import gpipe
+from ..parallel.ring_attention import local_attention, ring_attention
+from ..parallel.sequence import ulysses_attention
+
+ATTENTIONS = ("ring", "ulysses", "flash", "local")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab: int = 256
+    d_model: int = 64
+    n_heads: int = 4          # divisible by tp (and by sp for ulysses)
+    d_head: int = 16
+    n_stages: int = 1         # == pp axis size
+    layers_per_stage: int = 1
+    d_ff: int = 128           # divisible by tp
+    n_experts: int = 0        # 0 = dense FFN; MoE is a later slice
+    seq_len: int = 32         # divisible by sp
+    batch: int = 8            # divisible by dp; batch/dp divisible by n_micro
+    n_micro: int = 1          # pipeline microbatches per shard
+    attention: str = "ring"   # "ring" | "ulysses" | "flash" | "local"
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def n_layers(self) -> int:
+        return self.n_stages * self.layers_per_stage
+
+
+def _check_dense(cfg: TransformerConfig) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE (n_experts > 0) is a later slice of the port "
+            "(ROADMAP Queue 1 item 13)")
+
+
+def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict[str, Any]:
+    """The global parameter tree, on the CPU: the JAX package's
+    ``init_params`` draws, in the same order from the same
+    ``np.random.RandomState(seed)``, so the two trees are equal."""
+    _check_dense(cfg)
+    rng = np.random.RandomState(seed)
+    dt = cfg.dtype
+
+    def w(*shape, scale=None):
+        # 1/sqrt(shape[-2]) is 1/sqrt(H) for wqkv, as in the JAX package
+        scale = scale or (1.0 / np.sqrt(shape[-2] if len(shape) >= 2
+                                        else shape[-1]))
+        return torch.from_numpy(rng.normal(0, scale, size=shape)).to(dt)
+
+    S, L = cfg.n_stages, cfg.layers_per_stage
+    D, H, Dh, Fd = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff
+    params: Dict[str, Any] = {
+        "embed": w(cfg.vocab, D, scale=0.02),
+        "pos": w(cfg.seq_len, D, scale=0.02),
+        "ln_f": torch.ones((D,), dtype=dt),
+        "stages": {
+            "ln1": torch.ones((S, L, D), dtype=dt),
+            "ln2": torch.ones((S, L, D), dtype=dt),
+            "wqkv": w(S, L, D, 3, H, Dh),
+            "wo": w(S, L, H, Dh, D),
+            "w1": w(S, L, D, Fd),
+            "w2": w(S, L, Fd, D),
+        },
+    }
+    return params
+
+
+def params_from_numpy(tree: Any) -> Any:
+    """A parameter tree of numpy arrays (the JAX package's, through
+    ``np.asarray``) as CPU tensors of the same dtypes and values."""
+    if isinstance(tree, dict):
+        return {name: params_from_numpy(a) for name, a in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def params_to(tree: Any, device) -> Any:
+    """The tree on ``device``; a tensor already there is not copied."""
+    if isinstance(tree, dict):
+        return {name: params_to(a, device) for name, a in tree.items()}
+    return tree.to(device)
+
+
+class Transformer(nn.Module):
+    """The forward of one shard.  Holds the config; the parameters are
+    passed to each call as a tree (``init_params``)."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        _check_dense(cfg)
+        if cfg.attention not in ATTENTIONS:
+            raise ValueError(f"attention {cfg.attention!r} is not one of "
+                             f"{ATTENTIONS}")
+        self.cfg = cfg
+
+    def forward(self, params: Dict[str, Any],
+                tokens: torch.Tensor) -> torch.Tensor:
+        return self.forward_shard(params, tokens)
+
+    @staticmethod
+    def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        return (x.float() * torch.rsqrt(var + 1e-6)).to(x.dtype) * g
+
+    def _attention(self, q, k, v) -> torch.Tensor:
+        attention = self.cfg.attention
+        if attention == "ring":
+            return ring_attention(q, k, v, "sp", causal=True)
+        if attention == "ulysses":
+            return ulysses_attention(q, k, v, "sp", causal=True)
+        if attention == "flash":
+            # the kernel: no materialised [T, T] scores (single-shard
+            # sequence; combine with sp through the ring)
+            return kernels.flash_attention(q, k, v, causal=True)
+        return local_attention(q, k, v, causal=True)
+
+    def _layer(self, lp: Dict[str, torch.Tensor],
+               x: torch.Tensor) -> torch.Tensor:
+        """One transformer block on a local shard. x: [mb, T, D]."""
+        mb, T, D = x.shape
+        H, Dh = self.cfg.n_heads, self.cfg.d_head
+        h = self._rmsnorm(x, lp["ln1"])
+        qkv = torch.matmul(h, lp["wqkv"].reshape(D, 3 * H * Dh)).to(x.dtype)
+        # [mb, T, 3, H, Dh] -> three contiguous [mb, H, T, Dh]
+        q, k, v = (qkv.view(mb, T, 3, H, Dh).permute(2, 0, 3, 1, 4)
+                   .contiguous())
+        a = self._attention(q, k, v)
+        o = torch.matmul(a.transpose(1, 2).reshape(mb, T, H * Dh),
+                         lp["wo"].reshape(H * Dh, D)).to(x.dtype)
+        x = x + o                  # the psum over tp is the identity
+        h2 = self._rmsnorm(x, lp["ln2"])
+        u = F.gelu(torch.matmul(h2, lp["w1"]), approximate="tanh").to(x.dtype)
+        return x + torch.matmul(u, lp["w2"]).to(x.dtype)
+
+    def _embed(self, params: Dict[str, Any],
+               tokens: torch.Tensor) -> torch.Tensor:
+        """Token and position embeddings, [B, T_local, D] in the config
+        dtype; at sp = 1 this shard's positions start at 0."""
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        return (params["embed"][tokens]
+                + params["pos"][pos][None]).to(self.cfg.dtype)
+
+    def _head(self, params: Dict[str, Any], y: torch.Tensor) -> torch.Tensor:
+        """Final norm and the tied logits, in fp32."""
+        y = self._rmsnorm(y, params["ln_f"])
+        return torch.matmul(y.float(), params["embed"].float().mT)
+
+    def forward_shard(self, params: Dict[str, Any],
+                      tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: [B_local, T_local] int64, on the parameters' device.
+        Returns logits [B_local, T_local, V] in fp32."""
+        x = self._embed(params, tokens)
+        B, Tl, _ = x.shape
+        M = self.cfg.n_micro
+        if B % M:
+            raise ValueError(f"local batch {B} not divisible by {M} "
+                             f"microbatches")
+        # [S, L, ...] -> this shard's layer stack [S*L, ...]
+        stage = {name: a.reshape(-1, *a.shape[2:])
+                 for name, a in params["stages"].items()}
+
+        def stage_fn(sparams, xm):
+            for i in range(sparams["wqkv"].shape[0]):
+                xm = self._layer({name: a[i] for name, a in sparams.items()},
+                                 xm)
+            return xm
+
+        y = gpipe(stage_fn, stage, x.reshape(M, B // M, Tl, -1), "pp")
+        return self._head(params, y.reshape(B, Tl, -1))

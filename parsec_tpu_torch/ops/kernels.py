@@ -1,7 +1,7 @@
-"""Hand-written CUDA kernels for the hot tile operations.
+"""Hand-written CUDA kernels for the hot operations.
 
 The port's counterpart of the JAX package's ``ops/pallas_kernels.py``.
-One kernel lives here so far:
+Two CUDA sources live under ``csrc/``:
 
 - ``gemm``: the blocked fp32 GEMM of ``csrc/matmul.cu``,
   ``Out = beta*C + alpha*(A @ op(B))`` over an optional leading batch
@@ -10,15 +10,27 @@ One kernel lives here so far:
   updates (ops/linalg.py).  ``matmul`` is its differentiable form: the
   backward runs the same kernel on the transposes (dA = g B^T,
   dB = A^T g), as the Pallas version's custom VJP does.
+- ``flash_attention`` and ``flash_attention_stats``: the fp32 flash
+  attention forward of ``csrc/flash_attention.cu`` on ``[B, H, T, D]``,
+  the second also returning each row's raw running max ``m`` and
+  denominator ``l`` (``[B, H, T]``).  They replace the Pallas
+  ``_flash_fwd_kernel`` and ``_flash_fwd_stats_kernel`` and carry the
+  transformer's attention (models/transformer.py, parallel/).  There is
+  no backward kernel yet: on a CUDA input that needs a gradient they
+  raise.
 
-The kernel is compiled with ``nvcc`` at first use into ``build/kernels/``
-at the root of the checkout, keyed on a hash of its source and flags, and
-loaded with ``ctypes``.  Nothing is compiled when the module is imported.
+Each source is compiled with ``nvcc`` at the first launch of one of its
+kernels into ``build/kernels/`` at the root of the checkout, keyed on a
+hash of the source and flags, and loaded with ``ctypes``; ``build()``
+compiles them all at once, one ``nvcc`` per source.  Nothing is compiled
+when the module is imported.
 
-A wrapper takes the kernel's plain PyTorch version (``gemm_plain``) only
-for tensors on the CPU.  On a CUDA tensor it launches the kernel or
-raises: a build or launch failure is never hidden by a fallback.
-``matmul_launches`` counts the kernel's launches.
+A wrapper takes its kernel's plain PyTorch version (``gemm_plain``,
+``flash_attention_plain``, ``flash_attention_stats_plain``) only for
+tensors on the CPU.  On a CUDA tensor it launches the kernel or raises: a
+build or launch failure is never hidden by a fallback.
+``matmul_launches``, ``flash_launches`` and ``flash_stats_launches`` count
+the kernels' launches.
 """
 from __future__ import annotations
 
@@ -30,23 +42,53 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-__all__ = ["build", "gemm", "gemm_plain", "load", "matmul",
-           "matmul_launches"]
+__all__ = ["build", "flash_attention", "flash_attention_plain",
+           "flash_attention_stats", "flash_attention_stats_plain",
+           "flash_launches", "flash_stats_launches", "gemm", "gemm_plain",
+           "load", "matmul", "matmul_launches"]
 
-#: launches of the GEMM kernel since the process started (or since a
-#: caller reset it to 0); the plain version does not count
+#: launches of each kernel since the process started (or since a caller
+#: reset it to 0); the plain versions do not count
 matmul_launches = 0
+flash_launches = 0
+flash_stats_launches = 0
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "matmul.cu"
+#: the Pallas kernels' mask value, kept so masked rows match
+NEG_INF = -1e30
+#: the largest head width the flash kernel takes
+FLASH_D_MAX = 128
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
-_lib = None
+
+def _declare_matmul(lib: ctypes.CDLL) -> None:
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    lib.ptt_matmul_f32.argtypes = [p, p, p, p, i, i, i, i, ll, ll, ll, ll,
+                                   i, i, i, i, i, f, f, p]
+    lib.ptt_matmul_f32.restype = ctypes.c_int
+
+
+def _declare_flash(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ptt_flash_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
+    lib.ptt_flash_fwd_f32.restype = ctypes.c_int
+    lib.ptt_flash_fwd_stats_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                            f, p]
+    lib.ptt_flash_fwd_stats_f32.restype = ctypes.c_int
+
+
+#: each CUDA source (``csrc/<name>.cu``) and the C signatures of its library
+_SOURCES = {"matmul": _declare_matmul, "flash_attention": _declare_flash}
+
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
@@ -61,47 +103,86 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> Path:
-    """Compile ``csrc/matmul.cu`` into a shared library unless a build of
-    the same source and flags exists; return its path."""
-    src = _SRC.read_bytes()
+def _library_path(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD_DIR / f"matmul_{key[:16]}.so"
-    if so.exists():
-        return so
+    return _BUILD_DIR / f"{name}_{key[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile ``csrc/<name>.cu`` for each name (default: every source)
+    unless a build of the same source and flags exists, one ``nvcc`` per
+    source, all started together; return each library's path."""
+    names = list(_SOURCES if names is None else names)
+    for name in names:
+        if name not in _SOURCES:
+            raise ValueError(f"no CUDA source named {name!r}")
+    out = {name: _library_path(name) for name in names}
+    todo = [name for name in names if not out[name].exists()]
+    if not todo:
+        return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    jobs = []
     try:
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {_SRC.name}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)   # atomic: a concurrent builder sees all or none
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            jobs.append((name, tmp, subprocess.Popen(
+                [nvcc, *_NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failures = []
+        for name, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed to build {name}.cu:\n{log}")
+            else:   # atomic: a concurrent build sees all or none
+                os.replace(tmp, out[name])
+        if failures:
+            raise RuntimeError("\n".join(failures))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
+        for _name, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return out
 
 
-def load() -> ctypes.CDLL:
-    """The built library, loaded once per process with its C signatures
-    declared."""
-    global _lib
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, loaded once per process
+    with its C signatures declared."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                           ctypes.c_float)
-            lib.ptt_matmul_f32.argtypes = [p, p, p, p, i, i, i, i,
-                                           ll, ll, ll, ll, i, i, i, i,
-                                           i, f, f, p]
-            lib.ptt_matmul_f32.restype = ctypes.c_int
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _SOURCES[name](lib)
             lib.ptt_error_string.argtypes = [ctypes.c_int]
             lib.ptt_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return lib
+
+
+def _check_cuda_operands(op: str, ts: Tuple[torch.Tensor, ...]) -> None:
+    """What every CUDA kernel here takes: contiguous fp32 on one device."""
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: unsupported device {dev}")
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"{op}: tensors on {dev} and {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{op}: the CUDA kernel takes float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: the CUDA kernel takes contiguous tensors")
+
+
+def _raise_launch(op: str, lib: ctypes.CDLL, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: "
+                           f"{lib.ptt_error_string(rc).decode()} ({rc})")
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor,
@@ -143,23 +224,14 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
                          f"{tuple(a.shape[:-1]) + (N,)}")
     if a.device.type == "cpu":
         return gemm_plain(a, b, c, trans_b=trans_b, alpha=alpha, beta=beta)
-    if a.device.type != "cuda":
-        raise ValueError(f"gemm: unsupported device {a.device}")
-    for t in ts:
-        if t.device != a.device:
-            raise ValueError(f"gemm: tensors on {a.device} and {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"gemm: the CUDA kernel takes float32, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("gemm: the CUDA kernel takes contiguous tensors")
+    _check_cuda_operands("gemm", ts)
     if batch > 65535:
         raise ValueError(f"gemm: batch {batch} exceeds gridDim.z")
     out = torch.empty(tuple(a.shape[:-1]) + (N,), dtype=torch.float32,
                       device=a.device)
     if out.numel() == 0:
         return out
-    lib = load()
+    lib = load("matmul")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.ptt_matmul_f32(
@@ -168,9 +240,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
             M * K, b.shape[-2] * b.shape[-1], M * N, M * N,
             K, b.shape[-1], N, N,
             int(trans_b), float(alpha), float(beta), stream)
-    if rc != 0:
-        raise RuntimeError(f"gemm kernel launch failed: "
-                           f"{lib.ptt_error_string(rc).decode()} ({rc})")
+    _raise_launch("gemm", lib, rc)
     matmul_launches += 1
     return out
 
@@ -200,3 +270,144 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``[M, K] @ [K, N]`` through the GEMM kernel, accumulated in fp32;
     differentiable."""
     return _Matmul.apply(a, b)
+
+
+# ---------------------------------------------------------------------- #
+# flash attention                                                        #
+# ---------------------------------------------------------------------- #
+def _attention_shapes(op: str, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """(B, H, T, Tk, D) of ``q [B, H, T, D]``, ``k, v [B, H, Tk, D]``."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{op}: expected q [B, H, T, D] and k, v "
+                         f"[B, H, Tk, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, T, D = q.shape
+    if k.shape[:2] != q.shape[:2] or k.shape[3] != D:
+        raise ValueError(f"{op}: q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         f"do not conform")
+    if k.shape[2] == 0:
+        raise ValueError(f"{op}: no keys (Tk = 0)")
+    return B, H, T, k.shape[2], D
+
+
+def _masked_scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+    """``scale * q.k^T`` in fp32, causally masked to -1e30 with the
+    local-index convention (row i sees keys 0..i, also when T != Tk)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        T, Tk = q.shape[2], k.shape[2]
+        keep = (torch.arange(T, device=q.device)[:, None]
+                >= torch.arange(Tk, device=q.device)[None, :])
+        s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The forward kernel's plain version: a materialised masked softmax,
+    as the JAX package's ``local_attention`` computes it off the kernel."""
+    _attention_shapes("flash_attention", q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    p = torch.softmax(_masked_scores(q, k, causal, scale), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, causal: bool = False,
+                                scale: Optional[float] = None):
+    """The stats kernel's plain version, the counterpart of
+    ``_flash_stats_reference``: ``(o, m, l)`` with each row's raw max and
+    denominator.  A row with no visible key keeps m = -1e30, l = 0 and
+    o = 0; only o is safe-normalised."""
+    _attention_shapes("flash_attention_stats", q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _masked_scores(q, k, causal, scale)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    dead = m <= NEG_INF
+    l = torch.where(dead, 0.0, p.sum(dim=-1))
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe[..., None]
+    o = torch.where(dead[..., None], 0.0, o).to(q.dtype)
+    return o, m, l
+
+
+def _flash_launch(op: str, q, k, v, causal: bool, scale: Optional[float],
+                  stats: bool):
+    """Check the operands and launch the kernel of
+    ``csrc/flash_attention.cu``; returns ``o`` or ``(o, m, l)``."""
+    B, H, T, Tk, D = _attention_shapes(op, q, k, v)
+    _check_cuda_operands(op, (q, k, v))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            f"{op}: the CUDA kernel has no backward yet (ROADMAP Queue 2 "
+            f"items 2-3); call it under torch.no_grad() or "
+            f"torch.inference_mode()")
+    if not 1 <= D <= FLASH_D_MAX:
+        raise ValueError(f"{op}: the CUDA kernel takes head widths "
+                         f"1..{FLASH_D_MAX}, got {D}")
+    if B * H > 65535:
+        raise ValueError(f"{op}: B*H = {B * H} exceeds gridDim.y")
+    if scale is None:
+        scale = D ** -0.5
+    o = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    if T == 0 or B * H == 0:
+        return (o, m, l) if stats else o
+    lib = load("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if stats:
+            rc = lib.ptt_flash_fwd_stats_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                m.data_ptr(), l.data_ptr(), B * H, T, Tk, D, int(causal),
+                float(scale), stream)
+        else:
+            rc = lib.ptt_flash_fwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                B * H, T, Tk, D, int(causal), float(scale), stream)
+    _raise_launch(op, lib, rc)
+    return (o, m, l) if stats else o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention forward, ``q [B, H, T, D]``, ``k, v [B, H, Tk, D]``
+    -> ``[B, H, T, D]``; ``scale`` defaults to ``D ** -0.5``.  CPU tensors
+    take the plain version; CUDA tensors must be contiguous fp32 with
+    ``D <= 128`` and, while grad mode is on, must not need a gradient."""
+    global flash_launches
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, scale)
+    o = _flash_launch("flash_attention", q, k, v, causal, scale, False)
+    flash_launches += 1
+    return o
+
+
+def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False,
+                          scale: Optional[float] = None):
+    """Flash attention over one key set, returning ``(o, m, l)``: ``o``
+    normalised within THIS k/v set, ``m`` and ``l`` each row's raw running
+    max and denominator (``[B, H, T]`` fp32).  Merge rule for two sets a
+    and b::
+
+        m = max(m_a, m_b);  w_x = exp(m_x - m) * l_x
+        o = (o_a w_a + o_b w_b) / (w_a + w_b);  l = w_a + w_b
+
+    The same contract as ``flash_attention`` otherwise."""
+    global flash_stats_launches
+    if q.device.type == "cpu":
+        return flash_attention_stats_plain(q, k, v, causal, scale)
+    out = _flash_launch("flash_attention_stats", q, k, v, causal, scale,
+                        True)
+    flash_stats_launches += 1
+    return out

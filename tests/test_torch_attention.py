@@ -1,0 +1,307 @@
+"""The port's flash attention and its parallel attentions
+(parsec_tpu_torch.ops.kernels, parsec_tpu_torch.parallel) against the
+JAX package's.
+
+The same numpy inputs, made from a seed, go through the JAX function and
+its PyTorch counterpart.  On the CPU the port's flash wrappers compute
+with their plain PyTorch versions; the JAX ``pallas_kernels`` functions
+run their Pallas kernels in interpret mode, as tests/test_pallas.py runs
+them, and the JAX ring, local and Ulysses attentions run under
+``shard_map_compat`` on a one-device sp mesh.  The ``gpu``-marked tests
+hold the CUDA kernel against the plain versions on a card and skip where
+there is none.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+pltpu = pytest.importorskip("jax.experimental.pallas.tpu",
+                            reason="pallas TPU dialect not importable")
+if not hasattr(pltpu, "CompilerParams"):
+    pytest.skip("jax.experimental.pallas.tpu.CompilerParams not available",
+                allow_module_level=True)
+
+from parsec_tpu.ops import pallas_kernels as pk  # noqa: E402
+from parsec_tpu import parallel as jpar  # noqa: E402
+from parsec_tpu_torch.ops import kernels  # noqa: E402
+from parsec_tpu_torch.parallel import (  # noqa: E402
+    local_attention, ring_attention, ulysses_attention)
+
+FLASH_TOL = 2e-5    # fp32, as tests/test_pallas.py holds the Pallas kernel
+STATS_TOL = 1e-4    # fp32, as test_flash_stats_merge_across_blocks
+RING_TOL = 2e-4     # fp32, as tests/test_parallel.py holds the ring
+
+
+def _qkv(B=2, H=2, T=64, D=16, Tk=None, seed=0, uniform=False):
+    rng = np.random.RandomState(seed)
+    Tk = T if Tk is None else Tk
+    if uniform:
+        return tuple(rng.rand(B, H, t, D).astype(np.float32)
+                     for t in (T, Tk, Tk))
+    return tuple((rng.randn(B, H, t, D) * 0.3).astype(np.float32)
+                 for t in (T, Tk, Tk))
+
+
+def _t(*xs):
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in xs)
+
+
+def _j(*xs):
+    return tuple(jnp.asarray(x) for x in xs)
+
+
+# ---------------------------------------------------------------------- #
+# flash forward: the shapes of test_pallas.py                            #
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("T,block,causal", [(64, 16, True), (64, 16, False),
+                                            (48, 32, True)])
+def test_flash_matches_pallas(T, block, causal):
+    q, k, v = _qkv(T=T)
+    ref = np.asarray(pk.flash_attention(*_j(q, k, v), causal=causal,
+                                        block_q=block, block_k=block))
+    out = kernels.flash_attention(*_t(q, k, v), causal=causal)
+    assert out.shape == q.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=FLASH_TOL,
+                               atol=FLASH_TOL)
+
+
+def test_flash_default_is_causal_with_default_scale():
+    q, k, v = _qkv(T=32, D=8, seed=1)
+    ref = np.asarray(pk.flash_attention(*_j(q, k, v)))
+    out = kernels.flash_attention(*_t(q, k, v))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=FLASH_TOL,
+                               atol=FLASH_TOL)
+    scaled = kernels.flash_attention(*_t(q, k, v), scale=0.5)
+    ref = np.asarray(pk.flash_attention(*_j(q, k, v), scale=0.5))
+    np.testing.assert_allclose(scaled.numpy(), ref, rtol=FLASH_TOL,
+                               atol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("T,Tk", [(32, 48), (48, 32)])
+def test_flash_local_index_causal_when_t_differs(T, Tk):
+    """Row i sees keys 0..i whatever Tk is, as the Pallas kernel masks."""
+    q, k, v = _qkv(T=T, Tk=Tk, seed=2)
+    ref = np.asarray(pk.flash_attention(*_j(q, k, v), causal=True,
+                                        block_q=16, block_k=16))
+    out = kernels.flash_attention(*_t(q, k, v), causal=True)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=FLASH_TOL,
+                               atol=FLASH_TOL)
+
+
+# ---------------------------------------------------------------------- #
+# flash forward with statistics                                          #
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("T,Tk,causal", [(64, 64, False), (64, 64, True),
+                                         (32, 48, True), (48, 32, True),
+                                         (32, 48, False)])
+def test_flash_stats_match_pallas(T, Tk, causal):
+    q, k, v = _qkv(T=T, Tk=Tk, seed=3, uniform=True)
+    ro, rm, rl = (np.asarray(x) for x in pk.flash_attention_stats(
+        *_j(q, k, v), causal=causal, block_q=16, block_k=16))
+    o, m, l = kernels.flash_attention_stats(*_t(q, k, v), causal=causal)
+    assert m.shape == l.shape == q.shape[:3]
+    assert m.dtype == l.dtype == torch.float32
+    for got, ref in ((o, ro), (m, rm), (l, rl)):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=STATS_TOL,
+                                   atol=STATS_TOL)
+
+
+def test_flash_stats_merge_across_blocks():
+    """Stats over two key sets merged by the documented rule equal
+    attention over their concatenation; causal row 0 has l == 1."""
+    B, H, T, D = 2, 2, 64, 16
+    rng = np.random.RandomState(3)
+    q, k1, v1, k2, v2 = (rng.rand(B, H, T, D).astype(np.float32)
+                         for _ in range(5))
+    o1, m1, l1 = kernels.flash_attention_stats(*_t(q, k1, v1))
+    o2, m2, l2 = kernels.flash_attention_stats(*_t(q, k2, v2))
+    m = torch.maximum(m1, m2)
+    w1 = torch.exp(m1 - m) * l1
+    w2 = torch.exp(m2 - m) * l2
+    o = (o1 * w1[..., None] + o2 * w2[..., None]) / (w1 + w2)[..., None]
+    kf, vf = np.concatenate([k1, k2], 2), np.concatenate([v1, v2], 2)
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, kf) * (D ** -0.5)
+    ref = np.asarray(jnp.einsum("bhqk,bhkd->bhqd", jax.nn.softmax(s, -1),
+                                vf))
+    np.testing.assert_allclose(o.numpy(), ref, rtol=STATS_TOL,
+                               atol=STATS_TOL)
+    _oc, _mc, lc = kernels.flash_attention_stats(*_t(q, k1, v1), causal=True)
+    np.testing.assert_allclose(lc.numpy()[..., 0], 1.0, atol=1e-5)
+
+
+def test_flash_stats_plain_dead_rows_match_reference():
+    """A row whose every score is at or below -1e30 keeps the JAX
+    reference's conventions: raw m, l = 0 and o = 0."""
+    rng = np.random.RandomState(4)
+    q = rng.rand(1, 2, 8, 4).astype(np.float32) + 1
+    q[:, :, :3] *= -1            # rows 0..2: every score <= -4e30
+    k = rng.rand(1, 2, 8, 4).astype(np.float32) + 1
+    v = rng.randn(1, 2, 8, 4).astype(np.float32)
+    ro, rm, rl = (np.asarray(x) for x in pk._flash_stats_reference(
+        *_j(q, k, v), causal=False, scale=1e30))
+    o, m, l = kernels.flash_attention_stats_plain(*_t(q, k, v), scale=1e30)
+    assert (rl[..., :3] == 0).all() and (ro[:, :, :3] == 0).all()
+    np.testing.assert_array_equal(l.numpy(), rl)
+    np.testing.assert_array_equal(o.numpy(), ro)
+    np.testing.assert_allclose(m.numpy(), rm, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------- #
+# ring, local and Ulysses attention on a one-device sp mesh              #
+# ---------------------------------------------------------------------- #
+def _sp1(fn):
+    mesh = jpar.make_mesh(sizes={"sp": 1}, devices=jax.devices("cpu")[:1])
+    return jpar.shard_map_compat(fn, mesh, in_specs=(P(None, None, "sp"),) * 3,
+                                 out_specs=P(None, None, "sp"))
+
+
+def _ring_qkv(T=16, seed=0):
+    rng = np.random.RandomState(seed)
+    return tuple(rng.normal(size=(2, 4, T, 8)).astype(np.float32)
+                 for _ in range(3))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_matches_jax(use_kernel, causal):
+    q, k, v = _ring_qkv(T=32)
+    ref = np.asarray(_sp1(lambda q, k, v: jpar.ring_attention(
+        q, k, v, "sp", causal=causal, use_pallas=use_kernel))(*_j(q, k, v)))
+    out = ring_attention(*_t(q, k, v), "sp", causal=causal,
+                         use_kernel=use_kernel)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=RING_TOL,
+                               atol=RING_TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [None, True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_local_matches_jax(use_kernel, causal):
+    q, k, v = _ring_qkv(seed=1)
+    ref = np.asarray(_sp1(lambda q, k, v: jpar.local_attention(
+        q, k, v, causal=causal, use_pallas=False))(*_j(q, k, v)))
+    out = local_attention(*_t(q, k, v), causal=causal, use_kernel=use_kernel)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=RING_TOL,
+                               atol=RING_TOL)
+
+
+def test_ulysses_matches_jax():
+    q, k, v = _ring_qkv(seed=2)
+    ref = np.asarray(_sp1(lambda q, k, v: jpar.ulysses_attention(
+        q, k, v, "sp", causal=True))(*_j(q, k, v)))
+    out = ulysses_attention(*_t(q, k, v), "sp", causal=True)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=RING_TOL,
+                               atol=RING_TOL)
+
+
+def test_ring_kernel_path_equals_plain_ring_on_cpu():
+    """use_kernel=True merges the stats of the plain version; it agrees
+    with the plain online-softmax ring."""
+    q, k, v = _t(*_ring_qkv(T=24, seed=3))
+    a = ring_attention(q, k, v, use_kernel=True)
+    b = ring_attention(q, k, v, use_kernel=False)
+    torch.testing.assert_close(a, b, rtol=RING_TOL, atol=RING_TOL)
+
+
+# ---------------------------------------------------------------------- #
+# the wrappers' contract                                                 #
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("shapes", [
+    ((2, 2, 8, 4), (2, 2, 8, 5), (2, 2, 8, 5)),     # D mismatch
+    ((2, 2, 8, 4), (2, 3, 8, 4), (2, 3, 8, 4)),     # H mismatch
+    ((2, 2, 8, 4), (2, 2, 8, 4), (2, 2, 9, 4)),     # k, v differ
+    ((2, 8, 4), (2, 8, 4), (2, 8, 4)),               # not 4-D
+    ((2, 2, 8, 4), (2, 2, 0, 4), (2, 2, 0, 4)),     # no keys
+])
+@pytest.mark.parametrize("fn", [kernels.flash_attention,
+                                kernels.flash_attention_stats])
+def test_flash_rejects_nonconforming(fn, shapes):
+    with pytest.raises(ValueError):
+        fn(*(torch.zeros(s) for s in shapes))
+
+
+def test_flash_cpu_takes_plain_and_counts_nothing():
+    q, k, v = _t(*_qkv(T=16, D=8, seed=5))
+    before = (kernels.flash_launches, kernels.flash_stats_launches)
+    kernels.flash_attention(q, k, v)
+    kernels.flash_attention_stats(q, k, v)
+    assert (kernels.flash_launches, kernels.flash_stats_launches) == before
+    with pytest.raises(ValueError):
+        kernels.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def test_flash_plain_is_differentiable_on_cpu():
+    """On the CPU the plain version carries the gradient (the JAX VJP's
+    values); only the CUDA kernel lacks a backward."""
+    q, k, v = _qkv(B=1, H=2, T=32, D=8, seed=6)
+    gj = jax.grad(lambda q, k, v: jnp.sum(pk.flash_attention(
+        q, k, v, block_q=16, block_k=16) ** 2), argnums=(0, 1, 2))(
+            *_j(q, k, v))
+    tq, tk, tv = (x.requires_grad_(True) for x in _t(q, k, v))
+    (kernels.flash_attention(tq, tk, tv) ** 2).sum().backward()
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), gj):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=5e-4,
+                                   atol=5e-4)
+
+
+# ---------------------------------------------------------------------- #
+# on the card                                                            #
+# ---------------------------------------------------------------------- #
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+CARD_CASES = [(2, 3, 256, 256, 64, True), (2, 3, 256, 256, 64, False),
+              (1, 2, 1000, 1000, 40, True), (1, 2, 256, 384, 64, True),
+              (1, 2, 256, 200, 64, True), (1, 1, 70, 130, 128, False)]
+
+
+def _card_qkv(dev, B, H, T, Tk, D, seed=7):
+    q, k, v = _qkv(B=B, H=H, T=T, Tk=Tk, D=D, seed=seed)
+    return tuple(x.to(dev) for x in _t(q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda_device, case):
+    *shape, causal = case
+    q, k, v = _card_qkv(cuda_device, *shape)
+    before = kernels.flash_launches
+    out = kernels.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.flash_launches == before + 1
+    ref = kernels.flash_attention_plain(q, k, v, causal=causal)
+    assert ((out - ref).abs().max() / ref.abs().max()).item() < STATS_TOL
+    with pytest.raises(TypeError):
+        kernels.flash_attention(q.double(), k.double(), v.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_flash_stats_kernel_matches_plain_on_card(cuda_device, case):
+    *shape, causal = case
+    q, k, v = _card_qkv(cuda_device, *shape)
+    before = kernels.flash_stats_launches
+    got = kernels.flash_attention_stats(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.flash_stats_launches == before + 1
+    ref = kernels.flash_attention_stats_plain(q, k, v, causal=causal)
+    for a, b in zip(got, ref):
+        assert ((a - b).abs().max() / b.abs().max()).item() < STATS_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", [kernels.flash_attention,
+                                kernels.flash_attention_stats])
+def test_flash_kernel_refuses_gradients_on_card(cuda_device, fn):
+    q, k, v = _card_qkv(cuda_device, 1, 2, 64, 64, 16)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fn(q, k, v)
+    with torch.no_grad():
+        fn(q, k, v)

@@ -140,6 +140,20 @@ def test_tile_body_batched_equals_per_slice(body, nb):
         assert torch.equal(batched[i], single), (body, nb, i)
 
 
+def test_each_source_builds_to_its_own_library():
+    """Every csrc/*.cu is a library of its own, keyed on its own source;
+    an unknown name raises before nvcc is looked for."""
+    import pathlib
+    csrc = pathlib.Path(kernels.__file__).resolve().parent.parent / "csrc"
+    assert sorted(kernels._SOURCES) == sorted(p.stem
+                                              for p in csrc.glob("*.cu"))
+    paths = {name: kernels._library_path(name) for name in kernels._SOURCES}
+    assert all(p.name.startswith(name + "_") for name, p in paths.items())
+    assert len({p.parent for p in paths.values()}) == 1
+    with pytest.raises(ValueError, match="no CUDA source"):
+        kernels.build(["nope"])
+
+
 # ---------------------------------------------------------------------- #
 # on the card                                                            #
 # ---------------------------------------------------------------------- #
