@@ -7,23 +7,31 @@ Phases, each reporting on its own lines:
 
 1. device   the card's name, and its name and power limit from nvidia-smi;
 2. build    every CUDA source of this checkout (csrc/*.cu), one nvcc for
-            each, all started together;
+            each, all started together; then each kernel instance's
+            registers and spills, from nvcc -Xptxas -v;
 3. kernel   the GEMM kernel against its plain PyTorch version on the
             card, at the dpotrf path's tile shape (nb = 1024): matmul,
-            gemm_nt, syrk_ln, a batched z = 8 launch, a ragged 1000^3
-            product and the gradient; relative max error under 1e-4
-            (the two sum in different orders in fp32);
+            gemm_nt, syrk_ln, a batched z = 8 launch, ragged 1000^3 and
+            999 x 1001 x 997 products (both forms), a 130 x 70 x 36
+            product, 4-byte-misaligned operands, a ragged z = 3 launch
+            and the gradient; relative max error under 1e-4 (the two sum
+            in different orders in fp32); batched launches bit-exact
+            against single ones, misaligned against aligned copies;
 4. attention both flash kernels against their plain versions on the
             card: [8, 12, 1024, 64] causal (the forward's shape) and
-            non-causal, ragged T = Tk = 1000 with D = 40, T = 256 with
-            Tk = 384 and 200; the stats kernel's m and l too, and the
+            non-causal, ragged T = Tk = 1000 with D = 40, 64 and 128,
+            T = 256 with Tk = 384 and 200, T = 1000 with Tk = 1500 and
+            300, T = 300 with Tk = 1000, D = 33, D = 128 with T = 200 and
+            Tk = 333, 4-byte-misaligned operands (bit-exact against
+            aligned copies); the stats kernel's m and l too, and the
             merge rule over two key sets against attention over their
             concatenation; relative max error under 1e-4;
 5. main     the dpotrf path at full size, through the entry points a user
             calls: init() -> TwoDimBlockCyclic.from_numpy -> ops.dpotrf
             on a 16384^2 fp32 matrix in 1024^2 tiles (816 tasks); every
-            task on cuda:0, the GEMM kernel launched, and the factor's
-            matvec residual under 1e-4;
+            task on cuda:0, the GEMM kernel launched, the mean batch
+            (GEMM and SYRK tasks per launch), and the factor's matvec
+            residual under 1e-4;
 6. bitexact batched and per-task dispatch give identical factors
             (N = 4096, NB = 512);
 7. forward  the transformer path at GPT-2-small widths (vocab 50257,
@@ -37,13 +45,16 @@ Phases, each reporting on its own lines:
             within 2e-4 of each other, and sequence 0 of the first batch
             within 2e-4 of the port's CPU run (plain versions, fp32);
 8. timing   each kernel at its path's shape, by CUDA events: the GEMM
-            at nb = 1024 against torch.addmm, each flash kernel at
+            at nb = 1024 against torch.addmm, and batched at z = 1, 4
+            and 16 against torch.baddbmm, each flash kernel at
             [8, 12, 1024, 64] causal against
             F.scaled_dot_product_attention (fp32; it returns o alone),
             beside its bound and its plain version;
 9. profile  with --profile only: the dpotrf path and one forward once
             more under torch.profiler, with device time by kernel and
-            the device's busy share of the wall time.
+            the device's busy share of the wall time; then the GEMM and
+            stats kernels and their library yardsticks once each, with
+            the device kernels each call runs.
 
 Any failure raises and exits non-zero; so does a machine where PyTorch
 sees no CUDA device.  The line before the last is the kernels' record
@@ -82,6 +93,13 @@ def log(phase: str, **kv) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
+
+
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """The same values in a contiguous view 4 bytes past a 16-byte
+    boundary: the kernels' 4-byte-copy instances take it."""
+    return torch.empty(x.numel() + 1, device=x.device)[1:].view(
+        x.shape).copy_(x)
 
 
 def rel_err(out: torch.Tensor, ref: torch.Tensor):
@@ -127,6 +145,50 @@ def phase_build() -> None:
         kernels.load(name)
     log("build", seconds=f"{time.perf_counter() - t0:.3f}",
         libraries=",".join(so.name for so in libs.values()))
+    ptxas_report()
+
+
+def ptxas_report() -> None:
+    """Registers and spills of every kernel instance, from ``nvcc -Xptxas
+    -v`` on each source (one nvcc each, all at once)."""
+    import re
+    import tempfile
+    from parsec_tpu_torch.ops import kernels
+    flags = [f for f in kernels._NVCC_FLAGS if f not in ("-shared",)]
+    kernels._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels._BUILD_DIR) as tmp:
+        procs = {name: subprocess.Popen(
+            [kernels._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+             f"{tmp}/{name}.o", str(kernels._CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name in kernels._SOURCES}
+        reports = {name: p.communicate()[0] for name, p in procs.items()}
+    for name, text in reports.items():
+        check(procs[name].returncode == 0,
+              f"nvcc -Xptxas -v {name}:\n{text}")
+        fn = None
+        for line in text.splitlines():
+            if (hit := re.search(r"Compiling entry function '(\w+)'", line)):
+                fn, spills = hit.group(1), ("?", "?")
+            elif (hit := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                   r"spill loads", line)):
+                spills = hit.groups()
+            elif (hit := re.search(r"Used (\d+) registers", line)) and fn:
+                log("ptxas", source=f"{name}.cu", kernel=demangle(fn),
+                    registers=hit.group(1), spill_stores=spills[0],
+                    spill_loads=spills[1])
+                fn = None
+
+
+def demangle(symbol: str) -> str:
+    """The kernel's C++ name, through the toolkit's cu++filt if it has one."""
+    from pathlib import Path
+    from parsec_tpu_torch.ops import kernels
+    tool = Path(kernels._nvcc()).parent / "cu++filt"
+    if not tool.exists():
+        return symbol
+    return subprocess.run([str(tool), symbol], capture_output=True, text=True
+                          ).stdout.strip().replace(" ", "") or symbol
 
 
 def phase_kernel(dev: torch.device, seed: int) -> float:
@@ -142,6 +204,12 @@ def phase_kernel(dev: torch.device, seed: int) -> float:
     a, b, c = rnd(nb, nb), rnd(nb, nb), rnd(nb, nb)
     a8, b8, c8 = rnd(8, nb, nb), rnd(8, nb, nb), rnd(8, nb, nb)
     r1, r2 = rnd(1000, 1000), rnd(1000, 1000)
+    # M, N, K not multiples of 4, nor of the 128x64 block tile
+    ra, rc = rnd(999, 997), rnd(999, 1001)
+    rb_t, rb = rnd(1001, 997), rnd(997, 1001)
+    ua, ub, uc = (misaligned(rnd(nb, nb)) for _ in range(3))
+    sa, sb, sc = rnd(130, 36), rnd(70, 36), rnd(130, 70)
+    a3, b3, c3 = rnd(3, 999, 997), rnd(3, 1001, 997), rnd(3, 999, 1001)
     nt = dict(trans_b=True, alpha=-1.0, beta=1.0)
     # (case, kernel, plain version, at a shape the main path launches)
     cases = [
@@ -157,6 +225,20 @@ def phase_kernel(dev: torch.device, seed: int) -> float:
          lambda: kernels.gemm_plain(r1, r2), False),
         ("ragged_1000_nt", lambda: linalg.gemm_nt(r1, r2, r1),
          lambda: kernels.gemm_plain(r2, r1, r1, **nt), False),
+        ("ragged_999x1001x997_nt", lambda: linalg.gemm_nt(rc, ra, rb_t),
+         lambda: kernels.gemm_plain(ra, rb_t, rc, **nt), False),
+        ("ragged_999x1001x997",
+         lambda: kernels.gemm(ra, rb, rc, alpha=-1.0, beta=1.0),
+         lambda: kernels.gemm_plain(ra, rb, rc, alpha=-1.0, beta=1.0),
+         False),
+        ("misaligned_gemm_nt", lambda: linalg.gemm_nt(uc, ua, ub),
+         lambda: kernels.gemm_plain(ua, ub, uc, **nt), False),
+        ("misaligned_matmul", lambda: kernels.gemm(ua, ub),
+         lambda: kernels.gemm_plain(ua, ub), False),
+        ("small_130x70x36_nt", lambda: linalg.gemm_nt(sc, sa, sb),
+         lambda: kernels.gemm_plain(sa, sb, sc, **nt), False),
+        ("ragged_z3_nt", lambda: linalg.gemm_nt(c3, a3, b3),
+         lambda: kernels.gemm_plain(a3, b3, c3, **nt), False),
     ]
     worst = 0.0
     for name, fn, plain, on_path in cases:
@@ -168,13 +250,21 @@ def phase_kernel(dev: torch.device, seed: int) -> float:
         log("kernel", case=name, shape=tuple(out.shape), rel_err=rel,
             max_abs_err=absd)
         check(rel < RTOL, f"kernel {name}: relative error {rel} >= {RTOL}")
-    # one z=8 launch is bit-exact against eight single launches
-    z8 = linalg.gemm_nt(c8, a8, b8)
-    for i in range(8):
-        check(torch.equal(z8[i], linalg.gemm_nt(c8[i], a8[i], b8[i])),
-              f"batched gemm_nt slice {i} differs from its single launch")
-    torch.cuda.synchronize()
-    log("kernel", case="gemm_nt_z8_vs_single", bit_exact=True)
+    # one batched launch is bit-exact against single launches: z = 8 at the
+    # main path's tile (16-byte copies), z = 3 ragged (4-byte copies)
+    for name, (cz, az, bz) in (("gemm_nt_z8_vs_single", (c8, a8, b8)),
+                               ("gemm_nt_z3_ragged_vs_single", (c3, a3, b3))):
+        batched = linalg.gemm_nt(cz, az, bz)
+        for i in range(cz.shape[0]):
+            check(torch.equal(batched[i], linalg.gemm_nt(cz[i], az[i], bz[i])),
+                  f"{name}: batched slice {i} differs from its single launch")
+        torch.cuda.synchronize()
+        log("kernel", case=name, bit_exact=True)
+    # the 4-byte-copy variant does the same arithmetic as the 16-byte one
+    check(torch.equal(linalg.gemm_nt(uc, ua, ub),
+                      linalg.gemm_nt(uc.clone(), ua.clone(), ub.clone())),
+          "misaligned and aligned copies of one gemm_nt differ")
+    log("kernel", case="misaligned_vs_aligned", bit_exact=True)
     # gradient: the backward runs the kernel on the transposes
     ak = a.clone().requires_grad_(True)
     bk = b.clone().requires_grad_(True)
@@ -208,7 +298,19 @@ def phase_attention(dev: torch.device, seed: int) -> dict:
              ("fwd_noncausal", qkv(B, H, T, T, D), False, False),
              ("ragged_1000_d40", qkv(2, 4, 1000, 1000, 40), True, False),
              ("t256_tk384", qkv(2, 4, 256, 384, 64), True, False),
-             ("t256_tk200", qkv(2, 4, 256, 200, 64), True, False)]
+             ("t256_tk200", qkv(2, 4, 256, 200, 64), True, False),
+             ("t1000_d64", qkv(2, 4, 1000, 1000, 64), True, False),
+             ("t1000_tk1500", qkv(2, 4, 1000, 1500, 64), True, False),
+             ("t1000_tk300", qkv(2, 4, 1000, 300, 64), True, False),
+             ("t300_tk1000_noncausal", qkv(2, 4, 300, 1000, 64), False,
+              False),
+             ("d33", qkv(2, 4, 300, 300, 33), True, False),
+             ("d128", qkv(2, 4, 1000, 1000, 128), True, False),
+             ("d128_t200_tk333_noncausal", qkv(2, 4, 200, 333, 128), False,
+              False),
+             ("misaligned_d64", tuple(map(misaligned,
+                                          qkv(2, 4, 1000, 1000, 64))),
+              True, False)]
     worst = {"flash": 0.0, "flash_stats": 0.0}
     for name, (q, k, v), causal, on_path in cases:
         o = kernels.flash_attention(q, k, v, causal=causal)
@@ -229,6 +331,17 @@ def phase_attention(dev: torch.device, seed: int) -> dict:
                 max_abs_err=absd)
             check(rel < RTOL, f"{kernel} {name} {part}: relative error "
                               f"{rel} >= {RTOL}")
+    # the 4-byte-copy variant does the same arithmetic as the 16-byte one
+    unaligned = cases[-1][1]
+    aligned = tuple(x.clone() for x in unaligned)
+    check(torch.equal(kernels.flash_attention(*unaligned),
+                      kernels.flash_attention(*aligned)),
+          "flash_attention: misaligned and aligned copies differ")
+    check(all(map(torch.equal,
+                  kernels.flash_attention_stats(*unaligned, causal=True),
+                  kernels.flash_attention_stats(*aligned, causal=True))),
+          "flash_attention_stats: misaligned and aligned copies differ")
+    log("attention", case="misaligned_vs_aligned", bit_exact=True)
     # the merge rule over two key sets == attention over their union
     q, k1, v1 = qkv(2, 4, 256, 384, 64)
     _q, k2, v2 = qkv(2, 4, 256, 200, 64)
@@ -302,6 +415,8 @@ def phase_main(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
     launches = kernels.matmul_launches
     nt = st["nt"]
     n_tasks = nt * (nt + 1) * (nt + 2) // 6
+    # GEMM and SYRK tasks, each one z-slice of a GEMM launch
+    gemm_tasks = nt * (nt - 1) * (nt - 2) // 6 + nt * (nt - 1) // 2
     resid = residual(L, M, seed)
     log("main", device=st["device"], n=n, nb=nb, tasks=st["tasks"],
         expected_tasks=n_tasks, executed_tasks=st["executed_tasks"],
@@ -312,7 +427,8 @@ def phase_main(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
         stage_out_bytes=st["stage_out_bytes"],
         stage_out_seconds=f"{st['stage_out_s']:.4f}",
         stack_bytes=st["stack_bytes"], matmul_launches=launches,
-        residual=resid)
+        gemm_syrk_tasks=gemm_tasks,
+        mean_z=f"{gemm_tasks / max(launches, 1):.3f}", residual=resid)
     check(st["tasks"] == n_tasks and st["executed_tasks"] == n_tasks,
           f"{st['tasks']} of {n_tasks} tasks ran on the device")
     check(launches > 0, "the main path launched the GEMM kernel no time")
@@ -500,6 +616,20 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
         library_ms=time_ms(lambda: torch.addmm(c, a, b.mT, alpha=-1)),
         # A, B, C read once, Out written once
         **bound(2.0 * nb ** 3, 4 * nb * nb * 4))}
+    # the batch sizes the dpotrf path launches (phase main logs its mean z)
+    for z in (1, 4, 16):
+        az, bz, cz = (torch.randn(z, nb, nb, generator=g, device=dev)
+                      for _ in range(3))
+        ms = time_ms(lambda: linalg.gemm_nt(cz, az, bz), iters=20)
+        lib = time_ms(lambda: torch.baddbmm(cz, az, bz.mT, alpha=-1),
+                      iters=20)
+        bd = bound(2.0 * z * nb ** 3, 4 * z * nb * nb * 4)
+        log("timing", case=f"gemm_nt nb={nb} z={z} fp32", kernel_ms=ms,
+            library_ms=lib, library="torch.baddbmm", **bd,
+            kernel_tflops=f"{2.0 * z * nb ** 3 / ms / 1e9:.3f}",
+            library_tflops=f"{2.0 * z * nb ** 3 / lib / 1e9:.3f}",
+            roofline_share=f"{bd['bound_ms'] / ms:.4f}")
+        del az, bz, cz
     B, H, T, D = ATTN_SHAPE
     q, k, v = (torch.randn(B, H, T, D, generator=g, device=dev)
                for _ in range(3))
@@ -589,6 +719,54 @@ def phase_profile(dev: torch.device, seed: int, n: int = N_MAIN,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     profile_report("forward_ring", prof, seconds)
+    profile_yardsticks(dev, seed)
+
+
+def profile_yardsticks(dev: torch.device, seed: int) -> None:
+    """Each kernel and the library call it is timed against, once at the
+    path's shape under torch.profiler: which device kernels each runs, and
+    their device time."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from parsec_tpu_torch.ops import kernels, linalg
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    a, b, c = (torch.randn(4, NB_MAIN, NB_MAIN, generator=g, device=dev)
+               for _ in range(3))
+    q, k, v = (torch.randn(*ATTN_SHAPE, generator=g, device=dev)
+               for _ in range(3))
+    calls = {"gemm_nt": lambda: linalg.gemm_nt(c[0], a[0], b[0]),
+             "torch.addmm": lambda: torch.addmm(c[0], a[0], b[0].mT,
+                                                alpha=-1),
+             "gemm_nt z=4": lambda: linalg.gemm_nt(c, a, b),
+             "torch.baddbmm z=4": lambda: torch.baddbmm(c, a, b.mT,
+                                                        alpha=-1),
+             "flash_attention_stats": lambda: kernels.flash_attention_stats(
+                 q, k, v, causal=True),
+             "F.scaled_dot_product_attention":
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        is_causal=True)}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    # one session (one per call loses events); each call synchronises
+    # inside its own range, so its device work falls within that range
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, fn in calls.items():
+            with record_function(label):
+                fn()
+                torch.cuda.synchronize()
+    evs = prof.events()
+    ranges = [(e.name, e.time_range.start, e.time_range.end) for e in evs
+              if e.device_type == DeviceType.CPU and e.name in calls]
+    for e in evs:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        call = next((name for name, t0, t1 in ranges
+                     if t0 <= e.time_range.start <= t1), "unattributed")
+        log("profile", path="yardstick", call=call,
+            us=f"{e.time_range.elapsed_us():.2f}", kernel=repr(e.name[:140]))
 
 
 def main(argv=None) -> int:

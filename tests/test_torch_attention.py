@@ -258,7 +258,12 @@ def cuda_device():
 
 CARD_CASES = [(2, 3, 256, 256, 64, True), (2, 3, 256, 256, 64, False),
               (1, 2, 1000, 1000, 40, True), (1, 2, 256, 384, 64, True),
-              (1, 2, 256, 200, 64, True), (1, 1, 70, 130, 128, False)]
+              (1, 2, 256, 200, 64, True), (1, 1, 70, 130, 128, False),
+              # D not a multiple of 4 (4-byte copies), the widest D, T not
+              # a multiple of the query tile, T != Tk both ways
+              (1, 2, 300, 300, 33, True), (1, 2, 1000, 1000, 128, True),
+              (1, 2, 1000, 1000, 64, True), (1, 2, 1000, 1500, 64, True),
+              (1, 2, 1000, 300, 64, True), (1, 2, 300, 1000, 64, False)]
 
 
 def _card_qkv(dev, B, H, T, Tk, D, seed=7):
@@ -293,6 +298,35 @@ def test_flash_stats_kernel_matches_plain_on_card(cuda_device, case):
     ref = kernels.flash_attention_stats_plain(q, k, v, causal=causal)
     for a, b in zip(got, ref):
         assert ((a - b).abs().max() / b.abs().max()).item() < STATS_TOL
+
+
+def _misaligned(x):
+    """The same values in a contiguous view 4 bytes past a 16-byte
+    boundary."""
+    out = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out.copy_(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_take_misaligned_views_on_card(cuda_device, causal):
+    """Misaligned operands run the kernels' 4-byte copy variant: within
+    tolerance of the plain versions, and bit-exact against the 16-byte
+    variant on aligned copies of the same values."""
+    qkv = _card_qkv(cuda_device, 1, 2, 300, 300, 64)
+    uqkv = tuple(map(_misaligned, qkv))
+    out = kernels.flash_attention(*uqkv, causal=causal)
+    got = kernels.flash_attention_stats(*uqkv, causal=causal)
+    torch.cuda.synchronize()
+    ref = kernels.flash_attention_plain(*qkv, causal=causal)
+    assert ((out - ref).abs().max() / ref.abs().max()).item() < STATS_TOL
+    for a, b in zip(got, kernels.flash_attention_stats_plain(*qkv,
+                                                             causal=causal)):
+        assert ((a - b).abs().max() / b.abs().max()).item() < STATS_TOL
+    assert torch.equal(out, kernels.flash_attention(*qkv, causal=causal))
+    assert all(map(torch.equal, got,
+                   kernels.flash_attention_stats(*qkv, causal=causal)))
 
 
 @pytest.mark.gpu

@@ -167,7 +167,12 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,trans_b", [
     ((1, 256, 256, 256), True), ((8, 256, 256, 256), True),
-    ((1, 100, 70, 37), False), ((3, 100, 70, 37), True)])
+    ((1, 100, 70, 37), False), ((3, 100, 70, 37), True),
+    # M, N, K not multiples of 4 nor of the 128x64 block tile; z = 3
+    ((1, 999, 1001, 997), True), ((1, 999, 1001, 997), False),
+    ((3, 999, 1001, 997), True),
+    # K a multiple of 4 (16-byte copies) but not of the 32-deep slab
+    ((1, 130, 70, 36), True), ((2, 130, 70, 36), False)])
 def test_gemm_kernel_matches_plain_on_card(cuda_device, shape, trans_b):
     z, m, n, k = shape
     rng = np.random.RandomState(6)
@@ -188,3 +193,30 @@ def test_gemm_kernel_matches_plain_on_card(cuda_device, shape, trans_b):
         assert torch.equal(out[i], single)
     with pytest.raises(TypeError):
         kernels.gemm(a.double(), b.double(), trans_b=trans_b)
+
+
+def _misaligned(x):
+    """The same values in a contiguous view 4 bytes past a 16-byte
+    boundary, as ``torch.empty(n + 1)[1:].view(...)`` makes one."""
+    out = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out.copy_(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans_b", [True, False])
+def test_gemm_kernel_takes_misaligned_views_on_card(cuda_device, trans_b):
+    """A contiguous view at an odd float offset runs the kernel's 4-byte
+    copy variant: within tolerance of the plain version, and bit-exact
+    against the 16-byte variant on aligned copies of the same values."""
+    rng = np.random.RandomState(7)
+    a, b, c = (_t(_rand(rng, 256, 256)).to(cuda_device) for _ in range(3))
+    ua, ub, uc = map(_misaligned, (a, b, c))
+    before = kernels.matmul_launches
+    out = kernels.gemm(ua, ub, uc, trans_b=trans_b, alpha=-1.0, beta=1.0)
+    torch.cuda.synchronize()
+    assert kernels.matmul_launches == before + 1
+    ref = kernels.gemm_plain(a, b, c, trans_b=trans_b, alpha=-1.0, beta=1.0)
+    assert ((out - ref).abs().max() / ref.abs().max()).item() < TOL
+    assert torch.equal(out, kernels.gemm(a, b, c, trans_b=trans_b,
+                                         alpha=-1.0, beta=1.0))
