@@ -26,14 +26,32 @@ Phases, each reporting on its own lines:
             aligned copies); the stats kernel's m and l too, and the
             merge rule over two key sets against attention over their
             concatenation; relative max error under 1e-4;
+4b. bodies  the DPLASMA family's product bodies (gemm_nn_sub, gemm_tn_sub,
+            unmqr, tsmqr, gemm with alpha 1.5 and beta 0.5, and with B
+            transposed) against the GEMM kernel's plain version on the
+            operands each must pass, and getrf_nopiv's lu_factor_ex
+            against its masked loop, at nb = 1024, single and batched
+            z = 4; batched results bit-exact against single calls;
 5. main     the dpotrf path at full size, through the entry points a user
             calls: init() -> TwoDimBlockCyclic.from_numpy -> ops.dpotrf
             on a 16384^2 fp32 matrix in 1024^2 tiles (816 tasks); every
             task on cuda:0, the GEMM kernel launched, the mean batch
             (GEMM and SYRK tasks per launch), and the factor's matvec
             residual under 1e-4;
+5b. dplasma the rest of the family at the same size, one line each with
+            the wall seconds, GFLOP/s by DPLASMA's flop counts, the tasks
+            on cuda:0 against their count, the GEMM kernel's launches and
+            mean batch, the stage-in/out bytes and a matvec residual
+            (fp64 on the host, 4 random vectors) under 1e-4 (normwise
+            for the solves and the pivoted dgetrf): dposv with
+            1024 right-hand sides (dpotrf, then forward and backward
+            substitution, 1088 tasks); dgetrf_nopiv of a diagonally
+            dominant matrix (1496); dgeqrf of a uniform one (1496, with
+            the Q/Q2 scratch bytes); pdgemm, alpha 1.5, beta 0.5, with
+            op(A) = A and A^T (4096 device tasks each); then the
+            whole-matrix dgetrf, dgesv and dpotri (of dposv's factor);
 6. bitexact batched and per-task dispatch give identical factors
-            (N = 4096, NB = 512);
+            (N = 4096, NB = 512), dpotrf and dgetrf_nopiv;
 7. forward  the transformer path at GPT-2-small widths (vocab 50257,
             d_model 768, 12 heads of 64, 12 layers, d_ff 3072, sequence
             1024, batch 8, fp32, seeded random weights) through
@@ -45,16 +63,19 @@ Phases, each reporting on its own lines:
             within 2e-4 of each other, and sequence 0 of the first batch
             within 2e-4 of the port's CPU run (plain versions, fp32);
 8. timing   each kernel at its path's shape, by CUDA events: the GEMM
-            at nb = 1024 against torch.addmm, and batched at z = 1, 4
-            and 16 against torch.baddbmm, each flash kernel at
-            [8, 12, 1024, 64] causal against
+            at nb = 1024 against torch.addmm, batched at z = 1, 4 and 16
+            against torch.baddbmm, and at tsmqr's shape (2048 x 1024 x
+            2048) against torch.mm, beside the A^T copies; each flash
+            kernel at [8, 12, 1024, 64] causal against
             F.scaled_dot_product_attention (fp32; it returns o alone),
             beside its bound and its plain version;
-9. profile  with --profile only: the dpotrf path and one forward once
-            more under torch.profiler, with device time by kernel and
-            the device's busy share of the wall time; then the GEMM and
-            stats kernels and their library yardsticks once each, with
-            the device kernels each call runs.
+9. profile  with --profile only: the dpotrf, dgeqrf and pdgemm (both
+            forms) paths, the pivoted dgetrf and one forward once more
+            under torch.profiler, with device time by kernel (the A^T
+            copies are the direct-copy kernel) and the device's busy
+            share of the wall time; then the GEMM and stats kernels and
+            their library yardsticks once each, with the device kernels
+            each call runs.
 
 Any failure raises and exits non-zero; so does a machine where PyTorch
 sees no CUDA device.  The line before the last is the kernels' record
@@ -76,10 +97,15 @@ import torch
 
 N_MAIN, NB_MAIN = 16384, 1024
 N_BITEXACT, NB_BITEXACT = 4096, 512
+NRHS = 1024            # right-hand sides of dposv and dgesv: one tile column
 ATTN_SHAPE = (8, 12, 1024, 64)   # B, H, T, D of the forward's attention
 N_BATCHES = 3          # timed forwards per attention, after one warm-up
 RTOL = 1e-4            # kernel vs plain version, relative max error
-RESID_TOL = 1e-4       # matvec residual of the factor, fp32
+RESID_TOL = 1e-4       # matvec residual of each routine, fp32
+#: dpotri's residual ||A (A^-1 x) - x|| / ||x||: at most about kappa(A) times
+#: the inverse's relative error; synth_spd's A = (B + B^T)/2 + n I has its
+#: eigenvalues within n +- ||B||_2 (about n +- 2 sqrt(n/12)), kappa < 1.01
+DPOTRI_TOL = 1e-4
 LOGITS_RTOL = 2e-4     # forward logits: ring vs flash, card vs CPU, fp32
 F32_FLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
@@ -282,6 +308,65 @@ def phase_kernel(dev: torch.device, seed: int) -> float:
     return worst
 
 
+def phase_bodies(dev: torch.device, seed: int) -> float:
+    """The DPLASMA family's new product bodies against the GEMM kernel's
+    plain version on the operands they must pass, and getrf_nopiv's
+    lu_factor_ex against its masked loop, at nb = 1024, single and
+    batched z = 4 (batched launches bit-exact against single ones);
+    returns the GEMM's max abs error over them."""
+    from parsec_tpu_torch.ops import kernels, linalg
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    nb, z = NB_MAIN, 4
+    a, b, c = (torch.randn(z, nb, nb, generator=g, device=dev)
+               for _ in range(3))
+    q2 = torch.randn(z, 2 * nb, 2 * nb, generator=g, device=dev)
+    d = torch.rand(z, nb, nb, generator=g, device=dev) - 0.5
+    d += torch.diag_embed(d.abs().sum(-1) + 1)
+    plain = kernels.gemm_plain
+    # (body, its plain version, operands)
+    cases = {
+        "gemm_nn_sub": (linalg.gemm_nn_sub,
+                        lambda c, a, b: plain(a, b, c, alpha=-1.0, beta=1.0),
+                        (c, a, b)),
+        "gemm_tn_sub": (linalg.gemm_tn_sub,
+                        lambda c, a, b: plain(a.mT, b, c, alpha=-1.0,
+                                              beta=1.0), (c, a, b)),
+        "unmqr": (linalg.unmqr, lambda q, c: plain(q.mT, c), (a, c)),
+        "tsmqr": (lambda q2, a1, a2: torch.cat(linalg.tsmqr(q2, a1, a2),
+                                               dim=-2),
+                  lambda q2, a1, a2: plain(q2.mT, torch.cat([a1, a2], -2)),
+                  (q2, a, b)),
+        "gemm_a1.5_b0.5": (lambda c, a, b: linalg.gemm(c, a, b, 1.5, 0.5),
+                           lambda c, a, b: plain(a, b, c, alpha=1.5,
+                                                 beta=0.5), (c, a, b)),
+        "gemm_a1.5_b0.5_transb": (
+            lambda c, a, b: linalg.gemm(c, a, b, 1.5, 0.5, trans_b=True),
+            lambda c, a, b: plain(a, b, c, trans_b=True, alpha=1.5,
+                                  beta=0.5), (c, a, b)),
+        "getrf_nopiv": (linalg.getrf_nopiv, linalg.getrf_nopiv_plain, (d,)),
+    }
+    worst = 0.0
+    for name, (body, ref_fn, args) in cases.items():
+        for zz in (1, z):
+            xs = [x[0] if zz == 1 else x for x in args]
+            out, ref = body(*xs), ref_fn(*xs)
+            torch.cuda.synchronize()
+            rel, absd = rel_err(out, ref)
+            if name != "getrf_nopiv":
+                worst = max(worst, absd)
+            log("bodies", case=name, z=zz, shape=tuple(out.shape),
+                rel_err=rel, max_abs_err=absd)
+            check(rel < RTOL, f"body {name} z={zz}: relative error {rel} "
+                              f">= {RTOL}")
+        batched = body(*args)
+        for i in range(z):
+            check(torch.equal(batched[i], body(*(x[i] for x in args))),
+                  f"{name}: batched slice {i} differs from its single call")
+        torch.cuda.synchronize()
+        log("bodies", case=f"{name}_z{z}_vs_single", bit_exact=True)
+    return worst
+
+
 def phase_attention(dev: torch.device, seed: int) -> dict:
     """Both flash kernels vs their plain versions on the card; returns
     each kernel's max abs error at the forward's shape."""
@@ -369,89 +454,338 @@ def synth_spd(n: int, seed: int) -> np.ndarray:
     return a
 
 
+def synth_dominant(n: int, seed: int) -> np.ndarray:
+    """B uniform in [-0.5, 0.5) with each diagonal entry raised to its
+    row's absolute sum + 1: LU-stable without pivoting, in O(n^2)."""
+    a = uniform(n, n, seed=seed)
+    a[np.diag_indices(n)] = np.abs(a).sum(axis=1) + np.float32(1)
+    return a
+
+
+def uniform(*shape, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.random(shape, dtype=np.float32) - np.float32(0.5)
+
+
+def matvec(M: np.ndarray, X: np.ndarray, trans: bool = False,
+           part: str = None, rows: int = 2048) -> np.ndarray:
+    """op(part(M)) @ X in fp64, reading M in blocks of rows: ``part``
+    "upper" keeps M's upper triangle, "unit_lower" its strictly lower one
+    plus a unit diagonal (packed LU factors); ``trans`` takes M^T."""
+    m, n = M.shape
+    out = np.zeros((n if trans else m, X.shape[1]))
+    for r0 in range(0, m, rows):
+        blk = M[r0:r0 + rows].astype(np.float64)
+        if part == "upper":
+            blk = np.triu(blk, r0)
+        elif part == "unit_lower":
+            blk = np.tril(blk, r0 - 1)
+            i = np.arange(blk.shape[0])
+            i = i[r0 + i < n]
+            blk[i, r0 + i] = 1.0
+        if trans:
+            out += blk.T @ X[r0:r0 + rows]
+        else:
+            out[r0:r0 + rows] = blk @ X
+    return out
+
+
+def norm_inf(M: np.ndarray, rows: int = 2048) -> float:
+    return max(float(np.abs(M[r0:r0 + rows].astype(np.float64)).sum(1).max())
+               for r0 in range(0, M.shape[0], rows))
+
+
+def rel_inf(diff: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.abs(diff).max() / np.abs(ref).max())
+
+
+def vectors(n: int, seed: int) -> np.ndarray:
+    """4 random fp64 vectors: residuals are matrix-vector products."""
+    return np.random.default_rng(seed + 1).random((n, 4))
+
+
 def residual(L: np.ndarray, M: np.ndarray, seed: int) -> float:
     """||L (L^T X) - A X||_inf / ||A X||_inf over 4 random vectors."""
-    X = np.random.default_rng(seed + 1).random((M.shape[0], 4))
-    Lf = L.astype(np.float64)
-    ref = M.astype(np.float64) @ X
-    return float(np.abs(Lf @ (Lf.T @ X) - ref).max() / np.abs(ref).max())
+    X = vectors(M.shape[0], seed)
+    ref = matvec(M, X)
+    return rel_inf(matvec(L, matvec(L, X, trans=True)) - ref, ref)
 
 
-def run_dpotrf(M: np.ndarray, nb: int, nb_cores: int, device=None,
-               around=contextlib.nullcontext):
-    """The port's main path on ``M``; returns (L, stats, seconds).
-    ``around()`` is entered around the timed factorization alone."""
+def lu_residual(LU: np.ndarray, M: np.ndarray, seed: int,
+                perm: np.ndarray = None):
+    """||L (U X) - (A X)[perm]||_inf over 4 random vectors X, L and U
+    packed in LU, relative to ||(A X)[perm]||_inf and normwise, relative
+    to ||A||_inf ||X||_inf (DPLASMA's form); returns both."""
+    X = vectors(M.shape[0], seed)
+    ref = matvec(M, X)
+    if perm is not None:
+        ref = ref[perm]
+    diff = matvec(LU, matvec(LU, X, part="upper"), part="unit_lower") - ref
+    return (rel_inf(diff, ref),
+            float(np.abs(diff).max() / (norm_inf(M) * np.abs(X).max())))
+
+
+def solve_residual(M: np.ndarray, X: np.ndarray, B: np.ndarray,
+                   seed: int) -> float:
+    """||A X - B||_inf / (||A||_inf ||X||_inf), applied to 4 random
+    vectors v of the right-hand sides' width: X v and B v."""
+    v = vectors(X.shape[1], seed)
+    y = X.astype(np.float64) @ v
+    return float(np.abs(matvec(M, y) - B.astype(np.float64) @ v).max()
+                 / (norm_inf(M) * np.abs(y).max()))
+
+
+def drive(submit, colls, device=None, around=contextlib.nullcontext):
+    """The port's entry points on a fresh context: ``init()``, then
+    ``submit(ctx)`` timed from submission to ``torch.cuda.synchronize()``
+    (``around()`` entered around it alone); then every tile of ``colls``
+    staged out through the device module.  Returns (the device module's
+    stats at the end of the run, seconds, the collections as arrays)."""
     import parsec_tpu_torch as ptt
-    from parsec_tpu_torch.collections import TwoDimBlockCyclic
-    ctx = ptt.init(nb_cores=nb_cores, device=device)
+    ctx = ptt.init(nb_cores=4, device=device)
     try:
-        n = M.shape[0]
-        A = TwoDimBlockCyclic(n, n, nb, nb, dtype=np.float32).from_numpy(M)
         dev = ctx.device_by_type("cuda")
         with around():
             t0 = time.perf_counter()
-            ptt.ops.dpotrf(ctx, A)
+            submit(ctx)
             if dev.is_cuda:
                 torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
+        st = dict(dev.stats, executed_tasks=dev.executed_tasks,
+                  device=dev.name)
         t1 = time.perf_counter()
-        for (m, k) in A.tiles():     # stage-out through the device module
-            A.data_of(m, k).sync_to_host(ctx.devices)
-        stats = dict(dev.stats, executed_tasks=dev.executed_tasks,
-                     device=dev.name, stage_out_s=time.perf_counter() - t1,
-                     nt=A.nt)
-        return np.tril(A.to_numpy()), stats, seconds
+        for C in colls:
+            for (m, n) in C.tiles():
+                C.data_of(m, n).sync_to_host(ctx.devices)
+        st["pull_bytes"] = dev.stats["stage_out_bytes"] - st["stage_out_bytes"]
+        st["pull_seconds"] = time.perf_counter() - t1
+        return st, seconds, [C.to_numpy() for C in colls]
     finally:
         ctx.fini()
 
 
-def phase_main(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
-               device=None) -> int:
+def tiled(M: np.ndarray, nb: int):
+    from parsec_tpu_torch.collections import TwoDimBlockCyclic
+    return TwoDimBlockCyclic(*M.shape, nb, nb,
+                             dtype=np.float32).from_numpy(M)
+
+
+def run_dpotrf(M: np.ndarray, nb: int, device=None,
+               around=contextlib.nullcontext):
+    """The dpotrf path on ``M``; returns (L, stats, seconds)."""
+    import parsec_tpu_torch as ptt
+    A = tiled(M, nb)
+    st, seconds, (L,) = drive(lambda ctx: ptt.ops.dpotrf(ctx, A), [A],
+                              device=device, around=around)
+    st["nt"] = A.nt
+    return np.tril(L), st, seconds
+
+
+def report(phase: str, st: dict, seconds: float, flops: float, tasks: int,
+           gemm_tasks: int, launches: int, resid: float, tol: float,
+           **extra) -> None:
+    """One phase's line, then its checks: every device task on cuda:0,
+    the GEMM kernel launched, the residual under its bound."""
+    log(phase, device=st["device"], tasks=st["tasks"], expected_tasks=tasks,
+        executed_tasks=st["executed_tasks"], seconds=f"{seconds:.4f}",
+        gflops=f"{flops / seconds / 1e9:.2f}", matmul_launches=launches,
+        gemm_kernel_tasks=gemm_tasks,
+        mean_z=f"{gemm_tasks / max(launches, 1):.3f}",
+        batches=st["batches"], batched_tasks=st["batched_tasks"],
+        stage_in_bytes=st["stage_in_bytes"],
+        stage_out_bytes=st["stage_out_bytes"], pull_bytes=st["pull_bytes"],
+        pull_seconds=f"{st['pull_seconds']:.4f}",
+        stack_bytes=st["stack_bytes"], **extra, residual=resid)
+    check(st["device"] == "cuda:0", f"{phase}: ran on {st['device']}")
+    check(st["tasks"] == tasks and st["executed_tasks"] == tasks,
+          f"{phase}: {st['tasks']} of {tasks} tasks ran on the device")
+    check(launches > 0, f"{phase}: the path launched the GEMM kernel no time")
+    check(resid < tol, f"{phase}: residual {resid} >= {tol}")
+
+
+def phase_main(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
     """Drive dpotrf at full size; returns the kernel's launches."""
     from parsec_tpu_torch.ops import kernels
     M = synth_spd(n, seed)
     reset_counts()
-    L, st, seconds = run_dpotrf(M, nb, nb_cores=4, device=device)
+    L, st, seconds = run_dpotrf(M, nb)
     launches = kernels.matmul_launches
     nt = st["nt"]
-    n_tasks = nt * (nt + 1) * (nt + 2) // 6
     # GEMM and SYRK tasks, each one z-slice of a GEMM launch
     gemm_tasks = nt * (nt - 1) * (nt - 2) // 6 + nt * (nt - 1) // 2
-    resid = residual(L, M, seed)
-    log("main", device=st["device"], n=n, nb=nb, tasks=st["tasks"],
-        expected_tasks=n_tasks, executed_tasks=st["executed_tasks"],
-        seconds=f"{seconds:.4f}",
-        gflops=f"{n ** 3 / 3 / seconds / 1e9:.2f}",
-        batches=st["batches"], batched_tasks=st["batched_tasks"],
-        stage_in_bytes=st["stage_in_bytes"],
-        stage_out_bytes=st["stage_out_bytes"],
-        stage_out_seconds=f"{st['stage_out_s']:.4f}",
-        stack_bytes=st["stack_bytes"], matmul_launches=launches,
-        gemm_syrk_tasks=gemm_tasks,
-        mean_z=f"{gemm_tasks / max(launches, 1):.3f}", residual=resid)
-    check(st["tasks"] == n_tasks and st["executed_tasks"] == n_tasks,
-          f"{st['tasks']} of {n_tasks} tasks ran on the device")
-    check(launches > 0, "the main path launched the GEMM kernel no time")
     check(np.isfinite(L).all(), "the factor holds non-finite values")
-    check(resid < RESID_TOL, f"residual {resid} >= {RESID_TOL}")
+    report("main", st, seconds, n ** 3 / 3, nt * (nt + 1) * (nt + 2) // 6,
+           gemm_tasks, launches, residual(L, M, seed), RESID_TOL, n=n, nb=nb)
     return launches
+
+
+def phase_dposv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
+                nrhs: int = NRHS):
+    """dpotrf, forward and backward substitution, three pools in turn over
+    the same collections; returns the kernel's launches and the factor."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.ops import kernels
+    M = synth_spd(n, seed)
+    Bm = uniform(n, nrhs, seed=seed + 10)
+    A, B = tiled(M, nb), tiled(Bm, nb)
+    reset_counts()
+    st, seconds, (L, X) = drive(lambda ctx: ptt.ops.dposv(ctx, A, B), [A, B])
+    launches = kernels.matmul_launches
+    mt, nt = A.mt, B.nt
+    solve = mt * nt + mt * (mt - 1) // 2 * nt
+    report("dposv", st, seconds, n ** 3 / 3 + 2.0 * n * n * nrhs,
+           mt * (mt + 1) * (mt + 2) // 6 + 2 * solve,
+           mt * (mt - 1) * (mt - 2) // 6 + mt * (mt - 1) // 2
+           + mt * (mt - 1) * nt, launches,
+           solve_residual(M, X, Bm, seed), RESID_TOL, n=n, nb=nb, nrhs=nrhs)
+    return launches, np.tril(L)
+
+
+def lu_counts(nt: int):
+    """(tasks, trailing-update tasks) of the tile LU and QR graphs on an
+    nt x nt grid: nt diagonal, 2 x nt(nt-1)/2 panel, sum k^2 updates."""
+    updates = (nt - 1) * nt * (2 * nt - 1) // 6
+    return nt + nt * (nt - 1) + updates, updates
+
+
+def phase_getrf_nopiv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.ops import kernels
+    M = synth_dominant(n, seed + 11)
+    A = tiled(M, nb)
+    reset_counts()
+    st, seconds, (LU,) = drive(lambda ctx: ptt.ops.dgetrf_nopiv(ctx, A), [A])
+    launches = kernels.matmul_launches
+    tasks, gemm_tasks = lu_counts(A.nt)
+    report("dgetrf_nopiv", st, seconds, 2.0 * n ** 3 / 3, tasks, gemm_tasks,
+           launches, lu_residual(LU, M, seed)[0], RESID_TOL, n=n, nb=nb)
+    return launches
+
+
+def phase_geqrf(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
+    """Tile QR; its Q and Q2 scratch flows are staged in from the host
+    (the scratch_bytes of the line)."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.ops import kernels
+    M = uniform(n, n, seed=seed + 12)
+    A = tiled(M, nb)
+    reset_counts()
+    st, seconds, (out,) = drive(lambda ctx: ptt.ops.dgeqrf(ctx, A), [A])
+    launches = kernels.matmul_launches
+    nt = A.nt
+    tasks, tsmqr = lu_counts(nt)
+    X = vectors(n, seed)
+    ref = matvec(M, matvec(M, X), trans=True)
+    got = matvec(out, matvec(out, X, part="upper"), trans=True, part="upper")
+    report("dgeqrf", st, seconds, 4.0 * n ** 3 / 3, tasks,
+           nt * (nt - 1) // 2 + tsmqr, launches, rel_inf(got - ref, ref),
+           RESID_TOL, n=n, nb=nb,
+           scratch_bytes=4 * (nt * nb * nb + nt * (nt - 1) // 2 * 4 * nb * nb),
+           below_diagonal_max=float(np.abs(np.tril(out, -1)).max()))
+    return launches
+
+
+def phase_pdgemm(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
+                 alpha: float = 1.5, beta: float = 0.5) -> int:
+    """C <- alpha op(A) B + beta C, once with op(A) = A and once with A^T;
+    returns the kernel's launches over both."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.ops import kernels
+    Am, Bm, Cm = (uniform(n, n, seed=seed + 13 + i) for i in range(3))
+    X = vectors(n, seed)
+    cx = beta * matvec(Cm, X)
+    bx = matvec(Bm, X)
+    total = 0
+    for transa in ("n", "t"):
+        A, B, C = tiled(Am, nb), tiled(Bm, nb), tiled(Cm, nb)
+        reset_counts()
+        st, seconds, (Cout,) = drive(
+            lambda ctx: ptt.ops.pdgemm(ctx, A, B, C, alpha=alpha, beta=beta,
+                                       transa=transa), [C])
+        launches = kernels.matmul_launches
+        total += launches
+        ref = alpha * matvec(Am, bx, trans=transa == "t") + cx
+        report(f"pdgemm_{transa}n", st, seconds, 2.0 * n ** 3, C.nt ** 3,
+               C.nt ** 3, launches, rel_inf(matvec(Cout, X) - ref, ref),
+               RESID_TOL, n=n, nb=nb, alpha=alpha, beta=beta)
+    return total
+
+
+def phase_dense(dev: torch.device, seed: int, L: np.ndarray,
+                n: int = N_MAIN, nb: int = NB_MAIN, nrhs: int = NRHS) -> None:
+    """The whole-matrix routines on ``dev``: the pivoted dgetrf, dgesv,
+    and dpotri of the dposv phase's factor."""
+    import parsec_tpu_torch as ptt
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    M = uniform(n, n, seed=seed + 16)
+    Md = torch.from_numpy(M).to(dev)
+    (LU, perm), seconds = timed(lambda: ptt.ops.dgetrf(Md, nb=nb, device=dev))
+    check(LU.device == dev, f"dgetrf ran on {LU.device}")
+    perm = perm.cpu().numpy()
+    # gated normwise: on this zero-mean A, ||(A x)[perm]|| sums cancelling
+    # terms and sits far below ||A|| ||x||, so the relative form reads
+    # ordinary fp32 rounding as a large share of the bound
+    rel_ax, resid = lu_residual(LU.cpu().numpy(), M, seed, perm)
+    del LU
+    log("dgetrf", device=str(dev), n=n, nb=nb, seconds=f"{seconds:.4f}",
+        gflops=f"{2.0 * n ** 3 / 3 / seconds / 1e9:.2f}",
+        rows_moved=int((perm != np.arange(n)).sum()),
+        residual_rel_ax=rel_ax, residual=resid)
+    check(resid < RESID_TOL, f"dgetrf: residual {resid} >= {RESID_TOL}")
+    Bm = uniform(n, nrhs, seed=seed + 17)
+    X, seconds = timed(lambda: ptt.ops.dgesv(
+        Md, torch.from_numpy(Bm).to(dev), nb=nb, device=dev))
+    resid = solve_residual(M, X.cpu().numpy(), Bm, seed)
+    del X, Md
+    log("dgesv", device=str(dev), n=n, nb=nb, nrhs=nrhs,
+        seconds=f"{seconds:.4f}",
+        gflops=f"{(2.0 * n ** 3 / 3 + 2.0 * n * n * nrhs) / seconds / 1e9:.2f}",
+        residual=resid)
+    check(resid < RESID_TOL, f"dgesv: residual {resid} >= {RESID_TOL}")
+    Ld = torch.from_numpy(L).to(dev)
+    inv, seconds = timed(lambda: ptt.ops.dpotri(Ld, device=dev))
+    inv = inv.cpu().numpy()
+    del Ld
+    torch.cuda.empty_cache()
+    X = vectors(n, seed)
+    resid = rel_inf(matvec(synth_spd(n, seed), matvec(inv, X)) - X, X)
+    log("dpotri", device=str(dev), n=n, seconds=f"{seconds:.4f}",
+        gflops=f"{2.0 * n ** 3 / 3 / seconds / 1e9:.2f}", residual=resid,
+        bound=DPOTRI_TOL)
+    check(resid < DPOTRI_TOL, f"dpotri: residual {resid} >= {DPOTRI_TOL}")
 
 
 def phase_bitexact(seed: int, n: int = N_BITEXACT, nb: int = NB_BITEXACT,
                    device=None) -> None:
+    """Batched and per-task dispatch give identical factors, dpotrf and
+    dgetrf_nopiv."""
+    import parsec_tpu_torch as ptt
     from parsec_tpu_torch.utils.params import params
-    M = synth_spd(n, seed + 2)
-    out = {}
-    for bmax in (1, 16):
-        with params.cmdline_override("device_batch_max", str(bmax)):
-            out[bmax] = run_dpotrf(M, nb, nb_cores=4, device=device)
-    (L1, s1, _), (L16, s16, _) = out[1], out[16]
-    same = bool(np.array_equal(L1, L16))
-    log("bitexact", n=n, nb=nb, batches_per_task=s1["batches"],
-        batches_batched=s16["batches"], identical=same)
-    check(s1["batches"] == 0 and s16["batches"] > 0,
-          f"batches {s1['batches']} / {s16['batches']}")
-    check(same, "batched and per-task factors differ")
+    cases = {"dpotrf": (synth_spd(n, seed + 2), ptt.ops.dpotrf),
+             "dgetrf_nopiv": (synth_dominant(n, seed + 3),
+                              ptt.ops.dgetrf_nopiv)}
+    for name, (M, factor) in cases.items():
+        out = {}
+        for bmax in (1, 16):
+            with params.cmdline_override("device_batch_max", str(bmax)):
+                A = tiled(M, nb)
+                st, _s, (F,) = drive(lambda ctx: factor(ctx, A), [A],
+                                     device=device)
+                out[bmax] = F, st["batches"]
+        same = bool(np.array_equal(out[1][0], out[16][0]))
+        log("bitexact", routine=name, n=n, nb=nb,
+            batches_per_task=out[1][1], batches_batched=out[16][1],
+            identical=same)
+        check(out[1][1] == 0 and out[16][1] > 0,
+              f"{name}: batches {out[1][1]} / {out[16][1]}")
+        check(same, f"{name}: batched and per-task factors differ")
 
 
 def gpt2_small(attention: str):
@@ -630,6 +964,28 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
             library_tflops=f"{2.0 * z * nb ** 3 / lib / 1e9:.3f}",
             roofline_share=f"{bd['bound_ms'] / ms:.4f}")
         del az, bz, cz
+    # tsmqr's product: Q2^T [A1; A2], M = K = 2 nb, N = nb, beside one
+    # library call of the same function and the body's A^T copy
+    q2, s2 = (torch.randn(2 * nb, w, generator=g, device=dev)
+              for w in (2 * nb, nb))
+    q2t = q2.mT.contiguous()
+    ms = time_ms(lambda: kernels.gemm(q2t, s2), iters=20)
+    lib = time_ms(lambda: torch.mm(q2t, s2), iters=20)
+    work = 2.0 * (2 * nb) * nb * (2 * nb)
+    bd = bound(work, (4 * nb * nb + 2 * 2 * nb * nb) * 4)
+    log("timing", case=f"gemm tsmqr M={2 * nb} N={nb} K={2 * nb} fp32",
+        kernel_ms=ms, library_ms=lib, library="torch.mm",
+        plain_ms=time_ms(lambda: kernels.gemm_plain(q2t, s2), iters=20),
+        **bd, kernel_tflops=f"{work / ms / 1e9:.3f}",
+        roofline_share=f"{bd['bound_ms'] / ms:.4f}",
+        body_ms=time_ms(lambda: linalg.tsmqr(q2, s2[:nb], s2[nb:]),
+                        iters=20))
+    for shape, x in (((2 * nb, 2 * nb), q2), ((nb, nb), a)):
+        # one read and one write of the tile
+        log("timing", case=f"transpose copy {shape} fp32",
+            copy_ms=time_ms(lambda: linalg.transpose(x), iters=20),
+            **bound(0.0, 2 * 4 * x.numel()))
+    del q2, s2, q2t
     B, H, T, D = ATTN_SHAPE
     q, k, v = (torch.randn(B, H, T, D, generator=g, device=dev)
                for _ in range(3))
@@ -697,15 +1053,42 @@ def profile_report(label: str, prof, seconds: float, top: int = 12) -> None:
 
 def phase_profile(dev: torch.device, seed: int, n: int = N_MAIN,
                   nb: int = NB_MAIN) -> None:
-    """The dpotrf path and one ring forward (after a warm-up) once more
-    under torch.profiler."""
+    """The dpotrf, dgeqrf and pdgemm (op(A) = A and A^T) paths, the
+    pivoted dgetrf (one host sync a panel) and one ring forward (after a
+    warm-up) once more under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
+    import parsec_tpu_torch as ptt
     from parsec_tpu_torch import models
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     prof = profile(activities=acts)
-    _L, _st, seconds = run_dpotrf(synth_spd(n, seed), nb, nb_cores=4,
+    _L, _st, seconds = run_dpotrf(synth_spd(n, seed), nb,
                                   around=lambda: prof)
     profile_report("dpotrf", prof, seconds)
+    A = tiled(uniform(n, n, seed=seed + 12), nb)
+    prof = profile(activities=acts)
+    _st, seconds, _ = drive(lambda ctx: ptt.ops.dgeqrf(ctx, A), [],
+                            around=lambda: prof)
+    profile_report("dgeqrf", prof, seconds)
+    Am, Bm, Cm = (uniform(n, n, seed=seed + 13 + i) for i in range(3))
+    for transa in ("n", "t"):
+        A, B, C = tiled(Am, nb), tiled(Bm, nb), tiled(Cm, nb)
+        prof = profile(activities=acts)
+        _st, seconds, _ = drive(
+            lambda ctx: ptt.ops.pdgemm(ctx, A, B, C, alpha=1.5, beta=0.5,
+                                       transa=transa), [],
+            around=lambda: prof)
+        profile_report(f"pdgemm_{transa}n", prof, seconds)
+    del A, B, C, Am, Bm, Cm
+    Md = torch.from_numpy(uniform(n, n, seed=seed + 16)).to(dev)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        LU, _perm = ptt.ops.dgetrf(Md, nb=nb, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    profile_report("dgetrf", prof, seconds)
+    del Md, LU
+    torch.cuda.empty_cache()
     cfg = gpt2_small("ring")
     params = models.params_to(models.init_params(cfg, seed), dev)
     tokens = np.random.RandomState(seed + 5).randint(
@@ -773,8 +1156,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also run the dpotrf path and one forward under "
-                         "torch.profiler and print device time by kernel")
+                    help="also run the dpotrf, dgeqrf, pdgemm and dgetrf "
+                         "paths and one forward under torch.profiler and "
+                         "print device time by kernel")
     args = ap.parse_args(argv)
     # the package must come from this checkout; importing it first means a
     # directory holding only this script fails before any result
@@ -787,7 +1171,15 @@ def main(argv=None) -> int:
     phase_build()
     gemm_err = phase_kernel(dev, args.seed)
     attn_err = phase_attention(dev, args.seed)
-    gemm_launches = phase_main(args.seed)
+    gemm_err = max(gemm_err, phase_bodies(dev, args.seed))
+    # each path run with the counters set to 0 just before it
+    gemm_launches = {"dpotrf": phase_main(args.seed)}
+    gemm_launches["dposv"], factor = phase_dposv(args.seed)
+    gemm_launches["dgetrf_nopiv"] = phase_getrf_nopiv(args.seed)
+    gemm_launches["dgeqrf"] = phase_geqrf(args.seed)
+    gemm_launches["pdgemm"] = phase_pdgemm(args.seed)
+    phase_dense(dev, args.seed, factor)
+    del factor
     phase_bitexact(args.seed)
     attn_launches = phase_forward(dev, args.seed)
     recs = phase_timing(dev, args.seed)

@@ -41,6 +41,13 @@ def resolve_device(device: Any = None):
     return dev
 
 
+def as_tensor(x: Any, device: Any = None):
+    """``x`` (an array or a tensor) on ``resolve_device(device)``: the
+    whole-matrix routines' inputs (ops/dgetrf.py, ops/inverse.py)."""
+    import torch
+    return torch.as_tensor(x).to(resolve_device(device))
+
+
 def build_devices(context, device: Any = None) -> List[Device]:
     devices: List[Device] = [CPUDevice(0)]
     if not params.get("device_cuda_enabled") \

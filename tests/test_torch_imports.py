@@ -78,6 +78,64 @@ def test_cpu_dpotrf_loads_no_jax():
     assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
 
 
+#: one CPU drive of each module of parsec_tpu_torch/ops/ beyond dpotrf
+OPS_DRIVES = {
+    "dtrsm": """
+        A = TwoDimBlockCyclic(96, 96, 32, 32).from_numpy(ptt.ops.make_spd(96))
+        B = TwoDimBlockCyclic(96, 32, 32, 32).from_numpy(np.ones((96, 32), np.float32))
+        ptt.ops.dposv(ctx, A, B)
+        assert np.isfinite(B.to_numpy()).all()
+    """,
+    "dgetrf": """
+        A = TwoDimBlockCyclic(96, 96, 32, 32).from_numpy(ptt.ops.make_diag_dominant(96))
+        ptt.ops.dgetrf_nopiv(ctx, A)
+        LU, perm = ptt.ops.dgetrf(ptt.ops.make_diag_dominant(96), nb=32, device="cpu")
+        assert np.isfinite(A.to_numpy()).all() and LU.shape == (96, 96)
+    """,
+    "dgeqrf": """
+        A = TwoDimBlockCyclic(96, 64, 32, 32).from_numpy(np.eye(96, 64, dtype=np.float32))
+        ptt.ops.dgeqrf(ctx, A)
+        assert np.isfinite(A.to_numpy()).all()
+    """,
+    "pdgemm": """
+        A = TwoDimBlockCyclic(64, 64, 32, 32).from_numpy(np.eye(64, dtype=np.float32))
+        C = TwoDimBlockCyclic(64, 64, 32, 32).from_numpy(np.eye(64, dtype=np.float32))
+        ptt.ops.pdgemm(ctx, A, A, C, alpha=2.0, beta=1.0, transa="t")
+        assert np.array_equal(C.to_numpy(), 3 * np.eye(64))
+    """,
+    "inverse": """
+        L = np.linalg.cholesky(ptt.ops.make_spd(64)).astype(np.float32)
+        assert ptt.ops.dpotri(L, device="cpu").shape == (64, 64)
+        X = ptt.ops.dgesv(ptt.ops.make_diag_dominant(64), np.ones((64, 2)), nb=32, device="cpu")
+        assert X.shape == (64, 2)
+    """,
+}
+
+
+@pytest.mark.parametrize("module", sorted(OPS_DRIVES))
+def test_cpu_ops_modules_load_no_jax(module):
+    """A fresh interpreter drives ``ops/<module>.py`` on the CPU device;
+    no JAX module is loaded."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import parsec_tpu_torch as ptt
+        from parsec_tpu_torch.collections import TwoDimBlockCyclic
+        ctx = ptt.init(nb_cores=2, device="cpu")
+    """) + textwrap.dedent(OPS_DRIVES[module]) + textwrap.dedent("""
+        ctx.fini()
+        assert "parsec_tpu_torch.ops.%s" in sys.modules
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "parsec_tpu")))
+    """ % module)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PARSEC_MCA_")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
+
+
 def test_init_without_card_raises(monkeypatch):
     """No CUDA and no device="cpu": init raises instead of falling back;
     the device_cuda_platform knob selects the CPU explicitly."""

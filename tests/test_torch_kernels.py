@@ -102,42 +102,131 @@ def test_gemm_rejects_bad_c_and_device():
 # ---------------------------------------------------------------------- #
 # tile bodies, with a leading batch dimension                            #
 # ---------------------------------------------------------------------- #
+def _dominant_tiles(rng, n, nb):
+    a = rng.rand(n, nb, nb) - 0.5
+    a[:, np.arange(nb), np.arange(nb)] = np.abs(a).sum(axis=2) + 1.0
+    return a.astype(np.float32)
+
+
 def _bodies(rng, n, nb):
     t, c = _spd_tiles(rng, n, nb)
     a, b = _rand(rng, n, nb, nb), _rand(rng, n, nb, nb)
     lt = np.stack([np.linalg.cholesky(x.astype(np.float64)) for x in t]
                   ).astype(np.float32)
+    # a packed, well-conditioned LU tile: unit-lower L below the
+    # diagonal, U on and above
+    lu = np.stack([np.tril(x, -1) / nb + np.triu(y) + nb * np.eye(nb)
+                   for x, y in zip(a, b)]).astype(np.float32)
+    ut = np.triu(t) + np.eye(nb, dtype=np.float32)
+    q2 = _rand(rng, n, 2 * nb, 2 * nb)
     return {
         "potrf": ((t,), jlinalg.potrf, linalg.potrf),
         "trsm_panel": ((lt, c), jlinalg.trsm_panel, linalg.trsm_panel),
         "syrk_ln": ((c, a), jlinalg.syrk_ln, linalg.syrk_ln),
         "gemm_nt": ((c, a, b), jlinalg.gemm_nt, linalg.gemm_nt),
+        "gemm_nn": ((c, a, b), jlinalg.gemm_nn, linalg.gemm_nn),
+        "gemm_nn_sub": ((c, a, b), jlinalg.gemm_nn_sub, linalg.gemm_nn_sub),
+        "gemm": ((c, a, b), lambda x, y, z: jlinalg.gemm(x, y, z, 1.5, 0.5),
+                 lambda x, y, z: linalg.gemm(x, y, z, 1.5, 0.5)),
+        "gemm_tn_sub": ((c, a, b), jlinalg.gemm_tn_sub, linalg.gemm_tn_sub),
+        "unmqr": ((a, c), jlinalg.unmqr, linalg.unmqr),
+        "tsmqr": ((q2, a, b), jlinalg.tsmqr, linalg.tsmqr),
+        "geqrt": ((a,), jlinalg.geqrt, linalg.geqrt),
+        "geqrt_r": ((a,), jlinalg.geqrt_r, linalg.geqrt_r),
+        "tsqrt": ((ut, a), jlinalg.tsqrt, linalg.tsqrt),
+        "tsqrt_r": ((ut, a), jlinalg.tsqrt_r, linalg.tsqrt_r),
+        "getrf_nopiv": ((_dominant_tiles(rng, n, nb),), jlinalg.getrf_nopiv,
+                        linalg.getrf_nopiv),
+        "trsm_lower": ((lt, c), jlinalg.trsm_lower, linalg.trsm_lower),
+        "trsm_lower_trans": ((lt, c), jlinalg.trsm_lower_trans,
+                             linalg.trsm_lower_trans),
+        "trsm_lower_unit": ((lu, c), jlinalg.trsm_lower_unit,
+                            linalg.trsm_lower_unit),
+        "trsm_upper_right": ((lu, c), jlinalg.trsm_upper_right,
+                             linalg.trsm_upper_right),
+        "axpy": ((c, a), lambda x, y: jlinalg.axpy(x, y, -2.0),
+                 lambda x, y: linalg.axpy(x, y, -2.0)),
+        "scal": ((c,), lambda x: jlinalg.scal(x, 3.0),
+                 lambda x: linalg.scal(x, 3.0)),
+        "transpose": ((a,), jlinalg.transpose, linalg.transpose),
     }
 
 
-BODIES = ["potrf", "trsm_panel", "syrk_ln", "gemm_nt"]
+BODIES = ["potrf", "trsm_panel", "syrk_ln", "gemm_nt", "gemm_nn",
+          "gemm_nn_sub", "gemm", "gemm_tn_sub", "unmqr", "tsmqr", "geqrt",
+          "geqrt_r", "tsqrt", "tsqrt_r", "getrf_nopiv", "trsm_lower",
+          "trsm_lower_trans", "trsm_lower_unit", "trsm_upper_right", "axpy",
+          "scal", "transpose"]
+
+
+def _outputs(x):
+    return x if isinstance(x, tuple) else (x,)
 
 
 @pytest.mark.parametrize("nb", [32, 64])
 @pytest.mark.parametrize("body", BODIES)
 def test_tile_body_matches_jax(body, nb):
+    """Each body against the JAX package's on the same tiles; the QR
+    bodies' orthogonal factors included (both take LAPACK's Householder
+    signs), getrf_nopiv through its plain masked loop."""
     args, jfn, tfn = _bodies(np.random.RandomState(4), 3, nb)[body]
-    out = tfn(*(_t(x) for x in args)).numpy()
-    for i in range(out.shape[0]):
-        ref = np.asarray(jfn(*(jnp.asarray(x[i]) for x in args)))
-        np.testing.assert_allclose(out[i], ref, rtol=TOL, atol=TOL)
+    outs = _outputs(tfn(*(_t(x) for x in args)))
+    for i in range(outs[0].shape[0]):
+        refs = _outputs(jfn(*(jnp.asarray(x[i]) for x in args)))
+        assert len(refs) == len(outs)
+        for out, ref in zip(outs, refs):
+            np.testing.assert_allclose(out[i].numpy(), np.asarray(ref),
+                                       rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("nb", [32, 64])
 @pytest.mark.parametrize("body", BODIES)
 def test_tile_body_batched_equals_per_slice(body, nb):
     args, _jfn, tfn = _bodies(np.random.RandomState(5), 4, nb)[body]
-    batched = tfn(*(_t(x) for x in args))
-    assert batched.is_contiguous()
-    for i in range(batched.shape[0]):
-        single = tfn(*(_t(x[i]) for x in args))
-        assert single.is_contiguous()
-        assert torch.equal(batched[i], single), (body, nb, i)
+    batched = _outputs(tfn(*(_t(x) for x in args)))
+    assert all(b.is_contiguous() for b in batched)
+    for i in range(batched[0].shape[0]):
+        single = _outputs(tfn(*(_t(x[i]) for x in args)))
+        for b, s in zip(batched, single):
+            assert s.is_contiguous()
+            assert torch.equal(b[i], s), (body, nb, i)
+
+
+#: each product body as the GEMM kernel's call it must make:
+#: (body's arguments) -> (A, B, C, trans_b, alpha, beta) of kernels.gemm
+GEMM_CALLS = {
+    "gemm_nn": lambda c, a, b: (a, b, c, False, 1.0, 1.0),
+    "gemm_nn_sub": lambda c, a, b: (a, b, c, False, -1.0, 1.0),
+    "gemm": lambda c, a, b: (a, b, c, False, 1.5, 0.5),
+    "gemm_tn_sub": lambda c, a, b: (a.mT.contiguous(), b, c, False, -1.0,
+                                    1.0),
+    "unmqr": lambda q, c: (q.mT.contiguous(), c, None, False, 1.0, 0.0),
+    "tsmqr": lambda q2, a1, a2: (q2.mT.contiguous(),
+                                 torch.cat([a1, a2], dim=-2), None, False,
+                                 1.0, 0.0),
+    "gemm_nt": lambda c, a, b: (a, b, c, True, -1.0, 1.0),
+    "syrk_ln": lambda t, a: (a, a, t, True, -1.0, 1.0),
+}
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("body", sorted(GEMM_CALLS))
+def test_product_body_is_one_gemm(monkeypatch, body, batch):
+    """Every product body is exactly one call of the GEMM wrapper, whose
+    CPU path is the plain version: bit-equal to ``gemm_plain`` on the
+    operands the body must pass, single and batched."""
+    args, _jfn, tfn = _bodies(np.random.RandomState(8), batch or 1, 32)[body]
+    ts = [_t(x if batch else x[0]) for x in args]
+    calls = []
+    real = kernels.gemm
+    monkeypatch.setattr(kernels, "gemm",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    out = torch.cat([o for o in _outputs(tfn(*ts))], dim=-2)
+    assert len(calls) == 1
+    a, b, c, trans_b, alpha, beta = GEMM_CALLS[body](*ts)
+    ref = kernels.gemm_plain(a, b, c, trans_b=trans_b, alpha=alpha,
+                             beta=beta)
+    assert torch.equal(out, ref)
 
 
 def test_each_source_builds_to_its_own_library():
