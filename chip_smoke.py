@@ -50,8 +50,31 @@ Phases, each reporting on its own lines:
             the Q/Q2 scratch bytes); pdgemm, alpha 1.5, beta 0.5, with
             op(A) = A and A^T (4096 device tasks each); then the
             whole-matrix dgetrf, dgesv and dpotri (of dposv's factor);
+5c. dtd     the same tile Cholesky through the DTD front end on phase
+            main's input: tile_of(A, (m, n)), POTRF/TRSM/SYRK/GEMM
+            inserted in the k loop's order with the tile bodies as CUDA
+            chores (add_chore after one boot task per class on a small
+            tile), data_flush_all, wait; all 816 tasks on cuda:0 (a host
+            body raises for any but a boot task), the GEMM kernel's
+            launches and mean batch, the factor bit-identical to main's,
+            its residual under 1e-4;
+5d. dtd_gemm the reference's dtd_test_simple_gemm shape: C += A B over
+            NT^3 = 4096 tasks, chore ops.gemm_nn, chained on C(m, n) in
+            k order; all on cuda:0, GFLOP/s (2 N^3 over the wall), the
+            residual;
 6. bitexact batched and per-task dispatch give identical factors
             (N = 4096, NB = 512), dpotrf and dgetrf_nopiv;
+6b. capture dpotrf, dposv (capture_sequence of its three pools), pdgemm
+            (op(A) = A, run through the context's device module, C left
+            on the card), dgetrf_nopiv and dgeqrf each recorded as ONE
+            CUDA graph: capture seconds (warm-up and record), the run's
+            wall and its replay's device time (CUDA events), the GEMM
+            launches recorded in the graph and the replays (apart: a
+            replay counts nothing), the peak device memory; dpotrf runs
+            twice, on main's input (bit-identical factor) and on another
+            seeded matrix; every residual under 1e-4;
+6c. dtd_capture phase dtd's Cholesky recorded through dtd_capture() and
+            replayed; bit-identical to phase dtd's factor;
 7. forward  the transformer path at GPT-2-small widths (vocab 50257,
             d_model 768, 12 heads of 64, 12 layers, d_ff 3072, sequence
             1024, batch 8, fp32, seeded random weights) through
@@ -69,13 +92,14 @@ Phases, each reporting on its own lines:
             kernel at [8, 12, 1024, 64] causal against
             F.scaled_dot_product_attention (fp32; it returns o alone),
             beside its bound and its plain version;
-9. profile  with --profile only: the dpotrf, dgeqrf and pdgemm (both
-            forms) paths, the pivoted dgetrf and one forward once more
-            under torch.profiler, with device time by kernel (the A^T
-            copies are the direct-copy kernel) and the device's busy
-            share of the wall time; then the GEMM and stats kernels and
-            their library yardsticks once each, with the device kernels
-            each call runs.
+9. profile  with --profile only: the dpotrf, DTD Cholesky, dgeqrf and
+            pdgemm (both forms) paths, one replay of the captured dpotrf,
+            the pivoted dgetrf and one forward once more under
+            torch.profiler, with device time by kernel (the A^T copies
+            are the direct-copy kernel) and the device's busy share of
+            the wall time; then the GEMM and stats kernels and their
+            library yardsticks once each, with the device kernels each
+            call runs.
 
 Any failure raises and exits non-zero; so does a machine where PyTorch
 sees no CUDA device.  The line before the last is the kernels' record
@@ -603,8 +627,9 @@ def report(phase: str, st: dict, seconds: float, flops: float, tasks: int,
     check(resid < tol, f"{phase}: residual {resid} >= {tol}")
 
 
-def phase_main(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
-    """Drive dpotrf at full size; returns the kernel's launches."""
+def phase_main(seed: int, n: int = N_MAIN, nb: int = NB_MAIN):
+    """Drive dpotrf at full size; returns the kernel's launches and the
+    factor."""
     from parsec_tpu_torch.ops import kernels
     M = synth_spd(n, seed)
     reset_counts()
@@ -616,7 +641,7 @@ def phase_main(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
     check(np.isfinite(L).all(), "the factor holds non-finite values")
     report("main", st, seconds, n ** 3 / 3, nt * (nt + 1) * (nt + 2) // 6,
            gemm_tasks, launches, residual(L, M, seed), RESID_TOL, n=n, nb=nb)
-    return launches
+    return launches, L
 
 
 def phase_dposv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
@@ -786,6 +811,359 @@ def phase_bitexact(seed: int, n: int = N_BITEXACT, nb: int = NB_BITEXACT,
         check(out[1][1] == 0 and out[16][1] > 0,
               f"{name}: batches {out[1][1]} / {out[16][1]}")
         check(same, f"{name}: batched and per-task factors differ")
+
+
+# ---------------------------------------------------------------------- #
+# the DTD front end and whole-graph capture                              #
+# ---------------------------------------------------------------------- #
+def dtd_boot(tp, classes, nb: int):
+    """Register each DTD task class with its CUDA chore: a class exists
+    from its first insert, so each takes one boot task on a small tile
+    first.  ``classes`` is [(name, chore, access modes)]; returns the host
+    bodies by name.  A host body runs only for a boot task (insertion
+    index below the count of boot tasks): for any other task it raises."""
+    n_boot = len(classes)
+
+    def host_body(name):
+        def body(es, task):
+            if task.locals[0] >= n_boot:
+                raise RuntimeError(f"{task.snprintf()} ran its host body")
+        body.__name__ = name
+        return body
+
+    bodies = {}
+    boot = tp.tile_of_array(np.eye(nb, dtype=np.float32))
+    for name, chore, modes in classes:
+        bodies[name] = host_body(name)
+        tp.insert_task(bodies[name], *[(boot, m) for m in modes])
+        tp.add_chore(bodies[name], "cuda", chore)
+    return bodies
+
+
+def dtd_cholesky(ctx, A) -> int:
+    """The tile Cholesky of A through DTD: tile_of(A, (m, n)), POTRF,
+    TRSM, SYRK and GEMM inserted in the k loop's order with the tile
+    bodies as CUDA chores, then data_flush_all and wait; returns the
+    tasks inserted after the boot tasks."""
+    from parsec_tpu_torch import dtd, ops
+    from parsec_tpu_torch.dsl.dtd import INOUT, INPUT
+    tp = dtd.taskpool_new("dtd_potrf")
+    ctx.add_taskpool(tp)
+    b = dtd_boot(tp, [("POTRF", ops.potrf, (INOUT,)),
+                      ("TRSM", ops.trsm_panel, (INPUT, INOUT)),
+                      ("SYRK", ops.syrk_ln, (INOUT, INPUT)),
+                      ("GEMM", ops.gemm_nt, (INOUT, INPUT, INPUT))], A.nb)
+    nt, tasks = A.nt, 0
+    T = lambda m, n: tp.tile_of(A, (m, n))   # noqa: E731
+    for k in range(nt):
+        tp.insert_task(b["POTRF"], (T(k, k), INOUT))
+        for m in range(k + 1, nt):
+            tp.insert_task(b["TRSM"], (T(k, k), INPUT), (T(m, k), INOUT))
+        for m in range(k + 1, nt):
+            tp.insert_task(b["SYRK"], (T(m, m), INOUT), (T(m, k), INPUT))
+            for n in range(k + 1, m):
+                tp.insert_task(b["GEMM"], (T(m, n), INOUT), (T(m, k), INPUT),
+                               (T(n, k), INPUT))
+            tasks += 1 + (m - k - 1)
+        tasks += 1 + (nt - k - 1)
+    tp.data_flush_all()
+    tp.wait()
+    return tasks
+
+
+def dtd_report(phase: str, st: dict, seconds: float, flops: float,
+               expected: int, inserted: int, boot: int, gemm_tasks: int,
+               launches: int, resid: float, **extra) -> None:
+    """A DTD phase's line and checks: the inserted tasks all on cuda:0
+    (a host body raises for any but a boot task), the GEMM kernel
+    launched, the residual under its bound."""
+    boot_on_device = st["tasks"] - inserted
+    log(phase, device=st["device"], tasks=inserted, expected_tasks=expected,
+        boot_tasks=boot, device_tasks=st["tasks"],
+        boot_on_device=boot_on_device, seconds=f"{seconds:.4f}",
+        gflops=f"{flops / seconds / 1e9:.2f}", matmul_launches=launches,
+        gemm_kernel_tasks=gemm_tasks,
+        mean_z=f"{gemm_tasks / max(launches, 1):.3f}",
+        batches=st["batches"], batched_tasks=st["batched_tasks"],
+        stage_in_bytes=st["stage_in_bytes"],
+        stage_out_bytes=st["stage_out_bytes"], **extra, residual=resid)
+    check(st["device"] == "cuda:0", f"{phase}: ran on {st['device']}")
+    check(inserted == expected, f"{phase}: {inserted} tasks inserted, "
+                                f"expected {expected}")
+    check(0 <= boot_on_device <= boot,
+          f"{phase}: {st['tasks']} device tasks for {inserted} inserted "
+          f"and {boot} boot tasks")
+    check(launches > 0, f"{phase}: the path launched the GEMM kernel no time")
+    check(resid < RESID_TOL, f"{phase}: residual {resid} >= {RESID_TOL}")
+
+
+def phase_dtd(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
+              nb: int = NB_MAIN):
+    """The DTD tile Cholesky on phase main's input; its factor must be
+    bit-identical to the PTG one.  Returns the launches and the factor."""
+    from parsec_tpu_torch.ops import kernels
+    M = synth_spd(n, seed)
+    A = tiled(M, nb)
+    box = {}
+    reset_counts()
+    st, seconds, (L,) = drive(
+        lambda ctx: box.setdefault("tasks", dtd_cholesky(ctx, A)), [A])
+    launches = kernels.matmul_launches
+    nt = A.nt
+    L = np.tril(L)
+    same = bool(np.array_equal(L, L_ptg))
+    dtd_report("dtd", st, seconds, n ** 3 / 3, nt * (nt + 1) * (nt + 2) // 6,
+               box["tasks"], 4, nt * (nt - 1) * (nt - 2) // 6
+               + nt * (nt - 1) // 2, launches, residual(L, M, seed), n=n,
+               nb=nb, identical_to_ptg=same)
+    check(same, "dtd: the DTD factor differs from the PTG one")
+    return launches, L
+
+
+def phase_dtd_gemm(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
+    """dtd_test_simple_gemm's shape: C += A B over NT^3 tasks, chore
+    ops.gemm_nn, chained on C(m, n) in k order."""
+    from parsec_tpu_torch import dtd, ops
+    from parsec_tpu_torch.dsl.dtd import INOUT, INPUT
+    from parsec_tpu_torch.ops import kernels
+    Am, Bm, Cm = (uniform(n, n, seed=seed + 30 + i) for i in range(3))
+    A, B, C = tiled(Am, nb), tiled(Bm, nb), tiled(Cm, nb)
+    box = {}
+
+    def submit(ctx):
+        tp = dtd.taskpool_new("dtd_gemm")
+        ctx.add_taskpool(tp)
+        b = dtd_boot(tp, [("GEMM", ops.gemm_nn, (INOUT, INPUT, INPUT))], nb)
+        nt = C.nt
+        for k in range(nt):
+            for m in range(nt):
+                for j in range(nt):
+                    tp.insert_task(b["GEMM"], (tp.tile_of(C, (m, j)), INOUT),
+                                   (tp.tile_of(A, (m, k)), INPUT),
+                                   (tp.tile_of(B, (k, j)), INPUT))
+        box["tasks"] = nt ** 3
+        tp.data_flush_all()
+        tp.wait()
+
+    reset_counts()
+    st, seconds, (Cout,) = drive(submit, [C])
+    launches = kernels.matmul_launches
+    X = vectors(n, seed)
+    ref = matvec(Am, matvec(Bm, X)) + matvec(Cm, X)
+    nt = C.nt
+    dtd_report("dtd_gemm", st, seconds, 2.0 * n ** 3, nt ** 3, box["tasks"],
+               1, nt ** 3, launches, rel_inf(matvec(Cout, X) - ref, ref),
+               n=n, nb=nb)
+    return launches
+
+
+def graph_report(phase: str, routine: str, cg, runs, resid: float,
+                 tasks: int, peak: int, **extra) -> tuple:
+    """A captured graph's line and checks; returns (the GEMM kernel's
+    launches that ran through its wrapper, the warm-up's; {recorded,
+    replays}: the launches recorded in the graph and the replays that
+    re-ran them, which no counter sees)."""
+    from parsec_tpu_torch.ops import kernels
+    g = cg.graph
+    log(phase, routine=routine, tasks=tasks,
+        capture_seconds=f"{g.capture_seconds:.4f}",
+        warmup_gemm_launches=g.warmup_gemm_launches,
+        captured_gemm_launches=g.captured_gemm_launches, replays=g.replays,
+        run_seconds=",".join(f"{s:.4f}" for s, _ in runs),
+        replay_seconds=",".join(f"{ms / 1e3:.4f}" for _, ms in runs),
+        peak_mem_gb=f"{peak / 1e9:.3f}", **extra, residual=resid)
+    check(cg.nb_tasks == tasks, f"{phase} {routine}: {cg.nb_tasks} tasks "
+                                f"captured, expected {tasks}")
+    check(g.captured_gemm_launches > 0,
+          f"{phase} {routine}: the graph holds no GEMM kernel launch")
+    check(g.replays == len(runs), f"{phase} {routine}: {g.replays} replays "
+                                  f"for {len(runs)} runs")
+    check(g.warmup_gemm_launches > 0,
+          f"{phase} {routine}: the warm-up launched the GEMM kernel no time")
+    check(kernels.matmul_launches
+          == g.warmup_gemm_launches + g.captured_gemm_launches,
+          f"{phase} {routine}: the counter read {kernels.matmul_launches}, "
+          f"not the warm-up's and the record's launches")
+    check(resid < RESID_TOL, f"{phase} {routine}: residual {resid} >= "
+                             f"{RESID_TOL}")
+    return g.warmup_gemm_launches, dict(recorded=g.captured_gemm_launches,
+                                        replays=g.replays)
+
+
+def run_graph(cg, device=None):
+    """One run() of a captured graph: (wall seconds to synchronize,
+    device seconds of its replay in ms)."""
+    t0 = time.perf_counter()
+    if device is None:
+        cg.run()
+    else:
+        cg.run(device=device)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, cg.graph.replay_ms
+
+
+def free_graph(cg) -> None:
+    import gc
+    cg.graph.reset()
+    del cg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_capture(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
+                  nb: int = NB_MAIN) -> tuple:
+    """dpotrf, dposv (capture_sequence of its three pools), pdgemm
+    (op(A) = A), dgetrf_nopiv and dgeqrf each recorded as ONE CUDA graph
+    and replayed; dpotrf run twice, on phase main's input (bit-identical
+    factor) and on another seeded matrix.  Returns, by routine, the GEMM
+    kernel's launches that ran through its wrapper (the warm-up's), and
+    each graph's recorded launches and replays (graph_report)."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.dsl import ptg
+    from parsec_tpu_torch.ops.dtrsm import (dtrsm_lower_taskpool,
+                                            dtrsm_lower_trans_taskpool)
+    launches, graphs = {}, {}
+    nt = n // nb
+    # dpotrf: run() on cuda:0, results stored back as host copies
+    M = synth_spd(n, seed)
+    A = tiled(M, nb)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    cg = ptg.capture(ptt.ops.dpotrf_taskpool(A))
+    cg.record()
+    runs = [run_graph(cg)]
+    L0 = np.tril(A.to_numpy())
+    same = bool(np.array_equal(L0, L_ptg))
+    M2 = synth_spd(n, seed + 20)
+    A.from_numpy(M2)
+    runs.append(run_graph(cg))
+    L2 = np.tril(A.to_numpy())
+    launches["dpotrf"], graphs["dpotrf"] = graph_report(
+        "capture", "dpotrf", cg, runs,
+                 max(residual(L0, M, seed), residual(L2, M2, seed)),
+                 nt * (nt + 1) * (nt + 2) // 6,
+                 torch.cuda.max_memory_allocated(), identical_to_ptg=same)
+    check(same, "capture dpotrf: the captured factor differs from the "
+                "interpreted one")
+    free_graph(cg)
+    del A, M2, L0, L2
+    # dposv: one graph over the three pools
+    Bm = uniform(n, NRHS, seed=seed + 10)
+    A, B = tiled(M, nb), tiled(Bm, nb)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    cg = ptg.capture_sequence([ptt.ops.dpotrf_taskpool(A),
+                               dtrsm_lower_taskpool(A, B),
+                               dtrsm_lower_trans_taskpool(A, B)])
+    cg.record()
+    runs = [run_graph(cg)]
+    mt, rt = A.mt, B.nt
+    # each substitution: its TRSM and GEMM tasks, and a host task reading
+    # each tile of the factor
+    solve = mt * rt + mt * (mt - 1) // 2 * rt + mt * (mt + 1) // 2
+    launches["dposv"], graphs["dposv"] = graph_report(
+        "capture", "dposv", cg, runs,
+                 solve_residual(M, B.to_numpy(), Bm, seed),
+                 mt * (mt + 1) * (mt + 2) // 6 + 2 * solve,
+                 torch.cuda.max_memory_allocated())
+    free_graph(cg)
+    del A, B, Bm, M
+    # pdgemm: run(device=<the context's device module>), results kept as
+    # device copies and read back through the module
+    Am, Bm, Cm = (uniform(n, n, seed=seed + 13 + i) for i in range(3))
+    A, B, C = tiled(Am, nb), tiled(Bm, nb), tiled(Cm, nb)
+    ctx = ptt.init(nb_cores=4)
+    try:
+        dev = ctx.device_by_type("cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        cg = ptg.capture(ptt.ops.pdgemm_taskpool(A, B, C, alpha=1.5,
+                                                 beta=0.5))
+        cg.record(device=dev)
+        runs = [run_graph(cg, device=dev)]
+        X = vectors(n, seed)
+        ref = 1.5 * matvec(Am, matvec(Bm, X)) + 0.5 * matvec(Cm, X)
+        on_device = sum(C.data_of(m, j).newest_copy().device_id
+                        == dev.device_index for (m, j) in C.tiles())
+        Cout = C.to_numpy()
+        # the GEMM tasks, and a host task reading each tile of A and B
+        launches["pdgemm"], graphs["pdgemm"] = graph_report(
+            "capture", "pdgemm_nn", cg, runs,
+                     rel_inf(matvec(Cout, X) - ref, ref), nt ** 3 + 2 * nt * nt,
+                     torch.cuda.max_memory_allocated(),
+                     tiles_left_on_device=on_device)
+        check(on_device == nt * nt, f"capture pdgemm: {on_device} of "
+                                    f"{nt * nt} C tiles left on the card")
+        free_graph(cg)
+    finally:
+        ctx.fini()
+    # the LU and QR graphs: lu_factor_ex(pivot=False) and linalg.qr
+    # record too
+    lu = {"dgetrf_nopiv": (synth_dominant(n, seed + 11),
+                           ptt.ops.dgetrf_nopiv_taskpool),
+          "dgeqrf": (uniform(n, n, seed=seed + 12), ptt.ops.dgeqrf_taskpool)}
+    for routine, (M, taskpool) in lu.items():
+        A = tiled(M, nb)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        cg = ptg.capture(taskpool(A))
+        cg.record()
+        runs = [run_graph(cg)]
+        out = A.to_numpy()
+        if routine == "dgetrf_nopiv":
+            resid = lu_residual(out, M, seed)[0]
+        else:
+            X = vectors(n, seed)
+            ref = matvec(M, matvec(M, X), trans=True)
+            got = matvec(out, matvec(out, X, part="upper"), trans=True,
+                         part="upper")
+            resid = rel_inf(got - ref, ref)
+        launches[routine], graphs[routine] = graph_report(
+            "capture", routine, cg, runs, resid, lu_counts(nt)[0],
+            torch.cuda.max_memory_allocated())
+        free_graph(cg)
+        del A, out
+    return launches, graphs
+
+
+def phase_dtd_capture(seed: int, L_dtd: np.ndarray, n: int = N_MAIN,
+                      nb: int = NB_MAIN) -> tuple:
+    """The dtd phase's Cholesky recorded through dtd_capture() and
+    replayed once; bit-identical to phase dtd's factor.  Returns what
+    graph_report does."""
+    from parsec_tpu_torch import ops
+    from parsec_tpu_torch.dsl.dtd import INOUT, INPUT
+    from parsec_tpu_torch.dsl.dtd.capture import dtd_capture
+    M = synth_spd(n, seed)
+    nt = n // nb
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    g = dtd_capture()
+    T = {(m, k): g.tile_of_array(M[m * nb:(m + 1) * nb, k * nb:(k + 1) * nb],
+                                 key=(m, k))
+         for m in range(nt) for k in range(m + 1)}
+    for k in range(nt):
+        g.insert_task(ops.potrf, (T[k, k], INOUT))
+        for m in range(k + 1, nt):
+            g.insert_task(ops.trsm_panel, (T[k, k], INPUT), (T[m, k], INOUT))
+        for m in range(k + 1, nt):
+            g.insert_task(ops.syrk_ln, (T[m, m], INOUT), (T[m, k], INPUT))
+            for j in range(k + 1, m):
+                g.insert_task(ops.gemm_nt, (T[m, j], INOUT),
+                              (T[m, k], INPUT), (T[j, k], INPUT))
+    g.record()
+    runs = [run_graph(g)]
+    L = np.zeros((n, n), np.float32)
+    for (m, k), t in T.items():
+        L[m * nb:(m + 1) * nb, k * nb:(k + 1) * nb] = g.value(t).cpu().numpy()
+    same = bool(np.array_equal(L, L_dtd))
+    counts = graph_report("dtd_capture", "dtd_potrf", g, runs,
+                          residual(L, M, seed), nt * (nt + 1) * (nt + 2) // 6,
+                          torch.cuda.max_memory_allocated(),
+                          identical_to_dtd=same)
+    check(same, "dtd_capture: the captured factor differs from phase dtd's")
+    free_graph(g)
+    return counts
 
 
 def gpt2_small(attention: str):
@@ -1053,17 +1431,32 @@ def profile_report(label: str, prof, seconds: float, top: int = 12) -> None:
 
 def phase_profile(dev: torch.device, seed: int, n: int = N_MAIN,
                   nb: int = NB_MAIN) -> None:
-    """The dpotrf, dgeqrf and pdgemm (op(A) = A and A^T) paths, the
-    pivoted dgetrf (one host sync a panel) and one ring forward (after a
-    warm-up) once more under torch.profiler."""
+    """The dpotrf, DTD Cholesky, dgeqrf and pdgemm (op(A) = A and A^T)
+    paths, one replay of the captured dpotrf, the pivoted dgetrf (one
+    host sync a panel) and one ring forward (after a warm-up) once more
+    under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     import parsec_tpu_torch as ptt
     from parsec_tpu_torch import models
+    from parsec_tpu_torch.dsl import ptg
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     prof = profile(activities=acts)
     _L, _st, seconds = run_dpotrf(synth_spd(n, seed), nb,
                                   around=lambda: prof)
     profile_report("dpotrf", prof, seconds)
+    A = tiled(synth_spd(n, seed), nb)
+    prof = profile(activities=acts)
+    _st, seconds, _ = drive(lambda ctx: dtd_cholesky(ctx, A), [],
+                            around=lambda: prof)
+    profile_report("dtd", prof, seconds)
+    # one replay of the captured dpotrf, its host copies in and out
+    A = tiled(synth_spd(n, seed), nb)
+    cg = ptg.capture(ptt.ops.dpotrf_taskpool(A))
+    cg.record()
+    with profile(activities=acts) as prof:
+        seconds, _ms = run_graph(cg)
+    profile_report("capture_dpotrf", prof, seconds)
+    free_graph(cg)
     A = tiled(uniform(n, n, seed=seed + 12), nb)
     prof = profile(activities=acts)
     _st, seconds, _ = drive(lambda ctx: ptt.ops.dgeqrf(ctx, A), [],
@@ -1173,7 +1566,10 @@ def main(argv=None) -> int:
     attn_err = phase_attention(dev, args.seed)
     gemm_err = max(gemm_err, phase_bodies(dev, args.seed))
     # each path run with the counters set to 0 just before it
-    gemm_launches = {"dpotrf": phase_main(args.seed)}
+    gemm_launches = {}
+    gemm_launches["dpotrf"], L_ptg = phase_main(args.seed)
+    gemm_launches["dtd"], L_dtd = phase_dtd(args.seed, L_ptg)
+    gemm_launches["dtd_gemm"] = phase_dtd_gemm(args.seed)
     gemm_launches["dposv"], factor = phase_dposv(args.seed)
     gemm_launches["dgetrf_nopiv"] = phase_getrf_nopiv(args.seed)
     gemm_launches["dgeqrf"] = phase_geqrf(args.seed)
@@ -1181,6 +1577,18 @@ def main(argv=None) -> int:
     phase_dense(dev, args.seed, factor)
     del factor
     phase_bitexact(args.seed)
+    # a captured path's entry counts the warm-up's launches, which ran
+    # through the wrapper; its graph's recorded launches and replays are
+    # kept apart, under graph_launches
+    graph_launches = {}
+    launches, graphs = phase_capture(args.seed, L_ptg)
+    for routine in launches:
+        gemm_launches[f"capture_{routine}"] = launches[routine]
+        graph_launches[f"capture_{routine}"] = graphs[routine]
+    del L_ptg
+    gemm_launches["dtd_capture"], graph_launches["dtd_capture"] = \
+        phase_dtd_capture(args.seed, L_dtd)
+    del L_dtd
     attn_launches = phase_forward(dev, args.seed)
     recs = phase_timing(dev, args.seed)
     if args.profile:
@@ -1190,7 +1598,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         dict(name="gemm_f32", route="cuda", source=src + "matmul.cu",
              replaces=tpu + "395", launches=gemm_launches,
-             max_abs_err=gemm_err, **recs["gemm"]),
+             graph_launches=graph_launches, max_abs_err=gemm_err,
+             **recs["gemm"]),
         dict(name="flash_fwd_f32", route="cuda",
              source=src + "flash_attention.cu", replaces=tpu + "68",
              launches=attn_launches["flash"], max_abs_err=attn_err["flash"],

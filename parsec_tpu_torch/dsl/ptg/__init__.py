@@ -16,6 +16,8 @@ import os
 from typing import Optional
 
 from .ast import JDFFile
+from .capture import (CaptureError, CapturedSequence, CapturedTaskpool,
+                      capture, capture_sequence)
 from .parser import JDFParseError, parse_jdf
 from .runtime import PTGTaskClass, PTGTaskpool
 
@@ -46,4 +48,5 @@ def compile_jdf_file(path: str) -> JDFFactory:
 
 
 __all__ = ["compile_jdf", "compile_jdf_file", "JDFFactory", "JDFParseError",
-           "PTGTaskpool", "PTGTaskClass"]
+           "PTGTaskpool", "PTGTaskClass", "CaptureError", "CapturedSequence",
+           "CapturedTaskpool", "capture", "capture_sequence"]

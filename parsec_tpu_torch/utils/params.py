@@ -289,6 +289,8 @@ def register_core_params() -> None:
                       "capture the executed DAG; path prefix for DOT files "
                       "(ref: --parsec_dot)")
     params.reg_string("termdet", "local", "termination detection module")
+    params.reg_int("dtd_window_size", 8000, "DTD sliding window size")
+    params.reg_int("dtd_threshold_size", 4000, "DTD backpressure resume threshold")
     # the accelerator device module (devices/cuda.py)
     params.reg_bool("device_cuda_enabled", True,
                     "attach the CUDA device module as the accelerator")

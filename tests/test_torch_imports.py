@@ -136,6 +136,89 @@ def test_cpu_ops_modules_load_no_jax(module):
     assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
 
 
+#: one CPU drive of each module of the DTD front end, its composition and
+#: whole-graph capture
+FRONT_END_DRIVES = {
+    "dsl.dtd": """
+        tp = ptt.dtd.taskpool_new(); ctx.add_taskpool(tp)
+        t = tp.tile_of_array(np.ones((4, 4), np.float32))
+        body = lambda es, task: None
+        tp.insert_task(body, (t, ptt.dtd.INOUT))
+        tp.add_chore(body, "cuda", lambda x: x * 2)
+        tp.insert_task(body, (t, ptt.dtd.INOUT))
+        tp.data_flush_all(); tp.wait()
+        assert ctx.device_by_type("cuda").stats["tasks"] >= 1
+    """,
+    "dsl.dtd.capture": """
+        from parsec_tpu_torch.dsl.dtd.capture import dtd_capture
+        g = dtd_capture(device="cpu")
+        t = g.tile_of_array(np.ones((4, 4), np.float32))
+        g.insert_task(ptt.ops.gemm_nn, (t, ptt.dtd.INOUT), (t, ptt.dtd.INPUT), (t, ptt.dtd.INPUT))
+        g.run()
+        assert float(g.value(t)[0, 0]) == 5.0
+    """,
+    "dsl.ptg.capture": """
+        A = TwoDimBlockCyclic(64, 64, 32, 32).from_numpy(ptt.ops.make_spd(64))
+        ptt.ptg.capture(ptt.ops.dpotrf_taskpool(A)).run(device="cpu")
+        assert np.isfinite(A.to_numpy()).all()
+    """,
+    "dsl.ptg.to_dtd": """
+        from parsec_tpu_torch.dsl.ptg.to_dtd import ptg_to_dtd
+        A = TwoDimBlockCyclic(64, 64, 32, 32).from_numpy(ptt.ops.make_spd(64))
+        ptg_to_dtd(ptt.ops.dpotrf_taskpool(A), ctx)
+        assert np.isfinite(A.to_numpy()).all()
+    """,
+    "runtime.compound": """
+        a, b = ptt.dtd.taskpool_new(), ptt.dtd.taskpool_new()
+        log = []
+        a.insert_task(lambda es, t: log.append("a"))
+        b.insert_task(lambda es, t: log.append("b"))
+        ctx.add_taskpool(ptt.compose(a, b)); ctx.wait()
+        assert log == ["a", "b"]
+    """,
+    "runtime.recursive": """
+        tp = ptt.dtd.taskpool_new(); ctx.add_taskpool(tp)
+        log = []
+        def parent(es, task):
+            sub = ptt.dtd.taskpool_new()
+            sub.insert_task(lambda e, t: log.append("child"))
+            return ptt.recursive_call(es, task, sub)
+        tp.insert_task(parent); tp.wait()
+        assert log == ["child"]
+    """,
+    "collections.subtile": """
+        from parsec_tpu_torch.collections import SubtileView
+        arr = np.zeros((8, 8), np.float32)
+        SubtileView(arr, 4, 4).data_of(1, 1).get_copy(0).payload[:] = 1
+        assert arr.sum() == 16
+    """,
+}
+
+
+@pytest.mark.parametrize("module", sorted(FRONT_END_DRIVES))
+def test_cpu_front_end_modules_load_no_jax(module):
+    """A fresh interpreter drives one module of the DTD front end, pool
+    composition or graph capture on the CPU; no JAX module is loaded."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import parsec_tpu_torch as ptt
+        from parsec_tpu_torch.collections import TwoDimBlockCyclic
+        ctx = ptt.init(nb_cores=2, device="cpu")
+    """) + textwrap.dedent(FRONT_END_DRIVES[module]) + textwrap.dedent("""
+        ctx.fini()
+        assert "parsec_tpu_torch.%s" in sys.modules
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "parsec_tpu")))
+    """ % module)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PARSEC_MCA_")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
+
+
 def test_init_without_card_raises(monkeypatch):
     """No CUDA and no device="cpu": init raises instead of falling back;
     the device_cuda_platform knob selects the CPU explicitly."""
