@@ -64,6 +64,26 @@ Phases, each reporting on its own lines:
             residual;
 6. bitexact batched and per-task dispatch give identical factors
             (N = 4096, NB = 512), dpotrf and dgetrf_nopiv;
+6a. static  dpotrf at N = 16384, NB = 1024 with ptg_dep_management=static
+            and ptg_dispatch=classic through init(): the lowered DAG and
+            the native engine release every task; then
+    turbo   the turbo native loop (ptg_dispatch=auto on a static pool):
+            dpotrf at NB = 1024 (816 tasks) and NB = 512 (5984, the JAX
+            package's runtime@NB=512), dgetrf_nopiv and dgeqrf at 1024,
+            each GEMM-kernel task one launch, with
+            turbo_dispatch_us_per_task (the loop's host seconds over the
+            tasks); then
+    wave    wave(tp).run() on cuda:0: dpotrf at NB = 1024 and 512 (the
+            JAX package's wave@NB=1024/512), dgetrf_nopiv, pdgemm with
+            op(A) = A and dgeqrf, with the runner's stats (waves, body
+            calls) and the pools' stage-in bytes; dpotrf at 1024 needs
+            fewer calls than a third of its tasks.  Each line has the
+            wall (from the entry call to torch.cuda.synchronize()),
+            GFLOP/s, the tasks run on cuda:0, the GEMM kernel's launches
+            and mean batch, the residual under 1e-4 and the result's
+            bit-identity to the interpreted path's on the same input
+            (main's, dgetrf_nopiv's, dgeqrf's, pdgemm_nn's, and one
+            interpreted dpotrf at NB = 512 run for it);
 6b. capture dpotrf, dposv (capture_sequence of its three pools), pdgemm
             (op(A) = A, run through the context's device module, C left
             on the card), dgetrf_nopiv and dgeqrf each recorded as ONE
@@ -94,6 +114,7 @@ Phases, each reporting on its own lines:
             beside its bound and its plain version;
 9. profile  with --profile only: the dpotrf, DTD Cholesky, dgeqrf and
             pdgemm (both forms) paths, one replay of the captured dpotrf,
+            the wave dpotrf at NB = 1024 (stage-in, waves and write-back),
             the pivoted dgetrf and one forward once more under
             torch.profiler, with device time by kernel (the A^T copies
             are the direct-copy kernel) and the device's busy share of
@@ -673,7 +694,8 @@ def lu_counts(nt: int):
     return nt + nt * (nt - 1) + updates, updates
 
 
-def phase_getrf_nopiv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
+def phase_getrf_nopiv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN):
+    """Returns the kernel's launches and the packed LU factor."""
     import parsec_tpu_torch as ptt
     from parsec_tpu_torch.ops import kernels
     M = synth_dominant(n, seed + 11)
@@ -684,12 +706,13 @@ def phase_getrf_nopiv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
     tasks, gemm_tasks = lu_counts(A.nt)
     report("dgetrf_nopiv", st, seconds, 2.0 * n ** 3 / 3, tasks, gemm_tasks,
            launches, lu_residual(LU, M, seed)[0], RESID_TOL, n=n, nb=nb)
-    return launches
+    return launches, LU
 
 
-def phase_geqrf(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
+def phase_geqrf(seed: int, n: int = N_MAIN, nb: int = NB_MAIN):
     """Tile QR; its Q and Q2 scratch flows are staged in from the host
-    (the scratch_bytes of the line)."""
+    (the scratch_bytes of the line).  Returns the kernel's launches and
+    the factored matrix."""
     import parsec_tpu_torch as ptt
     from parsec_tpu_torch.ops import kernels
     M = uniform(n, n, seed=seed + 12)
@@ -707,20 +730,20 @@ def phase_geqrf(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
            RESID_TOL, n=n, nb=nb,
            scratch_bytes=4 * (nt * nb * nb + nt * (nt - 1) // 2 * 4 * nb * nb),
            below_diagonal_max=float(np.abs(np.tril(out, -1)).max()))
-    return launches
+    return launches, out
 
 
 def phase_pdgemm(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
-                 alpha: float = 1.5, beta: float = 0.5) -> int:
+                 alpha: float = 1.5, beta: float = 0.5):
     """C <- alpha op(A) B + beta C, once with op(A) = A and once with A^T;
-    returns the kernel's launches over both."""
+    returns the kernel's launches over both and op(A) = A's result."""
     import parsec_tpu_torch as ptt
     from parsec_tpu_torch.ops import kernels
     Am, Bm, Cm = (uniform(n, n, seed=seed + 13 + i) for i in range(3))
     X = vectors(n, seed)
     cx = beta * matvec(Cm, X)
     bx = matvec(Bm, X)
-    total = 0
+    total, results = 0, {}
     for transa in ("n", "t"):
         A, B, C = tiled(Am, nb), tiled(Bm, nb), tiled(Cm, nb)
         reset_counts()
@@ -733,7 +756,8 @@ def phase_pdgemm(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
         report(f"pdgemm_{transa}n", st, seconds, 2.0 * n ** 3, C.nt ** 3,
                C.nt ** 3, launches, rel_inf(matvec(Cout, X) - ref, ref),
                RESID_TOL, n=n, nb=nb, alpha=alpha, beta=beta)
-    return total
+        results[transa] = Cout
+    return total, results["n"]
 
 
 def phase_dense(dev: torch.device, seed: int, L: np.ndarray,
@@ -812,6 +836,246 @@ def phase_bitexact(seed: int, n: int = N_BITEXACT, nb: int = NB_BITEXACT,
               f"{name}: batches {out[1][1]} / {out[16][1]}")
         check(same, f"{name}: batched and per-task factors differ")
 
+
+# ---------------------------------------------------------------------- #
+# the static PTG engines: classic static, turbo, wave                    #
+# ---------------------------------------------------------------------- #
+def chol_tasks(nt: int):
+    """(tasks, GEMM-kernel tasks: SYRK and GEMM) of the tile Cholesky."""
+    return (nt * (nt + 1) * (nt + 2) // 6,
+            nt * (nt - 1) * (nt - 2) // 6 + nt * (nt - 1) // 2)
+
+
+def engine_case(routine: str, seed: int, n: int, nb: int, inputs: dict):
+    """One routine's input (kept in ``inputs`` across the engine phases),
+    taskpool maker, flop count, task counts and residual, as the
+    interpreted phases use them: returns (make() -> (taskpool, result
+    collection), flops, tasks, GEMM-kernel tasks, resid(out) -> float)."""
+    import parsec_tpu_torch as ptt
+    nt = n // nb
+    if routine not in inputs:
+        inputs[routine] = {
+            "dpotrf": lambda: (synth_spd(n, seed),),
+            "dgetrf_nopiv": lambda: (synth_dominant(n, seed + 11),),
+            "dgeqrf": lambda: (uniform(n, n, seed=seed + 12),),
+            "pdgemm": lambda: tuple(uniform(n, n, seed=seed + 13 + i)
+                                    for i in range(3))}[routine]()
+    mats = inputs[routine]
+    M = mats[0]
+    if routine == "dpotrf":
+        return (lambda: (lambda A: (ptt.ops.dpotrf_taskpool(A), A))(
+            tiled(M, nb)), n ** 3 / 3, *chol_tasks(nt),
+            lambda out: residual(np.tril(out), M, seed))
+    if routine == "dgetrf_nopiv":
+        tasks, updates = lu_counts(nt)
+        return (lambda: (lambda A: (ptt.ops.dgetrf_nopiv_taskpool(A), A))(
+            tiled(M, nb)), 2.0 * n ** 3 / 3, tasks, updates,
+            lambda out: lu_residual(out, M, seed)[0])
+    if routine == "dgeqrf":
+        tasks, tsmqr = lu_counts(nt)
+
+        def resid(out):
+            X = vectors(n, seed)
+            ref = matvec(M, matvec(M, X), trans=True)
+            got = matvec(out, matvec(out, X, part="upper"), trans=True,
+                         part="upper")
+            return rel_inf(got - ref, ref)
+        return (lambda: (lambda A: (ptt.ops.dgeqrf_taskpool(A), A))(
+            tiled(M, nb)), 4.0 * n ** 3 / 3, tasks,
+            nt * (nt - 1) // 2 + tsmqr, resid)
+    Am, Bm, Cm = mats
+
+    def make():
+        C = tiled(Cm, nb)
+        return ptt.ops.pdgemm_taskpool(tiled(Am, nb), tiled(Bm, nb), C,
+                                       alpha=1.5, beta=0.5), C
+
+    def resid(out):
+        X = vectors(n, seed)
+        ref = 1.5 * matvec(Am, matvec(Bm, X)) + 0.5 * matvec(Cm, X)
+        return rel_inf(matvec(out, X) - ref, ref)
+    return make, 2.0 * n ** 3, nt ** 3 + 2 * nt * nt, nt ** 3, resid
+
+
+def held_to_ref(routine: str, key, F: np.ndarray, refs: dict, resid):
+    """(residual, bit-identical) of an engine's result against the
+    interpreted one (``refs[key]``, its residual computed once and kept
+    beside it): a bit-identical array has that very residual."""
+    ref = refs[key]
+    if not isinstance(ref, tuple):
+        ref = refs[key] = (ref, resid(ref))
+    if routine == "dpotrf":
+        F = np.tril(F)
+    same = bool(np.array_equal(F, np.tril(ref[0]) if routine == "dpotrf"
+                               else ref[0]))
+    return (ref[1] if same else resid(F)), same
+
+
+def engine_report(phase: str, routine: str, seconds: float, flops: float,
+                  tasks: int, gemm_tasks: int, launches: int, resid: float,
+                  identical: bool, device: str, ran: int, **extra) -> None:
+    """One engine path's line, then its checks: every task run on
+    cuda:0, the GEMM kernel launched, the residual under its bound, the
+    result bit-identical to the interpreted path's."""
+    log(phase, routine=routine, device=device, tasks=ran,
+        expected_tasks=tasks, seconds=f"{seconds:.4f}",
+        gflops=f"{flops / seconds / 1e9:.2f}", matmul_launches=launches,
+        gemm_kernel_tasks=gemm_tasks,
+        mean_z=f"{gemm_tasks / max(launches, 1):.3f}", **extra,
+        residual=resid, identical_to_interpreted=identical)
+    check(device == "cuda:0", f"{phase} {routine}: ran on {device}")
+    check(ran == tasks, f"{phase} {routine}: {ran} of {tasks} tasks ran")
+    check(launches > 0, f"{phase} {routine}: the GEMM kernel was launched "
+          f"no time")
+    check(resid < RESID_TOL, f"{phase} {routine}: residual {resid} >= "
+          f"{RESID_TOL}")
+    check(identical, f"{phase} {routine}: the result differs from the "
+          f"interpreted one")
+
+
+def run_pool(make, dispatch: str = None):
+    """One taskpool through init() and the context (the interpreted hash
+    mode, or with ``dispatch`` ptg_dep_management=static and that
+    ptg_dispatch), its result collection pulled through the device
+    module; returns (taskpool, stats, seconds, result)."""
+    from parsec_tpu_torch.utils.params import params
+    tp, out = make()
+
+    def submit(ctx):
+        ctx.add_taskpool(tp)
+        ctx.wait()
+
+    with contextlib.ExitStack() as knobs:
+        if dispatch is not None:
+            knobs.enter_context(params.cmdline_override(
+                "ptg_dep_management", "static"))
+            knobs.enter_context(params.cmdline_override("ptg_dispatch",
+                                                        dispatch))
+        st, seconds, (F,) = drive(submit, [out])
+    return tp, st, seconds, F
+
+
+def phase_static(seed: int, refs: dict, inputs: dict, n: int = N_MAIN,
+                 nb: int = NB_MAIN) -> int:
+    """dpotrf with static dependency management on the classic per-task
+    dispatch: the lowered DAG and the native engine release every task;
+    the factor bit-identical to phase main's."""
+    from parsec_tpu_torch.ops import kernels
+    make, flops, tasks, gemm_tasks, resid = engine_case(
+        "dpotrf", seed, n, nb, inputs)
+    reset_counts()
+    tp, st, seconds, F = run_pool(make, "classic")
+    launches = kernels.matmul_launches
+    check(tp._engine is not None and tp._turbo is None,
+          "static: the classic static engine did not engage")
+    res, same = held_to_ref("dpotrf", ("dpotrf", nb), F, refs, resid)
+    engine_report("static", "dpotrf", seconds, flops, tasks, gemm_tasks,
+                  launches, res, same, st["device"], st["executed_tasks"],
+                  n=n, nb=nb, device_tasks=st["tasks"],
+                  batches=st["batches"], stage_in_bytes=st["stage_in_bytes"],
+                  pull_seconds=f"{st['pull_seconds']:.4f}")
+    check(st["tasks"] == tasks, f"static: {st['tasks']} device tasks")
+    return launches
+
+
+def phase_turbo(seed: int, refs: dict, inputs: dict, n: int = N_MAIN,
+                nb: int = NB_MAIN) -> dict:
+    """The turbo native loop (ptg_dispatch=auto on a static pool): dpotrf
+    at nb and nb / 2 (the JAX package's runtime@NB=512 bench mode),
+    dgetrf_nopiv and dgeqrf at nb; each GEMM-kernel task one launch.
+    ``refs`` holds the interpreted results by (routine, nb); one missing
+    is run here.  Returns the GEMM kernel's launches by case."""
+    from parsec_tpu_torch.ops import kernels
+    out = {}
+    for routine, tnb in (("dpotrf", nb), ("dpotrf", nb // 2),
+                         ("dgetrf_nopiv", nb), ("dgeqrf", nb)):
+        make, flops, tasks, gemm_tasks, resid = engine_case(
+            routine, seed, n, tnb, inputs)
+        if (routine, tnb) not in refs:    # the interpreted path's result
+            _tp, st, seconds, refs[(routine, tnb)] = run_pool(make)
+            log("turbo", reference=f"interpreted {routine}", nb=tnb,
+                seconds=f"{seconds:.4f}", device=st["device"],
+                tasks=st["tasks"])
+        reset_counts()
+        tp, st, seconds, F = run_pool(make, "auto")
+        launches = kernels.matmul_launches
+        check(tp._turbo is not None, f"turbo {routine}: the native loop "
+              f"did not engage")
+        check(launches == gemm_tasks, f"turbo {routine}: {launches} GEMM "
+              f"launches for {gemm_tasks} GEMM-kernel tasks")
+        ts = tp._turbo.stats
+        key = routine if tnb == nb else f"{routine}_nb{tnb}"
+        res, same = held_to_ref(routine, (routine, tnb), F, refs, resid)
+        engine_report(
+            "turbo", key, seconds, flops, tasks, gemm_tasks, launches, res,
+            same, st["device"], st["executed_tasks"], n=n, nb=tnb,
+            device_tasks=st["tasks"], kernel_calls=ts["kernel_calls"],
+            loop_seconds=ts["dispatch_secs"],
+            turbo_dispatch_us_per_task=f"{ts['dispatch_secs'] / tasks * 1e6:.2f}",
+            stage_in_bytes=tp._turbo.stage_in_bytes,
+            pull_seconds=f"{st['pull_seconds']:.4f}")
+        out[key] = launches
+    return out
+
+
+def phase_wave(seed: int, refs: dict, inputs: dict, n: int = N_MAIN,
+               nb: int = NB_MAIN) -> dict:
+    """wave(tp) on cuda:0 and the three steps of its run(), timed from
+    the wave() call with a synchronize after each step (construction
+    with the slot tables, build_pools' stage-in, execute's waves and
+    their device work, scatter_pools' write-back): dpotrf at nb and
+    nb / 2 (the JAX package's wave@NB=1024/512 bench modes),
+    dgetrf_nopiv, pdgemm with op(A) = A and dgeqrf; each result
+    bit-identical to the interpreted path's (``refs``); dpotrf at nb
+    needs fewer body calls than a third of its tasks.  Returns the GEMM
+    kernel's launches by case."""
+    from parsec_tpu_torch.dsl import ptg
+    from parsec_tpu_torch.ops import kernels
+    out = {}
+    for routine, tnb in (("dpotrf", nb), ("dpotrf", nb // 2),
+                         ("dgetrf_nopiv", nb), ("pdgemm", nb),
+                         ("dgeqrf", nb)):
+        make, flops, tasks, gemm_tasks, resid = engine_case(
+            routine, seed, n, tnb, inputs)
+        tp, A = make()
+        reset_counts()
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        w = ptg.wave(tp)
+        marks.append(time.perf_counter())
+        pools = w.build_pools()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        pools = w.execute(pools)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        w.scatter_pools(pools)
+        del pools
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        seconds = marks[-1] - marks[0]
+        steps = dict(zip(("construct_seconds", "stage_in_seconds",
+                          "execute_seconds", "write_back_seconds"),
+                         (f"{b - a:.4f}" for a, b in zip(marks, marks[1:]))))
+        launches = kernels.matmul_launches
+        ws = w.stats
+        key = routine if tnb == nb else f"{routine}_nb{tnb}"
+        res, same = held_to_ref(routine, (routine, tnb), A.to_numpy(),
+                                refs, resid)
+        engine_report("wave", key, seconds, flops, tasks, gemm_tasks,
+                      launches, res, same, str(w.device), ws["tasks"],
+                      n=n, nb=tnb, waves=ws["waves"],
+                      kernel_calls=ws["kernel_calls"],
+                      dispatch_seconds=ws["dispatch_secs"],
+                      compiled_kernels=ws["compiled_kernels"],
+                      stage_in_bytes=w.stage_in_bytes, **steps)
+        if key == "dpotrf":
+            check(ws["kernel_calls"] < tasks / 3,
+                  f"wave dpotrf: {ws['kernel_calls']} calls for {tasks} "
+                  f"tasks")
+        out[key] = launches
+        del w, tp, A
+    return out
 
 # ---------------------------------------------------------------------- #
 # the DTD front end and whole-graph capture                              #
@@ -1457,6 +1721,17 @@ def phase_profile(dev: torch.device, seed: int, n: int = N_MAIN,
         seconds, _ms = run_graph(cg)
     profile_report("capture_dpotrf", prof, seconds)
     free_graph(cg)
+    # the wave engine: pools staged in once, batched calls, one pull
+    A = tiled(synth_spd(n, seed), nb)
+    w = ptg.wave(ptt.ops.dpotrf_taskpool(A))
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        w.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    profile_report("wave_dpotrf", prof, seconds)
+    del w
     A = tiled(uniform(n, n, seed=seed + 12), nb)
     prof = profile(activities=acts)
     _st, seconds, _ = drive(lambda ctx: ptt.ops.dgeqrf(ctx, A), [],
@@ -1549,9 +1824,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also run the dpotrf, dgeqrf, pdgemm and dgetrf "
-                         "paths and one forward under torch.profiler and "
-                         "print device time by kernel")
+                    help="also run the dpotrf, wave dpotrf, dgeqrf, pdgemm "
+                         "and dgetrf paths and one forward under "
+                         "torch.profiler and print device time by kernel")
     args = ap.parse_args(argv)
     # the package must come from this checkout; importing it first means a
     # directory holding only this script fails before any result
@@ -1571,12 +1846,25 @@ def main(argv=None) -> int:
     gemm_launches["dtd"], L_dtd = phase_dtd(args.seed, L_ptg)
     gemm_launches["dtd_gemm"] = phase_dtd_gemm(args.seed)
     gemm_launches["dposv"], factor = phase_dposv(args.seed)
-    gemm_launches["dgetrf_nopiv"] = phase_getrf_nopiv(args.seed)
-    gemm_launches["dgeqrf"] = phase_geqrf(args.seed)
-    gemm_launches["pdgemm"] = phase_pdgemm(args.seed)
+    gemm_launches["dgetrf_nopiv"], LU = phase_getrf_nopiv(args.seed)
+    gemm_launches["dgeqrf"], QR = phase_geqrf(args.seed)
+    gemm_launches["pdgemm"], C_nn = phase_pdgemm(args.seed)
     phase_dense(dev, args.seed, factor)
     del factor
     phase_bitexact(args.seed)
+    # the static engines, each factor held against the interpreted one
+    refs = {("dpotrf", NB_MAIN): L_ptg, ("dgetrf_nopiv", NB_MAIN): LU,
+            ("dgeqrf", NB_MAIN): QR, ("pdgemm", NB_MAIN): C_nn}
+    del LU, QR, C_nn
+    inputs = {}
+    t0 = time.perf_counter()
+    gemm_launches["static"] = phase_static(args.seed, refs, inputs)
+    for phase in (phase_turbo, phase_wave):
+        for key, n in phase(args.seed, refs, inputs).items():
+            gemm_launches[f"{phase.__name__[6:]}_{key}"] = n
+    log("engines", phases="static,turbo,wave",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    del refs, inputs
     # a captured path's entry counts the warm-up's launches, which ran
     # through the wrapper; its graph's recorded launches and replays are
     # kept apart, under graph_launches

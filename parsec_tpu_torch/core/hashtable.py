@@ -94,9 +94,14 @@ class HashTable:
 
 class HashTable64(HashTable):
     """Hash table restricted to 64-bit integer keys (the reference's
-    ``parsec_key_t`` is a 64-bit word, parsec_hash_table.h:93)."""
+    ``parsec_key_t`` is a 64-bit word, parsec_hash_table.h:93). Rebound to
+    the native C++ bucket-locked resizable table below."""
 
     def keys(self):
         return [k for k, _ in self.items()]
 
 
+PyHashTable64 = HashTable64
+from ..native import native as _native  # noqa: E402
+
+HashTable64 = _native.HashTable64    # type: ignore[misc,assignment]

@@ -6,8 +6,11 @@ dequeue); used by all local-queue schedulers (ref: parsec/hbbuffer.c:1-277).
 ``parsec_maxheap`` orders tasks by priority for heap-based stealing
 (ref: parsec/maxheap.c:1-384).
 
-Like the list containers (core/lists.py), this package carries the
-pure-Python versions only.
+Like the list containers (core/lists.py), both are implemented in C++
+(native/_native.cpp) and rebound here; the Python classes below stay
+importable (``PyHBBuffer``, ``PyMaxHeap``) as the plain versions for the
+native parity tests. The native HBBuffer reads ``item.priority``
+directly when ``prio_fn`` is omitted — the schedulers' fast path.
 """
 from __future__ import annotations
 
@@ -106,3 +109,9 @@ class MaxHeap:
         return len(self._h)
 
 
+PyHBBuffer, PyMaxHeap = HBBuffer, MaxHeap
+# rebind to the native C++ core (native/__init__.py raises if it fails)
+from ..native import native as _native  # noqa: E402
+
+HBBuffer = _native.HBBuffer          # type: ignore[misc,assignment]
+MaxHeap = _native.MaxHeap            # type: ignore[misc,assignment]

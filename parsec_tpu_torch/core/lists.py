@@ -4,9 +4,12 @@ Reference behavior: lock-free LIFO (128-bit CAS), FIFO, dequeue, and
 priority-ordered list used by every scheduler (ref: parsec/class/lifo.h,
 parsec/class/parsec_list.h; SURVEY.md §2.1 "Class system").
 
-This package carries the pure-Python containers only; the JAX package
-rebinds them to its native C++ core, which this package has not ported
-yet.
+The hot containers are implemented in C++ (``native/_native.cpp`` —
+Treiber-stack LIFO, spinlocked deque/FIFO, priority-ordered map) and
+rebound over the pure-Python versions below at import; the native core
+is built at first use and a failed build raises.  The Python classes stay
+importable (``PyLifo`` ...) as the plain versions the native parity
+tests drive beside the native ones.
 """
 from __future__ import annotations
 
@@ -163,3 +166,10 @@ class OrderedList:
 # keep the pure-Python implementations importable under stable names
 PyLifo, PyFifo, PyDequeue, PyOrderedList = Lifo, Fifo, Dequeue, OrderedList
 
+# rebind to the native C++ core (native/__init__.py raises if it fails)
+from ..native import native as _native  # noqa: E402
+
+Lifo = _native.Lifo                  # type: ignore[misc,assignment]
+Fifo = _native.Fifo                  # type: ignore[misc,assignment]
+Dequeue = _native.Dequeue            # type: ignore[misc,assignment]
+OrderedList = _native.OrderedList    # type: ignore[misc,assignment]

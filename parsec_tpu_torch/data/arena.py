@@ -91,7 +91,8 @@ class ZoneMalloc:
     (ref: parsec/utils/zone_malloc.c — the GPU heap sub-allocator).
 
     ``malloc(nbytes) -> offset`` (-1 when full, caller evicts), ``free``,
-    with first-fit + coalescing.
+    with first-fit + coalescing. Rebound to the native C++ implementation
+    below; this Python version keeps identical semantics.
     """
 
     def __init__(self, total: int, align: int = 512) -> None:
@@ -146,3 +147,7 @@ class ZoneMalloc:
             return max((s[1] for s in self._segs if s[2]), default=0)
 
 
+PyZoneMalloc = ZoneMalloc
+from ..native import native as _native  # noqa: E402
+
+ZoneMalloc = _native.ZoneMalloc      # type: ignore[misc,assignment]

@@ -58,6 +58,26 @@ def reshape_array(arr: Any, dst: Datatype, src: Optional[Datatype] = None) -> An
     return arr
 
 
+def reshape_batch(arr: Any, dst: Datatype) -> Any:
+    """``reshape_array`` over a leading batch dimension: each
+    ``arr[i]`` (a tile of ``dst.shape``) is cast and region-masked as
+    ``reshape_array(arr[i], dst)`` would, in one call (the wave and
+    turbo engines convert a stack of same-class tiles at once)."""
+    import torch
+    if tuple(arr.shape[1:]) != tuple(dst.shape):
+        raise ValueError(f"reshape_batch: tiles {tuple(arr.shape[1:])} "
+                         f"are not {tuple(dst.shape)}")
+    dt = getattr(torch, np.dtype(dst.dtype).name)
+    if arr.dtype != dt:
+        arr = arr.to(dt)
+    mask = dst.mask()
+    if mask is not None:
+        m = torch.as_tensor(mask, device=arr.device)
+        arr = torch.where(m, arr, torch.zeros((), dtype=arr.dtype,
+                                              device=arr.device))
+    return arr
+
+
 def _needs_reshape(copy: DataCopy, dst: Datatype) -> bool:
     src = copy.dtt
     if src is None:

@@ -18,8 +18,10 @@ from typing import Optional
 from .ast import JDFFile
 from .capture import (CaptureError, CapturedSequence, CapturedTaskpool,
                       capture, capture_sequence)
+from .lower import LoweredDAG, lower
 from .parser import JDFParseError, parse_jdf
 from .runtime import PTGTaskClass, PTGTaskpool
+from .wave import WaveError, WaveRunner, wave
 
 
 class JDFFactory:
@@ -49,4 +51,5 @@ def compile_jdf_file(path: str) -> JDFFactory:
 
 __all__ = ["compile_jdf", "compile_jdf_file", "JDFFactory", "JDFParseError",
            "PTGTaskpool", "PTGTaskClass", "CaptureError", "CapturedSequence",
-           "CapturedTaskpool", "capture", "capture_sequence"]
+           "CapturedTaskpool", "capture", "capture_sequence", "lower",
+           "LoweredDAG", "wave", "WaveRunner", "WaveError"]

@@ -15,9 +15,16 @@ runs under the CUDA device module — flow names are bound to device tensors
 (``torch`` is in scope) and the code's final assignments to written flow
 names become the staged-out results.
 
-This package tracks dependencies with the dynamic hash table only, on one
-rank: the JAX package's static/turbo engines, wave execution and stage
-compilation are not carried yet, and the knobs selecting them raise.
+Dependencies are tracked on one rank, by the dynamic hash table
+(``ptg_dep_management=hash``, the default) or by static lowering
+(``=static``, the reference's ``--dep-management=index-array``): the
+task space is lowered once into flat arrays (lower.py) and released by
+the native ``NativeDAG``.  A static pool runs either on the classic
+per-task path (``ptg_dispatch=classic``) or, when its data binding
+resolves statically and the context has a CUDA device module, on the
+turbo native loop (turbo.py; ``auto`` picks it when eligible, ``turbo``
+demands it).  Wave execution (wave.py) is a separate entry point; stage
+compilation is not carried.
 """
 from __future__ import annotations
 
@@ -372,7 +379,19 @@ class PTGTaskClass(TaskClass):
         per-rank batch handed to the comm engine as one activation per output
         flow (ref: parsec_remote_deps_t accumulation, remote_dep.h:143-160).
 
-        This package runs one rank: a remote successor raises."""
+        This package runs one rank: a remote successor raises.
+
+        With static dep management active the whole walk is ONE native
+        call: the lowered CSR edges route copies and decrement dense
+        counters in C (ref: --dep-management=index-array)."""
+        if self.tp._engine is not None:
+            copies = tuple(
+                None if f.is_ctl
+                else (task.data[i].data_out or task.data[i].data_in)
+                for i, f in enumerate(self.ast.flows))
+            tid = self.tp._dag.id_of[(self.ast.name, task.locals)]
+            return [self.tp._make_task_static(r)
+                    for r in self.tp._engine.complete(tid, copies)]
         ready: List[Task] = []
 
         def activate(succ_tc: "PTGTaskClass", succ_locals: Tuple,
@@ -652,6 +671,9 @@ class PTGTaskpool(Taskpool):
         self.startup_hook = self._startup
         self.nb_local_tasks = 0
         self.comm = None  # one rank: no remote-dep driver
+        self._dag = None      # LoweredDAG when static dep management is on
+        self._turbo = None    # TurboRunner when the native loop took it
+        self._engine = None   # NativeDAG ready-tracking engine
 
     def class_by_name(self, name: str) -> PTGTaskClass:
         return self._classes[name]
@@ -661,14 +683,19 @@ class PTGTaskpool(Taskpool):
     # ------------------------------------------------------------------ #
     def _startup(self, context, tp) -> List[Task]:
         mode = params.get("ptg_dep_management")
-        if mode != "hash":
-            raise NotImplementedError(
-                f"ptg_dep_management={mode!r}: this package tracks "
-                f"dependencies with the dynamic hash table only")
+        if mode not in ("hash", "static"):
+            raise ValueError(f"ptg_dep_management={mode!r}: expected "
+                             f"'hash' or 'static'")
         if self.nb_ranks != 1:
             raise NotImplementedError(
                 f"{self.name}: nb_ranks={self.nb_ranks}, but this package "
                 f"runs one rank")
+        if (mode == "static" and not grapher.enabled
+                and not self._has_out_edge_types()):
+            turbo = self._startup_turbo(context)
+            if turbo is not None:
+                return turbo
+            return self._startup_static()
         total = 0
         startup: List[Task] = []
         for tc in self._classes.values():
@@ -682,6 +709,105 @@ class PTGTaskpool(Taskpool):
         plog.debug.verbose(4, "ptg %s: %d local tasks, %d startup",
                            self.name, total, len(startup))
         return startup
+
+    def _startup_turbo(self, context) -> Optional[List[Task]]:
+        """The static mode's native fast path: data binding precompiled
+        into slot tables, select->release in a C priority heap, one body
+        call per task on the CUDA device module's device and stream, lazy
+        device-resident writebacks. Returns None (the classic static
+        path) under ``ptg_dispatch=classic``, or under ``auto`` when the
+        pool is turbo-ineligible (unresolvable slots) or the context has
+        no CUDA device module; ``turbo`` raises in those two cases. Runs
+        on a worker claimed from the wait loop; errors surface through
+        record_task_error like any task-body failure."""
+        mode = str(params.get("ptg_dispatch"))
+        if mode not in ("auto", "turbo", "classic"):
+            raise ValueError(f"ptg_dispatch={mode!r}: expected 'auto', "
+                             f"'turbo' or 'classic'")
+        if mode == "classic":
+            return None
+        devs = [d for d in context.devices if d.device_type == "cuda"]
+        if not devs:
+            if mode == "turbo":
+                raise RuntimeError(
+                    "ptg_dispatch=turbo demands the native loop but the "
+                    "context has no CUDA device module")
+            return None
+        from .turbo import TurboRunner
+        from .wave import WaveError
+        try:
+            runner = TurboRunner(self)
+        except WaveError as exc:
+            if mode == "turbo":
+                raise
+            plog.debug.verbose(
+                2, "ptg %s: turbo ineligible (%s); classic static path",
+                self.name, exc)
+            return None
+        dev = devs[0]
+        self._turbo = runner
+        n = runner.dag.n_tasks
+        self.nb_local_tasks = n
+        self.set_nb_tasks(n)
+
+        def _run(es):
+            # the device module's stream: host reads of the results
+            # (to_host_array, pull_to_host) queue on it behind the bodies
+            with dev.on_stream():
+                pools = runner.build_pools(device=dev.torch_device)
+                runner.execute_per_task(pools)
+            runner.attach_lazy_results(dev.device_index)
+            dev.stats["tasks"] += n
+            dev.executed_tasks += n
+            for _ in range(n):
+                self.task_completed()
+
+        context.submit_native_loop(_run)
+        plog.debug.verbose(4, "ptg %s (turbo): %d tasks queued on the "
+                           "native loop", self.name, n)
+        return []
+
+    def _startup_static(self) -> List[Task]:
+        """Static dep management (ref: --dep-management=index-array):
+        lower the task space once into flat arrays + the native counter
+        engine; startup = the zero-indegree set. Single-rank only; DOT
+        capture stays on the dynamic hash path."""
+        from .lower import lower, make_engine
+        self._dag = lower(self)
+        self._engine = make_engine(self._dag)
+        self.nb_local_tasks = self._dag.n_tasks
+        self.set_nb_tasks(self._dag.n_tasks)
+        startup = [self._make_task_static(t) for t in self._engine.start()]
+        plog.debug.verbose(4, "ptg %s (static): %d tasks, %d edges, "
+                           "%d startup", self.name, self._dag.n_tasks,
+                           self._dag.n_edges, len(startup))
+        return startup
+
+    def _has_out_edge_types(self) -> bool:
+        """[type=...] on OUT deps reshapes copies during release — the
+        static engine routes copies in C without property handling, so
+        such taskpools stay on the dynamic path."""
+        for tc in self.task_classes:
+            for f in tc.ast.flows:
+                for d in f.deps_out():
+                    if "type" in d.properties:
+                        return True
+        return False
+
+    def _make_task_static(self, tid: int) -> Task:
+        """Spawn a lowered task: class/locals/priority from the flat
+        arrays; inputs routed by the engine land in flow order."""
+        dag = self._dag
+        tc = self.task_classes[int(dag.class_of[tid])]
+        task = Task(self, tc, dag.locals_of[tid],
+                    priority=int(dag.priority[tid]))
+        bindings = self._engine.take_bindings(tid)
+        for i in range(len(tc.ast.flows)):
+            copy = bindings[i]
+            if copy is not None:
+                task.data[i].data_in = copy
+                task.data[i].fulfilled = True
+        return task
 
     # ------------------------------------------------------------------ #
     # data helpers                                                       #

@@ -74,6 +74,9 @@ class Context:
         # nested taskpool terminates — the detection fires on an arbitrary
         # thread; ref: HOOK_RETURN_ASYNC re-entry, scheduling.c:503-506)
         self._deferred: "deque" = deque()
+        # native dispatch loops (turbo static PTG): queued by _startup,
+        # claimed by ONE worker from the wait loop
+        self._native_loops: List[Any] = []
         self._started = False
         self._finalized = False
         self.vpmap = vpmap or VPMap.from_flat(nb_cores or default_nb_cores())
@@ -357,6 +360,25 @@ class Context:
         """Run ``cb(es)`` on a scheduler thread during idle-cycle progress."""
         self._deferred.append(cb)
         self.wake_workers(1)
+
+    def submit_native_loop(self, fn) -> None:
+        """Queue a native dispatch loop (ref: the generated static-mode
+        progress drive, scheduling.c:586-625): one worker claims it from
+        the wait loop and runs the whole lowered DAG through
+        NativeDAG.run_loop, Python re-entered only at chore bodies."""
+        with self._tp_lock:
+            self._native_loops.append(fn)
+        self.wake_workers(1)
+
+    def run_native_loops(self, es) -> bool:
+        if not self._native_loops:
+            return False
+        with self._tp_lock:
+            if not self._native_loops:
+                return False
+            fn = self._native_loops.pop(0)
+        fn(es)
+        return True
 
     # ------------------------------------------------------------------ #
     # shutdown                                                           #

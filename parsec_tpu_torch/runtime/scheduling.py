@@ -284,8 +284,14 @@ def context_wait_loop(es: ExecutionStream) -> None:
                         dev.progress(es)
                 continue
             # idle cycle: the device managers flush their accumulated
-            # ready batches and retire finished launches (SURVEY.md §3.4)
+            # ready batches and retire finished launches (SURVEY.md §3.4);
+            # engines before native loops: a claimed native loop owns
+            # this worker for a whole lowered DAG, and the device
+            # managers' accumulated ready batches must flush first
             progressed = ctx.progress_engines(es)
+            if ctx.run_native_loops(es):
+                backoff.hit()
+                continue
         except BaseException as exc:  # a task body blew up: abort the DAG,
             ctx.record_task_error(exc, task)  # don't silently kill the worker
             continue

@@ -273,8 +273,25 @@ def register_core_params() -> None:
     params.reg_bool("ptg_codegen", True,
                     "generate per-task-class successor/goal code (jdf2c analog)")
     params.reg_string("ptg_dep_management", "hash",
-                      "PTG dependency tracking: hash (dynamic table) is "
-                      "the only mode of this package")
+                      "PTG dependency tracking: hash (dynamic table) or "
+                      "static (lowered flat arrays + the native engine, "
+                      "ref --dep-management=index-array)")
+    params.reg_string("ptg_dispatch", "auto",
+                      "static PTG dispatch: auto (the turbo native loop "
+                      "when the pool is eligible, else classic), turbo "
+                      "(demand it: raise when ineligible) or classic "
+                      "(the per-task runtime)")
+    params.reg_bool("wave_fuse", True,
+                    "wave execution: one call per wave (all classes' "
+                    "gathers before any scatter) instead of one per "
+                    "(class, chunk)")
+    params.reg_int("wave_fuse_bytes", 1 << 30,
+                   "wave execution: a wave whose gathers exceed this many "
+                   "bytes runs per (class, chunk) instead of fused")
+    params.reg_int("wave_fuse_programs", 128,
+                   "wave execution: at most this many cached fused wave "
+                   "closures per runner; later wave shapes run per "
+                   "(class, chunk)")
     params.reg_int("arena_max_used", -1, "cap on arena allocated buffers (-1 off)")
     params.reg_int("arena_max_cached", -1, "cap on arena cached buffers (-1 off)")
     params.reg_int("task_startup_iter", 64, "startup enumerator chunk iterations")
@@ -352,7 +369,7 @@ TRIMMED_KNOBS = ("comm_transport", "comm_thread", "ft_heartbeat_interval",
                  "ft_inject", "ft_elastic", "ft_restart_policy",
                  "metrics", "obs_flow", "obs_live", "tune_auto", "serve",
                  "sde_push", "stage_compile", "device_mesh_shape",
-                 "debug_history_size", "ptg_dispatch")
+                 "debug_history_size")
 
 
 register_core_params()

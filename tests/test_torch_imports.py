@@ -186,6 +186,32 @@ FRONT_END_DRIVES = {
         tp.insert_task(parent); tp.wait()
         assert log == ["child"]
     """,
+    "native": """
+        from parsec_tpu_torch.core.lists import Lifo
+        assert Lifo.__module__ == "_parsec_torch_native"
+    """,
+    "dsl.ptg.lower": """
+        from parsec_tpu_torch.utils.params import params
+        A = TwoDimBlockCyclic(64, 64, 32, 32).from_numpy(ptt.ops.make_spd(64))
+        with params.cmdline_override("ptg_dep_management", "static"), \
+                params.cmdline_override("ptg_dispatch", "classic"):
+            tp = ptt.ops.dpotrf_taskpool(A)
+            ctx.add_taskpool(tp); ctx.wait()
+        assert tp._engine is not None and np.isfinite(A.to_numpy()).all()
+    """,
+    "dsl.ptg.turbo": """
+        from parsec_tpu_torch.utils.params import params
+        A = TwoDimBlockCyclic(64, 64, 32, 32).from_numpy(ptt.ops.make_spd(64))
+        with params.cmdline_override("ptg_dep_management", "static"):
+            tp = ptt.ops.dpotrf_taskpool(A)
+            ctx.add_taskpool(tp); ctx.wait()
+        assert tp._turbo is not None and np.isfinite(A.to_numpy()).all()
+    """,
+    "dsl.ptg.wave": """
+        A = TwoDimBlockCyclic(64, 64, 32, 32).from_numpy(ptt.ops.make_spd(64))
+        ptt.ptg.wave(ptt.ops.dpotrf_taskpool(A)).run(device="cpu")
+        assert np.isfinite(A.to_numpy()).all()
+    """,
     "collections.subtile": """
         from parsec_tpu_torch.collections import SubtileView
         arr = np.zeros((8, 8), np.float32)
@@ -246,11 +272,60 @@ def test_trimmed_knobs_raise(knob, value):
 
 
 def test_multirank_and_static_deps_raise():
+    """Several ranks raise, in the hash mode and in the static one (the
+    static engines lower one rank's task space)."""
     with pytest.raises(NotImplementedError):
         parsec_tpu_torch.init(nb_cores=1, device="cpu", nb_ranks=2)
     from parsec_tpu_torch.collections import TwoDimBlockCyclic
     from parsec_tpu_torch.ops import dpotrf_taskpool
-    with params.cmdline_override("ptg_dep_management", "static"):
-        tp = dpotrf_taskpool(TwoDimBlockCyclic(32, 32, 32, 32))
-        with pytest.raises(NotImplementedError):
-            tp.startup_hook(None, tp)
+    for mode in ("hash", "static"):
+        with params.cmdline_override("ptg_dep_management", mode):
+            tp = dpotrf_taskpool(TwoDimBlockCyclic(64, 64, 32, 32, P=2),
+                                 nb_ranks=2)
+            with pytest.raises(NotImplementedError):
+                tp.startup_hook(None, tp)
+
+
+def test_native_import_writes_nothing_under_the_packages(tmp_path):
+    """A fresh interpreter imports parsec_tpu_torch.native and builds the
+    native core once more into a scratch directory: no file under
+    parsec_tpu/ or parsec_tpu_torch/ is added or changed (the library
+    goes to build/native/)."""
+    def snapshot():
+        # the JAX package's own extensions (parsec_tpu/**/*.so) are
+        # rebuilt by its imports and tests in other workers; the port's
+        # library name is checked for there instead
+        out = {}
+        for top in ("parsec_tpu", "parsec_tpu_torch"):
+            for dirpath, dirs, files in os.walk(os.path.join(ROOT, top)):
+                dirs[:] = [d for d in dirs if d != "__pycache__"]
+                for f in files:
+                    assert not f.startswith("_parsec_torch_native"), f
+                    if top == "parsec_tpu" and f.endswith(".so"):
+                        continue
+                    p = os.path.join(dirpath, f)
+                    st = os.stat(p)
+                    out[p] = (st.st_mtime_ns, st.st_size)
+        return out
+
+    before = snapshot()
+    code = textwrap.dedent("""
+        import sys
+        from pathlib import Path
+        import parsec_tpu_torch.native as native
+        from parsec_tpu_torch.native import build
+        so = build.build(out_dir=Path(sys.argv[1]))
+        print(native.native.__file__)
+        print(so)
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "parsec_tpu")))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lib, scratch, mods = proc.stdout.strip().splitlines()[-3:]
+    assert os.path.dirname(lib) == os.path.join(ROOT, "build", "native")
+    assert os.path.dirname(scratch) == str(tmp_path)
+    assert mods == "[]"
+    assert snapshot() == before
