@@ -25,7 +25,11 @@ Phases, each reporting on its own lines:
             Tk = 333, 4-byte-misaligned operands (bit-exact against
             aligned copies); the stats kernel's m and l too, and the
             merge rule over two key sets against attention over their
-            concatenation; relative max error under 1e-4;
+            concatenation; relative max error under 1e-4; then the
+            backward kernel against its plain version at every one of
+            these cases (dq, dk, dv from the stats kernel's o, m, l and a
+            seeded cotangent), under 1e-4, misaligned operands bit-exact
+            against aligned copies and two launches bit-equal;
 4b. bodies  the DPLASMA family's product bodies (gemm_nn_sub, gemm_tn_sub,
             unmqr, tsmqr, gemm with alpha 1.5 and beta 0.5, and with B
             transposed) against the GEMM kernel's plain version on the
@@ -105,22 +109,40 @@ Phases, each reporting on its own lines:
             none of the other, finite logits, ring and flash logits
             within 2e-4 of each other, and sequence 0 of the first batch
             within 2e-4 of the port's CPU run (plain versions, fp32);
+7b. train   the same model trained through models.make_train_step, lr
+            1e-3, one seeded batch with labels roll(tokens, -1): for
+            attention="flash", "flash" with remat=True and "ring", one
+            warm-up and 3 timed Adam steps, each step's seconds, tokens/s,
+            peak device memory, loss (finite, lower at the last step than
+            at the first) and launches, exact: 12 of the stats instance
+            (the training forward of flash_attention; 24 with remat, which
+            recomputes each layer) and 12 of the backward kernel a flash
+            step, 12 stats launches and no backward a ring step (its VJP
+            recomputes through the plain ring); two flash steps from the
+            same state bit-identical in loss and gradients; remat within
+            1e-5 of no remat; each layer's and the head's gradients (every
+            parameter and dx) on sequence 0 within 1e-3 of the CPU port's
+            on the card's input and cotangent, beside the CPU's
+            fp32-vs-fp64 drift; the whole-depth loss against the CPU's,
+            reported;
 8. timing   each kernel at its path's shape, by CUDA events: the GEMM
             at nb = 1024 against torch.addmm, batched at z = 1, 4 and 16
             against torch.baddbmm, and at tsmqr's shape (2048 x 1024 x
             2048) against torch.mm, beside the A^T copies; each flash
             kernel at [8, 12, 1024, 64] causal against
             F.scaled_dot_product_attention (fp32; it returns o alone),
-            beside its bound and its plain version;
+            beside its bound and its plain version; the backward kernel
+            at the same shape against SDPA's backward (its forward plus
+            backward less its forward);
 9. profile  with --profile only: the dpotrf, DTD Cholesky, dgeqrf and
             pdgemm (both forms) paths, one replay of the captured dpotrf,
             the wave dpotrf at NB = 1024 (stage-in, waves and write-back),
-            the pivoted dgetrf and one forward once more under
-            torch.profiler, with device time by kernel (the A^T copies
-            are the direct-copy kernel) and the device's busy share of
-            the wall time; then the GEMM and stats kernels and their
-            library yardsticks once each, with the device kernels each
-            call runs.
+            the pivoted dgetrf, one forward and one flash train step once
+            more under torch.profiler, with device time by kernel (the
+            A^T copies are the direct-copy kernel) and the device's busy
+            share of the wall time; then the GEMM, stats and backward
+            kernels and their library yardsticks once each, with the
+            device kernels each call runs.
 
 Any failure raises and exits non-zero; so does a machine where PyTorch
 sees no CUDA device.  The line before the last is the kernels' record
@@ -152,6 +174,12 @@ RESID_TOL = 1e-4       # matvec residual of each routine, fp32
 #: eigenvalues within n +- ||B||_2 (about n +- 2 sqrt(n/12)), kappa < 1.01
 DPOTRI_TOL = 1e-4
 LOGITS_RTOL = 2e-4     # forward logits: ring vs flash, card vs CPU, fp32
+TRAIN_STEPS = 3        # timed Adam steps per train path, after one warm-up
+TRAIN_LR = 1e-3
+#: each layer's and the head's gradients, card vs the CPU port on the same
+#: input and cotangent, relative max error (fp32, summed in other orders)
+GRAD_RTOL = 1e-3
+REMAT_RTOL = 1e-5      # remat vs no remat, every gradient, on the card
 F32_FLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 
@@ -178,7 +206,8 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor):
     return d / ref.double().abs().max().item(), d
 
 
-COUNTERS = ("matmul_launches", "flash_launches", "flash_stats_launches")
+COUNTERS = ("matmul_launches", "flash_launches", "flash_stats_launches",
+            "flash_bwd_launches")
 
 
 def reset_counts() -> None:
@@ -487,6 +516,53 @@ def phase_attention(dev: torch.device, seed: int) -> dict:
     log("attention", kernel="flash_stats", case="merge_384+200",
         rel_err=rel, max_abs_err=absd)
     check(rel < RTOL, f"stats merge: relative error {rel} >= {RTOL}")
+    worst["flash_bwd"] = attention_backward(dev, cases, g)
+    return worst
+
+
+def attention_backward(dev: torch.device, cases, g) -> float:
+    """The backward kernel against its plain version on the same q, k, v,
+    the stats kernel's o, m, l and a seeded cotangent, at every case of
+    the forward's; misaligned operands bit-exact against aligned copies,
+    two launches bit-equal.  Returns the max abs error at the forward's
+    shape."""
+    from parsec_tpu_torch.ops import kernels
+    worst = 0.0
+    args = {}
+    for name, (q, k, v), causal, on_path in cases:
+        do = torch.randn(q.shape, generator=g, device=dev)
+        o, m, l = kernels.flash_attention_stats(q, k, v, causal=causal)
+        args[name] = (q, k, v, o, m, l, do, causal)
+        got = kernels.flash_attention_bwd(*args[name])
+        ref = kernels.flash_attention_bwd_plain(*args[name])
+        torch.cuda.synchronize()
+        for part, a, b in zip(("dq", "dk", "dv"), got, ref):
+            rel, absd = rel_err(a, b)
+            if on_path:
+                worst = max(worst, absd)
+            log("attention", kernel="flash_bwd", case=name, out=part,
+                shape=tuple(a.shape), causal=causal, rel_err=rel,
+                max_abs_err=absd)
+            check(rel < RTOL, f"flash_bwd {name} {part}: relative error "
+                              f"{rel} >= {RTOL}")
+        del got, ref
+    # every copy is 4 bytes wide: one instance for both alignments
+    *unaligned, causal = args["misaligned_d64"]
+    unaligned = [misaligned(x) for x in unaligned]
+    aligned = [x.clone() for x in unaligned]
+    check(all(map(torch.equal,
+                  kernels.flash_attention_bwd(*unaligned, causal),
+                  kernels.flash_attention_bwd(*aligned, causal))),
+          "flash_attention_bwd: misaligned and aligned copies differ")
+    # no float atomics: the same inputs give the same bits
+    first = kernels.flash_attention_bwd(*args["fwd_causal"])
+    check(all(map(torch.equal, first,
+                  kernels.flash_attention_bwd(*args["fwd_causal"]))),
+          "flash_attention_bwd: two launches on the same inputs differ")
+    log("attention", kernel="flash_bwd", case="misaligned_vs_aligned",
+        bit_exact=True)
+    log("attention", kernel="flash_bwd", case="repeat_launch",
+        bit_exact=True)
     return worst
 
 
@@ -1480,9 +1556,9 @@ def check_against_cpu(cfg, params, host_params, seq0, card_logits) -> None:
             return tree_map(lambda a: a.reshape(-1, *a.shape[2:])[i], tree)
 
         for i in range(cfg.n_layers):
-            y = card._layer(layer(params["stages"], i), x)
+            y = card._layer(layer(params["stages"], i), x, 0.0)[0]
             rel, absd = rel_err(y.cpu(), card._layer(
-                layer(host_params["stages"], i), x.cpu()))
+                layer(host_params["stages"], i), x.cpu(), 0.0)[0])
             log("forward", case="layer_vs_cpu", layer=i, rel_err=rel,
                 max_abs_err=absd)
             worst = max(worst, rel)
@@ -1552,6 +1628,178 @@ def phase_forward(dev: torch.device, seed: int) -> dict:
                              f"{LOGITS_RTOL}")
     check_against_cpu(cfg, params, host_params, batches[1][:1], first)
     return launches
+
+
+#: each train path's config changes and its kernels' launches per step:
+#: the training forward of flash_attention runs the stats instance (remat
+#: runs it again in the backward), the ring's backward recomputes through
+#: the plain ring
+TRAIN_PATHS = {
+    "flash": (dict(attention="flash"),
+              {"flash_stats_launches": 12, "flash_bwd_launches": 12}),
+    "flash_remat": (dict(attention="flash", remat=True),
+                    {"flash_stats_launches": 24, "flash_bwd_launches": 12}),
+    "ring": (dict(attention="ring"), {"flash_stats_launches": 12})}
+
+
+def phase_train(dev: torch.device, seed: int) -> dict:
+    """Adam steps at GPT-2-small widths through models.make_train_step
+    for each train path; then determinism, remat against no remat, each
+    layer's gradients against the CPU port, and the whole-depth loss.
+    Returns each path's launches by counter."""
+    from parsec_tpu_torch import models
+    from parsec_tpu_torch.models import train
+    cfg = gpt2_small("flash")
+    host_params = models.init_params(cfg, seed)
+    params = models.params_to(host_params, dev)
+    rng = np.random.RandomState(seed + 7)
+    tokens = rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
+    labels = np.roll(tokens, -1, axis=1)
+    launches = {}
+    for name, (changes, per_step) in TRAIN_PATHS.items():
+        step = models.make_train_step(dataclasses.replace(cfg, **changes),
+                                      lr=TRAIN_LR)
+        p, state = params, models.adam_init(params)
+        want = {c: per_step.get(c, 0) for c in COUNTERS}
+        losses, seconds = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()      # held before the path
+        for i in range(1 + TRAIN_STEPS):          # a warm-up, then timed
+            reset_counts()
+            t0 = time.perf_counter()
+            p, state, loss = step(p, state, tokens, labels)
+            torch.cuda.synchronize()
+            if i:
+                seconds.append(time.perf_counter() - t0)
+            got = counts()
+            check(got == want, f"train {name} step {i}: launches {got}, "
+                               f"expected {want}")
+            losses.append(loss.item())
+        launches[name] = {c: n * (1 + TRAIN_STEPS)
+                          for c, n in per_step.items()}
+        mean = sum(seconds) / len(seconds)
+        log("train", path=name, steps=1 + TRAIN_STEPS,
+            seconds=",".join(f"{x:.6f}" for x in seconds),
+            mean_seconds=f"{mean:.6f}",
+            tokens_per_s=f"{cfg.batch * cfg.seq_len / mean:.1f}",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            held_before_gb=f"{base / 1e9:.2f}",
+            losses=",".join(repr(x) for x in losses), **got)
+        check(all(np.isfinite(losses)), f"train {name}: losses {losses}")
+        check(losses[-1] < losses[0], f"train {name}: the loss did not "
+                                      f"fall: {losses}")
+        del p, state, step
+        torch.cuda.empty_cache()
+    t = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    y = torch.as_tensor(labels, dtype=torch.int64, device=dev)
+    a = train.value_and_grad(cfg, params, t, y)
+    b = train.value_and_grad(cfg, params, t, y)
+    same = bool(torch.equal(a[0], b[0])) and all(
+        map(torch.equal, train.tree_leaves(a[1]), train.tree_leaves(b[1])))
+    log("train", case="repeat_step_flash", bit_identical=same)
+    check(same, "two flash steps from the same state differ")
+    del b
+    r = train.value_and_grad(dataclasses.replace(cfg, remat=True), params,
+                             t, y)
+    rel = max([rel_err(r[0], a[0])[0]] + [
+        rel_err(x, ref)[0] for x, ref in zip(train.tree_leaves(r[1]),
+                                             train.tree_leaves(a[1]))])
+    same = bool(torch.equal(r[0], a[0])) and all(
+        map(torch.equal, train.tree_leaves(r[1]), train.tree_leaves(a[1])))
+    log("train", case="remat_vs_no_remat", rel_err=rel, bit_identical=same)
+    check(rel < REMAT_RTOL, f"remat vs no remat: {rel} >= {REMAT_RTOL}")
+    del a, r
+    torch.cuda.empty_cache()
+    check_grads_against_cpu(cfg, params, host_params, tokens[:1],
+                            labels[:1])
+    return launches
+
+
+def check_grads_against_cpu(cfg, params, host_params, tokens0,
+                            labels0) -> None:
+    """Each layer's VJP and the head's (with the loss) on sequence 0, on
+    the card and on the CPU (plain versions), from the card's input and
+    the card's upstream cotangent; every parameter gradient and dx
+    within GRAD_RTOL, beside the CPU's own fp32-vs-fp64 drift of the
+    same VJP (the plain attention computes in fp32 there too).  The
+    whole-depth loss is reported, not gated (the forward's reason: the
+    seeded model amplifies rounding layer by layer)."""
+    import torch.nn.functional as F
+    from parsec_tpu_torch import models
+    dev = params["embed"].device
+    model = models.Transformer(cfg)
+
+    def leaf(x):
+        return x.detach().clone().requires_grad_(True)
+
+    def layer(tree, i):
+        return tree_map(lambda a: leaf(a.reshape(-1, *a.shape[2:])[i]),
+                        tree)
+
+    def layer_vjp(lp, x, dy):
+        x = leaf(x)
+        out = model._layer(lp, x, 0.0)[0]
+        names = sorted(lp)
+        grads = torch.autograd.grad(out, [x] + [lp[n] for n in names], dy)
+        return out.detach(), dict(zip(["x"] + names, grads))
+
+    def head_vjp(tree, x, labels):
+        x, ln_f, embed = leaf(x), leaf(tree["ln_f"]), leaf(tree["embed"])
+        logits = model._head({"ln_f": ln_f, "embed": embed}, x)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1))
+        grads = torch.autograd.grad(loss, (x, ln_f, embed))
+        return loss.detach(), dict(zip(("x", "ln_f", "embed"), grads))
+
+    def compare(part, card, cpu32, cpu64):
+        worst = 0.0
+        for name in card:
+            rel, absd = rel_err(card[name].cpu(), cpu32[name])
+            log("train", case="grad_vs_cpu", part=part, grad=name,
+                rel_err=rel, max_abs_err=absd,
+                cpu_fp32_vs_fp64=rel_err(cpu32[name], cpu64[name])[0])
+            worst = max(worst, rel)
+        return worst
+
+    t_host = torch.as_tensor(tokens0, dtype=torch.int64)
+    y_host = torch.as_tensor(labels0, dtype=torch.int64)
+    host64 = tree_map(torch.Tensor.double, host_params)
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    with torch.no_grad():                     # the card's layer inputs
+        xs = [model._embed(params, t_host.to(dev))]
+        for i in range(cfg.n_layers):
+            xs.append(model._layer(layer(params["stages"], i), xs[-1],
+                                   0.0)[0])
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss, card = head_vjp(params, xs[-1], y_host.to(dev))
+        _, cpu32 = head_vjp(host_params, xs[-1].cpu(), y_host)
+        _, cpu64 = head_vjp(host64, xs[-1].cpu().double(), y_host)
+        worst = compare("head", card, cpu32, cpu64)
+        dy = card["x"]
+        for i in reversed(range(cfg.n_layers)):
+            _, card = layer_vjp(layer(params["stages"], i), xs[i], dy)
+            _, cpu32 = layer_vjp(layer(host_params["stages"], i),
+                                 xs[i].cpu(), dy.cpu())
+            _, cpu64 = layer_vjp(layer(host64["stages"], i),
+                                 xs[i].cpu().double(), dy.cpu().double())
+            worst = max(worst, compare(f"layer{i}", card, cpu32, cpu64))
+            dy = card["x"]
+    log("train", case="grads_vs_cpu", layers=cfg.n_layers, worst_rel=worst,
+        cpu_seconds=f"{time.perf_counter() - t0:.3f}")
+    check(worst < GRAD_RTOL, f"card vs CPU gradients on the same input: "
+                             f"relative error {worst} >= {GRAD_RTOL}")
+    with torch.no_grad():
+        card_loss = models.loss_shard(cfg, params, t_host.to(dev),
+                                      y_host.to(dev)).item()
+        cpu_loss = models.loss_shard(cfg, host_params, t_host,
+                                     y_host).item()
+        cpu64_loss = models.loss_shard(cfg64, host64, t_host, y_host).item()
+    log("train", case="whole_depth_loss_vs_cpu", card=repr(card_loss),
+        cpu_fp32=repr(cpu_loss), cpu_fp64=repr(cpu64_loss),
+        rel_err=abs(card_loss - cpu_loss) / abs(cpu_loss),
+        cpu_fp32_vs_fp64=abs(cpu_loss - cpu64_loss) / abs(cpu64_loss))
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1650,11 +1898,34 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
             q, k, v, causal=True), iters=20),
         library_ms=library_ms,            # o alone: no call returns m, l
         **bound(flops, qkvo + 2 * B * H * T * 4))
+    # the backward: five products of 2 D flops for each visible pair (S
+    # and dP recomputed, dV, dK, dQ); Q, K, V, O, dO, m, l read once, dQ,
+    # dK, dV written once.  The library's backward is SDPA's forward plus
+    # backward less its forward.
+    do = torch.randn(B, H, T, D, generator=g, device=dev)
+    o, m, l = kernels.flash_attention_stats(q, k, v, causal=True)
+    leaves = tuple(x.clone().requires_grad_(True) for x in (q, k, v))
+    sdpa_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, do),
+        iters=20)
+    recs["flash_bwd"] = dict(
+        ms=time_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, m, l, do),
+                   iters=20),
+        plain_ms=time_ms(lambda: kernels.flash_attention_bwd_plain(
+            q, k, v, o, m, l, do), iters=5),
+        library_ms=sdpa_fwd_bwd_ms - library_ms,
+        **bound(2.5 * flops, 2 * qkvo + 2 * B * H * T * 4))
+    log("timing", case=f"scaled_dot_product_attention forward+backward "
+                       f"{list(ATTN_SHAPE)} causal fp32",
+        library_ms=sdpa_fwd_bwd_ms, forward_ms=library_ms)
+    del leaves, do, o, m, l
     cases = {"gemm": (f"gemm_nt nb={nb} fp32", 2.0 * nb ** 3),
              "flash": (f"flash_attention {list(ATTN_SHAPE)} causal fp32",
                        flops),
              "flash_stats": (f"flash_attention_stats {list(ATTN_SHAPE)} "
-                             f"causal fp32", flops)}
+                             f"causal fp32", flops),
+             "flash_bwd": (f"flash_attention_bwd {list(ATTN_SHAPE)} causal "
+                           f"fp32", 2.5 * flops)}
     for key, (case, work) in cases.items():
         rec = recs[key]
         log("timing", case=case, kernel_ms=rec["ms"],
@@ -1770,6 +2041,21 @@ def phase_profile(dev: torch.device, seed: int, n: int = N_MAIN,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     profile_report("forward_ring", prof, seconds)
+    del fwd
+    # one flash train step after a warm-up step
+    cfg = dataclasses.replace(cfg, attention="flash")
+    step = models.make_train_step(cfg, lr=TRAIN_LR)
+    labels = np.roll(tokens, -1, axis=1)
+    p, state, _ = step(params, models.adam_init(params), tokens, labels)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        p, state, _ = step(p, state, tokens, labels)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    profile_report("train_flash", prof, seconds, top=16)
+    del p, state, params, step
+    torch.cuda.empty_cache()
     profile_yardsticks(dev, seed)
 
 
@@ -1784,8 +2070,10 @@ def profile_yardsticks(dev: torch.device, seed: int) -> None:
     g = torch.Generator(device=dev).manual_seed(seed + 6)
     a, b, c = (torch.randn(4, NB_MAIN, NB_MAIN, generator=g, device=dev)
                for _ in range(3))
-    q, k, v = (torch.randn(*ATTN_SHAPE, generator=g, device=dev)
-               for _ in range(3))
+    q, k, v, do = (torch.randn(*ATTN_SHAPE, generator=g, device=dev)
+                   for _ in range(4))
+    o, m, l = kernels.flash_attention_stats(q, k, v, causal=True)
+    leaves = tuple(x.clone().requires_grad_(True) for x in (q, k, v))
     calls = {"gemm_nt": lambda: linalg.gemm_nt(c[0], a[0], b[0]),
              "torch.addmm": lambda: torch.addmm(c[0], a[0], b[0].mT,
                                                 alpha=-1),
@@ -1796,7 +2084,12 @@ def profile_yardsticks(dev: torch.device, seed: int) -> None:
                  q, k, v, causal=True),
              "F.scaled_dot_product_attention":
                  lambda: F.scaled_dot_product_attention(q, k, v,
-                                                        is_causal=True)}
+                                                        is_causal=True),
+             "flash_attention_bwd": lambda: kernels.flash_attention_bwd(
+                 q, k, v, o, m, l, do),
+             "F.scaled_dot_product_attention forward+backward":
+                 lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+                     *leaves, is_causal=True), leaves, do)}
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
@@ -1825,8 +2118,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also run the dpotrf, wave dpotrf, dgeqrf, pdgemm "
-                         "and dgetrf paths and one forward under "
-                         "torch.profiler and print device time by kernel")
+                         "and dgetrf paths, one forward and one train step "
+                         "under torch.profiler and print device time by "
+                         "kernel")
     args = ap.parse_args(argv)
     # the package must come from this checkout; importing it first means a
     # directory holding only this script fails before any result
@@ -1878,6 +2172,7 @@ def main(argv=None) -> int:
         phase_dtd_capture(args.seed, L_dtd)
     del L_dtd
     attn_launches = phase_forward(dev, args.seed)
+    train_launches = phase_train(dev, args.seed)
     recs = phase_timing(dev, args.seed)
     if args.profile:
         phase_profile(dev, args.seed)
@@ -1890,12 +2185,21 @@ def main(argv=None) -> int:
              **recs["gemm"]),
         dict(name="flash_fwd_f32", route="cuda",
              source=src + "flash_attention.cu", replaces=tpu + "68",
-             launches=attn_launches["flash"], max_abs_err=attn_err["flash"],
-             **recs["flash"]),
+             launches={"forward_flash": attn_launches["flash"]},
+             max_abs_err=attn_err["flash"], **recs["flash"]),
+        # the training forward of flash_attention runs this instance too
         dict(name="flash_fwd_stats_f32", route="cuda",
              source=src + "flash_attention.cu", replaces=tpu + "115",
-             launches=attn_launches["ring"],
+             launches={"forward_ring": attn_launches["ring"],
+                       **{f"train_{path}": n["flash_stats_launches"]
+                          for path, n in train_launches.items()}},
              max_abs_err=attn_err["flash_stats"], **recs["flash_stats"]),
+        dict(name="flash_bwd_f32", route="cuda",
+             source=src + "flash_attention_bwd.cu", replaces=tpu + "287",
+             launches={f"train_{path}": n["flash_bwd_launches"]
+                       for path, n in train_launches.items()
+                       if "flash_bwd_launches" in n},
+             max_abs_err=attn_err["flash_bwd"], **recs["flash_bwd"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

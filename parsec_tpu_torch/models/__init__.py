@@ -1,7 +1,11 @@
-"""The flagship transformer: its forward, on one device."""
+"""The flagship transformer and its training step, on one device."""
 from .transformer import (ATTENTIONS, Transformer, TransformerConfig,
-                          init_params, params_from_numpy, params_to)
-from .train import make_forward
+                          init_params, loss_shard, param_specs,
+                          params_from_numpy, params_to)
+from .train import (adam_init, adam_update, make_forward, make_train_step,
+                    opt_state_specs, shard_params)
 
 __all__ = ["ATTENTIONS", "Transformer", "TransformerConfig", "init_params",
-           "params_from_numpy", "params_to", "make_forward"]
+           "param_specs", "loss_shard", "params_from_numpy", "params_to",
+           "make_train_step", "make_forward", "adam_init", "adam_update",
+           "opt_state_specs", "shard_params"]

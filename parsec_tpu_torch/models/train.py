@@ -1,17 +1,81 @@
-"""The transformer's entry point: the forward for inference.
+"""The transformer's entry points: the training step (forward, backward,
+Adam) and the forward for inference.
 
-Training (the train step, Adam, remat) is a later slice of the port
-(ROADMAP Queue 1 item 13).
+The port of the JAX package's ``models/train.py`` on one device, where
+every mesh axis has size 1: a gradient needs no reduction over any axis,
+the optimizer state mirrors the parameter tree, and ``shard_params``
+places the tree on the mesh's one device.  The step is functional like
+the JAX one: it returns new parameters and a new optimizer state and
+leaves its arguments as they were.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..parallel.mesh import Mesh, make_mesh
 from ..parallel.pipeline import last_stage_value
-from .transformer import Transformer, TransformerConfig, params_to
+from .transformer import (Transformer, TransformerConfig, loss_shard,
+                          params_to)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of one or more trees of the same shape."""
+    if isinstance(tree, dict):
+        return {name: tree_map(fn, a, *(r[name] for r in rest))
+                for name, a in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [leaf for a in tree.values() for leaf in tree_leaves(a)]
+    return [tree]
+
+
+def tree_unflatten(like: Any, leaves) -> Any:
+    """The leaves, in ``tree_leaves`` order, in the shape of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def adam_init(params: Any) -> Dict[str, Any]:
+    """Adam's state for ``params``: zero moments and an int32 step count."""
+    device = tree_leaves(params)[0].device
+    return {"mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params),
+            "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def adam_update(params, grads, state, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8):
+    """One Adam step, the JAX package's arithmetic: the count in int32,
+    the bias corrections ``1 - b ** count`` in fp32 on the device.
+    Returns ``(new_params, new_state)``; nothing is updated in place."""
+    with torch.no_grad():
+        count = state["count"] + 1
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], grads)
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state["nu"],
+                      grads)
+        c1 = 1 - b1 ** count.to(torch.float32)
+        c2 = 1 - b2 ** count.to(torch.float32)
+        new_params = tree_map(
+            lambda p, m, v: p - lr * (m / c1) / (torch.sqrt(v / c2) + eps),
+            params, mu, nu)
+    return new_params, {"mu": mu, "nu": nu, "count": count}
+
+
+def opt_state_specs(pspecs: Any) -> Dict[str, Any]:
+    """The optimizer state's specs: the moments mirror the parameters',
+    the count is replicated."""
+    return {"mu": pspecs, "nu": pspecs, "count": ()}
+
+
+def shard_params(params: Any, mesh: Mesh, pspecs: Any) -> Any:
+    """The tree placed on the mesh.  On one device every axis has size 1,
+    so each leaf goes whole to the mesh's device and ``pspecs`` splits
+    nothing."""
+    return params_to(params, mesh.device)
 
 
 def _check_attention_mesh(cfg: TransformerConfig, mesh: Mesh) -> None:
@@ -26,6 +90,70 @@ def _check_attention_mesh(cfg: TransformerConfig, mesh: Mesh) -> None:
             "sequence-parallel meshes")
 
 
+def _resolve_mesh(cfg: TransformerConfig, mesh: Optional[Mesh],
+                  device) -> Mesh:
+    if mesh is None:
+        mesh = make_mesh(devices=None if device is None else [device])
+    elif device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    _check_attention_mesh(cfg, mesh)
+    Transformer(cfg)           # the config's own checks
+    return mesh
+
+
+def _token_ids(cfg: TransformerConfig, ids: Any, what: str,
+               device: torch.device) -> torch.Tensor:
+    """Token ids of any integer type, as a tensor or an array, checked
+    against the vocabulary and moved to ``device`` as int64."""
+    ids = torch.as_tensor(ids)
+    if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab):
+        raise ValueError(f"{what} outside [0, {cfg.vocab})")
+    return ids.to(device, torch.int64)
+
+
+def value_and_grad(cfg: TransformerConfig, params: Any, tokens: torch.Tensor,
+                   labels: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """``loss_shard`` and its gradient with respect to every leaf of
+    ``params`` (a tree on one device; tokens and labels int64 there).
+    The leaves are detached copies of the tree's tensors, so the caller's
+    tree takes no gradient."""
+    if torch.is_inference_mode_enabled():
+        raise RuntimeError("a training step cannot run under "
+                           "torch.inference_mode()")
+    leaves = tree_map(lambda t: (t.clone() if t.is_inference()
+                                 else t.detach()).requires_grad_(True),
+                      params)
+    with torch.enable_grad():
+        loss = loss_shard(cfg, leaves, tokens, labels)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
+                    lr: float = 1e-3, device=None):
+    """The step ``(params, opt_state, tokens, labels) -> (params,
+    opt_state, loss)``: the loss of ``loss_shard``, its gradients by
+    autograd (the flash kernel's backward on the card), one Adam update.
+    It runs on ``cuda:0`` (raising without a card) unless the caller
+    passes ``device="cpu"`` or a mesh over the CPU; it moves the
+    parameters and the optimizer state to the device unless they are
+    there, and takes token ids and labels of any integer type."""
+    mesh = _resolve_mesh(cfg, mesh, device)
+    dev = mesh.device
+
+    def step(params: Any, opt_state: Dict[str, Any], tokens: Any,
+             labels: Any):
+        tokens = _token_ids(cfg, tokens, "token ids", dev)
+        labels = _token_ids(cfg, labels, "labels", dev)
+        params = params_to(params, dev)
+        loss, grads = value_and_grad(cfg, params, tokens, labels)
+        new_params, new_state = adam_update(
+            params, grads, params_to(opt_state, dev), lr=lr)
+        return new_params, new_state, loss
+
+    return step
+
+
 def make_forward(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
                  device=None) -> Callable[[Dict[str, Any], Any],
                                           torch.Tensor]:
@@ -35,22 +163,14 @@ def make_forward(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
     runs under ``torch.inference_mode()``, moves the parameters to the
     device unless they are there, and takes token ids of any integer
     type, as a tensor or an array."""
-    if mesh is None:
-        mesh = make_mesh(devices=None if device is None else [device])
-    elif device is not None and torch.device(device) != mesh.device:
-        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
-    _check_attention_mesh(cfg, mesh)
+    mesh = _resolve_mesh(cfg, mesh, device)
     model = Transformer(cfg)
     dev = mesh.device
 
     def forward(params: Dict[str, Any], tokens: Any) -> torch.Tensor:
-        tokens = torch.as_tensor(tokens)
-        if tokens.numel() and (int(tokens.min()) < 0
-                               or int(tokens.max()) >= cfg.vocab):
-            raise ValueError(f"token ids outside [0, {cfg.vocab})")
+        tokens = _token_ids(cfg, tokens, "token ids", dev)
         with torch.inference_mode():
-            logits = model(params_to(params, dev),
-                           tokens.to(dev, torch.int64))
+            logits = model(params_to(params, dev), tokens)
             return last_stage_value(logits, "pp")
 
     return forward

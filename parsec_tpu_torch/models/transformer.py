@@ -1,31 +1,36 @@
-"""Flagship model: the decoder-only transformer's forward.
+"""Flagship model: the decoder-only transformer, its forward and loss.
 
 The port of the JAX package's ``models/transformer.py`` on one device,
 where every mesh axis (dp, pp, tp, sp, ep) has size 1: the psums over tp
-are the identity, the GPipe schedule runs the microbatches in order, and
-attention runs through parallel/ (ring, Ulysses) or straight through the
-flash kernel.  The parameters are the same tree as the JAX package's
-(``init_params`` makes the same draws; ``params_from_numpy`` carries a
-JAX tree across), passed to each call like JAX's functional forward.
-The plain products (QKV, output projection, FFN, tied logits) are
-``torch.matmul`` in the config dtype, as the JAX package leaves them to
-XLA; the attention is the hand-written flash kernel on the card.
+and ep are the identity, the GPipe schedule runs the microbatches in
+order, and attention runs through parallel/ (ring, Ulysses) or straight
+through the flash kernel.  The parameters are the same tree as the JAX
+package's (``init_params`` makes the same draws; ``params_from_numpy``
+carries a JAX tree, or a JAX Adam state, across), passed to each call
+like JAX's functional forward.  The plain products (QKV, output
+projection, FFN, experts, tied logits) are ``torch.matmul`` in the config
+dtype, as the JAX package leaves them to XLA; the attention is the
+hand-written flash kernel on the card, forward and backward.
 
 Pre-norm RMSNorm, no biases, tanh-GELU, learned positions and a tied
-embedding, as in the JAX model.  MoE (``n_experts > 0``) and training
-are later slices.
+embedding, as in the JAX model; ``n_experts > 0`` swaps the FFN for the
+top-k MoE (parallel/moe.py) and adds its load-balance loss to
+``loss_shard``; ``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
+from ..parallel.moe import load_balance_loss, moe_ffn
 from ..parallel.pipeline import gpipe
 from ..parallel.ring_attention import local_attention, ring_attention
 from ..parallel.sequence import ulysses_attention
@@ -42,30 +47,25 @@ class TransformerConfig:
     n_stages: int = 1         # == pp axis size
     layers_per_stage: int = 1
     d_ff: int = 128           # divisible by tp
-    n_experts: int = 0        # 0 = dense FFN; MoE is a later slice
+    n_experts: int = 0        # 0 = dense FFN; else divisible by ep
+    moe_top_k: int = 2
     seq_len: int = 32         # divisible by sp
     batch: int = 8            # divisible by dp; batch/dp divisible by n_micro
     n_micro: int = 1          # pipeline microbatches per shard
     attention: str = "ring"   # "ring" | "ulysses" | "flash" | "local"
+    remat: bool = False       # recompute each layer in the backward
     dtype: torch.dtype = torch.float32
+    aux_loss_weight: float = 0.01
 
     @property
     def n_layers(self) -> int:
         return self.n_stages * self.layers_per_stage
 
 
-def _check_dense(cfg: TransformerConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE (n_experts > 0) is a later slice of the port "
-            "(ROADMAP Queue 1 item 13)")
-
-
 def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict[str, Any]:
     """The global parameter tree, on the CPU: the JAX package's
     ``init_params`` draws, in the same order from the same
     ``np.random.RandomState(seed)``, so the two trees are equal."""
-    _check_dense(cfg)
     rng = np.random.RandomState(seed)
     dt = cfg.dtype
 
@@ -86,16 +86,51 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict[str, Any]:
             "ln2": torch.ones((S, L, D), dtype=dt),
             "wqkv": w(S, L, D, 3, H, Dh),
             "wo": w(S, L, H, Dh, D),
-            "w1": w(S, L, D, Fd),
-            "w2": w(S, L, Fd, D),
         },
     }
+    if cfg.n_experts:
+        E = cfg.n_experts
+        params["stages"]["gate"] = w(S, L, D, E, scale=0.02)
+        params["stages"]["w1e"] = w(S, L, E, D, Fd)
+        params["stages"]["w2e"] = w(S, L, E, Fd, D)
+    else:
+        params["stages"]["w1"] = w(S, L, D, Fd)
+        params["stages"]["w2"] = w(S, L, Fd, D)
     return params
 
 
+def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Each leaf's partitioning as a tuple of mesh axis names (None =
+    not split), the JAX package's ``PartitionSpec``s as tuples: stages
+    stack over pp, heads and the FFN hidden over tp, experts over ep,
+    everything else replicated (``()``).  On one device every axis has
+    size 1, so the specs describe the tree and move nothing."""
+    specs: Dict[str, Any] = {
+        "embed": (),
+        "pos": (),
+        "ln_f": (),
+        "stages": {
+            "ln1": ("pp",),
+            "ln2": ("pp",),
+            "wqkv": ("pp", None, None, None, "tp", None),
+            "wo": ("pp", None, "tp", None, None),
+        },
+    }
+    if cfg.n_experts:
+        specs["stages"]["gate"] = ("pp",)
+        specs["stages"]["w1e"] = ("pp", None, "ep", None, "tp")
+        specs["stages"]["w2e"] = ("pp", None, "ep", "tp", None)
+    else:
+        specs["stages"]["w1"] = ("pp", None, None, "tp")
+        specs["stages"]["w2"] = ("pp", None, "tp", None)
+    return specs
+
+
 def params_from_numpy(tree: Any) -> Any:
-    """A parameter tree of numpy arrays (the JAX package's, through
-    ``np.asarray``) as CPU tensors of the same dtypes and values."""
+    """A tree of numpy arrays as CPU tensors of the same dtypes and
+    values: the JAX package's parameters (dense or with experts) or its
+    Adam state ``{"mu", "nu", "count"}``, through ``np.asarray``, so a
+    JAX step and a port step start from the same state."""
     if isinstance(tree, dict):
         return {name: params_from_numpy(a) for name, a in tree.items()}
     return torch.from_numpy(np.array(tree))
@@ -114,7 +149,9 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        _check_dense(cfg)
+        if cfg.n_experts and cfg.moe_top_k < 1:
+            raise ValueError(f"moe_top_k must be at least 1, got "
+                             f"{cfg.moe_top_k}")
         if cfg.attention not in ATTENTIONS:
             raise ValueError(f"attention {cfg.attention!r} is not one of "
                              f"{ATTENTIONS}")
@@ -122,7 +159,8 @@ class Transformer(nn.Module):
 
     def forward(self, params: Dict[str, Any],
                 tokens: torch.Tensor) -> torch.Tensor:
-        return self.forward_shard(params, tokens)
+        """The logits of ``forward_shard``."""
+        return self.forward_shard(params, tokens)[0]
 
     @staticmethod
     def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -141,9 +179,11 @@ class Transformer(nn.Module):
             return kernels.flash_attention(q, k, v, causal=True)
         return local_attention(q, k, v, causal=True)
 
-    def _layer(self, lp: Dict[str, torch.Tensor],
-               x: torch.Tensor) -> torch.Tensor:
-        """One transformer block on a local shard. x: [mb, T, D]."""
+    def _layer(self, lp: Dict[str, torch.Tensor], x: torch.Tensor,
+               aux) -> Tuple[torch.Tensor, Any]:
+        """One transformer block on a local shard. x: [mb, T, D].
+        Returns the new residual stream and ``aux`` plus this layer's
+        load-balance loss (``aux`` unchanged for a dense FFN)."""
         mb, T, D = x.shape
         H, Dh = self.cfg.n_heads, self.cfg.d_head
         h = self._rmsnorm(x, lp["ln1"])
@@ -156,8 +196,16 @@ class Transformer(nn.Module):
                          lp["wo"].reshape(H * Dh, D)).to(x.dtype)
         x = x + o                  # the psum over tp is the identity
         h2 = self._rmsnorm(x, lp["ln2"])
-        u = F.gelu(torch.matmul(h2, lp["w1"]), approximate="tanh").to(x.dtype)
-        return x + torch.matmul(u, lp["w2"]).to(x.dtype)
+        if "w1e" in lp:
+            gate_logits = torch.einsum("btd,de->bte", h2, lp["gate"])
+            f = moe_ffn(h2, lp["gate"], lp["w1e"], lp["w2e"], "ep",
+                        top_k=self.cfg.moe_top_k, gate_logits=gate_logits)
+            aux = aux + load_balance_loss(gate_logits)
+        else:
+            u = F.gelu(torch.matmul(h2, lp["w1"]),
+                       approximate="tanh").to(x.dtype)
+            f = torch.matmul(u, lp["w2"]).to(x.dtype)
+        return x + f, aux
 
     def _embed(self, params: Dict[str, Any],
                tokens: torch.Tensor) -> torch.Tensor:
@@ -173,9 +221,12 @@ class Transformer(nn.Module):
         return torch.matmul(y.float(), params["embed"].float().mT)
 
     def forward_shard(self, params: Dict[str, Any],
-                      tokens: torch.Tensor) -> torch.Tensor:
+                      tokens: torch.Tensor) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
         """tokens: [B_local, T_local] int64, on the parameters' device.
-        Returns logits [B_local, T_local, V] in fp32."""
+        Returns (logits [B_local, T_local, V] in fp32, aux): ``aux`` is
+        the load-balance loss summed over the layers and microbatches (0
+        for a dense FFN)."""
         x = self._embed(params, tokens)
         B, Tl, _ = x.shape
         M = self.cfg.n_micro
@@ -185,12 +236,35 @@ class Transformer(nn.Module):
         # [S, L, ...] -> this shard's layer stack [S*L, ...]
         stage = {name: a.reshape(-1, *a.shape[2:])
                  for name, a in params["stages"].items()}
+        # a recomputed layer keeps nothing for the backward but its inputs
+        remat = self.cfg.remat and torch.is_grad_enabled()
 
         def stage_fn(sparams, xm):
+            aux = torch.zeros((), dtype=torch.float32, device=xm.device)
             for i in range(sparams["wqkv"].shape[0]):
-                xm = self._layer({name: a[i] for name, a in sparams.items()},
-                                 xm)
-            return xm
+                lp = {name: a[i] for name, a in sparams.items()}
+                if remat:
+                    xm, aux = checkpoint(self._layer, lp, xm, aux,
+                                         use_reentrant=False)
+                else:
+                    xm, aux = self._layer(lp, xm, aux)
+            return xm, aux
 
-        y = gpipe(stage_fn, stage, x.reshape(M, B // M, Tl, -1), "pp")
-        return self._head(params, y.reshape(B, Tl, -1))
+        y, aux = gpipe(stage_fn, stage, x.reshape(M, B // M, Tl, -1), "pp",
+                       with_aux=True)
+        return self._head(params, y.reshape(B, Tl, -1)), aux
+
+
+def loss_shard(cfg: TransformerConfig, params: Dict[str, Any],
+               tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean cross-entropy of the fp32 logits over every token, plus
+    ``aux_loss_weight`` times the load-balance loss's mean over layers and
+    microbatches when MoE is on.  ``tokens`` and ``labels``: [B, T]
+    int64 on the parameters' device."""
+    logits, aux = Transformer(cfg).forward_shard(params, tokens)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+    if cfg.n_experts:
+        loss = loss + cfg.aux_loss_weight * (aux / (cfg.n_layers
+                                                     * cfg.n_micro))
+    return loss

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the hot operations.
 
 The port's counterpart of the JAX package's ``ops/pallas_kernels.py``.
-Two CUDA sources live under ``csrc/``:
+Three CUDA sources live under ``csrc/``:
 
 - ``gemm``: the blocked fp32 GEMM of ``csrc/matmul.cu``,
   ``Out = beta*C + alpha*(A @ op(B))`` over an optional leading batch
@@ -15,9 +15,18 @@ Two CUDA sources live under ``csrc/``:
   the second also returning each row's raw running max ``m`` and
   denominator ``l`` (``[B, H, T]``).  They replace the Pallas
   ``_flash_fwd_kernel`` and ``_flash_fwd_stats_kernel`` and carry the
-  transformer's attention (models/transformer.py, parallel/).  There is
-  no backward kernel yet: on a CUDA input that needs a gradient they
-  raise.
+  transformer's attention (models/transformer.py, parallel/).
+- ``flash_attention_bwd``: the flash backward of
+  ``csrc/flash_attention_bwd.cu``, dq, dk and dv from the forward's raw
+  row statistics, in place of the jnp VJP ``_flash_vjp_bwd`` of the
+  Pallas ``_flash``.  ``flash_attention`` is differentiable through it:
+  while grad mode is on and an input needs a gradient, its forward
+  launches the STATS instance of the forward kernel (to keep m and l for
+  the backward) and its backward launches this kernel.  Under
+  ``torch.no_grad()`` or ``torch.inference_mode()`` it launches the
+  instance without statistics.  ``flash_attention_stats`` has no
+  backward on the card (nor has the JAX package's): its differentiated
+  use is the ring, whose VJP recomputes through the plain ring.
 
 Each source is compiled with ``nvcc`` at the first launch of one of its
 kernels into ``build/kernels/`` at the root of the checkout, keyed on a
@@ -26,11 +35,17 @@ compiles them all at once, one ``nvcc`` per source.  Nothing is compiled
 when the module is imported.
 
 A wrapper takes its kernel's plain PyTorch version (``gemm_plain``,
-``flash_attention_plain``, ``flash_attention_stats_plain``) only for
-tensors on the CPU.  On a CUDA tensor it launches the kernel or raises: a
-build or launch failure is never hidden by a fallback.
-``matmul_launches``, ``flash_launches`` and ``flash_stats_launches`` count
-the kernels' launches.
+``flash_attention_plain``, ``flash_attention_stats_plain``,
+``flash_attention_bwd_plain``) only for tensors on the CPU.  On a CUDA
+tensor it launches the kernel or raises: a build or launch failure is
+never hidden by a fallback.
+
+``matmul_launches``, ``flash_launches``, ``flash_stats_launches`` and
+``flash_bwd_launches`` count launches by kernel instance: the forward
+instance, the STATS instance (``flash_attention_stats``, and
+``flash_attention``'s forward while it records for a backward: a
+training forward counts there, one a call) and the backward (one a
+call, for its three launches: delta, dK/dV, dQ).
 """
 from __future__ import annotations
 
@@ -46,16 +61,18 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-__all__ = ["build", "flash_attention", "flash_attention_plain",
+__all__ = ["build", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain",
            "flash_attention_stats", "flash_attention_stats_plain",
-           "flash_launches", "flash_stats_launches", "gemm", "gemm_plain",
-           "load", "matmul", "matmul_launches"]
+           "flash_bwd_launches", "flash_launches", "flash_stats_launches",
+           "gemm", "gemm_plain", "load", "matmul", "matmul_launches"]
 
 #: launches of each kernel since the process started (or since a caller
 #: reset it to 0); the plain versions do not count
 matmul_launches = 0
 flash_launches = 0
 flash_stats_launches = 0
+flash_bwd_launches = 0
 
 #: the Pallas kernels' mask value, kept so masked rows match
 NEG_INF = -1e30
@@ -85,8 +102,15 @@ def _declare_flash(lib: ctypes.CDLL) -> None:
     lib.ptt_flash_fwd_stats_f32.restype = ctypes.c_int
 
 
+def _declare_flash_bwd(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ptt_flash_bwd_f32.argtypes = [p] * 11 + [i, i, i, i, i, f, p]
+    lib.ptt_flash_bwd_f32.restype = ctypes.c_int
+
+
 #: each CUDA source (``csrc/<name>.cu``) and the C signatures of its library
-_SOURCES = {"matmul": _declare_matmul, "flash_attention": _declare_flash}
+_SOURCES = {"matmul": _declare_matmul, "flash_attention": _declare_flash,
+            "flash_attention_bwd": _declare_flash_bwd}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -339,14 +363,11 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
 def _flash_launch(op: str, q, k, v, causal: bool, scale: Optional[float],
                   stats: bool):
     """Check the operands and launch the kernel of
-    ``csrc/flash_attention.cu``; returns ``o`` or ``(o, m, l)``."""
+    ``csrc/flash_attention.cu``, counting the instance launched; returns
+    ``o`` or ``(o, m, l)``."""
+    global flash_launches, flash_stats_launches
     B, H, T, Tk, D = _attention_shapes(op, q, k, v)
     _check_cuda_operands(op, (q, k, v))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            f"{op}: the CUDA kernel has no backward yet (ROADMAP Queue 2 "
-            f"items 2-3); call it under torch.no_grad() or "
-            f"torch.inference_mode()")
     if not 1 <= D <= FLASH_D_MAX:
         raise ValueError(f"{op}: the CUDA kernel takes head widths "
                          f"1..{FLASH_D_MAX}, got {D}")
@@ -374,7 +395,40 @@ def _flash_launch(op: str, q, k, v, causal: bool, scale: Optional[float],
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 B * H, T, Tk, D, int(causal), float(scale), stream)
     _raise_launch(op, lib, rc)
+    if stats:
+        flash_stats_launches += 1
+    else:
+        flash_launches += 1
     return (o, m, l) if stats else o
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward keeps the row
+    statistics of the STATS instance (the plain version's on the CPU),
+    the backward is ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.device.type == "cpu":
+            o, m, l = flash_attention_stats_plain(q, k, v, causal, scale)
+        else:
+            o, m, l = _flash_launch("flash_attention", q, k, v, causal,
+                                    scale, True)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l = ctx.saved_tensors
+        # the cotangent of a transposed, reshaped output is a strided view
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, m, l, do.contiguous(),
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -382,14 +436,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention forward, ``q [B, H, T, D]``, ``k, v [B, H, Tk, D]``
     -> ``[B, H, T, D]``; ``scale`` defaults to ``D ** -0.5``.  CPU tensors
-    take the plain version; CUDA tensors must be contiguous fp32 with
-    ``D <= 128`` and, while grad mode is on, must not need a gradient."""
-    global flash_launches
+    take the plain versions; CUDA tensors must be contiguous fp32 with
+    ``D <= 128``.  Differentiable: while grad mode is on and an input
+    needs a gradient, the forward keeps the row statistics and the
+    backward is ``flash_attention_bwd``."""
+    _attention_shapes("flash_attention", q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, float(scale))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale)
-    o = _flash_launch("flash_attention", q, k, v, causal, scale, False)
-    flash_launches += 1
-    return o
+    return _flash_launch("flash_attention", q, k, v, causal, scale, False)
 
 
 def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -403,11 +461,127 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = max(m_a, m_b);  w_x = exp(m_x - m) * l_x
         o = (o_a w_a + o_b w_b) / (w_a + w_b);  l = w_a + w_b
 
-    The same contract as ``flash_attention`` otherwise."""
-    global flash_stats_launches
+    The same contract as ``flash_attention`` otherwise, but no backward
+    on a CUDA tensor: while grad mode is on, an input that needs a
+    gradient raises."""
     if q.device.type == "cpu":
         return flash_attention_stats_plain(q, k, v, causal, scale)
-    out = _flash_launch("flash_attention_stats", q, k, v, causal, scale,
-                        True)
-    flash_stats_launches += 1
-    return out
+    if _needs_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention_stats: the stats kernel has no backward, as "
+            "in the JAX package (ROADMAP Queue 2(a)); the ring "
+            "differentiates through its own VJP.  Call it under "
+            "torch.no_grad() or torch.inference_mode()")
+    return _flash_launch("flash_attention_stats", q, k, v, causal, scale,
+                         True)
+
+
+# ---------------------------------------------------------------------- #
+# flash attention backward                                               #
+# ---------------------------------------------------------------------- #
+def _pick_block(t: int, pref: int) -> int:
+    """The Pallas wrapper's block: the largest power-of-two fraction of
+    ``pref`` that divides ``t``."""
+    b = min(pref, t)
+    while t % b:
+        b //= 2
+    return max(b, 1)
+
+
+def _bwd_shapes(q, k, v, o, m, l, do) -> Tuple[int, int, int, int, int]:
+    B, H, T, Tk, D = _attention_shapes("flash_attention_bwd", q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be q's {tuple(q.shape)}")
+    if m.shape != (B, H, T) or l.shape != (B, H, T):
+        raise ValueError(f"flash_attention_bwd: m {tuple(m.shape)} and l "
+                         f"{tuple(l.shape)} must be {(B, H, T)}")
+    return B, H, T, Tk, D
+
+
+def flash_attention_bwd_plain(q, k, v, o, m, l, do, causal: bool = True,
+                              scale: Optional[float] = None,
+                              block_k: int = 512):
+    """The backward kernel's plain version: the JAX package's
+    ``_flash_vjp_bwd`` in torch ops, blockwise over key blocks of
+    ``_pick_block(Tk, block_k)``.  Its first scan (the row statistics) is
+    the forward's ``m`` and ``l``, given here; then dv and
+    ``delta = rowsum(P * dP)`` block by block; then dq and dk.  The -1e30
+    mask with the local-index causal rule, and l == 0 -> 1.  ``o`` is
+    not read: the kernel takes ``delta = rowsum(dO * O)``, the same
+    number."""
+    B, H, T, Tk, D = _bwd_shapes(q, k, v, o, m, l, do)
+    if scale is None:
+        scale = D ** -0.5
+    bk = _pick_block(Tk, block_k)
+    qf, gf = q.float(), do.float()
+    l_safe = torch.where(l == 0.0, 1.0, l.float())
+    qpos = torch.arange(T, device=q.device)
+
+    def block_p_dp(j):
+        kb = k[:, :, j * bk:(j + 1) * bk].float()
+        vb = v[:, :, j * bk:(j + 1) * bk].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * scale
+        if causal:
+            kpos = j * bk + torch.arange(bk, device=q.device)
+            s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+        p = torch.exp(s - m.float()[..., None]) / l_safe[..., None]
+        return kb, p, torch.einsum("bhqd,bhkd->bhqk", gf, vb)
+
+    # pass 2: dv per block, and delta accumulated blockwise
+    delta = torch.zeros((B, H, T), dtype=torch.float32, device=q.device)
+    dvs = []
+    for j in range(Tk // bk):
+        _kb, p, dp = block_p_dp(j)
+        dvs.append(torch.einsum("bhqk,bhqd->bhkd", p, gf))
+        delta = delta + (p * dp).sum(-1)
+    # pass 3: dq and dk
+    dq = torch.zeros_like(qf)
+    dks = []
+    for j in range(Tk // bk):
+        kb, p, dp = block_p_dp(j)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, kb)
+        dks.append(torch.einsum("bhqk,bhqd->bhkd", ds, qf))
+    return (dq.to(q.dtype), torch.cat(dks, 2).to(k.dtype),
+            torch.cat(dvs, 2).to(v.dtype))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True,
+                        scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v, causal, scale)``
+    for the cotangent ``do``, given the forward's ``o`` and its raw row
+    max ``m`` and denominator ``l`` (``flash_attention_stats``).  CPU
+    tensors take the plain version; CUDA tensors must be contiguous fp32
+    on one device with ``D <= 128``."""
+    global flash_bwd_launches
+    B, H, T, Tk, D = _bwd_shapes(q, k, v, o, m, l, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, m, l, do, causal, scale)
+    op = "flash_attention_bwd"
+    _check_cuda_operands(op, (q, k, v, o, m, l, do))
+    if not 1 <= D <= FLASH_D_MAX:
+        raise ValueError(f"{op}: the CUDA kernel takes head widths "
+                         f"1..{FLASH_D_MAX}, got {D}")
+    if B * H > 65535:
+        raise ValueError(f"{op}: B*H = {B * H} exceeds gridDim.x")
+    if scale is None:
+        scale = D ** -0.5
+    dq = torch.empty_like(q)
+    if T == 0 or B * H == 0:     # no query sees a key
+        return dq, torch.zeros_like(k), torch.zeros_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.ptt_flash_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B * H, T, Tk, D,
+            int(causal), float(scale), stream)
+    _raise_launch(op, lib, rc)
+    flash_bwd_launches += 1
+    return dq, dk, dv

@@ -3,7 +3,7 @@
 
 A mesh here spans one device, so every axis has size 1; a mesh over
 more devices raises until the collectives are ported onto
-``torch.distributed`` (ROADMAP Queue 1 item 10)."""
+``torch.distributed`` (ROADMAP Queue 1 item 5)."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,7 +40,7 @@ def make_mesh(n_devices: Optional[int] = None,
     if n != 1 or (devices is not None and len(devices) != 1):
         raise NotImplementedError(
             f"a mesh over {n} devices needs the collectives over "
-            f"torch.distributed (ROADMAP Queue 1 item 10); this package "
+            f"torch.distributed (ROADMAP Queue 1 item 5); this package "
             f"runs on one device")
     if devices is None:
         if not torch.cuda.is_available():

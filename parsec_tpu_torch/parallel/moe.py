@@ -1,0 +1,54 @@
+"""Expert parallelism: the MoE feed-forward with experts over the ep axis.
+
+The dense-dispatch formulation of the JAX package's ``parallel/moe.py``:
+every token is evaluated against every local expert and the gate-weighted
+contributions are summed (a psum over ep, the identity at ep = 1); no
+capacity dropping.  Top-k gating keeps the probabilities at or above the
+k-th largest and renormalises them.  Differentiable end to end: the
+top-k mask carries no gradient, the kept probabilities do.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .mesh import axis_size
+
+
+def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,
+            w2: torch.Tensor, axis_name: str = "ep", top_k: int = 2,
+            gate_logits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: [..., D]; gate_w: [D, E_total]; w1: [E_local, D, F]; w2:
+    [E_local, F, D].  Returns [..., D].  Pass precomputed ``gate_logits``
+    to share the gating product with the load-balance loss."""
+    E_total = w1.shape[0] * axis_size(axis_name)
+    if top_k < 1:
+        raise ValueError(f"moe_ffn: top_k must be at least 1, got {top_k}")
+    logits = (gate_logits if gate_logits is not None
+              else torch.einsum("...d,de->...e", x, gate_w))
+    probs = torch.softmax(logits, dim=-1)
+    if top_k < E_total:
+        thresh = torch.topk(probs, top_k, dim=-1).values[..., -1:]
+        probs = probs * (probs >= thresh)
+        probs = probs / (probs.sum(dim=-1, keepdim=True) + 1e-9)
+    # at ep = 1 this shard holds every expert and weighs them by all of probs
+    h = torch.einsum("...d,edf->...ef", x.float(), w1.float())
+    h = F.gelu(h, approximate="tanh")
+    y = torch.einsum("...ef,efd->...ed", h, w2.float())
+    out = torch.einsum("...ed,...e->...d", y, probs.to(y.dtype))
+    return out.to(x.dtype)     # the psum over ep is the identity
+
+
+def load_balance_loss(gate_logits: torch.Tensor,
+                      axis_name: str = "ep") -> torch.Tensor:
+    """The Switch auxiliary load-balancing loss: E times the sum over
+    experts of the mean gate probability and the fraction of tokens whose
+    argmax is that expert (the first index on a tie)."""
+    probs = torch.softmax(gate_logits, dim=-1)
+    E = probs.shape[-1]
+    mean_prob = probs.reshape(-1, E).mean(dim=0)
+    hard = F.one_hot(probs.argmax(dim=-1), E).to(probs.dtype)
+    frac = hard.reshape(-1, E).mean(dim=0)
+    return E * (mean_prob * frac).sum()

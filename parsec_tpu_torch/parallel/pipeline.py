@@ -14,15 +14,26 @@ import torch
 from .mesh import axis_size
 
 
-def gpipe(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
-          stage_params: Any, x_micro: torch.Tensor,
-          axis_name: str = "pp") -> torch.Tensor:
+def gpipe(stage_fn: Callable[[Any, torch.Tensor], Any], stage_params: Any,
+          x_micro: torch.Tensor, axis_name: str = "pp",
+          with_aux: bool = False) -> Any:
     """Run the pipeline.  ``stage_fn(stage_params, x)`` applies this
     shard's stage to one microbatch; ``x_micro`` is [M, mb, ...].
-    Returns the last stage's outputs, [M, mb, ...]."""
+    Returns the last stage's outputs, [M, mb, ...].
+
+    with_aux: ``stage_fn`` returns ``(y, aux_scalar)`` and gpipe returns
+    ``(outs, aux_sum)``, the stage's aux summed over the microbatches
+    (every tick does real work at pp = 1)."""
     axis_size(axis_name)
-    return torch.stack([stage_fn(stage_params, x_micro[t])
-                        for t in range(x_micro.shape[0])])
+    results = [stage_fn(stage_params, x_micro[t])
+               for t in range(x_micro.shape[0])]
+    if not with_aux:
+        return torch.stack(results)
+    ys, auxes = zip(*results)
+    aux_sum = auxes[0]
+    for aux in auxes[1:]:
+        aux_sum = aux_sum + aux
+    return torch.stack(ys), aux_sum
 
 
 def last_stage_value(x: torch.Tensor, axis_name: str = "pp") -> torch.Tensor:

@@ -6,7 +6,9 @@ the ring while a flash-style online softmax merges each block's partial
 result by its running max and denominator.  On one device sp = 1: the
 ring is one step, over the shard's own (diagonal) block, masked
 causally.  The block's local attention is the flash stats kernel
-(ops/kernels.py) on the card, or the plain online softmax.
+(ops/kernels.py) on the card, or the plain online softmax.  The kernel
+path is differentiable through its own VJP, as the JAX package's is: the
+backward recomputes through the plain ring.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if use_kernel:
-        return _ring_flash(q, k, v, causal, float(scale))
+        return _RingFlash.apply(q, k, v, causal, float(scale))
     return _ring_plain(q, k, v, causal, scale)
 
 
@@ -83,6 +85,27 @@ def _ring_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = c_run + c_blk
     l_safe = torch.where(l == 0.0, 1.0, l)
     return (acc / l_safe[..., None]).to(q.dtype)
+
+
+class _RingFlash(torch.autograd.Function):
+    """The stats-kernel ring with the JAX package's recompute VJP
+    (``_ring_flash_vjp_bwd``): the backward differentiates the plain
+    ring, the same arithmetic, on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _ring_flash(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
+            out = _ring_plain(*leaves, ctx.causal, ctx.scale)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None)
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

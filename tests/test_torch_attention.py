@@ -234,7 +234,7 @@ def test_flash_cpu_takes_plain_and_counts_nothing():
 
 def test_flash_plain_is_differentiable_on_cpu():
     """On the CPU the plain version carries the gradient (the JAX VJP's
-    values); only the CUDA kernel lacks a backward."""
+    values), through the plain statistics and the plain backward."""
     q, k, v = _qkv(B=1, H=2, T=32, D=8, seed=6)
     gj = jax.grad(lambda q, k, v: jnp.sum(pk.flash_attention(
         q, k, v, block_q=16, block_k=16) ** 2), argnums=(0, 1, 2))(
@@ -329,13 +329,70 @@ def test_flash_kernels_take_misaligned_views_on_card(cuda_device, causal):
                    kernels.flash_attention_stats(*qkv, causal=causal)))
 
 
+def _card_grad_inputs(dev, B, H, T, Tk, D, seed=8):
+    q, k, v = _card_qkv(dev, B, H, T, Tk, D, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return q, k, v, torch.randn(q.shape, generator=g, device=dev)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("fn", [kernels.flash_attention,
-                                kernels.flash_attention_stats])
-def test_flash_kernel_refuses_gradients_on_card(cuda_device, fn):
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_flash_gradient_matches_plain_on_card(cuda_device, case):
+    """Autograd through flash_attention on the card: one launch of the
+    stats instance forward, one of the backward kernel, and dq, dk, dv
+    within tolerance of the plain backward on the plain statistics."""
+    *shape, causal = case
+    q, k, v, do = _card_grad_inputs(cuda_device, *shape)
+    before = (kernels.flash_launches, kernels.flash_stats_launches,
+              kernels.flash_bwd_launches)
+    leaves = tuple(t.clone().requires_grad_(True) for t in (q, k, v))
+    out = kernels.flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (kernels.flash_launches, kernels.flash_stats_launches,
+            kernels.flash_bwd_launches) == (before[0], before[1] + 1,
+                                            before[2] + 1)
+    o, m, l = kernels.flash_attention_stats_plain(q, k, v, causal=causal)
+    ref = kernels.flash_attention_bwd_plain(q, k, v, o, m, l, do,
+                                            causal=causal)
+    for a, b in zip(got, ref):
+        assert ((a - b).abs().max() / b.abs().max()).item() < STATS_TOL
+
+
+@pytest.mark.gpu
+def test_flash_stats_refuses_gradients_on_card(cuda_device):
+    """The stats kernel has no backward, as in the JAX package: while
+    grad mode is on, an input that needs a gradient raises."""
     q, k, v = _card_qkv(cuda_device, 1, 2, 64, 64, 16)
     q.requires_grad_(True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(q, k, v)
+        kernels.flash_attention_stats(q, k, v)
     with torch.no_grad():
-        fn(q, k, v)
+        kernels.flash_attention_stats(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_takes_misaligned_views_on_card(cuda_device, causal):
+    """Every copy of the backward kernel is 4 bytes wide: misaligned
+    operands give the bits of aligned copies of the same values."""
+    q, k, v, do = _card_grad_inputs(cuda_device, 1, 2, 300, 300, 64)
+    with torch.no_grad():
+        o, m, l = kernels.flash_attention_stats(q, k, v, causal=causal)
+    args = (q, k, v, o, m, l, do)
+    got = kernels.flash_attention_bwd(*map(_misaligned, args), causal)
+    ref = kernels.flash_attention_bwd(*args, causal)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, got, ref))
+
+
+@pytest.mark.gpu
+def test_flash_bwd_is_deterministic_on_card(cuda_device):
+    """No float atomics: two launches on the same inputs are bit-equal."""
+    q, k, v, do = _card_grad_inputs(cuda_device, 2, 4, 1000, 1000, 64)
+    with torch.no_grad():
+        o, m, l = kernels.flash_attention_stats(q, k, v, causal=True)
+    a = kernels.flash_attention_bwd(q, k, v, o, m, l, do)
+    b = kernels.flash_attention_bwd(q, k, v, o, m, l, do)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, a, b))

@@ -245,6 +245,39 @@ def test_cpu_front_end_modules_load_no_jax(module):
     assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
 
 
+def test_cpu_train_step_loads_no_jax():
+    """A fresh interpreter takes two Adam steps of a small MoE model with
+    flash attention on the CPU (the flash backward, parallel/moe.py,
+    models/train.py); no JAX module is loaded."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        from parsec_tpu_torch import models
+        cfg = models.TransformerConfig(vocab=64, d_model=32, n_heads=4,
+                                       d_head=8, seq_len=16, batch=2,
+                                       n_experts=2, attention="flash",
+                                       remat=True)
+        params = models.init_params(cfg)
+        state = models.adam_init(params)
+        step = models.make_train_step(cfg, device="cpu")
+        tokens = np.arange(32).reshape(2, 16) % 64
+        for _ in range(2):
+            params, state, loss = step(params, state, tokens,
+                                       np.roll(tokens, -1, axis=1))
+        assert np.isfinite(loss.item()) and int(state["count"]) == 2
+        for mod in ("parallel.moe", "models.train", "ops.kernels"):
+            assert "parsec_tpu_torch." + mod in sys.modules
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "parsec_tpu")))
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PARSEC_MCA_")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
+
+
 def test_init_without_card_raises(monkeypatch):
     """No CUDA and no device="cpu": init raises instead of falling back;
     the device_cuda_platform knob selects the CPU explicitly."""

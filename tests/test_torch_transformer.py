@@ -146,7 +146,8 @@ def test_layer_pieces_match_jax(attention):
                   jpar.spec("dp", "sp")),
         out_specs=jpar.spec("dp", "sp"))
     ref = np.asarray(jlayer({n: a.numpy() for n, a in lp.items()}, x))
-    got = transformer.Transformer(cfg)._layer(lp, torch.from_numpy(x))
+    got = transformer.Transformer(cfg)._layer(lp, torch.from_numpy(x),
+                                              0.0)[0]
     np.testing.assert_allclose(got.numpy(), ref, rtol=LOGITS_TOL,
                                atol=LOGITS_TOL)
 
@@ -164,11 +165,16 @@ def test_make_forward_without_card_raises(monkeypatch):
 
 
 def test_moe_raises():
+    """MoE runs (its parameters are the expert leaves); what raises is a
+    gate that keeps no expert."""
     cfg = models.TransformerConfig(**SMALL, n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        models.init_params(cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        models.make_forward(cfg, device="cpu")
+    assert {"gate", "w1e", "w2e"} <= set(models.init_params(cfg)["stages"])
+    models.make_forward(cfg, device="cpu")
+    bad = dataclasses.replace(cfg, moe_top_k=0)
+    with pytest.raises(ValueError, match="moe_top_k"):
+        models.make_forward(bad, device="cpu")
+    with pytest.raises(ValueError, match="moe_top_k"):
+        models.make_train_step(bad, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(n_devices=2),
