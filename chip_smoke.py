@@ -7,8 +7,9 @@ Phases, each reporting on its own lines:
 
 1. device   the card's name, and its name and power limit from nvidia-smi;
 2. build    every CUDA source of this checkout (csrc/*.cu), one nvcc for
-            each, all started together; then each kernel instance's
-            registers and spills, from nvcc -Xptxas -v;
+            each, all started together, beside one nvcc -Xptxas -v for
+            each, which then gives each kernel instance's registers and
+            spills;
 3. kernel   the GEMM kernel against its plain PyTorch version on the
             card, at the dpotrf path's tile shape (nb = 1024): matmul,
             gemm_nt, syrk_ln, a batched z = 8 launch, ragged 1000^3 and
@@ -27,9 +28,13 @@ Phases, each reporting on its own lines:
             merge rule over two key sets against attention over their
             concatenation; relative max error under 1e-4; then the
             backward kernel against its plain version at every one of
-            these cases (dq, dk, dv from the stats kernel's o, m, l and a
-            seeded cotangent), under 1e-4, misaligned operands bit-exact
-            against aligned copies and two launches bit-equal;
+            these cases and at [16, 16, 2048, 64] causal, a grid of
+            work items many times what the card holds at once (dq, dk,
+            dv from the stats kernel's o, m, l and a seeded cotangent),
+            under 1e-4, three launches bit-equal at every case (each
+            waited for against a deadline, so a stuck dQ turn fails
+            instead of hanging), misaligned operands bit-exact against
+            aligned copies;
 4b. bodies  the DPLASMA family's product bodies (gemm_nn_sub, gemm_tn_sub,
             unmqr, tsmqr, gemm with alpha 1.5 and beta 0.5, and with B
             transposed) against the GEMM kernel's plain version on the
@@ -133,7 +138,9 @@ Phases, each reporting on its own lines:
             F.scaled_dot_product_attention (fp32; it returns o alone),
             beside its bound and its plain version; the backward kernel
             at the same shape against SDPA's backward (its forward plus
-            backward less its forward);
+            backward less its forward), and each of its instances'
+            registers, local (spill) bytes, shared memory and resident
+            blocks an SM (cudaFuncGetAttributes);
 9. profile  with --profile only: the dpotrf, DTD Cholesky, dgeqrf and
             pdgemm (both forms) paths, one replay of the captured dpotrf,
             the wave dpotrf at NB = 1024 (stage-in, waves and write-back),
@@ -155,6 +162,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -240,17 +248,19 @@ def phase_device() -> str:
 def phase_build() -> None:
     from parsec_tpu_torch.ops import kernels
     t0 = time.perf_counter()
-    libs = kernels.build()
-    for name in libs:
-        kernels.load(name)
-    log("build", seconds=f"{time.perf_counter() - t0:.3f}",
-        libraries=",".join(so.name for so in libs.values()))
-    ptxas_report()
+    with ptxas_report():
+        libs = kernels.build()
+        for name in libs:
+            kernels.load(name)
+        log("build", seconds=f"{time.perf_counter() - t0:.3f}",
+            libraries=",".join(so.name for so in libs.values()))
 
 
-def ptxas_report() -> None:
+@contextlib.contextmanager
+def ptxas_report():
     """Registers and spills of every kernel instance, from ``nvcc -Xptxas
-    -v`` on each source (one nvcc each, all at once)."""
+    -v`` on each source (one nvcc each), started before the body (the
+    build) and reported after it."""
     import re
     import tempfile
     from parsec_tpu_torch.ops import kernels
@@ -262,7 +272,11 @@ def ptxas_report() -> None:
              f"{tmp}/{name}.o", str(kernels._CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for name in kernels._SOURCES}
-        reports = {name: p.communicate()[0] for name, p in procs.items()}
+        try:
+            yield
+        finally:
+            reports = {name: p.communicate()[0]
+                       for name, p in procs.items()}
     for name, text in reports.items():
         check(procs[name].returncode == 0,
               f"nvcc -Xptxas -v {name}:\n{text}")
@@ -520,20 +534,55 @@ def phase_attention(dev: torch.device, seed: int) -> dict:
     return worst
 
 
+#: the backward's oversubscribed case: 256 (b, h) slices of 2048 rows,
+#: thousands of work items for a grid of one block an SM
+BWD_BIG_SHAPE = (16, 16, 2048, 64)
+#: seconds a backward launch may take before its dQ turns count as stuck
+BWD_DEADLINE_S = 20.0
+
+
+def finish_within(what: str, seconds: float) -> None:
+    """Wait for the work queued so far on the current stream, failing
+    after ``seconds``: a kernel that waits forever (a dQ turn nobody
+    takes) cannot be stopped, so the process exits at once."""
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.monotonic()
+    while not done.query():
+        if time.monotonic() - t0 > seconds:
+            print(f"{what}: not finished after {seconds} s", flush=True)
+            os._exit(1)
+        time.sleep(0.001)
+
+
 def attention_backward(dev: torch.device, cases, g) -> float:
     """The backward kernel against its plain version on the same q, k, v,
     the stats kernel's o, m, l and a seeded cotangent, at every case of
-    the forward's; misaligned operands bit-exact against aligned copies,
-    two launches bit-equal.  Returns the max abs error at the forward's
-    shape."""
+    the forward's and at BWD_BIG_SHAPE; three launches bit-equal at every
+    case; misaligned operands bit-exact against aligned copies.  Returns
+    the max abs error at the forward's shape."""
     from parsec_tpu_torch.ops import kernels
+    B, H, T, D = BWD_BIG_SHAPE
+    big = tuple(torch.randn(B, H, T, D, generator=g, device=dev)
+                for _ in range(3))
     worst = 0.0
     args = {}
-    for name, (q, k, v), causal, on_path in cases:
+    for name, (q, k, v), causal, on_path in cases + [
+            ("big_16x16x2048_d64", big, True, False)]:
         do = torch.randn(q.shape, generator=g, device=dev)
         o, m, l = kernels.flash_attention_stats(q, k, v, causal=causal)
         args[name] = (q, k, v, o, m, l, do, causal)
+        t0 = time.perf_counter()
         got = kernels.flash_attention_bwd(*args[name])
+        finish_within(f"flash_bwd {name}", BWD_DEADLINE_S)
+        seconds = time.perf_counter() - t0
+        # no float atomics: the same inputs give the same bits
+        for _ in range(2):
+            again = kernels.flash_attention_bwd(*args[name])
+            finish_within(f"flash_bwd {name}", BWD_DEADLINE_S)
+            check(all(map(torch.equal, got, again)),
+                  f"flash_bwd {name}: launches on the same inputs differ")
+        del again
         ref = kernels.flash_attention_bwd_plain(*args[name])
         torch.cuda.synchronize()
         for part, a, b in zip(("dq", "dk", "dv"), got, ref):
@@ -545,8 +594,11 @@ def attention_backward(dev: torch.device, cases, g) -> float:
                 max_abs_err=absd)
             check(rel < RTOL, f"flash_bwd {name} {part}: relative error "
                               f"{rel} >= {RTOL}")
+        log("attention", kernel="flash_bwd", case=name, repeat_launches=3,
+            bit_exact=True, first_launch_s=f"{seconds:.4f}")
         del got, ref
-    # every copy is 4 bytes wide: one instance for both alignments
+    del args["big_16x16x2048_d64"], big
+    # the 4-byte-copy instance does the arithmetic of the 16-byte one
     *unaligned, causal = args["misaligned_d64"]
     unaligned = [misaligned(x) for x in unaligned]
     aligned = [x.clone() for x in unaligned]
@@ -554,14 +606,7 @@ def attention_backward(dev: torch.device, cases, g) -> float:
                   kernels.flash_attention_bwd(*unaligned, causal),
                   kernels.flash_attention_bwd(*aligned, causal))),
           "flash_attention_bwd: misaligned and aligned copies differ")
-    # no float atomics: the same inputs give the same bits
-    first = kernels.flash_attention_bwd(*args["fwd_causal"])
-    check(all(map(torch.equal, first,
-                  kernels.flash_attention_bwd(*args["fwd_causal"]))),
-          "flash_attention_bwd: two launches on the same inputs differ")
     log("attention", kernel="flash_bwd", case="misaligned_vs_aligned",
-        bit_exact=True)
-    log("attention", kernel="flash_bwd", case="repeat_launch",
         bit_exact=True)
     return worst
 
@@ -1918,6 +1963,7 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
     log("timing", case=f"scaled_dot_product_attention forward+backward "
                        f"{list(ATTN_SHAPE)} causal fp32",
         library_ms=sdpa_fwd_bwd_ms, forward_ms=library_ms)
+    backward_instances()
     del leaves, do, o, m, l
     cases = {"gemm": (f"gemm_nt nb={nb} fp32", 2.0 * nb ** 3),
              "flash": (f"flash_attention {list(ATTN_SHAPE)} causal fp32",
@@ -1934,6 +1980,26 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
             kernel_tflops=f"{work / rec['ms'] / 1e9:.3f}",
             roofline_share=f"{rec['bound_ms'] / rec['ms']:.4f}")
     return recs
+
+
+def backward_instances() -> None:
+    """Each instance of the backward's library (the delta pass first):
+    registers and local (spill) bytes a thread, static and dynamic shared
+    memory (at the instance's widest D) and resident blocks an SM, from
+    cudaFuncGetAttributes through ptt_flash_bwd_attributes."""
+    import ctypes
+    from parsec_tpu_torch.ops import kernels
+    lib = kernels.load("flash_attention_bwd")
+    out, name = (ctypes.c_int * 5)(), ctypes.c_char_p()
+    i = 0
+    while (rc := lib.ptt_flash_bwd_attributes(i, out,
+                                              ctypes.byref(name))) == 0:
+        log("timing", instance=name.value.decode(), registers=out[0],
+            local_bytes=out[1], static_smem_bytes=out[2],
+            dynamic_smem_bytes=out[3], blocks_per_sm=out[4])
+        i += 1
+    check(rc == -1, f"ptt_flash_bwd_attributes({i}): "
+                    f"{lib.ptt_error_string(rc).decode()}")
 
 
 def profile_report(label: str, prof, seconds: float, top: int = 12) -> None:

@@ -45,7 +45,7 @@ never hidden by a fallback.
 instance, the STATS instance (``flash_attention_stats``, and
 ``flash_attention``'s forward while it records for a backward: a
 training forward counts there, one a call) and the backward (one a
-call, for its three launches: delta, dK/dV, dQ).
+call, for its two launches: the delta pass and the persistent kernel).
 """
 from __future__ import annotations
 
@@ -78,6 +78,8 @@ flash_bwd_launches = 0
 NEG_INF = -1e30
 #: the largest head width the flash kernel takes
 FLASH_D_MAX = 128
+#: query rows per tile of the backward kernel (``BQ`` in its source)
+FLASH_BWD_BQ = 64
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -104,8 +106,12 @@ def _declare_flash(lib: ctypes.CDLL) -> None:
 
 def _declare_flash_bwd(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ptt_flash_bwd_f32.argtypes = [p] * 11 + [i, i, i, i, i, f, p]
+    lib.ptt_flash_bwd_f32.argtypes = [p] * 12 + [ctypes.c_longlong, i, i, i,
+                                                 i, i, f, p]
     lib.ptt_flash_bwd_f32.restype = ctypes.c_int
+    lib.ptt_flash_bwd_attributes.argtypes = [
+        i, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_char_p)]
+    lib.ptt_flash_bwd_attributes.restype = ctypes.c_int
 
 
 #: each CUDA source (``csrc/<name>.cu``) and the C signatures of its library
@@ -547,6 +553,15 @@ def flash_attention_bwd_plain(q, k, v, o, m, l, do, causal: bool = True,
             torch.cat(dvs, 2).to(v.dtype))
 
 
+def _flash_bwd_counters(bh: int, T: int,
+                       device: torch.device) -> torch.Tensor:
+    """The backward kernel's zeroed int32 scratch: a turn counter for each
+    (b*h, query tile of ``FLASH_BWD_BQ`` rows), which orders the dQ sum
+    by key tile, then the counter that hands out work items."""
+    return torch.zeros(bh * -(-T // FLASH_BWD_BQ) + 1, dtype=torch.int32,
+                       device=device)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                         do: torch.Tensor, causal: bool = True,
@@ -565,8 +580,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= D <= FLASH_D_MAX:
         raise ValueError(f"{op}: the CUDA kernel takes head widths "
                          f"1..{FLASH_D_MAX}, got {D}")
-    if B * H > 65535:
-        raise ValueError(f"{op}: B*H = {B * H} exceeds gridDim.x")
     if scale is None:
         scale = D ** -0.5
     dq = torch.empty_like(q)
@@ -574,13 +587,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, torch.zeros_like(k), torch.zeros_like(v)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    counters = _flash_bwd_counters(B * H, T, q.device)
     lib = load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.ptt_flash_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             m.data_ptr(), l.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B * H, T, Tk, D,
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            counters.data_ptr(), counters.numel(), B * H, T, Tk, D,
             int(causal), float(scale), stream)
     _raise_launch(op, lib, rc)
     flash_bwd_launches += 1

@@ -11,6 +11,8 @@ them, and the JAX ring, local and Ulysses attentions run under
 hold the CUDA kernel against the plain versions on a card and skip where
 there is none.
 """
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -372,11 +374,13 @@ def test_flash_stats_refuses_gradients_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 33, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_bwd_takes_misaligned_views_on_card(cuda_device, causal):
-    """Every copy of the backward kernel is 4 bytes wide: misaligned
-    operands give the bits of aligned copies of the same values."""
-    q, k, v, do = _card_grad_inputs(cuda_device, 1, 2, 300, 300, 64)
+def test_flash_bwd_takes_misaligned_views_on_card(cuda_device, causal, D):
+    """Misaligned operands take the 4-byte-copy instance of the backward
+    kernel: the bits of aligned copies of the same values (D = 64 and 128
+    take the 16-byte instance there, D = 33 the 4-byte one both ways)."""
+    q, k, v, do = _card_grad_inputs(cuda_device, 1, 2, 300, 300, D)
     with torch.no_grad():
         o, m, l = kernels.flash_attention_stats(q, k, v, causal=causal)
     args = (q, k, v, o, m, l, do)
@@ -386,13 +390,139 @@ def test_flash_bwd_takes_misaligned_views_on_card(cuda_device, causal):
     assert all(map(torch.equal, got, ref))
 
 
+def _bwd_within(args, causal, seconds=10.0):
+    """One backward launch, waited for against a deadline: a dQ turn that
+    never comes fails the test instead of stalling the run (the stuck
+    kernel cannot be stopped, so the process's card is lost with it)."""
+    out = kernels.flash_attention_bwd(*args, causal)
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.monotonic()
+    while not done.query():
+        if time.monotonic() - t0 > seconds:
+            pytest.fail(f"flash_attention_bwd not done after {seconds} s")
+        time.sleep(0.001)
+    return out
+
+
 @pytest.mark.gpu
-def test_flash_bwd_is_deterministic_on_card(cuda_device):
-    """No float atomics: two launches on the same inputs are bit-equal."""
-    q, k, v, do = _card_grad_inputs(cuda_device, 2, 4, 1000, 1000, 64)
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_flash_bwd_is_deterministic_on_card(cuda_device, case):
+    """No float atomics: dQ is summed in key-tile order, so three launches
+    on the same inputs are bit-equal."""
+    *shape, causal = case
+    q, k, v, do = _card_grad_inputs(cuda_device, *shape)
+    with torch.no_grad():
+        o, m, l = kernels.flash_attention_stats(q, k, v, causal=causal)
+    args = (q, k, v, o, m, l, do)
+    first = _bwd_within(args, causal)
+    for _ in range(2):
+        assert all(map(torch.equal, first, _bwd_within(args, causal)))
+
+
+@pytest.mark.gpu
+def test_flash_bwd_oversubscribed_grid_finishes_on_card(cuda_device):
+    """[16, 16, 2048, 64] causal: thousands of work items for a grid the
+    card holds at once, so blocks wait on dQ turns of items handed out
+    long before.  It finishes within its deadline, matches the plain
+    version and repeats bit for bit."""
+    q, k, v, do = _card_grad_inputs(cuda_device, 16, 16, 2048, 2048, 64)
     with torch.no_grad():
         o, m, l = kernels.flash_attention_stats(q, k, v, causal=True)
-    a = kernels.flash_attention_bwd(q, k, v, o, m, l, do)
-    b = kernels.flash_attention_bwd(q, k, v, o, m, l, do)
-    torch.cuda.synchronize()
-    assert all(map(torch.equal, a, b))
+    args = (q, k, v, o, m, l, do)
+    first = _bwd_within(args, True)
+    assert all(map(torch.equal, first, _bwd_within(args, True)))
+    ref = kernels.flash_attention_bwd_plain(*args, causal=True)
+    for a, b in zip(first, ref):
+        assert ((a - b).abs().max() / b.abs().max()).item() < STATS_TOL
+
+
+# ---------------------------------------------------------------------- #
+# the backward kernel's host side, on the CPU                            #
+# ---------------------------------------------------------------------- #
+def test_flash_bwd_cpu_takes_plain_and_counts_nothing():
+    """CPU tensors take the plain backward, bit for bit, and launch
+    nothing."""
+    q, k, v = _t(*_qkv(T=40, D=8, Tk=24, seed=11))
+    do = torch.from_numpy(np.random.RandomState(12).randn(*q.shape)
+                          .astype(np.float32))
+    o, m, l = kernels.flash_attention_stats_plain(q, k, v, causal=True)
+    before = kernels.flash_bwd_launches
+    got = kernels.flash_attention_bwd(q, k, v, o, m, l, do)
+    assert kernels.flash_bwd_launches == before
+    ref = kernels.flash_attention_bwd_plain(q, k, v, o, m, l, do)
+    assert all(map(torch.equal, got, ref))
+
+
+@pytest.mark.parametrize("bh,T,n", [(1, 1, 2), (96, 1024, 1537),
+                                    (3, 65, 7), (2, 64, 3)])
+def test_flash_bwd_counters_are_zeroed_int32(bh, T, n):
+    """One int32 turn counter for each (b*h, 64-row query tile), then the
+    work-item counter, all zero."""
+    c = kernels._flash_bwd_counters(bh, T, torch.device("cpu"))
+    assert c.shape == (n,) and c.dtype == torch.int32
+    assert not c.any()
+
+
+def _bwd_schedule(bh, T, Tk, D, causal):
+    """The backward kernel's schedule as its source states it: 64-row
+    query tiles, key tiles of 128 keys up to D = 64 and 64 beyond; work
+    item w = key tile * bh + slice, handed out in ascending w; an item
+    walks its visible query tiles from the last down; key tile j adds
+    into a query tile's dQ once that tile's counter reads j."""
+    bq, bk = kernels.FLASH_BWD_BQ, (128 if D <= 64 else 64)
+    nq, nk = -(-T // bq), -(-Tk // bk)
+    return [(w // bh, w % bh,
+             [qt for qt in range(nq - 1, -1, -1)
+              if not causal or qt * bq + bq - 1 >= (w // bh) * bk])
+            for w in range(bh * nk)], nq, nk, bq, bk
+
+
+@pytest.mark.parametrize("bh,T,Tk,D,causal", [
+    (3, 1024, 1024, 64, True), (2, 300, 1000, 64, False),
+    (2, 1000, 300, 128, True), (4, 130, 300, 33, True),
+    (1, 64, 64, 64, True), (5, 200, 333, 128, False)])
+@pytest.mark.parametrize("slots", [1, 3, 64])
+def test_flash_bwd_schedule_orders_dq_and_cannot_deadlock(bh, T, Tk, D,
+                                                          causal, slots):
+    """Over the schedule: every visible (query tile, key tile) pair is
+    walked exactly once; the key tiles a query tile waits on form 0..J,
+    so the turns are dense; every awaited item is handed out before its
+    waiter; and ``slots`` resident blocks, each stepping one query tile
+    at a time and blocking on its turn, finish every item (no
+    deadlock)."""
+    items, nq, nk, bq, bk = _bwd_schedule(bh, T, Tk, D, causal)
+    index = {(kt, b): w for w, (kt, b, _) in enumerate(items)}
+    pairs = [(b, qt, kt) for kt, b, walk in items for qt in walk]
+    assert len(pairs) == len(set(pairs))
+    for b in range(bh):
+        for qt in range(nq):
+            rows = range(qt * bq, min(T, qt * bq + bq))
+            seen = sorted(kt for kt in range(nk) if any(
+                not causal or r >= kt * bk
+                for r in rows if kt * bk < Tk))
+            waiters = sorted(kt for bb, q, kt in pairs if (bb, q) ==
+                             (b, qt))
+            assert waiters == seen == list(range(len(seen)))
+            assert all(index[(j - 1, b)] < index[(j, b)]
+                       for j in waiters[1:])
+    turn = {(b, qt): 0 for b in range(bh) for qt in range(nq)}
+    running, nxt = [], 0
+    while nxt < len(items) or running:
+        while len(running) < slots and nxt < len(items):
+            running.append([nxt, 0])
+            nxt += 1
+        moved = False
+        for blk in list(running):
+            kt, b, walk = items[blk[0]]
+            if blk[1] == len(walk):
+                running.remove(blk)
+                moved = True
+            elif turn[(b, walk[blk[1]])] == kt:
+                turn[(b, walk[blk[1]])] += 1
+                blk[1] += 1
+                moved = True
+        assert moved, "every resident block waits: deadlock"
+    assert all(turn[(b, qt)] == len({kt for bb, q, kt in pairs
+                                     if (bb, q) == (b, qt)})
+               for b, qt in turn)
