@@ -71,6 +71,29 @@ Phases, each reporting on its own lines:
             NT^3 = 4096 tasks, chore ops.gemm_nn, chained on C(m, n) in
             k order; all on cuda:0, GFLOP/s (2 N^3 over the wall), the
             residual;
+5e. multirank dposv across rank processes on the one card, through the
+            entry points a user calls: the script spawns itself as
+            ``chip_smoke.py --rank R --nb-ranks N --run RUN`` with
+            PARSEC_MCA_comm_transport=tcp, comm_endpoints and comm_rank
+            in each rank's environment, and init() wires the TCP comm
+            engine.  Runs at N = 16384, NB = 1024, 1024 right-hand sides,
+            on phase dposv's input: dposv_2 (2 ranks, A on 2 x 1, B on
+            2 x 1, tiles staged through the host over TCP), dposv_4 (4
+            ranks, A on 2 x 2, B on 4 x 1) and dposv_2_ipc (dposv_2 with
+            the CUDA-IPC device data plane); then dtd_chain_2, one
+            1024 x 1024 tile through 64 CUDA-chore hops alternating
+            between 2 ranks.  Each rank prints its wall (a barrier, the
+            call, torch.cuda.synchronize()), its GEMM launches, its
+            device tasks against its local CUDA-body tasks, its wire
+            messages and bytes and its plane's pulls, bytes and leaked
+            parks, and saves its tiles; the parent (idle on the card
+            meanwhile) assembles factor and X: both residuals under
+            1e-4, both bit-identical to phase dposv's, every local
+            CUDA-body task on the card and GEMM launches on every rank,
+            no tile above the short limit staged through the host in the
+            IPC run and no park leaked, the chain's value exact.  A rank
+            that exits non-zero or passes its 300 s deadline fails the
+            phase;
 6. bitexact batched and per-task dispatch give identical factors
             (N = 4096, NB = 512), dpotrf and dgetrf_nopiv;
 6a. static  dpotrf at N = 16384, NB = 1024 with ptg_dep_management=static
@@ -141,7 +164,9 @@ Phases, each reporting on its own lines:
             backward less its forward), and each of its instances'
             registers, local (spill) bytes, shared memory and resident
             blocks an SM (cudaFuncGetAttributes);
-9. profile  with --profile only: the dpotrf, DTD Cholesky, dgeqrf and
+9. profile  with --profile only (and rank 0 of multirank dposv_2, in its
+            timed run, so that run's wall includes the profiler): the
+            dpotrf, DTD Cholesky, dgeqrf and
             pdgemm (both forms) paths, one replay of the captured dpotrf,
             the wave dpotrf at NB = 1024 (stage-in, waves and write-back),
             the pivoted dgetrf, one forward and one flash train step once
@@ -163,8 +188,10 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -805,7 +832,334 @@ def phase_dposv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
            mt * (mt - 1) * (mt - 2) // 6 + mt * (mt - 1) // 2
            + mt * (mt - 1) * nt, launches,
            solve_residual(M, X, Bm, seed), RESID_TOL, n=n, nb=nb, nrhs=nrhs)
-    return launches, np.tril(L)
+    return launches, np.tril(L), X
+
+
+# ---------------------------------------------------------------------- #
+# multirank: rank processes over the TCP comm engine                     #
+# ---------------------------------------------------------------------- #
+#: run -> (ranks, A grid P x Q, B grid P, device data plane)
+MULTIRANK_RUNS = {"dposv_2": (2, (2, 1), 2, False),
+                  "dposv_4": (4, (2, 2), 4, False),
+                  "dposv_2_ipc": (2, (2, 1), 2, True)}
+DTD_HOPS = 64
+RANK_DEADLINE = 300.0    # seconds a rank process may take
+
+
+def local_cuda_tasks(pools, rank: int) -> int:
+    """Tasks of ``pools`` placed on ``rank`` whose class has a CUDA body."""
+    n = 0
+    for tp in pools:
+        for tc in tp.task_classes:
+            if not any(c.device_type == "cuda" for c in tc.incarnations):
+                continue
+            n += sum(1 for loc in tc.iter_space()
+                     if tc.rank_of_instance(tc.env_of(loc)) == rank)
+    return n
+
+
+def rank_dposv(ctx, args, plane: bool) -> dict:
+    """One rank's share of dposv at phase dposv's size and input."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.collections import TwoDimBlockCyclic
+    from parsec_tpu_torch.ops import kernels
+    nb_ranks, (P, Q), PB, _ = MULTIRANK_RUNS[args.run]
+    rank, n, nb = ctx.rank, args.n, args.nb
+    M = synth_spd(n, args.seed)
+    Bm = uniform(n, args.nrhs, seed=args.seed + 10)
+
+    def dist(src, p, q):
+        d = TwoDimBlockCyclic(src.shape[0], src.shape[1], nb, nb, P=p, Q=q,
+                              nodes=nb_ranks, rank=rank, dtype=np.float32)
+        for (i, j) in d.local_tiles():
+            np.copyto(d.tile(i, j), src[i * nb:(i + 1) * nb,
+                                        j * nb:(j + 1) * nb])
+        return d
+
+    A, B = dist(M, P, Q), dist(Bm, PB, 1)
+    A.name, B.name = "descA", "descB"
+    del M, Bm
+    expected = local_cuda_tasks(
+        [ptt.ops.dpotrf_taskpool(A, rank=rank, nb_ranks=nb_ranks),
+         ptt.ops.dtrsm_lower_taskpool(A, B, rank=rank, nb_ranks=nb_ranks),
+         ptt.ops.dtrsm_lower_trans_taskpool(A, B, rank=rank,
+                                            nb_ranks=nb_ranks)], rank)
+    dp = None
+    if plane:
+        from parsec_tpu_torch.comm import DeviceDataPlane
+        dp = DeviceDataPlane(ctx.comm.ce, device=ctx.device_by_type("cuda"))
+        dp.exchange()
+    dev = ctx.device_by_type("cuda")
+    ce = ctx.comm.ce
+    # --profile: rank 0 of dposv_2 runs its share under torch.profiler
+    prof = contextlib.nullcontext()
+    if args.profile and rank == 0 and args.run == "dposv_2":
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+    ce.sync()
+    reset_counts()
+    with prof:
+        t0 = time.perf_counter()
+        ptt.ops.dposv(ctx, A, B, rank=rank, nb_ranks=nb_ranks)
+        if dev.is_cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not isinstance(prof, contextlib.nullcontext):
+        profile_report(f"multirank_{args.run}_rank{rank}", prof, wall)
+    out = dict(wall=wall, matmul_launches=kernels.matmul_launches,
+               device=dev.name, device_tasks=dev.stats["tasks"],
+               local_cuda_tasks=expected, msgs=ce.fabric.msg_count,
+               bytes=ce.fabric.bytes_count,
+               host_staged_bytes=ctx.comm.stats["host_staged_bytes"],
+               rendezvous_host=ctx.comm.stats["rendezvous_host"],
+               plane_sends=ctx.comm.stats["plane_sends"],
+               stage_in_bytes=dev.stats["stage_in_bytes"],
+               stage_out_bytes=dev.stats["stage_out_bytes"])
+    if dp is not None:
+        out.update(plane_pulls=dp.stats["pulls"],
+                   plane_bytes=dp.stats["bytes_pulled"],
+                   leaked_parks=dp.leaked_parks,
+                   plane_backend=dp.backend_name)
+    for name, d in (("A", A), ("B", B)):
+        for (i, j) in d.local_tiles():
+            if name == "A" and i < j:
+                continue   # the factor is the lower triangle
+            host = d.data_of(i, j).sync_to_host(ctx.devices)
+            np.save(os.path.join(args.out, f"{name}_{i}_{j}.npy"),
+                    np.asarray(host.payload))
+    return out
+
+
+def rank_dtd_chain(ctx, args) -> dict:
+    """One 1024 x 1024 tile homed on rank 0 through DTD_HOPS tasks
+    alternating between the 2 ranks, each a CUDA chore adding 1."""
+    from parsec_tpu_torch import dtd
+    from parsec_tpu_torch.collections import DictCollection
+    from parsec_tpu_torch.dsl.dtd import AFFINITY, INOUT, INPUT
+    rank, nb = ctx.rank, args.nb
+    dev = ctx.device_by_type("cuda")
+
+    def coll(name, key, owner, shape):
+        c = DictCollection(nodes=2, rank=rank)
+        c.name = name
+        c.add(key, owner, np.zeros(shape, np.float32)
+              if owner == rank else None)
+        return c
+
+    tile_c = coll("C", "x", 0, (nb, nb))
+    anchors = [coll(f"anchor{r}", "a", r, (1, 1)) for r in range(2)]
+    boots = [coll(f"boot{r}", "b", r, (1, 1)) for r in range(2)]
+    tp = dtd.taskpool_new("dtd_chain")
+    ctx.add_taskpool(tp)
+    n_boot = 1           # this rank's own boot task: insertion index 0
+
+    def hop(es, task):
+        if task.locals[0] >= n_boot:
+            raise RuntimeError(f"{task.snprintf()} ran its host body")
+
+    for r in range(2):   # every rank creates the class with a boot task
+        tp.insert_task(hop, (tp.tile_of(boots[r], "b"), INOUT),
+                       (tp.tile_of(anchors[r], "a"), INPUT | AFFINITY))
+    tp.add_chore(hop, "cuda", lambda x, a: x + 1.0)
+    ctx.comm.ce.sync()
+    tile = tp.tile_of(tile_c, "x")
+    t0 = time.perf_counter()
+    for k in range(DTD_HOPS):
+        tp.insert_task(hop, (tile, INOUT),
+                       (tp.tile_of(anchors[k % 2], "a"), INPUT | AFFINITY))
+    tp.data_flush_all()
+    tp.wait()
+    if dev.is_cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(wall=wall, device=dev.name, device_tasks=dev.stats["tasks"],
+               local_cuda_tasks=DTD_HOPS // 2, msgs=ctx.comm.ce.fabric.msg_count,
+               bytes=ctx.comm.ce.fabric.bytes_count)
+    if rank == 0:
+        x = np.asarray(tile_c.data_of("x").get_copy(0).payload)
+        out["exact"] = bool(np.all(x == np.float32(DTD_HOPS)))
+    return out
+
+
+def rank_worker(args) -> int:
+    """One rank process of the multirank phase: init() wires the TCP
+    comm engine from the comm knobs in the environment."""
+    import parsec_tpu_torch as ptt
+    # the ranks share the host's cores: 4 workers a rank as on one rank,
+    # fewer when that would oversubscribe the host (4 ranks on 8 cores)
+    cores = max(1, min(4, (os.cpu_count() or 4) // args.nb_ranks))
+    ctx = ptt.init(nb_cores=cores)
+    try:
+        check(ctx.nb_ranks == args.nb_ranks and ctx.rank == args.rank,
+              f"rank {ctx.rank} of {ctx.nb_ranks}, asked for {args.rank} "
+              f"of {args.nb_ranks}")
+        if args.run == "dtd_chain_2":
+            out = rank_dtd_chain(ctx, args)
+        else:
+            out = rank_dposv(ctx, args, MULTIRANK_RUNS[args.run][3])
+    finally:
+        ctx.fini()
+    out.update(rank=args.rank, run=args.run, nb_cores=cores)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def spawn_ranks(run: str, nb_ranks: int, seed: int, out_dir: str,
+                n: int, nb: int, nrhs: int, profile: bool = False) -> list:
+    """Start the rank processes of ``run`` and wait for them; a rank that
+    exits non-zero or passes RANK_DEADLINE fails the phase (every rank
+    is killed first).  Returns each rank's JSON record."""
+    from parsec_tpu_torch.comm import free_ports
+    ports = free_ports(nb_ranks)
+    procs = []
+    for r in range(nb_ranks):
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("PARSEC_MCA_comm_")}
+        env.update(PARSEC_MCA_comm_transport="tcp",
+                   PARSEC_MCA_comm_endpoints=",".join(
+                       f"127.0.0.1:{p}" for p in ports),
+                   PARSEC_MCA_comm_rank=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--rank", str(r), "--nb-ranks", str(nb_ranks), "--run", run,
+             "--out", out_dir, "--n", str(n), "--nb", str(nb),
+             "--nrhs", str(nrhs)] + (["--profile"] if profile else []),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    deadline = time.monotonic() + RANK_DEADLINE
+    outs = [None] * nb_ranks
+    try:
+        for r, p in enumerate(procs):
+            try:
+                outs[r] = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"multirank {run}: rank {r} passed its "
+                                   f"{RANK_DEADLINE:.0f} s deadline")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            sys.stdout.write(err[-6000:])
+            raise RuntimeError(f"multirank {run}: rank {r} exited "
+                               f"{p.returncode}")
+        lines = out.strip().splitlines()
+        for line in lines[:-1]:
+            if line.startswith("[profile]"):
+                print(line, flush=True)
+        recs.append(json.loads(lines[-1]))
+    return recs
+
+
+def assemble(out_dir: str, name: str, shape, nb: int) -> np.ndarray:
+    out = np.zeros(shape, np.float32)
+    for f in os.listdir(out_dir):
+        if f.startswith(name + "_"):
+            i, j = map(int, f[len(name) + 1:-4].split("_"))
+            t = np.load(os.path.join(out_dir, f))
+            out[i * nb:i * nb + t.shape[0], j * nb:j * nb + t.shape[1]] = t
+    return out
+
+
+def phase_multirank(seed: int, factor: np.ndarray, X1: np.ndarray,
+                    n: int = N_MAIN, nb: int = NB_MAIN, nrhs: int = NRHS,
+                    profile: bool = False):
+    """dposv across 2 and 4 rank processes, host-staged and over the
+    CUDA-IPC plane, then the DTD chain; returns each dposv run's GEMM
+    launches by rank."""
+    M = synth_spd(n, seed)
+    Bm = uniform(n, nrhs, seed=seed + 10)
+    flops = n ** 3 / 3 + 2.0 * n * n * nrhs
+    launches = {}
+    for run, (nb_ranks, grid, PB, plane) in MULTIRANK_RUNS.items():
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{run}_")
+        try:
+            t0 = time.perf_counter()
+            recs = spawn_ranks(run, nb_ranks, seed, out_dir, n, nb, nrhs,
+                               profile)
+            spawn_s = time.perf_counter() - t0
+            L = assemble(out_dir, "A", (n, n), nb)
+            X = assemble(out_dir, "B", (n, nrhs), nb)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        wall = max(r["wall"] for r in recs)
+        same_L = bool(np.array_equal(L, factor))
+        same_X = bool(np.array_equal(X, X1))
+        resid_x = solve_residual(M, X, Bm, seed)
+        resid_l = residual(L, M, seed)
+        del L, X
+        for r in recs:
+            log(f"multirank.{run}", rank=r["rank"], device=r["device"],
+                nb_cores=r["nb_cores"], wall=f"{r['wall']:.4f}",
+                matmul_launches=r["matmul_launches"],
+                device_tasks=r["device_tasks"],
+                local_cuda_tasks=r["local_cuda_tasks"], msgs=r["msgs"],
+                bytes=r["bytes"], host_staged_bytes=r["host_staged_bytes"],
+                rendezvous_host=r["rendezvous_host"],
+                plane_sends=r["plane_sends"],
+                plane_pulls=r.get("plane_pulls", 0),
+                plane_bytes=r.get("plane_bytes", 0),
+                leaked_parks=r.get("leaked_parks", 0),
+                stage_in_bytes=r["stage_in_bytes"],
+                stage_out_bytes=r["stage_out_bytes"])
+        log(f"multirank.{run}", ranks=nb_ranks, a_grid=f"{grid[0]}x{grid[1]}",
+            b_grid=f"{PB}x1",
+            plane=recs[0].get("plane_backend", "none"), n=n, nb=nb,
+            nrhs=nrhs, wall=f"{wall:.4f}",
+            gflops=f"{flops / wall / 1e9:.2f}",
+            spawn_to_exit_s=f"{spawn_s:.1f}", factor_identical=same_L,
+            x_identical=same_X, residual=resid_x, factor_residual=resid_l)
+        for r in recs:
+            check(r["device"] == "cuda:0",
+                  f"{run}: rank {r['rank']} ran on {r['device']}")
+            check(r["device_tasks"] == r["local_cuda_tasks"],
+                  f"{run}: rank {r['rank']} ran {r['device_tasks']} device "
+                  f"tasks of its {r['local_cuda_tasks']} CUDA-body tasks")
+            check(r["matmul_launches"] > 0,
+                  f"{run}: rank {r['rank']} launched the GEMM kernel no time")
+            if plane:
+                check(r["rendezvous_host"] == 0,
+                      f"{run}: rank {r['rank']} staged "
+                      f"{r['rendezvous_host']} tiles through the host")
+                check(r["leaked_parks"] == 0,
+                      f"{run}: rank {r['rank']} leaked "
+                      f"{r['leaked_parks']} parks")
+        if plane:
+            check(all(r["plane_backend"] == "ipc" for r in recs),
+                  f"{run}: the device plane ran on "
+                  f"{recs[0]['plane_backend']}, not CUDA IPC")
+            pulls = sum(r["plane_pulls"] for r in recs)
+            check(pulls > 0 and pulls == sum(r["plane_sends"] for r in recs),
+                  f"{run}: {pulls} plane pulls for "
+                  f"{sum(r['plane_sends'] for r in recs)} plane sends")
+        check(resid_x < RESID_TOL and resid_l < RESID_TOL,
+              f"{run}: residuals {resid_x}, {resid_l} >= {RESID_TOL}")
+        check(same_L and same_X, f"{run}: factor identical {same_L}, X "
+                                 f"identical {same_X} to one rank's")
+        launches[run] = [r["matmul_launches"] for r in recs]
+    recs = spawn_ranks("dtd_chain_2", 2, seed, tempfile.gettempdir(), n, nb,
+                       nrhs)
+    for r in recs:
+        # the boot task may run its class's chore when the chore was
+        # added before the boot task was dispatched (as in phase dtd)
+        boot_on_device = r["device_tasks"] - r["local_cuda_tasks"]
+        log("multirank.dtd_chain_2", rank=r["rank"], device=r["device"],
+            hops=DTD_HOPS, wall=f"{r['wall']:.4f}",
+            device_tasks=r["device_tasks"],
+            local_cuda_tasks=r["local_cuda_tasks"],
+            boot_on_device=boot_on_device, msgs=r["msgs"],
+            bytes=r["bytes"], exact=r.get("exact"))
+        check(r["device"] == "cuda:0" and 0 <= boot_on_device <= 1,
+              f"dtd_chain_2: rank {r['rank']} ran {r['device_tasks']} "
+              f"device tasks for {r['local_cuda_tasks']} hops and 1 boot "
+              f"task")
+    check(recs[0]["exact"] is True, "dtd_chain_2: the tile is not exact")
+    return launches
 
 
 def lu_counts(nt: int):
@@ -2187,12 +2541,23 @@ def main(argv=None) -> int:
                          "and dgetrf paths, one forward and one train step "
                          "under torch.profiler and print device time by "
                          "kernel")
+    # the multirank phase's rank processes (this script, spawned)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--nb-ranks", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--run", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--n", type=int, default=N_MAIN, help=argparse.SUPPRESS)
+    ap.add_argument("--nb", type=int, default=NB_MAIN, help=argparse.SUPPRESS)
+    ap.add_argument("--nrhs", type=int, default=NRHS, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     # the package must come from this checkout; importing it first means a
     # directory holding only this script fails before any result
     import parsec_tpu_torch  # noqa: F401
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.rank is not None:
+        return rank_worker(args)
 
     kind = phase_device()
     dev = torch.device("cuda", 0)
@@ -2205,12 +2570,19 @@ def main(argv=None) -> int:
     gemm_launches["dpotrf"], L_ptg = phase_main(args.seed)
     gemm_launches["dtd"], L_dtd = phase_dtd(args.seed, L_ptg)
     gemm_launches["dtd_gemm"] = phase_dtd_gemm(args.seed)
-    gemm_launches["dposv"], factor = phase_dposv(args.seed)
+    gemm_launches["dposv"], factor, X_dposv = phase_dposv(args.seed)
     gemm_launches["dgetrf_nopiv"], LU = phase_getrf_nopiv(args.seed)
     gemm_launches["dgeqrf"], QR = phase_geqrf(args.seed)
     gemm_launches["pdgemm"], C_nn = phase_pdgemm(args.seed)
     phase_dense(dev, args.seed, factor)
-    del factor
+    # the rank processes share the card: the parent keeps off it
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    multirank = phase_multirank(args.seed, factor, X_dposv,
+                                profile=args.profile)
+    for run, per_rank in multirank.items():
+        gemm_launches[f"multirank_{run}"] = sum(per_rank)
+    del factor, X_dposv
     phase_bitexact(args.seed)
     # the static engines, each factor held against the interpreted one
     refs = {("dpotrf", NB_MAIN): L_ptg, ("dgetrf_nopiv", NB_MAIN): LU,
@@ -2247,7 +2619,11 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         dict(name="gemm_f32", route="cuda", source=src + "matmul.cu",
              replaces=tpu + "395", launches=gemm_launches,
-             graph_launches=graph_launches, max_abs_err=gemm_err,
+             graph_launches=graph_launches,
+             multirank_launches_per_rank={f"multirank_{run}": per_rank
+                                          for run, per_rank
+                                          in multirank.items()},
+             max_abs_err=gemm_err,
              **recs["gemm"]),
         dict(name="flash_fwd_f32", route="cuda",
              source=src + "flash_attention.cu", replaces=tpu + "68",

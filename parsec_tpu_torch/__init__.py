@@ -3,8 +3,11 @@ task-based runtime (DAG scheduling, the PTG DSL, tiled collections,
 per-device task incarnations, tracing) with its accelerator device module
 and hot kernels written for an NVIDIA Hopper card.
 
-This package ports the single-rank PTG and DTD front ends of the JAX
-package, beside it in the same repository:
+This package ports the PTG and DTD front ends of the JAX package, beside
+it in the same repository, on one rank or several (``comm``: in-process
+ranks over ``LocalFabric``, rank processes over the TCP engine that
+``init()`` wires from the ``comm_*`` knobs, tiles staged through the
+host or moved over CUDA IPC by a ``DeviceDataPlane``):
 
     ctx = parsec_tpu_torch.init(nb_cores=4)         # device module on cuda:0
     A = TwoDimBlockCyclic(n, n, nb, nb).from_numpy(M)
@@ -38,6 +41,7 @@ from .dsl import dtd, ptg
 from . import ops
 from . import parallel
 from . import models
+from . import comm
 
 __version__ = "0.1.0"
 
@@ -46,5 +50,6 @@ __all__ = [
     "Dep", "HookReturn", "TaskStatus", "Data", "DataCopy", "Coherency",
     "FlowAccess", "Datatype", "Arena", "params", "dsl", "dtd", "ptg", "ops",
     "CompoundTaskpool", "compose", "recursive_call",
-    "parallel", "models", "data_new_with_payload", "dtt_of_array", "__version__",
+    "parallel", "models", "comm", "data_new_with_payload", "dtt_of_array",
+    "__version__",
 ]

@@ -1,0 +1,217 @@
+"""Comm engine (CE) abstraction: transport-neutral messaging.
+
+Reference behavior: ``parsec_comm_engine_t`` — tagged active messages
+(callback per tag), ``mem_register/unregister``, one-sided put/get with
+local+remote completion callbacks, pack/unpack, sync, capabilities
+(ref: parsec/parsec_comm_engine.h:139-166). The only in-tree transport is
+funnelled MPI emulating one-sided ops over two-sided sends
+(parsec/parsec_mpi_funnelled.c).
+
+Here the CE is the control plane and the host-memory data plane.
+Transports: LocalFabric (in-process ranks, the test fabric standing in
+for oversubscribed mpiexec, SURVEY.md §4) and TCPCommEngine (rank
+processes over sockets).  Device-resident tiles may ride a separate
+device data plane (comm/xfer.py).  Fault injection, telemetry spans and
+cross-rank flow tracing are not carried by this package.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+
+class RankFailedError(RuntimeError):
+    """A peer rank failed mid-run (crash, kill, or a torn connection).
+
+    Failure *detection* is the explicit extension beyond the reference
+    (SURVEY.md §5.3: PaRSEC has none — a dead MPI rank hangs the job):
+    the TCP transport reports a torn connection while the engine is live
+    (comm/tcp.py), and the dead rank aborts this rank's DAG instead of
+    hanging in termdet forever."""
+
+    def __init__(self, rank: int, reason: str = "connection lost") -> None:
+        super().__init__(f"rank {rank} failed: {reason}")
+        self.rank = rank
+
+
+class MemHandle:
+    """Registered memory region handle (ref: parsec_ce_mem_reg_handle_t —
+    wraps {ptr, count, datatype}); here it wraps a host array + metadata.
+
+    ``quantize_ok`` is the registrant's per-flow eligibility mark for
+    the lossy quantized wire codecs: True only for tile payloads; the
+    GET reply propagates it so the transport may quantize the bulk
+    buffer toward peers that negotiated a codec."""
+
+    _iter = 0
+    _lock = threading.Lock()
+
+    def __init__(self, array: Any, meta: Any = None,
+                 quantize_ok: bool = False) -> None:
+        with MemHandle._lock:
+            MemHandle._iter += 1
+            self.handle_id = MemHandle._iter
+        self.array = array
+        self.meta = meta
+        self.quantize_ok = bool(quantize_ok)
+
+
+class CommEngine:
+    """Transport interface (ref: parsec_comm_engine_t function table)."""
+
+    def __init__(self, rank: int, nb_ranks: int) -> None:
+        self.rank = rank
+        self.nb_ranks = nb_ranks
+        self._tag_cbs: Dict[int, Callable] = {}
+        self._mem: Dict[int, MemHandle] = {}
+        self.on_get_served: Optional[Callable[[int], None]] = None
+        # transports invoke this when a message lands in the inbox so a
+        # parked worker wakes instead of finishing its backoff sleep
+        self.on_arrival: Optional[Callable[[], None]] = None
+        # late-bound tags: a message can land before its handler exists
+        # (MPI's posted-recv semantics give this for free); such
+        # messages wait here and replay at registration
+        self._deferred: List[Tuple[int, int, Any]] = []
+        self._deferred_lock = threading.Lock()
+        self._deferred_warned: set = set()
+        # uniform failure surface across transports
+        self.dead_peers: set = set()
+        #: called (peer, reason) when a peer is declared failed;
+        #: RemoteDepEngine.attach points this at the context's abort path
+        self.on_peer_failure: Optional[Callable[[int, str], None]] = None
+        #: the attached DeviceDataPlane, or None (host staging)
+        self.device_plane: Optional[Any] = None
+
+    def _notify_arrival(self) -> None:
+        cb = self.on_arrival
+        if cb is not None:
+            cb()
+
+    MAX_DEFERRED = 4096
+
+    # -- active messages ----------------------------------------------------
+    def tag_register(self, tag: int, cb: Callable[[int, Any], None]) -> None:
+        """cb(src_rank, payload) runs during progress() on the receiver."""
+        # handler install and deferred drain are one atomic step against
+        # deliver_message's check-then-defer: without the shared lock a
+        # message checked before the install but deferred after the
+        # drain would strand forever
+        with self._deferred_lock:
+            self._tag_cbs[tag] = cb
+            pending = [m for m in self._deferred if m[1] == tag]
+            if pending:
+                self._deferred = [m for m in self._deferred if m[1] != tag]
+        for src, _tag, payload in pending:
+            cb(src, payload)
+
+    def deliver_message(self, src: int, tag: int, payload: Any) -> bool:
+        """Route one drained message to its handler, or hold it if the
+        tag is not bound yet (replayed by tag_register — MPI's
+        posted-recv semantics). Returns True when handled now.
+
+        A tag that never gets a handler is a bug: warn once, and fail
+        loudly if the hold queue grows past MAX_DEFERRED instead of
+        leaking quietly."""
+        with self._deferred_lock:
+            cb = self._tag_cbs.get(tag)
+            if cb is None:
+                if len(self._deferred) >= self.MAX_DEFERRED:
+                    raise RuntimeError(
+                        f"rank {self.rank}: {len(self._deferred)} messages "
+                        f"deferred for unregistered tags (first tags: "
+                        f"{sorted({m[1] for m in self._deferred[:50]})}) — "
+                        f"a handler was never registered")
+                self._deferred.append((src, tag, payload))
+        if cb is None:
+            if tag not in self._deferred_warned:
+                self._deferred_warned.add(tag)
+                from ..utils import logging as plog
+                plog.debug.verbose(
+                    1, "rank %d: deferring message(s) for unregistered "
+                    "tag %d", self.rank, tag)
+            return False
+        cb(src, payload)
+        return True
+
+    def tag_unregister(self, tag: int) -> None:
+        self._tag_cbs.pop(tag, None)
+
+    def send_am(self, dst: int, tag: int, payload: Any) -> None:
+        raise NotImplementedError
+
+    # -- failures -----------------------------------------------------------
+    def report_peer_failure(self, peer: int, reason: str) -> None:
+        """Uniform failure funnel: mark ``peer`` dead and notify the
+        runtime. Idempotent."""
+        if peer in self.dead_peers or self.peer_finished(peer):
+            return
+        self.dead_peers.add(peer)
+        from ..utils import logging as plog
+        plog.warning("rank %d: peer %d presumed FAILED (%s)",
+                     self.rank, peer, reason)
+        cb = self.on_peer_failure
+        if cb is not None:
+            cb(peer, reason)
+
+    def peer_finished(self, peer: int) -> bool:
+        """True when ``peer`` shut down CLEANLY (it finished its work
+        and fini'd). Transports that can observe orderly shutdown
+        override this."""
+        return False
+
+    def peer_suspect(self, peer: int) -> bool:
+        """True while ``peer``'s link is torn but a reliable session is
+        still reconnecting inside its budget (comm/tcp.py) — a
+        TRANSIENT fault, not a death. Transports without sessions never
+        suspect."""
+        return False
+
+    # -- registered memory + one-sided emulation ----------------------------
+    def mem_register(self, array: Any, meta: Any = None,
+                     quantize_ok: bool = False) -> MemHandle:
+        h = MemHandle(array, meta, quantize_ok=quantize_ok)
+        self._mem[h.handle_id] = h
+        return h
+
+    def mem_unregister(self, handle: MemHandle) -> None:
+        self._mem.pop(handle.handle_id, None)
+
+    def get(self, src_rank: int, remote_handle_id: int,
+            on_complete: Callable[[Any], None]) -> None:
+        """One-sided get: fetch the remote registered region
+        (emulated with a GET-request AM + data reply, like the funnelled
+        MPI engine, parsec_mpi_funnelled.c:245-365).
+
+        Aggregation contract: gets issued from message handlers during
+        one progress() drain MAY be batched per peer into a single
+        request/reply frame — on_complete still fires once per get,
+        but callers must not assume one wire message per call."""
+        raise NotImplementedError
+
+    def put(self, dst_rank: int, remote_handle_id: int, array: Any,
+            on_complete: Optional[Callable] = None) -> None:
+        raise NotImplementedError
+
+    # -- progress -----------------------------------------------------------
+    def progress(self) -> int:
+        """Drain incoming messages; returns #messages handled."""
+        raise NotImplementedError
+
+    def sync(self) -> None:
+        """Barrier across ranks."""
+        raise NotImplementedError
+
+    def fini(self) -> None:
+        pass
+
+
+# wire tags (ref: parsec/remote_dep.h:41-48); the JAX package's numbering
+TAG_ACTIVATE = 1
+TAG_GET_REQ = 2
+TAG_GET_DATA = 3
+TAG_PUT_DATA = 4
+TAG_TERMDET = 5
+TAG_DTD_DATA = 6
+TAG_MEM_PUT = 7
+TAG_HEARTBEAT = 8   # liveness probes (tcp rides wire-level K_PING frames)
+TAG_USER_BASE = 16

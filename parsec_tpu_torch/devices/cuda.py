@@ -264,11 +264,12 @@ class CudaDevice(Device):
                 with self.on_stream():
                     arrays.append(self._put(ref.data_in.payload))
                 continue
-            copy = data.get_copy(self.device_index)
-            if copy is None:
-                copy = DataCopy(data, self.device_index, payload=None,
-                                dtt=ref.data_in.dtt)
-                data.attach_copy(copy)
+            with data._lock:   # the prefetcher may attach it meanwhile
+                copy = data.get_copy(self.device_index)
+                if copy is None:
+                    copy = DataCopy(data, self.device_index, payload=None,
+                                    dtt=ref.data_in.dtt)
+                    data.attach_copy(copy)
             src = data.start_transfer_ownership(self.device_index, access)
             if src is not None:
                 nbytes = getattr(src.payload, "nbytes", 0)
@@ -645,16 +646,17 @@ class CudaDevice(Device):
         copy = data.get_copy(self.device_index)
         if copy is None or copy.payload is None:
             return None
-        host = data.get_copy(0)
         arr = self._pull(copy.payload)
-        if host is None:
-            host = DataCopy(data, 0, payload=arr)
-            data.attach_copy(host)
-        else:
-            host.payload = arr
-        host.version = copy.version
-        host.coherency = Coherency.SHARED
-        copy.coherency = Coherency.SHARED
+        with data._lock:   # another thread may pull the same tile
+            host = data.get_copy(0)
+            if host is None:
+                host = DataCopy(data, 0, payload=arr)
+                data.attach_copy(host)
+            else:
+                host.payload = arr
+            host.version = copy.version
+            host.coherency = Coherency.SHARED
+            copy.coherency = Coherency.SHARED
         self.stats["stage_out_bytes"] += arr.nbytes
         return arr
 

@@ -1,4 +1,4 @@
-"""DTD — Dynamic Task Discovery front end, on one rank.
+"""DTD — Dynamic Task Discovery front end.
 
 Reference behavior: a sequential task-insertion API that discovers the DAG at
 runtime from data access modes (IN/OUT/INOUT + AFFINITY/DONT_TRACK), with
@@ -14,9 +14,11 @@ Public surface mirrors the reference:
 ``DTDTaskpool.insert_task(fn, args...)``, ``tile_of(collection, key)``,
 ``tile_new(...)``, ``data_flush/data_flush_all``, ``add_chore``, ``wait``.
 
-This package runs one rank: the cross-rank half of the JAX package's DTD
-(remote writers, send/recv tasks) is not carried, and a DTD pool added to
-a context of several ranks raises.
+On several ranks, every rank inserts every task (SPMD insertion) and
+only the placement rank executes it: the others update tile tracking
+state and synthesize send tasks for data leaving their rank and recv
+tasks for data arriving (tile-sequence matching over the comm engine,
+comm/remote_dep.py).
 
 Host bodies take ``(es, task)`` and read their arguments with
 ``unpack_args``: numpy arrays for tiles, mutated in place.  A CUDA chore
@@ -71,26 +73,48 @@ AFFINITY = AccessMode.AFFINITY
 DONT_TRACK = AccessMode.DONT_TRACK
 
 
+class RemoteWriter:
+    """SPMD-consistent marker: the tile's last write happened on ``rank``
+    and is the ``seq``-th write of the tile."""
+
+    __slots__ = ("rank", "seq")
+
+    def __init__(self, rank: int, seq: int) -> None:
+        self.rank = rank
+        self.seq = seq
+
+
 class DTDTile:
     """ref: parsec_dtd_tile_t — tracked unit of data with last-user state.
 
-    ``writers_seq`` counts the writes inserted on the tile and
+    ``writers_seq`` counts every write by any rank (the insertion stream
+    is SPMD-identical, so the count agrees everywhere) and
     ``flushed_at_seq`` the write a flush was last inserted after; both
     change at insertion time, so ``data_flush_all`` flushes exactly the
-    tiles written since their last flush.
+    tiles written since their last flush.  ``last_writer`` is a local
+    record or a RemoteWriter; ``recv_proxy`` is the local recv-task
+    record materializing a remote write; ``sent_to`` dedups sends of one
+    version.
     """
 
-    __slots__ = ("key", "data", "last_writer", "readers", "lock",
-                 "writers_seq", "flushed_at_seq")
+    __slots__ = ("key", "comm_key", "rank", "data", "last_writer",
+                 "readers", "lock", "writers_seq", "flushed_at_seq",
+                 "sent_to", "recv_proxy", "recv_proxy_seq")
 
-    def __init__(self, key: Any, data: Data) -> None:
+    def __init__(self, key: Any, data: Data, rank: int = 0,
+                 comm_key: Any = None) -> None:
         self.key = key
+        self.comm_key = comm_key if comm_key is not None else key
+        self.rank = rank
         self.data = data
-        self.last_writer: Optional["_DTDRecord"] = None
+        self.last_writer: Any = None   # _DTDRecord | RemoteWriter | None
         self.readers: List["_DTDRecord"] = []
         self.lock = threading.Lock()
         self.writers_seq = 0
         self.flushed_at_seq = -1
+        self.sent_to: set = set()
+        self.recv_proxy: Optional["_DTDRecord"] = None
+        self.recv_proxy_seq = -1
 
 
 class _DTDRecord:
@@ -204,6 +228,7 @@ class DTDTaskpool(Taskpool):
         self.window_size = params.get("dtd_window_size")
         self.threshold_size = params.get("dtd_threshold_size")
         self._task_classes: Dict[Any, DTDTaskClass] = {}
+        self._coll_names: Dict[str, int] = {}
         self._tiles = HashTable()
         self._outstanding = 0
         self._out_lock = threading.Lock()
@@ -212,6 +237,7 @@ class DTDTaskpool(Taskpool):
         self.tdm = termdet_new("local", self)
         self.tdm.taskpool_addto_runtime_actions(1)
         self._alive = True
+        self.comm = None  # remote-dep driver, attached on register
         # inserts before context.add_taskpool are buffered and replayed at
         # enqueue time, so DTD pools compose (parsec_compose chains enqueue
         # parts later) and nest (recursive_call) naturally
@@ -219,10 +245,6 @@ class DTDTaskpool(Taskpool):
         self.on_enqueue = self._on_enqueue
 
     def _on_enqueue(self, tp) -> None:
-        if self.context.nb_ranks != 1:
-            raise NotImplementedError(
-                f"{self.name}: nb_ranks={self.context.nb_ranks}, but this "
-                f"package runs DTD on one rank")
         pending, self._pending_inserts = self._pending_inserts, []
         for body, args, kw in pending:
             self.insert_task(body, *args, **kw)
@@ -230,12 +252,28 @@ class DTDTaskpool(Taskpool):
     # ------------------------------------------------------------------ #
     # tiles                                                              #
     # ------------------------------------------------------------------ #
-    def tile_of(self, collection, key: Any) -> DTDTile:
+    def tile_of(self, collection, key: Any,
+                wire_name: Optional[str] = None) -> DTDTile:
         """ref: parsec_dtd_tile_of (insert_function.h:219) — one DTDTile per
-        (collection, key), memoized."""
-        tile, _ = self._tiles.find_or_insert(
-            (id(collection), key),
-            lambda: DTDTile(key, collection.data_of_key(key)))
+        (collection, key), memoized. The wire key uses the collection *name*
+        (or the explicit ``wire_name`` override) so SPMD ranks agree on it
+        (per-rank instances of one logical collection must share a name in
+        multi-rank runs)."""
+        name = wire_name if wire_name is not None else collection.name
+        # wire keys are (name, key): on several ranks, catch two distinct
+        # collections sharing a name before they cross-deliver tile data
+        owner = self._coll_names.setdefault(name, id(collection))
+        if owner != id(collection) and self.nb_ranks > 1:
+            raise ValueError(
+                f"two collections share the name {name!r}; set distinct "
+                f".name values (the name keys tile messages between ranks)")
+
+        def factory() -> DTDTile:
+            rank = collection.rank_of_key(key)
+            data = collection.data_of_key(key) if rank == self.my_rank \
+                else Data(key=("remote", name, key))
+            return DTDTile(key, data, rank=rank, comm_key=(name, key))
+        tile, _ = self._tiles.find_or_insert((id(collection), key), factory)
         return tile
 
     def tile_of_data(self, data: Data) -> DTDTile:
@@ -338,6 +376,27 @@ class DTDTaskpool(Taskpool):
             "cuda", cuda_chore_hook(), dyld_fn=wrapped,
             batch_spec=DeviceBatchSpec(tc.name, extract, call)))
 
+    @property
+    def my_rank(self) -> int:
+        return self.context.rank if self.context is not None else 0
+
+    @property
+    def nb_ranks(self) -> int:
+        return self.context.nb_ranks if self.context is not None else 1
+
+    def _task_rank(self, tracked: List[_Param]) -> int:
+        """Placement: AFFINITY param's tile rank, else first written tile,
+        else first tracked tile (ref: PARSEC_AFFINITY placement)."""
+        for p in tracked:
+            if p.mode & AFFINITY:
+                return p.tile.rank
+        for p in tracked:
+            if int(p.mode) & 0x2:
+                return p.tile.rank
+        if tracked:
+            return tracked[0].tile.rank
+        return 0
+
     # ------------------------------------------------------------------ #
     # insertion                                                          #
     # ------------------------------------------------------------------ #
@@ -348,7 +407,11 @@ class DTDTaskpool(Taskpool):
         ``args`` are (value, VALUE) / (tile, INPUT|INOUT|OUTPUT [|AFFINITY...])
         pairs, or bare Python values (implicitly VALUE).  Before the pool
         is added to a context the insert is buffered (returns None) and
-        replayed at enqueue time.
+        replayed at enqueue time.  On several ranks every rank inserts
+        every task; only the placement rank executes it (and gets the
+        Task back) — the others update tile tracking state and
+        synthesize send tasks for edges leaving their rank (returns
+        None; ref: remote deps inferred from rank_of, SURVEY.md §2.2).
         """
         if not self._alive:
             raise RuntimeError(f"{self.name}: insert_task after wait() or "
@@ -376,15 +439,20 @@ class DTDTaskpool(Taskpool):
             p = _Param(val, mode, val, flow_index=len(tracked))
             tracked.append(p)
             parsed.append(p)
+        t_rank = self._task_rank(tracked)
+        if t_rank != self.my_rank:
+            self._process_remote_insertion(tracked, t_rank)
+            return None
         return self._insert_local(body, parsed, tracked, name, priority)
 
     def _insert_local(self, body: Callable, parsed: List[_Param],
                       tracked: List[_Param], name: Optional[str],
-                      priority: int) -> Task:
+                      priority: int, hold_deps: int = 0) -> Task:
         tc = self._task_class_of(body, len(tracked), name)
         task = Task(self, tc, locals_=(self._inserted,), priority=priority)
         self._inserted += 1
         rec = _DTDRecord(task)
+        rec.deps_remaining += hold_deps  # comm-gated tasks (recv) hold extra
         task.dtd = rec
         # per-INSTANCE access modes (the same body may be inserted with
         # different modes; the shared class Flow objects stay untouched)
@@ -409,29 +477,138 @@ class DTDTaskpool(Taskpool):
 
         for p in tracked:
             tile = p.tile
+            acc = int(p.mode) & 0x3
             with tile.lock:
-                writer = tile.last_writer
-                if int(p.mode) & 0x3 == int(AccessMode.INPUT):
-                    if writer is not None and writer is not rec:
-                        _chain_after(writer)
+                # only consumers need the remote data materialized; a pure
+                # OUTPUT has no RAW dep (and cross-rank WAR/WAW is vacuous)
+                local_pred = self._materialize_reader_pred(tile) \
+                    if (acc & 0x1) else (tile.last_writer
+                                         if isinstance(tile.last_writer,
+                                                       _DTDRecord)
+                                         else None)
+                if acc == int(AccessMode.INPUT):
+                    if local_pred is not None and local_pred is not rec:
+                        _chain_after(local_pred)
                     # prune completed readers so read-mostly tiles don't
                     # retain every historical reader record
                     tile.readers = [r for r in tile.readers if not r.completed]
                     tile.readers.append(rec)
                 else:  # OUTPUT or INOUT: chain after writer and all readers
-                    preds = [writer] if writer is not None and writer is not rec \
-                        else []
+                    preds = []
+                    if local_pred is not None and local_pred is not rec:
+                        preds.append(local_pred)
                     preds.extend(r for r in tile.readers if r is not rec)
                     for pr in preds:
                         _chain_after(pr)
                     tile.writers_seq += 1
                     tile.last_writer = rec
+                    tile.recv_proxy = None
                     tile.readers = []
+                    tile.sent_to = set()
 
         # drop the insertion guard; schedule if ready
         if rec.dep_satisfied():
-            schedule(self.context.execution_streams[0], [task])
+            self._schedule_new(task)
         return task
+
+    def _materialize_reader_pred(self, tile: DTDTile) -> Optional[_DTDRecord]:
+        """The record a local consumer must chain after. A RemoteWriter (or
+        remotely-homed pristine tile) is materialized by inserting a
+        recv-task whose record becomes the tile's local proxy. Caller holds
+        tile.lock."""
+        lw = tile.last_writer
+        if isinstance(lw, _DTDRecord):
+            return lw
+        if isinstance(lw, RemoteWriter):
+            seq = lw.seq
+        elif lw is None and tile.rank != self.my_rank:
+            seq = tile.writers_seq  # home data, possibly never written
+        else:
+            return None  # pristine local tile: no predecessor
+        if tile.recv_proxy is not None and tile.recv_proxy_seq == seq:
+            return tile.recv_proxy
+        proxy = self._insert_recv(tile, seq)
+        tile.recv_proxy = proxy
+        tile.recv_proxy_seq = seq
+        return proxy
+
+    def _insert_recv(self, tile: DTDTile, seq: int) -> _DTDRecord:
+        """Insert the comm-gated recv-task materializing (tile, seq).
+        Caller holds tile.lock — the recv chains after current local readers
+        manually to avoid re-entering the tracking logic."""
+        box: Dict[str, Any] = {}
+        task = self._insert_local(
+            _dtd_recv_body,
+            [_Param(box, VALUE | REF, None), _Param(tile, VALUE | REF, None)],
+            [], name="dtd_recv", priority=0, hold_deps=1)
+        rec = task.dtd
+        # the recv overwrites the tile: order it after live local readers
+        for r in tile.readers:
+            if not r.completed:
+                with rec.lock:
+                    rec.deps_remaining += 1
+                if not r.add_successor(rec):
+                    rec.dep_satisfied()
+        tile.readers = []
+        if self.comm is None:
+            raise RuntimeError(f"{self.name}: tile {tile.comm_key} lives on "
+                               f"rank {tile.rank}, but no comm engine is "
+                               f"attached")
+
+        def on_data(arr):
+            box["data"] = arr
+            if rec.dep_satisfied():
+                self._schedule_new(task)
+        self.comm.dtd_expect(self, tile.comm_key, seq, on_data)
+        return rec
+
+    def _process_remote_insertion(self, tracked: List[_Param],
+                                  t_rank: int) -> None:
+        """A task placed on another rank: emit sends for data leaving my
+        rank, update SPMD tile tracking."""
+        for p in tracked:
+            tile = p.tile
+            acc = int(p.mode) & 0x3
+            with tile.lock:
+                if acc & 0x1:
+                    lw = tile.last_writer
+                    i_hold = isinstance(lw, _DTDRecord) or \
+                        (lw is None and tile.rank == self.my_rank)
+                    if i_hold and (t_rank, tile.writers_seq) not in tile.sent_to:
+                        tile.sent_to.add((t_rank, tile.writers_seq))
+                        self._insert_send(tile, tile.writers_seq, t_rank)
+                if acc & 0x2:  # the remote task writes a new version
+                    tile.writers_seq += 1
+                    tile.last_writer = RemoteWriter(t_rank, tile.writers_seq)
+                    tile.recv_proxy = None
+                    # KEEP live local readers (incl. the send just inserted):
+                    # a future recv of the new version chains after them, so
+                    # the in-place overwrite of the host payload stays
+                    # ordered behind every consumer of the old version
+                    tile.readers = [r for r in tile.readers if not r.completed]
+                    tile.sent_to = set()
+
+    def _insert_send(self, tile: DTDTile, seq: int, dst: int) -> None:
+        """Insert the send-task shipping (tile, seq) to ``dst``. Caller
+        holds tile.lock; the send chains after the local writer manually."""
+        task = self._insert_local(
+            _dtd_send_body,
+            [_Param((tile, seq, dst), VALUE | REF, None)],
+            [], name="dtd_send", priority=0, hold_deps=1)
+        rec = task.dtd
+        lw = tile.last_writer
+        if isinstance(lw, _DTDRecord) and lw is not rec:
+            with rec.lock:
+                rec.deps_remaining += 1
+            if not lw.add_successor(rec):
+                rec.dep_satisfied()
+        tile.readers.append(rec)
+        # chaining complete: drop the hold (may schedule right away)
+        if rec.dep_satisfied():
+            self._schedule_new(task)
+
+    def _schedule_new(self, task: Task) -> None:
+        schedule(self.context.execution_streams[0], [task])
 
     def _on_task_done(self) -> None:
         with self._out_lock:
@@ -524,6 +701,34 @@ def _dtd_flush_body(es, task: Task) -> None:
 
 def taskpool_new(name: str = "dtd") -> DTDTaskpool:
     return DTDTaskpool(name=name)
+
+
+def _dtd_recv_body(es, task: Task) -> None:
+    """Comm-gated recv: materialize the received version into the tile's
+    host copy (the task was scheduled only after the data arrived)."""
+    box = task.user[0].value
+    tile: DTDTile = task.user[1].value
+    arr = box["data"]
+    host = tile.data.host_copy()
+    if host.payload is None:
+        host.payload = np.array(arr)
+    else:
+        # the host copy may transiently hold a tensor: write into a
+        # writable numpy buffer, never through a device payload
+        np.copyto(Data.materialize_host(host), arr)
+    tile.data.version_bump(0)
+
+
+def _dtd_send_body(es, task: Task) -> None:
+    """Ship the tile's current version to the destination rank (the D2H
+    copy, if any, queues on the device module's stream)."""
+    tile, seq, dst = task.user[0].value
+    tp: DTDTaskpool = task.taskpool
+    host = tile.data.sync_to_host(es.context.devices)
+    if host.payload is None:
+        raise RuntimeError(f"dtd_send of tile {tile.comm_key} with no local "
+                           f"payload")
+    tp.comm.dtd_send(tp, tile.comm_key, seq, dst, host.payload)
 
 
 def unpack_args(task: Task) -> List[Any]:

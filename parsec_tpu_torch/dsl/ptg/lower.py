@@ -149,7 +149,8 @@ def lower(tp, use_cache: bool = True) -> LoweredDAG:
 
     The enumeration is rank-independent (the FULL task space and edge
     set), but the static engines have no foreign-edge bookkeeping and
-    this package runs one rank, so only single-rank pools lower."""
+    the static engines keep no foreign-edge bookkeeping, so only
+    single-rank pools lower (a multi-rank pool runs the hash mode)."""
     import weakref
 
     if tp.nb_ranks != 1:

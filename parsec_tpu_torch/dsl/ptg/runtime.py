@@ -15,11 +15,12 @@ runs under the CUDA device module — flow names are bound to device tensors
 (``torch`` is in scope) and the code's final assignments to written flow
 names become the staged-out results.
 
-Dependencies are tracked on one rank, by the dynamic hash table
-(``ptg_dep_management=hash``, the default) or by static lowering
-(``=static``, the reference's ``--dep-management=index-array``): the
-task space is lowered once into flat arrays (lower.py) and released by
-the native ``NativeDAG``.  A static pool runs either on the classic
+Dependencies are tracked by the dynamic hash table
+(``ptg_dep_management=hash``, the default; one rank or several, remote
+successors batched into activations on the comm engine) or, on one
+rank, by static lowering (``=static``, the reference's
+``--dep-management=index-array``): the task space is lowered once into
+flat arrays (lower.py) and released by the native ``NativeDAG``.  A static pool runs either on the classic
 per-task path (``ptg_dispatch=classic``) or, when its data binding
 resolves statically and the context has a CUDA device module, on the
 turbo native loop (turbo.py; ``auto`` picks it when eligible, ``turbo``
@@ -37,7 +38,8 @@ import numpy as np
 
 from ...core.hashtable import HashTable
 from ...profiling.grapher import grapher
-from ...data.data import Coherency, Data, DataCopy, FlowAccess, to_host_array
+from ...data.data import (Coherency, Data, DataCopy, FlowAccess,
+                          is_device_array, to_host_array)
 from ...data.datatype import Datatype, dtt_of_array
 from ...data.reshape import ReshapeRepo, reshape_array as reshape_to
 from ...runtime.scheduling import schedule_keep_best
@@ -379,8 +381,6 @@ class PTGTaskClass(TaskClass):
         per-rank batch handed to the comm engine as one activation per output
         flow (ref: parsec_remote_deps_t accumulation, remote_dep.h:143-160).
 
-        This package runs one rank: a remote successor raises.
-
         With static dep management active the whole walk is ONE native
         call: the lowered CSR edges route copies and decrement dense
         counters in C (ref: --dep-management=index-array)."""
@@ -393,6 +393,9 @@ class PTGTaskClass(TaskClass):
             return [self.tp._make_task_static(r)
                     for r in self.tp._engine.complete(tid, copies)]
         ready: List[Task] = []
+        remote_edges: Dict[int, List[Tuple]] = {}
+        flow_payloads: Dict[int, Any] = {}
+        flow_dtts: Dict[int, Any] = {}
 
         def activate(succ_tc: "PTGTaskClass", succ_locals: Tuple,
                      flow_name: str, copy, out_idx: int,
@@ -414,12 +417,44 @@ class PTGTaskClass(TaskClass):
                 if t is not None:
                     ready.append(t)
                 return
-            raise RuntimeError(
-                f"{self.tp.name}: task {task.snprintf()} has a successor "
-                f"{succ_tc.name}{succ_locals} on rank {dst}, but this "
-                f"package runs one rank")
+            if self.tp.comm is None:
+                raise RuntimeError(
+                    f"{self.tp.name}: task {task.snprintf()} has a remote "
+                    f"successor {succ_tc.name}{succ_locals} but no comm "
+                    f"engine is attached (nb_ranks={self.tp.nb_ranks})")
+            remote_edges.setdefault(dst, []).append(
+                (succ_tc.task_class_id, succ_locals, flow_name, out_idx))
+            if out_idx not in flow_payloads and copy is not None:
+                ce = getattr(self.tp.comm, "ce", None)
+                plane = getattr(ce, "device_plane", None)
+                on_dev = (_newest_device_copy(copy)
+                          if plane is not None else None)
+                if on_dev is not None:
+                    # device data plane attached and the newest version
+                    # lives on the device (perhaps beside an equal host
+                    # copy a host body pulled): hand over the tensor
+                    # itself — the consumer pulls it device to device
+                    flow_payloads[out_idx] = on_dev.payload
+                    flow_dtts[out_idx] = on_dev.dtt
+                elif copy.data is not None:
+                    # the D2H copy queues on the device module's stream,
+                    # behind the kernel that wrote the tile
+                    host = copy.data.sync_to_host(es.context.devices)
+                    flow_payloads[out_idx] = to_host_array(host.payload) \
+                        if is_device_array(host.payload) \
+                        else np.asarray(host.payload)
+                    flow_dtts[out_idx] = host.dtt
+                else:
+                    flow_payloads[out_idx] = to_host_array(copy.payload) \
+                        if is_device_array(copy.payload) \
+                        else np.asarray(copy.payload)
+                    flow_dtts[out_idx] = copy.dtt  # rides the wire: a
+                    # matching consumer type must not reconvert
 
         self._iterate_successors(es, task, activate)
+        if remote_edges:
+            self.tp.comm.activate_batch(self.tp, task, flow_payloads,
+                                        remote_edges, flow_dtts)
         return ready
 
     def activate(self, locals_: Tuple, flow_name: str, copy) -> Optional[Task]:
@@ -602,6 +637,16 @@ class PTGTaskClass(TaskClass):
                                extract, call)
 
 
+def _newest_device_copy(copy) -> Optional[DataCopy]:
+    """A valid copy holding the newest version as a tensor, or None."""
+    if copy.data is None:
+        return copy if is_device_array(copy.payload) else None
+    v = copy.data.newest_version()
+    return next((c for c in copy.data.copies()
+                 if c.coherency != Coherency.INVALID and c.version == v
+                 and is_device_array(c.payload)), None)
+
+
 def _torch():
     import torch
     return torch
@@ -670,7 +715,7 @@ class PTGTaskpool(Taskpool):
         self.reshape_repo = ReshapeRepo()
         self.startup_hook = self._startup
         self.nb_local_tasks = 0
-        self.comm = None  # one rank: no remote-dep driver
+        self.comm = None  # remote-dep driver, attached by the comm engine
         self._dag = None      # LoweredDAG when static dep management is on
         self._turbo = None    # TurboRunner when the native loop took it
         self._engine = None   # NativeDAG ready-tracking engine
@@ -686,10 +731,14 @@ class PTGTaskpool(Taskpool):
         if mode not in ("hash", "static"):
             raise ValueError(f"ptg_dep_management={mode!r}: expected "
                              f"'hash' or 'static'")
-        if self.nb_ranks != 1:
+        if mode == "static" and self.nb_ranks != 1:
+            # the static engines lower one rank's task space and keep no
+            # foreign-edge bookkeeping; the JAX package quietly runs the
+            # hash path here, this package refuses instead
             raise NotImplementedError(
-                f"{self.name}: nb_ranks={self.nb_ranks}, but this package "
-                f"runs one rank")
+                f"{self.name}: ptg_dep_management=static on "
+                f"nb_ranks={self.nb_ranks}; use the hash mode on several "
+                f"ranks")
         if (mode == "static" and not grapher.enabled
                 and not self._has_out_edge_types()):
             turbo = self._startup_turbo(context)
@@ -698,14 +747,33 @@ class PTGTaskpool(Taskpool):
             return self._startup_static()
         total = 0
         startup: List[Task] = []
+        count_foreign = self.nb_ranks > 1 and self.comm is not None
+        expected_mem_puts = 0
         for tc in self._classes.values():
             for locals_ in tc.iter_space():
                 env = tc.env_of(locals_)
+                if tc.rank_of_instance(env) != self.rank:
+                    if count_foreign:
+                        # a foreign task whose out-dep targets MY
+                        # memory will ship a writeback: hold
+                        # termination for it
+                        expected_mem_puts += \
+                            self._count_mem_puts_to_me(tc, env)
+                    continue
                 total += 1
                 if tc.goal_of(locals_, env) == 0:
                     startup.append(tc.make_task(locals_, None))
+        # counts FIRST, delivery second: activations/puts released by
+        # counts_ready may schedule tasks that complete on a worker
+        # thread immediately — nb_tasks must already hold the total or
+        # the decrement goes negative (or is overwritten into a hang)
         self.nb_local_tasks = total
         self.set_nb_tasks(total)
+        if expected_mem_puts:
+            self.add_pending_action(expected_mem_puts)
+        if count_foreign:
+            # expectations credited: buffered early arrivals may deliver
+            self.comm.counts_ready(self)
         plog.debug.verbose(4, "ptg %s: %d local tasks, %d startup",
                            self.name, total, len(startup))
         return startup
@@ -815,6 +883,23 @@ class PTGTaskpool(Taskpool):
     def host_copy_of(self, es, data: Data) -> DataCopy:
         return data.host_copy()
 
+    def _count_mem_puts_to_me(self, tc: "PTGTaskClass",
+                              env: Dict[str, Any]) -> int:
+        """#memory out-deps of one FOREIGN instance that land on a tile
+        this rank owns (must mirror writeback_outputs' emission)."""
+        n = 0
+        for i, f in enumerate(tc.ast.flows):
+            if f.is_ctl or not (tc.flows[i].access & FlowAccess.WRITE):
+                continue
+            for d in f.deps_out():
+                t = d.resolve(env)
+                if t is None or t.kind != "memory":
+                    continue
+                coll = self.global_env[t.collection]
+                if coll.rank_of(*[a(env) for a in t.args]) == self.rank:
+                    n += 1
+        return n
+
     def pull_newest_to_host(self, es, data: Data) -> DataCopy:
         if es is None:
             return data.host_copy()
@@ -873,6 +958,23 @@ class PTGTaskpool(Taskpool):
                     continue
                 coll = self.global_env[t.collection]
                 args = [a(env) for a in t.args]
+                dst_rank = coll.rank_of(*args)
+                if dst_rank != self.rank:
+                    # cross-rank memory writeback: ship to the owner, who
+                    # counted this arrival as a pending runtime action at
+                    # startup; a copy-less flow still sends a release-only
+                    # notification so the owner's count retires (the
+                    # static count cannot see dynamic copy-None)
+                    if self.comm is None:
+                        raise RuntimeError(
+                            f"{task.snprintf()}: memory writeback to a "
+                            f"tile of rank {dst_rank} without a comm "
+                            f"engine")
+                    sh = src_host_of()
+                    payload = sh.payload if sh is not None else None
+                    self.comm.mem_writeback(self, t.collection, tuple(args),
+                                            payload, dst_rank)
+                    continue
                 if copy is None:
                     continue
                 # [type_data=...] / [type=...] on a memory OUT dep: only

@@ -1261,5 +1261,5 @@ class WaveRunner:
 
 def wave(tp: PTGTaskpool, max_chunk: int = 256) -> WaveRunner:
     """Build a wave-mode executor for a single-rank taskpool; a
-    multi-rank one raises (this package runs one rank)."""
+    multi-rank one raises (the distributed wave is not carried)."""
     return WaveRunner(tp, max_chunk=max_chunk)

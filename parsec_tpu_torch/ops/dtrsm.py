@@ -179,15 +179,17 @@ BODY [type=cuda]
 END
 """
 
-_fwd = _bwd = None
+_pair = None
 
 
 def _factories():
-    global _fwd, _bwd
-    if _fwd is None:
-        _fwd = ptg.compile_jdf(FWD_JDF, name="dtrsm_fwd")
-        _bwd = ptg.compile_jdf(BWD_JDF, name="dtrsm_bwd")
-    return _fwd, _bwd
+    # both published at once: in-process ranks call this concurrently,
+    # and one must never see the first factory without the second
+    global _pair
+    if _pair is None:
+        _pair = (ptg.compile_jdf(FWD_JDF, name="dtrsm_fwd"),
+                 ptg.compile_jdf(BWD_JDF, name="dtrsm_bwd"))
+    return _pair
 
 
 def _tp(factory, L: TiledMatrix, B: TiledMatrix, rank: int, nb_ranks: int):

@@ -8,9 +8,13 @@ workers; ``parsec_context_wait`` joins the progress loop until every active
 taskpool has terminated (ref: parsec/parsec.c:391-905,
 parsec/scheduling.c:535-790; call stacks SURVEY.md §3.1-3.2).
 
-This package runs one rank: the comm engine, fault tolerance, live
-telemetry (obs/) and serving of the JAX package are not carried yet, and
-an argument or knob asking for one of them raises NotImplementedError.
+Several ranks run one DAG over a comm engine (comm/): in-process ranks
+pass ``comm=RemoteDepEngine(fabric.engine(r))``; rank processes set the
+``comm_transport=tcp``, ``comm_endpoints`` and ``comm_rank`` knobs and
+``init()`` wires the TCP engine itself (the launcher contract).  Fault
+tolerance, live telemetry (obs/), serving and ``jax.distributed`` of the
+JAX package are not carried, and a knob asking for one of them raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,10 +34,35 @@ from .termdet import termdet_new
 from .vpmap import VPMap, VirtualProcess, default_nb_cores
 
 
+def _comm_from_params():
+    """Auto-wire the control-plane comm engine from launcher params
+    (each rank process gets PARSEC_MCA_comm_* — the analog of mpiexec
+    handing each process its communicator)."""
+    transport = params.get("comm_transport")
+    eps = params.get("comm_endpoints")
+    if not transport or transport in ("none", "0"):
+        return None
+    if transport != "tcp":
+        raise ValueError(f"unknown comm_transport {transport!r} "
+                         f"(supported: tcp)")
+    if not eps:
+        raise ValueError("comm_transport=tcp needs comm_endpoints")
+    rank = int(params.get("comm_rank"))
+    if rank < 0:
+        raise ValueError("comm_transport=tcp needs comm_rank >= 0")
+    endpoints = []
+    for e in eps.split(","):
+        host, port = e.rsplit(":", 1)
+        endpoints.append((host, int(port)))
+    from ..comm import RemoteDepEngine
+    from ..comm.tcp import TCPCommEngine
+    return RemoteDepEngine(TCPCommEngine(rank, endpoints))
+
+
 def _check_trimmed_knobs() -> None:
-    """Refuse knobs of subsystems this package does not carry yet (comm,
-    fault tolerance, obs, tuning, serving, stage compilation, chip
-    meshes): a request for one raises instead of being ignored."""
+    """Refuse knobs of subsystems this package does not carry yet (fault
+    tolerance, obs, tuning, serving, stage compilation, chip meshes):
+    a request for one raises instead of being ignored."""
     for name in TRIMMED_KNOBS:
         v = str(params.get(name)).strip().lower()
         if v not in ("", "0", "false", "off", "no"):
@@ -55,14 +84,19 @@ class Context:
                  profile: bool = False) -> None:
         if argv:
             params.parse_argv(argv)
-        if comm is not None or nb_ranks != 1 or rank != 0:
-            raise NotImplementedError(
-                "this package runs one rank; the comm engine is not "
-                "carried yet")
         _check_trimmed_knobs()
-        self.rank = 0
-        self.nb_ranks = 1
-        self.comm = None
+        if comm is None:
+            comm = _comm_from_params()
+        if comm is None and (nb_ranks != 1 or rank != 0):
+            raise ValueError(f"rank={rank}, nb_ranks={nb_ranks} without a "
+                             f"comm engine")
+        self.rank = rank
+        self.nb_ranks = nb_ranks
+        self.comm = comm                       # remote-dep driver
+        # synchronization state BEFORE comm binding: attach() installs an
+        # arrival callback that a peer's thread may fire immediately
+        # (in-process fabrics deliver synchronously from the sender) —
+        # wake_workers / record_task_error must find these initialized
         self._work_cond = threading.Condition()     # idle park/wake
         # taskpool bookkeeping
         self.taskpools: Dict[int, Taskpool] = {}
@@ -79,6 +113,13 @@ class Context:
         self._native_loops: List[Any] = []
         self._started = False
         self._finalized = False
+        # comm binding first: it defines our rank, which profiling and
+        # device setup label their output with
+        # (ref: parsec_remote_dep_init parsec.c:796)
+        if comm is not None:
+            comm.attach(self)
+            self.rank = comm.rank
+            self.nb_ranks = comm.nb_ranks
         self.vpmap = vpmap or VPMap.from_flat(nb_cores or default_nb_cores())
         self.nb_cores = self.vpmap.nb_total_threads
 
@@ -164,6 +205,18 @@ class Context:
 
         self.keep_highest_priority_task = params.get("runtime_keep_highest_priority_task")
 
+        # optional dedicated funnelled comm-progress thread (ref: the
+        # comm thread remote_dep_mpi.c:478, bound via -C): useful when
+        # every worker is busy in long device kernels and nobody drains
+        # the engine; default off — workers drain during idle cycles
+        self._comm_thread = None
+        self._comm_thread_stop = threading.Event()
+        if self.comm is not None and params.get("comm_thread"):
+            self._comm_thread = threading.Thread(
+                target=self._comm_thread_main, name="parsec-comm",
+                daemon=True)
+            self._comm_thread.start()
+
     # ------------------------------------------------------------------ #
     # taskpool lifecycle                                                 #
     # ------------------------------------------------------------------ #
@@ -173,7 +226,12 @@ class Context:
         assert tp.context is None, "taskpool already enqueued"
         tp.context = self
         if tp.tdm is None:  # DSL may have attached its own monitor
-            tp.tdm = termdet_new("local", tp)
+            kind = params.get("termdet")
+            if kind == "fourcounter" and self.comm is not None \
+                    and self.nb_ranks > 1:
+                tp.tdm = termdet_new("fourcounter", tp, comm=self.comm)
+            else:
+                tp.tdm = termdet_new("local", tp)
         with self._tp_lock:
             self.taskpools[tp.taskpool_id] = tp
             self._active_taskpools += 1
@@ -184,6 +242,10 @@ class Context:
             # startup tasks are scheduled, so even the first wave is
             # stamped with graph-aware priorities
             self.class_profile.observe_taskpool(tp)
+        if self.comm is not None:
+            self.comm.taskpool_register(tp)
+        # after device+comm registration: DTD's buffered-insert replay may
+        # synthesize remote send/recv tasks, which need tp.comm attached
         if tp.on_enqueue is not None:
             tp.on_enqueue(tp)
         if tp.startup_hook is not None:
@@ -233,6 +295,18 @@ class Context:
         plog.warning("task %s raised: %r",
                      task.snprintf() if task is not None else "<progress>", exc)
         self._task_errors.append(exc)
+        # a dead rank's tasks/actions can never settle, so waiting on
+        # the detectors is a guaranteed hang — abort every active pool
+        # NOW, which also unblocks taskpool-level waiters (DTD tp.wait)
+        # that do not consult the context's error list
+        from ..comm.engine import RankFailedError
+        if isinstance(exc, RankFailedError):
+            with self._tp_lock:
+                pools = list(self.taskpools.values())
+            for tp in pools:
+                tp.abort()
+        # no count argument: a transport thread may report a dead peer
+        # during comm.attach() in __init__, before nb_cores is set
         self.wake_workers()
 
     def raise_pending_error(self) -> None:
@@ -330,6 +404,25 @@ class Context:
     # ------------------------------------------------------------------ #
     # idle-loop helpers                                                  #
     # ------------------------------------------------------------------ #
+    def _comm_thread_main(self) -> None:
+        from .vpmap import bind_current_thread
+        core = params.get("comm_thread_bind")
+        if core >= 0:
+            bind_current_thread(core)
+        es0 = self.execution_streams[0]
+        idle = 0
+        while not self._comm_thread_stop.is_set():
+            try:
+                n = self.comm.progress(es0)
+            except BaseException as exc:  # noqa: BLE001 - surfaced on wait
+                self.record_task_error(exc)
+                n = 0
+            if n:
+                idle = 0
+            else:
+                idle = min(idle + 1, 10)
+                self._comm_thread_stop.wait(1e-5 * (1 << idle))
+
     def wake_workers(self, n: int = 1) -> None:
         with self._work_cond:
             self._work_cond.notify_all()
@@ -339,8 +432,9 @@ class Context:
             self._work_cond.wait(timeout=max_sleep)
 
     def progress_engines(self, es: ExecutionStream) -> int:
-        """Idle-cycle progress of the device managers (the CUDA
-        manager/progress_stream polling; SURVEY.md §3.3-3.4)."""
+        """Idle-cycle progress of the device managers and the comm engine
+        (the CUDA manager/progress_stream polling and the funnelled comm
+        thread; SURVEY.md §3.3-3.4)."""
         n = 0
         while True:
             try:
@@ -354,6 +448,10 @@ class Context:
             n += 1
         for dev in self.devices:
             n += dev.progress(es)
+        if self.comm is not None and self._comm_thread is None:
+            # funnelled mode: ONLY the dedicated thread touches the
+            # engine (ref: remote_dep_dequeue_main owns all MPI calls)
+            n += self.comm.progress(es)
         return n
 
     def defer(self, cb) -> None:
@@ -399,6 +497,13 @@ class Context:
             t.join(timeout=2.0)
         for dev in self.devices:
             dev.fini()
+        if self._comm_thread is not None:
+            # stop the funnelled progress thread BEFORE tearing the
+            # engine down under it
+            self._comm_thread_stop.set()
+            self._comm_thread.join(timeout=5)
+        if self.comm is not None:
+            self.comm.fini()
         if self._task_profiler is not None:
             # unhook from the global PINS sites: a later context's events
             # must not leak into this finalized profile

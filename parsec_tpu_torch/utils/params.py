@@ -305,7 +305,84 @@ def register_core_params() -> None:
     params.reg_string("profiling_dot", "",
                       "capture the executed DAG; path prefix for DOT files "
                       "(ref: --parsec_dot)")
-    params.reg_string("termdet", "local", "termination detection module")
+    params.reg_string("termdet", "local",
+                      "termination detection module: local | "
+                      "fourcounter (multi-rank pools on a comm engine)")
+    # comm engine, remote dependencies and the device data plane
+    # (comm/, xfer/); the knobs and defaults of the JAX package
+    params.reg_string("runtime_comm_coll_bcast", "binomial",
+                      "broadcast topology: star|chain|binomial")
+    params.reg_sizet("runtime_comm_short_limit", 4096,
+                     "max payload inlined in an activate message")
+    params.reg_bool("comm_adaptive_short_limit", False,
+                    "tune the eager/rendezvous cutoff per peer from the "
+                    "measured GET round-trip and link bandwidth (the "
+                    "static runtime_comm_short_limit is the floor, "
+                    "comm_short_limit_max the ceiling)")
+    params.reg_sizet("comm_short_limit_max", 1 << 20,
+                     "ceiling for the adaptive eager/rendezvous cutoff")
+    params.reg_sizet("comm_coalesce_max_bytes", 1 << 16,
+                     "max bytes of queued small AMs coalesced into one "
+                     "wire frame/syscall on the TCP transport (0 = one "
+                     "frame per message)")
+    params.reg_sizet("comm_chunk_bytes", 1 << 17,
+                     "buffers at least this large stream as bounded "
+                     "chunk frames so control messages interleave with "
+                     "bulk data (TCP transport)")
+    params.reg_int("comm_compress_threshold_mbps", 0,
+                   "engage negotiated per-link compression when the "
+                   "measured send bandwidth EWMA drops below this many "
+                   "MB/s and a sample probe shows the traffic "
+                   "compresses (0 = never)")
+    params.reg_string("comm_quantize", "",
+                      "lossy quantized wire codec for bulk float tile "
+                      "payloads (bf16 | int8): engaged per link toward "
+                      "peers that advertised it at the HELLO (both ends "
+                      "must set the knob); empty = off, lossless wire")
+    params.reg_int("comm_quantize_threshold_mbps", 0,
+                   "engage the quantized codec only when the send-"
+                   "bandwidth EWMA toward the peer is below this many "
+                   "MB/s (0 = whenever comm_quantize is set)")
+    params.reg_sizet("comm_send_buffer_bytes", 1 << 26,
+                     "per-peer bounded send buffer: send_am blocks "
+                     "while this many bytes are queued ahead of it")
+    params.reg_string("comm_reconnect_timeout", "",
+                      "reliable TCP sessions: keep a torn peer link in "
+                      "SUSPECT and retry reconnecting (with seq-"
+                      "numbered frame replay) for up to this many "
+                      "seconds before escalating to rank failure; "
+                      "empty/0 = off (every socket error is fail-fast)")
+    params.reg_string("comm_reconnect_backoff", "",
+                      "initial reconnect backoff in seconds (default "
+                      "0.05), doubling with jitter up to a 2 s ceiling")
+    params.reg_sizet("comm_replay_window_bytes", 1 << 24,
+                     "per-peer replay window: sent-but-unacked session "
+                     "frames retained for replay after a reconnect")
+    params.reg_int("comm_prefetch_inflight", 8,
+                   "max rendezvous GETs prefetched for activations that "
+                   "arrived ahead of their taskpool's startup counts "
+                   "(0 = no GET prefetch)")
+    params.reg_bool("comm_thread", False,
+                    "dedicated funnelled comm-progress thread (ref: the "
+                    "remote_dep_dequeue_main thread); default: workers "
+                    "drain comm during idle cycles")
+    params.reg_int("comm_thread_bind", -1,
+                   "core to pin the comm thread to (ref: -C; -1 = unbound)")
+    params.reg_bool("comm_failure_strict", False,
+                    "treat ANY torn peer connection as a rank failure "
+                    "(default: only when the peer owes data or is sent to)")
+    params.reg_string("comm_transport", "",
+                      "auto-wire a comm engine at init: \"tcp\" (endpoints "
+                      "from comm_endpoints) or empty for none")
+    params.reg_string("comm_endpoints", "",
+                      "comma list of host:port control-plane endpoints, "
+                      "one per rank, identical on every rank")
+    params.reg_int("comm_rank", -1, "this process's rank in comm_endpoints")
+    params.reg_string("xfer_backend", "auto",
+                      "device data plane backend: \"auto\" (ipc on a "
+                      "CUDA device, loopback on the CPU), \"ipc\" (CUDA "
+                      "IPC between rank processes on one card), "
+                      "\"loopback\" (host sockets)")
     params.reg_int("dtd_window_size", 8000, "DTD sliding window size")
     params.reg_int("dtd_threshold_size", 4000, "DTD backpressure resume threshold")
     # the accelerator device module (devices/cuda.py)
@@ -363,9 +440,10 @@ def register_core_params() -> None:
 
 
 #: knobs of the JAX package's subsystems that this package leaves out
-#: (comm, fault tolerance, obs, tuning, serving, stage compilation,
-#: chip meshes, the debug-history ring, live counter push)
-TRIMMED_KNOBS = ("comm_transport", "comm_thread", "ft_heartbeat_interval",
+#: (the comm engine's mesh-local by-reference path, fault tolerance,
+#: obs, tuning, serving, stage compilation, chip meshes, the
+#: debug-history ring, live counter push)
+TRIMMED_KNOBS = ("comm_mesh_local", "ft_heartbeat_interval",
                  "ft_inject", "ft_elastic", "ft_restart_policy",
                  "metrics", "obs_flow", "obs_live", "tune_auto", "serve",
                  "sde_push", "stage_compile", "device_mesh_shape",

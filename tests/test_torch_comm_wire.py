@@ -1,0 +1,1060 @@
+"""The port's comm wire and TCP engine in one process: coalesced framing,
+chunked pipelining, per-link compression, the quantized tile codecs, GET
+aggregation, the adaptive eager/rendezvous cutoff, reliable sessions
+(reconnect, replay, duplicate drop) and receiver robustness — mirroring
+the JAX package's ``tests/test_comm_wire.py`` and
+``tests/test_comm_reliable.py`` (not the cases that need fault
+injection, which this package does not carry) — plus byte identity of
+the two packages' frames and the refusal of torch tensors on the wire.
+
+The loopback two-rank fixture is ``_engines`` (in-process TCP engines
+over real sockets); the raw-socket fixture speaks the frame format by
+hand to exercise receiver robustness.
+"""
+import errno
+import pickle
+import socket
+import struct
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from parsec_tpu.comm import wire as jax_wire
+from parsec_tpu_torch.comm import wire
+from parsec_tpu_torch.comm.engine import RankFailedError
+from parsec_tpu_torch.comm.tcp import TCPCommEngine, free_ports
+from parsec_tpu_torch.utils.params import params
+
+TAG = 100
+
+
+def _engines(n=2, **knobs):
+    """n TCP engines on free localhost ports; a port another process
+    took between ``free_ports`` and the bind (parallel test workers) is
+    retried on fresh ports."""
+    import concurrent.futures as cf
+    for attempt in range(5):
+        eps = [("127.0.0.1", p) for p in free_ports(n)]
+        with cf.ThreadPoolExecutor(n) as ex:
+            futs = [ex.submit(TCPCommEngine, r, eps, **knobs)
+                    for r in range(n)]
+            out, err = [], None
+            for f in futs:
+                try:
+                    out.append(f.result())
+                except OSError as exc:
+                    if exc.errno != errno.EADDRINUSE:
+                        raise
+                    err = exc
+        if err is None:
+            return out
+        for e in out:
+            e._closing = True
+            e.fini()
+    raise err
+
+
+def _drain_until(eng, pred, timeout=15.0):
+    deadline = time.time() + timeout
+    while not pred() and time.time() < deadline:
+        if not eng.progress():
+            time.sleep(0.0005)
+    assert pred(), "condition not reached before timeout"
+
+
+def _raw_peer(engine, as_rank=1):
+    """A hand-driven socket posing as ``as_rank`` toward ``engine``
+    (handshake only — NO hello, i.e. a mixed-version peer)."""
+    host, port = engine.endpoints[engine.rank]
+    sock = socket.create_connection((host, port))
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    sock.sendall(struct.pack("<I", as_rank))
+    # wait until the engine registered us (its hello lands in our rx
+    # buffer; we never parse it — a v1 peer wouldn't)
+    deadline = time.time() + 10
+    while as_rank not in engine._conns and time.time() < deadline:
+        time.sleep(0.005)
+    assert as_rank in engine._conns
+    return sock
+
+
+def _frame(body: bytes) -> bytes:
+    return struct.pack("<Q", len(body)) + body
+
+
+def _batch_frame(msgs):
+    segs = []
+    for (src, tag, payload) in msgs:
+        bufs = []
+        fr = pickle.dumps((src, tag, payload), protocol=5,
+                          buffer_callback=bufs.append)
+        segs.append(wire.pack_segment(fr, [b.raw() for b in bufs]))
+    return _frame(b"".join(wire.pack_batch(segs)))
+
+
+def _remote_dep_pair(adaptive):
+    from parsec_tpu_torch.comm.local import LocalFabric
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+
+    if adaptive:
+        params.set_cmdline("comm_adaptive_short_limit", "1")
+    try:
+        fab = LocalFabric(2)
+        eng = RemoteDepEngine(fab.engine(0))
+    finally:
+        if adaptive:
+            params.unset_cmdline("comm_adaptive_short_limit")
+    return eng
+
+
+def _wait(pred, timeout=10.0, step=0.005):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if pred():
+            return True
+        time.sleep(step)
+    return pred()
+
+
+def _peer_obj(e, r):
+    with e._conn_cond:
+        return e._peers.get(r)
+
+
+def _wait_session(e0, e1, timeout=10.0):
+    """Both directions negotiated the "rs" capability."""
+    ok = _wait(lambda: (_peer_obj(e0, e1.rank) is not None
+                        and _peer_obj(e0, e1.rank).rs_ok
+                        and _peer_obj(e1, e0.rank) is not None
+                        and _peer_obj(e1, e0.rank).rs_ok), timeout)
+    assert ok, "session capability never negotiated"
+
+
+def test_partial_frame_recv_reassembles():
+    """A frame trickling in across many partial reads must reassemble
+    byte-exactly (recv returning short is the TCP norm, not an edge)."""
+    (e0,) = _engines(1)
+    # widen the fixture: a 2-endpoint view so a fake rank 1 may dial in
+    e0.endpoints.append(("127.0.0.1", 0))
+    e0.fabric.nb_ranks = e0.nb_ranks = 2
+    sock = _raw_peer(e0)
+    try:
+        got = []
+        e0.tag_register(100, lambda src, p: got.append((src, p)))
+        data = _batch_frame([(1, 100, {"x": 42,
+                                       "arr": np.arange(5.0)})])
+        for i in range(0, len(data), 7):     # 7-byte dribble
+            sock.sendall(data[i:i + 7])
+            time.sleep(0.001)
+        _drain_until(e0, lambda: got)
+        assert got[0][0] == 1 and got[0][1]["x"] == 42
+        np.testing.assert_array_equal(got[0][1]["arr"], np.arange(5))
+    finally:
+        sock.close()
+        e0.fini()
+
+
+def test_multi_message_coalesced_frame_delivers_in_order():
+    """One K_BATCH frame carrying several messages delivers each, in
+    order, with out-of-band buffers correctly re-sliced."""
+    (e0,) = _engines(1)
+    e0.endpoints.append(("127.0.0.1", 0))
+    e0.fabric.nb_ranks = e0.nb_ranks = 2
+    sock = _raw_peer(e0)
+    try:
+        got = []
+        e0.tag_register(77, lambda src, p: got.append(p))
+        msgs = [(1, 77, {"i": i, "arr": np.full((4,), i, np.float32)})
+                for i in range(5)]
+        sock.sendall(_batch_frame(msgs))
+        _drain_until(e0, lambda: len(got) == 5)
+        assert [p["i"] for p in got] == list(range(5))
+        np.testing.assert_array_equal(got[3]["arr"], np.full((4,), 3))
+    finally:
+        sock.close()
+        e0.fini()
+
+
+def test_unknown_frame_kind_marks_peer_dead():
+    """Garbage after the length prefix is a desync: the receiver must
+    fail LOUDLY (peer marked dead) instead of hanging both ranks."""
+    (e0,) = _engines(1)
+    e0.endpoints.append(("127.0.0.1", 0))
+    e0.fabric.nb_ranks = e0.nb_ranks = 2
+    sock = _raw_peer(e0)
+    try:
+        sock.sendall(_frame(b"\xfagarbage"))
+        deadline = time.time() + 10
+        while 1 not in e0.dead_peers and time.time() < deadline:
+            time.sleep(0.005)
+        assert 1 in e0.dead_peers
+    finally:
+        sock.close()
+        e0.fini()
+
+
+def test_goodbye_mid_chunked_transfer_is_a_failure():
+    """A clean GOODBYE while a chunked transfer is incomplete is a
+    protocol violation — the peer owes data."""
+    (e0,) = _engines(1)
+    e0.endpoints.append(("127.0.0.1", 0))
+    e0.fabric.nb_ranks = e0.nb_ranks = 2
+    sock = _raw_peer(e0)
+    try:
+        payload = np.zeros(1 << 16, np.float64)     # 512 KB, chunked
+        bufs = []
+        fr = pickle.dumps((1, 90, {"arr": payload}), protocol=5,
+                          buffer_callback=bufs.append)
+        v = bufs[0].raw()
+        hdr = wire.pack_xfer_hdr(7, fr, [(True, v.nbytes, None)])
+        sock.sendall(_frame(hdr))
+        # one chunk of the announced buffer, then a "clean" goodbye
+        sock.sendall(_frame(wire.pack_chunk_hdr(7, 0, 0)
+                            + bytes(v[:1024])))
+        sock.sendall(struct.pack("<Q", wire.GOODBYE))
+        deadline = time.time() + 10
+        while 1 not in e0.dead_peers and time.time() < deadline:
+            time.sleep(0.005)
+        assert 1 in e0.dead_peers
+        assert 1 not in e0.finished_peers
+    finally:
+        sock.close()
+        e0.fini()
+
+
+def test_chunked_buffer_reassembly_roundtrip():
+    e0, e1 = _engines(2, chunk_bytes=1 << 16)
+    try:
+        big = np.random.RandomState(3).rand(1 << 19)      # 4 MB
+        small = np.arange(7, dtype=np.int64)
+        got = []
+        e1.tag_register(200, lambda src, p: got.append(p))
+        e0.send_am(1, 200, {"big": big, "small": small, "k": 9})
+        _drain_until(e1, lambda: got)
+        np.testing.assert_array_equal(got[0]["big"], big)
+        np.testing.assert_array_equal(got[0]["small"], small)
+        assert got[0]["k"] == 9
+        assert e0.wire_stats["chunks_sent"] >= 64   # really chunked
+        assert e0.wire_stats["msgs_chunked"] == 1
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_control_am_interleaves_with_bulk_payload():
+    """The acceptance probe: a small control AM enqueued while a >= 4 MB
+    payload is in flight must NOT wait behind it — its delivery
+    interleaves between chunks and lands before the bulk message."""
+    e0, e1 = _engines(2, chunk_bytes=1 << 16)
+    try:
+        order = []
+        lat = {}
+        e1.tag_register(300, lambda src, p: order.append("bulk"))
+
+        def on_ctrl(src, p):
+            order.append("ctrl")
+            lat["ctrl_ms"] = (time.perf_counter() - p["t0"]) * 1e3
+
+        e1.tag_register(301, on_ctrl)
+        big = np.random.RandomState(0).rand(1 << 21)      # 16 MB
+        e0.send_am(1, 300, {"arr": big})
+        e0.send_am(1, 301, {"t0": time.perf_counter()})
+        _drain_until(e1, lambda: len(order) == 2, timeout=60)
+        assert order[0] == "ctrl", order       # overtook the bulk tile
+        # bounded latency: the control AM waited for at most a chunk or
+        # two, not the whole 16 MB drain (generous CI margin)
+        assert lat["ctrl_ms"] < 2000, lat
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_bounded_send_buffer_backpressures_without_deadlock():
+    """With a tiny send buffer, a burst of bulk messages must stall the
+    sender (bounded memory) yet drain completely — and a message larger
+    than the whole buffer is still admitted alone."""
+    params.set_cmdline("comm_send_buffer_bytes", str(1 << 18))  # 256 KB
+    try:
+        e0, e1 = _engines(2, chunk_bytes=1 << 16)
+    finally:
+        params.unset_cmdline("comm_send_buffer_bytes")
+    try:
+        assert e0.send_buffer_bytes == 1 << 18
+        got = []
+        e1.tag_register(950, lambda src, p: got.append(p["i"]))
+        rng = np.random.RandomState(9)
+        payloads = [rng.rand(1 << 17) for _ in range(8)]   # 1 MB each
+        for i, arr in enumerate(payloads):
+            e0.send_am(1, 950, {"i": i, "arr": arr})       # > buffer
+        _drain_until(e1, lambda: len(got) == 8, timeout=60)
+        assert got == list(range(8))
+        assert all(p.queued_bytes == 0 for p in e0._peers.values())
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_chunked_transfer_after_control_burst():
+    """Regression: a burst of control AMs followed by a chunked payload
+    (and more control traffic racing it) must deliver everything — the
+    transfer header precedes its first chunk STRUCTURALLY (both ride
+    the FIFO bulk lane), whatever the anti-starvation streak says."""
+    e0, e1 = _engines(2, chunk_bytes=1 << 16)
+    try:
+        got, bulk = [], []
+        e1.tag_register(900, lambda src, p: got.append(p))
+        e1.tag_register(901, lambda src, p: bulk.append(p))
+        for i in range(64):
+            e0.send_am(1, 900, {"i": i})
+        big = np.random.RandomState(5).rand(1 << 18)      # 2 MB
+        e0.send_am(1, 901, {"arr": big})
+        for i in range(64):
+            e0.send_am(1, 900, {"i": 64 + i})
+        _drain_until(e1, lambda: len(got) == 128 and bulk, timeout=60)
+        np.testing.assert_array_equal(bulk[0]["arr"], big)
+        assert 1 not in e0.dead_peers and 0 not in e1.dead_peers
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_mutable_bulk_payload_snapshots_at_enqueue():
+    """A writable buffer on the chunked path is snapshotted when
+    send_am returns (the historical copy-at-send contract): mutating it
+    right after the call must not tear the bytes on the wire. Only
+    read-only buffers (marked by the rendezvous/wave producers) ride
+    zero-copy."""
+    e0, e1 = _engines(2, chunk_bytes=1 << 16)
+    try:
+        got = []
+        e1.tag_register(800, lambda src, p: got.append(p))
+        big = np.ones(1 << 19)                 # 4 MB, writable
+        e0.send_am(1, 800, {"arr": big})
+        big[:] = -1.0                          # mutate immediately
+        _drain_until(e1, lambda: got, timeout=60)
+        np.testing.assert_array_equal(got[0]["arr"], np.ones(1 << 19))
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_compressed_frame_roundtrip():
+    """With the bandwidth threshold forced sky-high, compressible bulk
+    traffic engages the negotiated codec after the first bandwidth
+    sample and round-trips intact; the ratio gauge moves below 1."""
+    e0, e1 = _engines(2, chunk_bytes=1 << 16,
+                      compress_threshold_mbps=10 ** 7)
+    try:
+        deadline = time.time() + 10           # negotiation done first
+        # _peer_to waits for the accept thread's registration: under
+        # full-suite load the connection may not be in _peers yet
+        peer = e0._peer_to(1)
+        while peer.codec is None and time.time() < deadline:
+            time.sleep(0.005)
+        assert peer.codec is not None
+        got = []
+        e1.tag_register(400, lambda src, p: got.append(p))
+        z = np.zeros(1 << 19)                 # 4 MB of zeros: compresses
+        for rep in range(3):                  # rep 1 measures bw, later
+            got.clear()                       # reps ride compressed
+            e0.send_am(1, 400, {"arr": z, "rep": rep})
+            _drain_until(e1, lambda: got, timeout=60)
+            np.testing.assert_array_equal(got[0]["arr"], z)
+        assert e0.wire_stats["frames_compressed"] > 0, e0.wire_stats
+        ratio = e0.compress_ratio()
+        assert ratio is not None and ratio < 0.5, ratio
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_mixed_version_peer_stays_uncompressed():
+    """A peer that never advertised codecs (no HELLO — an older wire
+    version) must never receive compressed frames, whatever the knobs
+    say; traffic still round-trips."""
+    e0, e1 = _engines(2, chunk_bytes=1 << 16,
+                      compress_threshold_mbps=10 ** 7)
+    try:
+        # simulate the failed negotiation: as if peer 1's HELLO never
+        # carried codecs we know. Wait for the real HELLO first — the
+        # override must not be raced and re-negotiated by its arrival.
+        deadline = time.time() + 10
+        peer = e0._peer_to(1)      # waits for the accept registration
+        while peer.codec is None and time.time() < deadline:
+            time.sleep(0.005)
+        assert peer.codec is not None
+        peer.codec = None
+        got = []
+        e1.tag_register(500, lambda src, p: got.append(p))
+        z = np.zeros(1 << 19)
+        for rep in range(3):
+            got.clear()
+            e0.send_am(1, 500, {"arr": z})
+            _drain_until(e1, lambda: got, timeout=60)
+            np.testing.assert_array_equal(got[0]["arr"], z)
+        assert e0.wire_stats["frames_compressed"] == 0, e0.wire_stats
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_codec_negotiation():
+    assert wire.negotiate_codec(["zlib"], ["zlib"]) == "zlib"
+    assert wire.negotiate_codec(["zlib"], []) is None
+    assert wire.negotiate_codec([], ["zlib"]) is None
+    assert wire.negotiate_codec(["zlib", "lz4"],
+                                ["lz4", "zlib"]) in ("lz4", "zlib")
+
+
+@pytest.mark.parametrize("codec", sorted(wire.CODECS))
+def test_codec_roundtrip(codec):
+    ent = wire.CODECS[codec]
+    if ent.lossless:
+        body = b"an eminently compressible control payload " * 199
+        pieces = wire.compress_body(body, codec)
+        assert pieces is not None, f"{codec} did not shrink zeros"
+        assert bytes(pieces[0])[0] == wire.K_COMP
+        out = wire.decompress_body(memoryview(b"".join(
+            bytes(p) for p in pieces)))
+        assert out == body                      # lossless: exact bytes
+    else:
+        arr = (np.random.RandomState(3).randn(4097) * 5).astype(np.float64)
+        enc = wire.quantize_buffer(
+            memoryview(np.ascontiguousarray(arr)).cast("B"), "d", codec)
+        assert len(enc) < arr.nbytes // 2       # really smaller
+        raw = wire.dequantize_buffer(enc)
+        assert len(raw) == arr.nbytes           # exact layout back
+        out = np.frombuffer(raw, np.float64)
+        rel = np.abs(out - arr).max() / np.abs(arr).max()
+        assert rel < 0.01, rel                  # lossy within tolerance
+
+
+def test_lz4_advertised_only_when_installed():
+    assert ("lz4" in wire.available_codecs()) == \
+        (wire._lz4_mod() is not None)
+
+
+def test_quant_codec_never_compresses_frame_bodies():
+    with pytest.raises(ValueError):
+        wire.compress_body(b"x" * 2048, "qint8")
+    assert wire.available_quant_codecs() == ["qbf16", "qint8"]
+    assert all(c not in wire.available_codecs()
+               for c in wire.available_quant_codecs())
+
+
+def test_quant_codec_negotiation():
+    assert wire.normalize_quant_codec("") is None
+    assert wire.normalize_quant_codec("bf16") == "qbf16"
+    assert wire.normalize_quant_codec("qint8") == "qint8"
+    with pytest.raises(ValueError):
+        wire.normalize_quant_codec("zlib")   # lossless: wrong family
+    with pytest.raises(ValueError):
+        wire.normalize_quant_codec("int4")   # unknown
+    assert wire.negotiate_quant_codec("qint8", ["qbf16", "qint8"]) \
+        == "qint8"
+    assert wire.negotiate_quant_codec("qint8", []) is None
+    assert wire.negotiate_quant_codec("qint8", ["qbf16"]) is None
+    assert wire.negotiate_quant_codec(None, ["qint8"]) is None
+
+
+def test_quantized_bufspec_roundtrip_through_rx_xfer():
+    """A transfer header announcing a BUF_QUANT buffer reassembles and
+    DECODES transparently: the unpickled array has the original
+    dtype/shape with quantized values."""
+    arr = np.random.RandomState(9).rand(1 << 12)          # 32 KB f64
+    bufs = []
+    fr = pickle.dumps((0, 7, {"arr": arr}), protocol=5,
+                      buffer_callback=bufs.append)
+    v = bufs[0].raw()
+    enc = memoryview(wire.quantize_buffer(v, "d", "qint8"))
+    hdr = wire.pack_xfer_hdr(
+        11, fr, [(wire.BUF_CHUNKED | wire.BUF_QUANT, enc.nbytes, None)])
+    xid, frame, specs = wire.parse_xfer_hdr(
+        memoryview(hdr).toreadonly())
+    assert xid == 11 and specs[0][0] == (wire.BUF_CHUNKED
+                                         | wire.BUF_QUANT)
+    rx = wire.RxXfer(frame, specs)
+    done = rx.feed(0, 0, enc)
+    assert done
+    src, tag, payload = rx.message()
+    out = np.asarray(payload["arr"])
+    assert out.dtype == arr.dtype and out.shape == arr.shape
+    np.testing.assert_array_equal(out, wire.qdq_array(arr, "qint8"))
+
+
+def test_quantized_transfer_over_tcp_and_eligibility():
+    """End to end over real sockets: an ``_qz_ok``-marked bulk float
+    message delivers EXACTLY the qdq values (deterministic codec), an
+    unmarked one stays bit-exact lossless, and the per-link labeled
+    ratio gauge moves above 1."""
+    e0, e1 = _engines(2, chunk_bytes=1 << 14, quantize="int8")
+    try:
+        peer = e0._peer_to(1)
+        deadline = time.time() + 10
+        while time.time() < deadline:
+            with peer.cond:
+                if peer.qz_codec:
+                    break
+            time.sleep(0.005)
+        with peer.cond:
+            assert peer.qz_codec == "qint8"
+        got = []
+        e1.tag_register(700, lambda src, p: got.append(p))
+        arr = np.random.RandomState(11).rand(1 << 15)     # 256 KB
+        e0.send_am(1, 700, {"arr": arr, "_qz_ok": True})
+        _drain_until(e1, lambda: got, timeout=30)
+        out = np.asarray(got[0]["arr"])
+        np.testing.assert_array_equal(out, wire.qdq_array(arr, "qint8"))
+        assert e0.wire_stats["bufs_quantized"] == 1
+        assert e0.codec_ratio(1, "qint8") > 1.0
+        assert e0.quantize_ratio() > 1.0
+        # eligibility: the UNMARKED twin of the same payload is exact
+        got.clear()
+        e0.send_am(1, 700, {"arr": arr})
+        _drain_until(e1, lambda: got, timeout=30)
+        np.testing.assert_array_equal(np.asarray(got[0]["arr"]), arr)
+        assert e0.wire_stats["bufs_quantized"] == 1   # unchanged
+        # non-float bulk stays lossless even when marked
+        got.clear()
+        ints = np.arange(1 << 15, dtype=np.int64)
+        e0.send_am(1, 700, {"arr": ints, "_qz_ok": True})
+        _drain_until(e1, lambda: got, timeout=30)
+        np.testing.assert_array_equal(np.asarray(got[0]["arr"]), ints)
+        assert e0.wire_stats["bufs_quantized"] == 1   # still unchanged
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_quantize_default_knobs_keep_wire_lossless():
+    """Off-by-default safety (the acceptance differential): at default
+    knobs an ``_qz_ok``-marked bulk message still travels lossless —
+    nothing advertises "qz", nothing negotiates, nothing encodes."""
+    e0, e1 = _engines(2, chunk_bytes=1 << 14)
+    try:
+        assert e0._quantize is None
+        got = []
+        e1.tag_register(800, lambda src, p: got.append(p))
+        arr = np.random.RandomState(13).rand(1 << 15)
+        e0.send_am(1, 800, {"arr": arr, "_qz_ok": True})
+        _drain_until(e1, lambda: got, timeout=30)
+        np.testing.assert_array_equal(np.asarray(got[0]["arr"]), arr)
+        assert e0.wire_stats["bufs_quantized"] == 0
+        assert e0.codec_ratio(1, "qint8") == 1.0
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_default_knobs_keep_compression_off():
+    """Off-by-default safety: at default knobs nothing ever compresses
+    and the wire carries plain frames on a fast link."""
+    e0, e1 = _engines(2)
+    try:
+        assert e0.compress_threshold_mbps == 0
+        got = []
+        e1.tag_register(600, lambda src, p: got.append(p))
+        e0.send_am(1, 600, {"arr": np.zeros(1 << 18)})
+        _drain_until(e1, lambda: got)
+        assert e0.wire_stats["frames_compressed"] == 0
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_coalescing_improves_small_am_throughput_2x():
+    """Small-AM msgs/s with coalescing on vs the per-message path on
+    the same fixture (bench.bench_comm_small_am): the batched frames
+    must be at least 2x faster (measured ~6x on a quiet host; the
+    margin absorbs CI noise)."""
+    import bench
+    fast = bench.bench_comm_small_am(3000, coalesce=True, reps=2)
+    slow = bench.bench_comm_small_am(3000, coalesce=False, reps=2)
+    assert fast >= 2.0 * slow, (fast, slow)
+
+
+def test_gets_issued_in_one_progress_cycle_batch_per_peer():
+    """Three GETs triggered by one delivered message ride ONE request
+    frame and ONE reply frame (msg_count proves it), and every callback
+    still fires with its own data."""
+    from parsec_tpu_torch.comm.local import LocalFabric
+
+    fab = LocalFabric(2)
+    e0, e1 = fab.engine(0), fab.engine(1)
+    handles = [e0.mem_register(np.full((4,), i, np.float64))
+               for i in range(3)]
+    got = {}
+
+    def trigger(src, payload):
+        for i, h in enumerate(handles):
+            e1.get(0, h.handle_id,
+                   lambda arr, i=i: got.__setitem__(i, arr))
+
+    e1.tag_register(700, trigger)
+    e0.send_am(1, 700, {"go": 1})
+    e1.progress()           # delivers trigger; flush batches the 3 GETs
+    before = fab.msg_count  # trigger + 1 batched GET request
+    assert before == 2, before
+    e0.progress()           # serves all three in one reply
+    assert fab.msg_count == 3
+    e1.progress()           # callbacks fire
+    assert set(got) == {0, 1, 2}
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], np.full((4,), i))
+
+
+def test_get_outside_progress_sends_immediately():
+    from parsec_tpu_torch.comm.local import LocalFabric
+
+    fab = LocalFabric(2)
+    e0, e1 = fab.engine(0), fab.engine(1)
+    h = e0.mem_register(np.arange(6, dtype=np.float64))
+    got = []
+    e1.get(0, h.handle_id, got.append)
+    assert fab.msg_count == 1       # the request left right away
+    e0.progress()
+    e1.progress()
+    assert got and np.array_equal(got[0], np.arange(6))
+
+
+def test_adaptive_short_limit_tracks_bandwidth_delay_product():
+    eng = _remote_dep_pair(adaptive=True)
+    static = eng.short_limit
+    # no measurements yet: static cutoff
+    assert eng.short_limit_for(1) == static
+    # 50 MB/s link, 10 ms GET round-trip -> BDP 500 KB
+    eng.ce.link_bw_mbps = lambda peer: 50.0
+    eng._note_get_rtt(1, 0.010)
+    assert eng.short_limit_for(1) == 500_000
+    assert eng.adaptive_limits[1] == 500_000
+    # the static knob is the floor...
+    eng._note_get_rtt(1, 0.010)
+    eng.ce.link_bw_mbps = lambda peer: 0.001   # 1 KB/s: BDP ~10 bytes
+    assert eng.short_limit_for(1) == static
+    # ...and comm_short_limit_max the ceiling
+    eng.ce.link_bw_mbps = lambda peer: 1e6     # absurd link
+    assert eng.short_limit_for(1) == eng._short_limit_max
+
+
+def test_adaptive_off_by_default_keeps_static_cutoff():
+    eng = _remote_dep_pair(adaptive=False)
+    eng.ce.link_bw_mbps = lambda peer: 50.0
+    eng._note_get_rtt(1, 0.010)
+    assert eng.short_limit_for(1) == eng.short_limit
+
+
+def test_get_rtt_ewma_feeds_from_rendezvous():
+    """A real rendezvous through _timed_get populates the per-peer RTT
+    EWMA the adaptive cutoff reads."""
+    from parsec_tpu_torch.comm.local import LocalFabric
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+
+    fab = LocalFabric(2)
+    r0 = RemoteDepEngine(fab.engine(0))
+    r1 = RemoteDepEngine(fab.engine(1))
+    h = r0.ce.mem_register(np.ones((8,), np.float64))
+    got = []
+    r1._timed_get(0, h.handle_id, got.append)
+    r0.ce.progress()
+    r1.ce.progress()
+    assert got and 0 in r1._get_rtt
+    assert r1._get_rtt[0] > 0
+
+
+def test_session_flap_delivers_exactly_once():
+    """A hard socket close mid-stream is absorbed: the peers reconnect
+    (RECONNECTS >= 1), every message before and after the flap arrives
+    exactly once and in order, and nobody is declared dead."""
+    e0, e1 = _engines(2, reconnect_timeout=10.0)
+    got = []
+    e1.tag_register(TAG, lambda src, p: got.append(p["i"]))
+    try:
+        _wait_session(e0, e1)
+        for i in range(5):
+            e0.send_am(1, TAG, {"i": i})
+        assert _wait(lambda: (e1.progress(), len(got) >= 5)[1])
+        # flap: hard-close the established socket (both ends see it)
+        _peer_obj(e0, 1).sock.shutdown(socket.SHUT_RDWR)
+        assert _wait(lambda: e0.wire_stats["reconnects"] >= 1
+                     and e1.wire_stats["reconnects"] >= 1)
+        for i in range(5, 8):
+            e0.send_am(1, TAG, {"i": i})
+        assert _wait(lambda: (e1.progress(), len(got) >= 8)[1])
+        assert got == list(range(8))   # exactly once, in order
+        assert not e0.dead_peers and not e1.dead_peers
+        assert not e0.peer_suspect(1) and not e1.peer_suspect(0)
+        assert e0.suspect_ms() > 0   # the episode was accounted
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_replay_after_flap_bit_identical():
+    """Frames lost in flight (sent into a peer whose kernel already
+    tore the connection) are REPLAYED from the window after the
+    reconnect: the receiver observes the exact same payload sequence,
+    bit for bit, as a failure-free run."""
+    e0, e1 = _engines(2, reconnect_timeout=10.0)
+    got = []
+    e1.tag_register(TAG, lambda src, p: got.append(np.array(p["arr"])))
+    rng = np.random.RandomState(7)
+    sent = [rng.rand(64).astype(np.float64) for _ in range(12)]
+    try:
+        _wait_session(e0, e1)
+        # tear the RECEIVER side first: the sender's next writes land
+        # in a dead connection (accepted-but-lost) and must replay
+        _peer_obj(e1, 0).sock.shutdown(socket.SHUT_RDWR)
+        for a in sent:
+            e0.send_am(1, TAG, {"arr": a})
+        assert _wait(lambda: (e1.progress(), len(got) >= 12)[1], 15.0)
+        assert len(got) == 12
+        for a, b in zip(sent, got):
+            np.testing.assert_array_equal(a, b)   # bit-identical
+        assert e0.wire_stats["reconnects"] >= 1
+        assert not e0.dead_peers and not e1.dead_peers
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_mixed_version_peer_keeps_fail_fast():
+    """One end without the knob never advertises "rs": a torn socket
+    is rank death on the spot, exactly the pre-session contract."""
+    e0, e1 = _engines(2, reconnect_timeout=0.0)
+    # e0 re-creates nothing: BOTH engines came up session-less; flip
+    # e0's local enable to prove the gate is the NEGOTIATION, not the
+    # local knob alone
+    try:
+        assert _wait(lambda: _peer_obj(e0, 1) is not None
+                     and _peer_obj(e0, 1).hello_seen)
+        assert not _peer_obj(e0, 1).rs_ok
+        _peer_obj(e1, 0).sock.shutdown(socket.SHUT_RDWR)
+        assert _wait(lambda: 1 in e0.dead_peers or 0 in e1.dead_peers)
+        assert e0.wire_stats["reconnects"] == 0
+        assert e1.wire_stats["reconnects"] == 0
+        assert not e0.peer_suspect(1) and not e1.peer_suspect(0)
+        dead_side = e0 if 1 in e0.dead_peers else e1
+        with pytest.raises(RankFailedError):
+            dead_side.send_am(1 - dead_side.rank, TAG, {"x": 1})
+    finally:
+        e0._closing = True
+        e1._closing = True
+        e0.fini()
+        e1.fini()
+
+
+def test_chunked_transfer_survives_flap():
+    """A flap in the middle of a stream of chunked (multi-frame) bulk
+    messages: half-landed transfers stay parked on the peer, the
+    replayed chunks complete them, and every payload arrives intact."""
+    e0, e1 = _engines(2, reconnect_timeout=10.0, chunk_bytes=1 << 12)
+    got = []
+    e1.tag_register(TAG, lambda src, p: got.append(
+        (p["i"], np.array(p["arr"]))))
+    rng = np.random.RandomState(3)
+    payloads = [rng.rand(8192).astype(np.float64) for _ in range(16)]
+    try:
+        _wait_session(e0, e1)
+
+        def sender():
+            for i, a in enumerate(payloads):
+                e0.send_am(1, TAG, {"i": i, "arr": a})
+
+        t = threading.Thread(target=sender, daemon=True)
+        t.start()
+        time.sleep(0.002)   # land the tear somewhere inside the stream
+        _peer_obj(e1, 0).sock.shutdown(socket.SHUT_RDWR)
+        t.join(10)
+        assert not t.is_alive()
+        assert _wait(lambda: (e1.progress(), len(got) >= 16)[1], 20.0)
+        assert [i for i, _ in got] == list(range(16))
+        for i, arr in got:
+            np.testing.assert_array_equal(arr, payloads[i])
+        assert e0.wire_stats["reconnects"] >= 1
+        assert not e0.dead_peers and not e1.dead_peers
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_quantized_transfer_replays_bit_identical_after_flap():
+    """Session-layer x quantized-codec interplay: the lossy
+    encoding happens at ENQUEUE, before the K_SEQ envelope, so the
+    replay window retains the ENCODED bytes — a flap mid-stream
+    replays them and the receiver observes byte-for-byte the same
+    quantized values a failure-free quantized run delivers (asserted
+    against wire.qdq_array, which IS that value by construction)."""
+    e0, e1 = _engines(2, reconnect_timeout=10.0, chunk_bytes=1 << 12,
+                      quantize="int8")
+    got = []
+    e1.tag_register(TAG, lambda src, p: got.append(
+        (p["i"], np.array(p["arr"]))))
+    rng = np.random.RandomState(21)
+    payloads = [rng.rand(8192).astype(np.float64) for _ in range(16)]
+    try:
+        _wait_session(e0, e1)
+        p0 = _peer_obj(e0, 1)
+        assert _wait(lambda: (lambda: p0.qz_codec == "qint8")()), \
+            "quantized codec never negotiated"
+
+        def sender():
+            for i, a in enumerate(payloads):
+                e0.send_am(1, TAG, {"i": i, "arr": a, "_qz_ok": True})
+
+        t = threading.Thread(target=sender, daemon=True)
+        t.start()
+        time.sleep(0.002)   # land the tear somewhere inside the stream
+        _peer_obj(e1, 0).sock.shutdown(socket.SHUT_RDWR)
+        t.join(10)
+        assert not t.is_alive()
+        assert _wait(lambda: (e1.progress(), len(got) >= 16)[1], 20.0)
+        assert [i for i, _ in got] == list(range(16))
+        for i, arr in got:
+            np.testing.assert_array_equal(
+                arr, wire.qdq_array(payloads[i], "qint8"))
+        assert e0.wire_stats["reconnects"] >= 1
+        assert e0.wire_stats["bufs_quantized"] == 16
+        assert not e0.dead_peers and not e1.dead_peers
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_quantize_mixed_version_peer_negotiates_down_to_lossless():
+    """A peer whose HELLO carries no "qz" capability (mixed version /
+    knob unset on its side) must NEVER receive quantized buffers —
+    the link silently stays lossless, bit for bit."""
+    # e0 wants int8; e1 runs with the knob unset and advertises no "qz"
+    ports = free_ports(2)
+    eps = [("127.0.0.1", p) for p in ports]
+    import concurrent.futures as cf
+    with cf.ThreadPoolExecutor(2) as ex:
+        e0, e1 = list(ex.map(
+            lambda r: TCPCommEngine(
+                r, eps, reconnect_timeout=10.0, chunk_bytes=1 << 12,
+                quantize="int8" if r == 0 else ""),
+            range(2)))
+    got = []
+    e1.tag_register(TAG, lambda src, p: got.append(np.array(p["arr"])))
+    try:
+        _wait_session(e0, e1)
+        p = _peer_obj(e0, 1)
+        with p.cond:
+            assert p.qz_codec is None   # negotiated down
+        arr = np.random.RandomState(23).rand(8192)
+        e0.send_am(1, TAG, {"arr": arr, "_qz_ok": True})
+        assert _wait(lambda: (e1.progress(), got)[1], 15.0)
+        np.testing.assert_array_equal(got[0], arr)   # bit-exact
+        assert e0.wire_stats["bufs_quantized"] == 0
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_partial_frame_resume_claim():
+    """The receiver's byte-level resume claim (satellite: `_recv_exact`
+    truncation offset feeds the session instead of being discarded):
+    only a partial that provably is the NEXT expected data frame may
+    resume mid-body; anything else falls back to whole-frame replay."""
+    e0, e1 = _engines(2, reconnect_timeout=5.0)
+    try:
+        _wait_session(e0, e1)
+        p = _peer_obj(e0, 1)
+        body = wire.pack_seq(0, 7) + b"x" * 32
+        with p.cond:
+            p.rs_rx_seq = 6
+            # next expected frame (seq 7), truncated at 20 of 41 bytes
+            p.rs_rx_partial = (len(body), bytearray(body[:20]))
+            claim = e0._partial_claim_locked(p)
+        assert claim == {"seq": 7, "off": 20}
+        with p.cond:
+            # NOT the next expected frame: claim refused and discarded
+            p.rs_rx_seq = 7
+            p.rs_rx_partial = (len(body), bytearray(body[:20]))
+            assert e0._partial_claim_locked(p) is None
+            assert p.rs_rx_partial is None
+            # truncated inside the 9-byte K_SEQ header: no claim
+            p.rs_rx_seq = 6
+            p.rs_rx_partial = (len(body), bytearray(body[:4]))
+            assert e0._partial_claim_locked(p) is None
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def test_budget_exhaustion_escalates_to_rank_failed():
+    """A link that never comes back (the accepting rank's listener is
+    gone, so every re-dial is refused) exhausts ``comm_reconnect_timeout``
+    and escalates through the SAME failure funnel a torn session-less
+    socket takes: dead_peers + on_peer_failure + RankFailedError."""
+    e0, e1 = _engines(2, reconnect_timeout=0.6, reconnect_backoff=0.05)
+    failures = []
+    e1.on_peer_failure = lambda peer, reason: failures.append((peer, reason))
+    try:
+        _wait_session(e0, e1)
+        # rank 1 re-dials rank 0: refused from now on
+        e0._listener.shutdown(socket.SHUT_RDWR)
+        e0._listener.close()
+        t0 = time.time()
+        _peer_obj(e0, 1).sock.shutdown(socket.SHUT_RDWR)
+        assert _wait(lambda: 0 in e1.dead_peers and 1 in e0.dead_peers,
+                     15.0)
+        assert time.time() - t0 < 12.0
+        assert failures and failures[0][0] == 0
+        assert "budget exhausted" in failures[0][1]
+        with pytest.raises(RankFailedError):
+            e1.send_am(0, TAG, {"x": 1})
+        assert not e1.peer_suspect(0) and not e0.peer_suspect(1)
+        assert e0.wire_stats["reconnects"] == 0
+        assert e1.wire_stats["reconnects"] == 0
+    finally:
+        e0._closing = True
+        e1._closing = True
+        e1.fini()
+        e0.fini()
+
+
+def test_heartbeat_ping_answered_by_receiver_thread():
+    """A K_PING is answered by the peer's receiver thread: the round
+    trip lands with nobody pumping progress on either side."""
+    e0, e1 = _engines(2)
+    try:
+        assert _wait(lambda: _peer_obj(e0, 1) is not None
+                     and _peer_obj(e0, 1).hb_ok)
+        assert e0.ping(1, seq=3)
+        assert _wait(lambda: 1 in e0.ping_rtt)
+        assert 0 < e0.ping_rtt[1] < 10.0
+    finally:
+        e0.fini()
+        e1.fini()
+
+
+def _frame_of(wire_mod, dumps, msg, chunk=1 << 17):
+    """One message as the TCP engine frames it: a K_BATCH segment when
+    every out-of-band buffer is below the chunk threshold, else a
+    K_XFER_HDR header followed by the chunk frames."""
+    bufs = []
+    fr = dumps(msg, bufs.append)
+    views = [b.raw() for b in bufs]
+    if all(v.nbytes < chunk for v in views):
+        return b"".join(bytes(p) for p in wire_mod.pack_batch(
+            [wire_mod.pack_segment(fr, views)]))
+    specs = [(0, v.nbytes, v) if v.nbytes < chunk
+             else (wire_mod.BUF_CHUNKED, v.nbytes, None) for v in views]
+    out = [wire_mod.pack_xfer_hdr(7, fr, specs)]
+    for i, v in enumerate(views):
+        if v.nbytes >= chunk:
+            for off in range(0, v.nbytes, chunk):
+                out.append(wire_mod.pack_chunk_hdr(7, i, off)
+                           + bytes(v[off:off + chunk]))
+    return b"||".join(bytes(x) for x in out)
+
+
+def _messages():
+    rng = np.random.RandomState(5)
+    return [
+        (0, 1, {"tp_id": 3, "root": 0, "ranks": [1, 2],
+                "edges": {1: [(0, (1, 2), "A", 0)]}, "dtt": None,
+                "data": rng.rand(16, 16).astype(np.float32)}),
+        (1, 3, {"items": [{"token": 9, "data": rng.rand(64, 64),
+                           "meta": None}], "_qz_ok": True}),
+        (2, 6, {"tp_id": 0, "tile": ("C", "x"), "seq": 4,
+                "data": np.arange(70000, dtype=np.float32)}),
+        (0, 15, ["release", 1.5, None, (True, b"raw")]),
+    ]
+
+
+@pytest.mark.parametrize("idx", range(4))
+def test_frames_byte_identical_to_jax_package(idx):
+    """A frame carrying only numpy and Python values, encoded by the JAX
+    package's wire and by the port's, is the same bytes (the segment,
+    the chunked transfer header and its chunks alike)."""
+    msg = _messages()[idx]
+    jax_bytes = _frame_of(jax_wire, lambda m, cb: pickle.dumps(
+        m, protocol=5, buffer_callback=cb), msg)
+    port_bytes = _frame_of(wire, lambda m, cb: wire.dumps_message(
+        m, buffer_callback=cb), msg)
+    assert port_bytes == jax_bytes
+    assert wire.pack_hello({"ver": 2, "rank": 1}) == \
+        jax_wire.pack_hello({"ver": 2, "rank": 1})
+    assert wire.pack_ping(5, 123, pong=True) == \
+        jax_wire.pack_ping(5, 123, pong=True)
+    assert wire.pack_seq(1, 2) == jax_wire.pack_seq(1, 2)
+    assert wire.pack_ack(1, 2) == jax_wire.pack_ack(1, 2)
+
+
+def _decode_batch(wire_mod, body):
+    out = []
+    for frame, bufs in wire_mod.parse_batch(memoryview(body)):
+        out.append(wire_mod.load_message(frame, bufs))
+    return out
+
+
+def _assert_same(a, b):
+    if isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _assert_same(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_same(x, y)
+    else:
+        assert a == b
+
+
+def test_each_package_decodes_the_others_frames():
+    """A batch frame from the port decodes with the JAX package's wire
+    and vice versa; chunked transfers reassemble across packages too."""
+    for msg in _messages()[:2] + _messages()[3:]:
+        bufs = []
+        fr = wire.dumps_message(msg, buffer_callback=bufs.append)
+        port_body = b"".join(bytes(p) for p in wire.pack_batch(
+            [wire.pack_segment(fr, [b.raw() for b in bufs])]))
+        _assert_same(_decode_batch(jax_wire, port_body)[0], msg)
+        bufs = []
+        fr = pickle.dumps(msg, protocol=5, buffer_callback=bufs.append)
+        jax_body = b"".join(bytes(p) for p in jax_wire.pack_batch(
+            [jax_wire.pack_segment(fr, [b.raw() for b in bufs])]))
+        _assert_same(_decode_batch(wire, jax_body)[0], msg)
+    msg = _messages()[2]
+    for enc, dec in ((wire, jax_wire), (jax_wire, wire)):
+        bufs = []
+        fr = wire.dumps_message(msg, buffer_callback=bufs.append)
+        v = bufs[0].raw()
+        hdr = enc.pack_xfer_hdr(5, fr, [(enc.BUF_CHUNKED, v.nbytes, None)])
+        xid, frame, specs = dec.parse_xfer_hdr(memoryview(hdr))
+        rx = dec.RxXfer(frame, specs)
+        done = False
+        for off in range(0, v.nbytes, 1 << 16):
+            ch = enc.pack_chunk_hdr(5, 0, off) + bytes(v[off:off + (1 << 16)])
+            _x, bidx, o, data = dec.parse_chunk(memoryview(ch))
+            done = rx.feed(bidx, o, data)
+        assert done and xid == 5
+        _assert_same(rx.message(), msg)
+
+
+def test_torch_tensor_on_the_wire_raises():
+    """A torch tensor handed to the wire raises TypeError (pickling it
+    would rebuild a CUDA tensor on the peer's card), through the wire's
+    pickler and through the TCP engine's send path alike."""
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        wire.dumps_message((0, 1, {"data": [torch.ones(3)]}))
+    e0, e1 = _engines(2)
+    try:
+        with pytest.raises(TypeError, match="torch.Tensor"):
+            e0.send_am(1, TAG, {"data": torch.zeros(4, 4)})
+        e0.send_am(1, TAG, {"data": np.zeros(4)})   # numpy still rides
+        got = []
+        e1.tag_register(TAG, lambda src, p: got.append(p))
+        _drain_until(e1, lambda: got)
+        np.testing.assert_array_equal(got[0]["data"], np.zeros(4))
+    finally:
+        e0.fini()
+        e1.fini()

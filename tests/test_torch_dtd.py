@@ -323,12 +323,80 @@ def test_all_schedulers_run_dag(sched):
     assert t[0] == 30
 
 
+def _dtd_cross_rank_chain(pkg, dtd_mod, rank, fabric, n_tasks):
+    """One tile homed on rank 0, CUDA-chore-free host bodies alternating
+    between 2 ranks (AFFINITY on per-rank anchors): every edge is a
+    cross-rank RAW matched by (tile, write sequence)."""
+    from_pkg = __import__(pkg.__name__ + ".collections",
+                          fromlist=["DictCollection"])
+    comm = __import__(pkg.__name__ + ".comm", fromlist=["RemoteDepEngine"])
+    kw = {"device": "cpu"} if pkg is parsec_tpu_torch else \
+        {"enable_tpu": False}
+    ctx = pkg.Context(nb_cores=1, comm=comm.RemoteDepEngine(
+        fabric.engine(rank)), **kw)
+    try:
+        coll = from_pkg.DictCollection(nodes=2, rank=rank)
+        coll.name = "C"
+        coll.add("x", 0, np.arange(4.0) if rank == 0 else None)
+        anchors = []
+        for r in range(2):
+            a = from_pkg.DictCollection(nodes=2, rank=rank)
+            a.name = f"anchor{r}"
+            a.add("a", r, np.zeros(1) if r == rank else None)
+            anchors.append(a)
+        tp = dtd_mod.taskpool_new("xchain")
+        ctx.add_taskpool(tp)
+        tile = tp.tile_of(coll, "x")
+
+        def body(es, task):
+            x, _a, k = dtd_mod.unpack_args(task)
+            x *= 1.5
+            x += k
+
+        for k in range(n_tasks):
+            tp.insert_task(body, (tile, dtd_mod.INOUT),
+                           (tp.tile_of(anchors[k % 2], "a"),
+                            dtd_mod.INPUT | dtd_mod.AFFINITY),
+                           (k, dtd_mod.VALUE))
+        tp.data_flush_all()
+        tp.wait()
+        ctx.wait()
+        if rank == 0:
+            return np.array(coll.data_of("x").get_copy(0).payload)
+        return None
+    finally:
+        ctx.fini()
+
+
 def test_dtd_pool_on_several_ranks_raises(tctx):
-    """This package runs DTD on one rank."""
+    """A DTD pool on several ranks runs its cross-rank edges over the
+    comm engine — the port's 2-rank LocalFabric chain gives the JAX
+    package's values bit for bit — and a tile on another rank with no
+    comm engine attached raises instead of being read stale."""
+    from parsec_tpu.comm import LocalFabric as JLocalFabric
+    from parsec_tpu.utils.spmd import spmd_threads as jspmd
+    from parsec_tpu_torch.utils.spmd import spmd_threads as tspmd
+    t_res, t_fab = tspmd(2, lambda r, f: _dtd_cross_rank_chain(
+        parsec_tpu_torch, tdtd, r, f, 7), timeout=60)
+    j_res, _ = jspmd(2, lambda r, f: _dtd_cross_rank_chain(
+        parsec_tpu, jdtd, r, f, 7), timeout=60, fabric=JLocalFabric(2))
+    np.testing.assert_array_equal(t_res[0], j_res[0])
+    assert t_fab.msg_count > 0
+    from parsec_tpu_torch.collections import DictCollection
     tctx.nb_ranks = 2
     try:
-        with pytest.raises(NotImplementedError, match="one rank"):
-            tctx.add_taskpool(tdtd.taskpool_new())
+        coll = DictCollection(nodes=2, rank=0)
+        coll.name = "C"
+        coll.add("x", 1, None)
+        mine = DictCollection(nodes=2, rank=0)
+        mine.name = "mine"
+        mine.add("a", 0, np.zeros(1))
+        tp = tdtd.taskpool_new()
+        tctx.add_taskpool(tp)
+        with pytest.raises(RuntimeError, match="no comm engine"):
+            tp.insert_task(lambda es, task: None,
+                           (tp.tile_of(coll, "x"), INPUT),
+                           (tp.tile_of(mine, "a"), INOUT | tdtd.AFFINITY))
     finally:
         tctx.nb_ranks = 1
         tctx.taskpools.clear()

@@ -35,8 +35,14 @@ def _port_sources():
 
 def test_sources_import_no_jax():
     """Every import statement of the package and chip_smoke.py, lazy
-    ones inside functions included."""
+    ones inside functions included (the comm layer and the device data
+    plane among them)."""
     bad = []
+    seen = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("comm/engine.py", "comm/wire.py", "comm/local.py",
+                "comm/tcp.py", "comm/remote_dep.py", "comm/xfer.py",
+                "xfer/loopback.py", "utils/spmd.py"):
+        assert os.path.join("parsec_tpu_torch", mod) in seen, mod
     for path in _port_sources():
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
@@ -60,6 +66,8 @@ def test_cpu_dpotrf_loads_no_jax():
         import numpy as np
         import parsec_tpu_torch as ptt
         from parsec_tpu_torch.collections import TwoDimBlockCyclic
+        import parsec_tpu_torch.comm, parsec_tpu_torch.xfer
+        import parsec_tpu_torch.utils.spmd
         ctx = ptt.init(nb_cores=2, device="cpu")
         M = ptt.ops.make_spd(96)
         A = TwoDimBlockCyclic(96, 96, 32, 32).from_numpy(M)
@@ -294,7 +302,7 @@ def test_init_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("stage_compile", "1"), ("comm_transport", "tcp"),
+    ("stage_compile", "1"), ("ft_inject", "kill:rank=0"),
     ("device_mesh_shape", "2x2"), ("device_donate", "1"),
     ("device_batch_mode", "vmap")])
 def test_trimmed_knobs_raise(knob, value):
@@ -305,18 +313,33 @@ def test_trimmed_knobs_raise(knob, value):
 
 
 def test_multirank_and_static_deps_raise():
-    """Several ranks raise, in the hash mode and in the static one (the
-    static engines lower one rank's task space)."""
-    with pytest.raises(NotImplementedError):
-        parsec_tpu_torch.init(nb_cores=1, device="cpu", nb_ranks=2)
+    """Static dependency management on several ranks raises (the static
+    engines lower one rank's task space; the JAX package quietly runs the
+    hash path there, this package refuses).  In the hash mode a remote
+    successor with no comm engine attached raises the JAX package's
+    RuntimeError, and so does a context of two ranks with no engine."""
     from parsec_tpu_torch.collections import TwoDimBlockCyclic
     from parsec_tpu_torch.ops import dpotrf_taskpool
-    for mode in ("hash", "static"):
-        with params.cmdline_override("ptg_dep_management", mode):
-            tp = dpotrf_taskpool(TwoDimBlockCyclic(64, 64, 32, 32, P=2),
-                                 nb_ranks=2)
-            with pytest.raises(NotImplementedError):
-                tp.startup_hook(None, tp)
+    with pytest.raises(ValueError, match="without a comm engine"):
+        parsec_tpu_torch.init(nb_cores=1, device="cpu", nb_ranks=2)
+    with params.cmdline_override("ptg_dep_management", "static"):
+        tp = dpotrf_taskpool(TwoDimBlockCyclic(64, 64, 32, 32, P=2),
+                             nb_ranks=2)
+        with pytest.raises(NotImplementedError):
+            tp.startup_hook(None, tp)
+    with params.cmdline_override("ptg_dep_management", "hash"):
+        ctx = parsec_tpu_torch.init(nb_cores=1, device="cpu")
+        try:
+            A = TwoDimBlockCyclic(64, 64, 32, 32, P=2, nodes=2, rank=0)
+            for (i, j) in A.local_tiles():
+                np.copyto(A.tile(i, j), np.eye(32, dtype=np.float32) * 4)
+            ctx.add_taskpool(dpotrf_taskpool(A, rank=0, nb_ranks=2))
+            with pytest.raises(RuntimeError) as err:
+                ctx.wait()
+            assert isinstance(err.value.__cause__, RuntimeError)
+            assert "no comm engine is attached" in str(err.value.__cause__)
+        finally:
+            ctx.fini()
 
 
 def test_native_import_writes_nothing_under_the_packages(tmp_path):
