@@ -94,6 +94,36 @@ Phases, each reporting on its own lines:
             IPC run and no park leaked, the chain's value exact.  A rank
             that exits non-zero or passes its 300 s deadline fails the
             phase;
+5f. ft      the same dposv (A and B on 2 x 1, the TCP engine, phase
+            dposv's input, N = 16384) through ft.run_with_restart over
+            its three pools, a snapshot of A and B after every stage
+            (pulled from the card) under a temporary directory the phase
+            removes: ft_kill_2 (ft_inject kills rank 1 inside stage 1,
+            heartbeats every 0.05 s with a 2 s timeout; rank 1 stays
+            dark until rank 0 has raised RankFailedError, so the
+            heartbeat detector must find the death; fresh rank processes
+            resume from the stage-1 snapshot), ft_taskfail_2 (a task
+            fault on rank 0 inside stage 2 aborts it, as the strict
+            contract does on several ranks; fresh processes resume from
+            the stage-2 snapshot), ft_taskfail_1 (the same fault on one
+            rank, rolled back in-world into the card-resident
+            collections and retried once) and ft_clean_2 (no fault).
+            Each rank prints its wall, its snapshots (bytes, D2H and
+            .npz seconds), restores, retries, GEMM launches and device
+            tasks against its CUDA-body tasks per attempt; each run its
+            detector and detection latency, the disk its snapshots took,
+            and the factor and X, bit-identical to phase dposv's with
+            residuals under 1e-4;
+5g. template a CUDA-body task, a BODY [type=template] task on an
+            attached TemplateDevice and a CUDA-body task on one 1024 x
+            1024 tile: exact against the plain chain, the template's
+            write staged back in;
+    collection_ops reduce_all and apply (collections/ops.py) on the
+            dpotrf factor held on the card: the host bodies pull it,
+            the sum within 1e-4, apply exact;
+    bindings the C shim (bindings/) built with the system C compiler
+            and a C program run against it: ptc_init on the card
+            (cpu,cuda:0), an 8-task DTD chain through the C API, exact;
 6. bitexact batched and per-task dispatch give identical factors
             (N = 4096, NB = 512), dpotrf and dgetrf_nopiv;
 6a. static  dpotrf at N = 16384, NB = 1024 with ptg_dep_management=static
@@ -846,25 +876,25 @@ DTD_HOPS = 64
 RANK_DEADLINE = 300.0    # seconds a rank process may take
 
 
-def local_cuda_tasks(pools, rank: int) -> int:
-    """Tasks of ``pools`` placed on ``rank`` whose class has a CUDA body."""
+def local_cuda_tasks(pools, rank: int, cuda_only: bool = True) -> int:
+    """Tasks of ``pools`` placed on ``rank`` whose class has a CUDA body
+    (every class's with ``cuda_only=False``)."""
     n = 0
     for tp in pools:
         for tc in tp.task_classes:
-            if not any(c.device_type == "cuda" for c in tc.incarnations):
+            if cuda_only and not any(c.device_type == "cuda"
+                                     for c in tc.incarnations):
                 continue
             n += sum(1 for loc in tc.iter_space()
                      if tc.rank_of_instance(tc.env_of(loc)) == rank)
     return n
 
 
-def rank_dposv(ctx, args, plane: bool) -> dict:
-    """One rank's share of dposv at phase dposv's size and input."""
-    import parsec_tpu_torch as ptt
+def rank_inputs(args, rank: int, nb_ranks: int, grid, PB: int):
+    """This rank's share of phase dposv's input: A on ``grid``, B on
+    PB x 1, only the local tiles filled."""
     from parsec_tpu_torch.collections import TwoDimBlockCyclic
-    from parsec_tpu_torch.ops import kernels
-    nb_ranks, (P, Q), PB, _ = MULTIRANK_RUNS[args.run]
-    rank, n, nb = ctx.rank, args.n, args.nb
+    n, nb = args.n, args.nb
     M = synth_spd(n, args.seed)
     Bm = uniform(n, args.nrhs, seed=args.seed + 10)
 
@@ -876,9 +906,30 @@ def rank_dposv(ctx, args, plane: bool) -> dict:
                                         j * nb:(j + 1) * nb])
         return d
 
-    A, B = dist(M, P, Q), dist(Bm, PB, 1)
+    A, B = dist(M, *grid), dist(Bm, PB, 1)
     A.name, B.name = "descA", "descB"
-    del M, Bm
+    return A, B
+
+
+def save_tiles(ctx, out: str, A, B) -> None:
+    """This rank's factor (lower tiles) and X, pulled through the device
+    module, one .npy a tile under ``out``."""
+    for name, d in (("A", A), ("B", B)):
+        for (i, j) in d.local_tiles():
+            if name == "A" and i < j:
+                continue   # the factor is the lower triangle
+            host = d.data_of(i, j).sync_to_host(ctx.devices)
+            np.save(os.path.join(out, f"{name}_{i}_{j}.npy"),
+                    np.asarray(host.payload))
+
+
+def rank_dposv(ctx, args, plane: bool) -> dict:
+    """One rank's share of dposv at phase dposv's size and input."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.ops import kernels
+    nb_ranks, (P, Q), PB, _ = MULTIRANK_RUNS[args.run]
+    rank = ctx.rank
+    A, B = rank_inputs(args, rank, nb_ranks, (P, Q), PB)
     expected = local_cuda_tasks(
         [ptt.ops.dpotrf_taskpool(A, rank=rank, nb_ranks=nb_ranks),
          ptt.ops.dtrsm_lower_taskpool(A, B, rank=rank, nb_ranks=nb_ranks),
@@ -921,13 +972,7 @@ def rank_dposv(ctx, args, plane: bool) -> dict:
                    plane_bytes=dp.stats["bytes_pulled"],
                    leaked_parks=dp.leaked_parks,
                    plane_backend=dp.backend_name)
-    for name, d in (("A", A), ("B", B)):
-        for (i, j) in d.local_tiles():
-            if name == "A" and i < j:
-                continue   # the factor is the lower triangle
-            host = d.data_of(i, j).sync_to_host(ctx.devices)
-            np.save(os.path.join(args.out, f"{name}_{i}_{j}.npy"),
-                    np.asarray(host.payload))
+    save_tiles(ctx, args.out, A, B)
     return out
 
 
@@ -996,6 +1041,8 @@ def rank_worker(args) -> int:
               f"of {args.nb_ranks}")
         if args.run == "dtd_chain_2":
             out = rank_dtd_chain(ctx, args)
+        elif args.run in FT_RUNS:
+            out = rank_ft(ctx, args)
         else:
             out = rank_dposv(ctx, args, MULTIRANK_RUNS[args.run][3])
     finally:
@@ -1006,25 +1053,31 @@ def rank_worker(args) -> int:
 
 
 def spawn_ranks(run: str, nb_ranks: int, seed: int, out_dir: str,
-                n: int, nb: int, nrhs: int, profile: bool = False) -> list:
-    """Start the rank processes of ``run`` and wait for them; a rank that
+                n: int, nb: int, nrhs: int, profile: bool = False,
+                extra_env: dict = None, extra_args: list = None) -> list:
+    """Start the rank processes of ``run`` (knobs of ``extra_env`` and
+    flags of ``extra_args`` added to each) and wait for them; a rank that
     exits non-zero or passes RANK_DEADLINE fails the phase (every rank
-    is killed first).  Returns each rank's JSON record."""
+    is killed first).  One rank runs without a comm engine.  Returns
+    each rank's JSON record."""
     from parsec_tpu_torch.comm import free_ports
     ports = free_ports(nb_ranks)
     procs = []
     for r in range(nb_ranks):
         env = {k: v for k, v in os.environ.items()
-               if not k.startswith("PARSEC_MCA_comm_")}
-        env.update(PARSEC_MCA_comm_transport="tcp",
-                   PARSEC_MCA_comm_endpoints=",".join(
-                       f"127.0.0.1:{p}" for p in ports),
-                   PARSEC_MCA_comm_rank=str(r))
+               if not k.startswith(("PARSEC_MCA_comm_", "PARSEC_MCA_ft_"))}
+        if nb_ranks > 1:
+            env.update(PARSEC_MCA_comm_transport="tcp",
+                       PARSEC_MCA_comm_endpoints=",".join(
+                           f"127.0.0.1:{p}" for p in ports),
+                       PARSEC_MCA_comm_rank=str(r))
+        env.update(extra_env or {})
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
              "--rank", str(r), "--nb-ranks", str(nb_ranks), "--run", run,
              "--out", out_dir, "--n", str(n), "--nb", str(nb),
-             "--nrhs", str(nrhs)] + (["--profile"] if profile else []),
+             "--nrhs", str(nrhs)] + (["--profile"] if profile else [])
+            + list(extra_args or ()),
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True))
     deadline = time.monotonic() + RANK_DEADLINE
@@ -1160,6 +1213,552 @@ def phase_multirank(seed: int, factor: np.ndarray, X1: np.ndarray,
               f"task")
     check(recs[0]["exact"] is True, "dtd_chain_2: the tile is not exact")
     return launches
+
+
+# ---------------------------------------------------------------------- #
+# ft: dposv killed, failed and rolled back through ft.run_with_restart   #
+# ---------------------------------------------------------------------- #
+#: run -> rank processes.  ft_kill_2: rank 1 chaos-killed inside stage 1,
+#: rank 0 detects it by heartbeat, a fresh incarnation resumes from the
+#: stage-1 snapshot; ft_taskfail_2: a task fault on rank 0 inside stage 2
+#: aborts that rank (the strict contract refuses an in-world retry on
+#: several ranks) and the job with it (rank 0 goes dark, rank 1's
+#: detector evicts it), a fresh incarnation resumes from the stage-2
+#: snapshot;
+#: ft_taskfail_1: the same fault on one rank, rolled back in-world into
+#: card-resident collections and retried; ft_clean_2: no fault
+FT_RUNS = {"ft_kill_2": 2, "ft_taskfail_2": 2, "ft_taskfail_1": 1,
+           "ft_clean_2": 2}
+FT_HEARTBEAT = {"PARSEC_MCA_ft_heartbeat_interval": "0.05",
+                "PARSEC_MCA_ft_heartbeat_timeout": "2"}
+FT_RETRIES = 1
+FT_DARK_S = 120.0        # a killed rank stays dark at most this long
+
+
+def ft_stages(A, B, rank: int, nb_ranks: int) -> list:
+    """The three pools dposv composes, as fresh-pool factories."""
+    import parsec_tpu_torch as ptt
+    return [lambda: ptt.ops.dpotrf_taskpool(A, rank=rank, nb_ranks=nb_ranks),
+            lambda: ptt.ops.dtrsm_lower_taskpool(A, B, rank=rank,
+                                                 nb_ranks=nb_ranks),
+            lambda: ptt.ops.dtrsm_lower_trans_taskpool(A, B, rank=rank,
+                                                       nb_ranks=nb_ranks)]
+
+
+def ft_stage_tasks(n: int, nb: int, nrhs: int, nb_ranks: int, rank: int,
+                   cuda_only: bool) -> list:
+    """Each stage's tasks placed on ``rank`` (A and B on nb_ranks x 1),
+    from the collections' shapes alone: no tile is allocated."""
+    from parsec_tpu_torch.collections import TwoDimBlockCyclic
+    A, B = (TwoDimBlockCyclic(n, w, nb, nb, P=nb_ranks, Q=1, nodes=nb_ranks,
+                              rank=rank, dtype=np.float32)
+            for w in (n, nrhs))
+    return [local_cuda_tasks([mk()], rank, cuda_only)
+            for mk in ft_stages(A, B, rank, nb_ranks)]
+
+
+def rank_ft(ctx, args) -> dict:
+    """One rank's dposv through ``run_with_restart`` (snapshots under
+    ``args.ckpt``, every stage), timed per attempt, snapshot and
+    restore; a rank that failed reports how and where, a killed rank
+    stays dark until rank 0 has raised, a rank that finished saves its
+    tiles."""
+    import parsec_tpu_torch as ptt  # noqa: F401
+    from parsec_tpu_torch.ft import RestartPolicy, run_with_restart
+    from parsec_tpu_torch.ops import kernels
+    from parsec_tpu_torch.utils import checkpoint as ckpt
+    restart = sys.modules["parsec_tpu_torch.ft.restart"]
+    rank, nb_ranks = ctx.rank, ctx.nb_ranks
+    A, B = rank_inputs(args, rank, nb_ranks, (nb_ranks, 1), nb_ranks)
+    expected = ft_stage_tasks(args.n, args.nb, args.nrhs, nb_ranks, rank,
+                              cuda_only=True)
+    dev = ctx.device_by_type("cuda")
+    attempts, snaps, restores, kills, detects = [], [], [], [], []
+
+    def attempt(i, mk):
+        def make():
+            attempts.append((i, dev.stats["tasks"]))
+            return mk()
+        return make
+
+    save0, restore0 = restart._save, restart._restore
+
+    def timed_save(collections, prefix, stage, context):
+        before, t0 = dict(ckpt.save_stats), time.perf_counter()
+        save0(collections, prefix, stage, context)
+        st = ckpt.save_stats
+        snaps.append(dict(stage=stage, s=time.perf_counter() - t0,
+                          pull_s=st["pull_s"] - before["pull_s"],
+                          write_s=st["write_s"] - before["write_s"],
+                          bytes=st["bytes"] - before["bytes"]))
+
+    def timed_restore(collections, prefix, stage, context=None):
+        t0 = time.perf_counter()
+        restore0(collections, prefix, stage, context)
+        restores.append(dict(stage=stage, s=time.perf_counter() - t0))
+
+    restart._save, restart._restore = timed_save, timed_restore
+    ce = ctx.comm.ce if ctx.comm is not None else None
+    if ce is not None:
+        silence0, failure0 = ce.ft_silence, ce.on_peer_failure
+
+        def timed_silence():
+            kills.append(time.time())
+            silence0()
+
+        def timed_failure(peer, reason):
+            detects.append((time.time(), peer, reason))
+            failure0(peer, reason)
+
+        ce.ft_silence, ce.on_peer_failure = timed_silence, timed_failure
+        ce.sync()
+    reset_counts()
+    status, reason, stats = "ok", "", {}
+    t0 = time.perf_counter()
+    try:
+        stats = run_with_restart(
+            ctx, [attempt(i, mk) for i, mk in
+                  enumerate(ft_stages(A, B, rank, nb_ranks))], [A, B],
+            os.path.join(args.ckpt, "dposv"),
+            RestartPolicy("restart", retries=FT_RETRIES, every=1),
+            resume_from=args.resume_from)
+    except RuntimeError as exc:
+        root = exc.__cause__ or exc
+        status, reason = type(root).__name__, str(root)
+    if dev.is_cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # per attempt: device tasks against the stage's local CUDA-body tasks
+    ends = [a[1] for a in attempts[1:]] + [dev.stats["tasks"]]
+    per = []
+    for k, (stage, before) in enumerate(attempts):
+        done = (attempts[k + 1][0] == stage + 1 if k + 1 < len(attempts)
+                else status == "ok")
+        per.append(dict(stage=stage, device_tasks=ends[k] - before,
+                        local_cuda_tasks=expected[stage], finished=done))
+    if status == "ok":
+        save_tiles(ctx, args.out, A, B)
+    open(os.path.join(args.out, f"rank{rank}_{status}"), "w").close()
+    if ce is not None and status not in ("ok", "RankFailedError"):
+        # this rank's own stage failed: under the strict contract its
+        # peers cannot observe the abort, so the rank aborts the job as
+        # its process would, dark with its sockets open, until every
+        # peer has raised or finished: their heartbeat detectors, not
+        # this process's exit, must find it
+        if not ce._ft_silenced:
+            ce.ft_silence()
+        deadline = time.monotonic() + FT_DARK_S
+        peers = [p for p in range(nb_ranks) if p != rank]
+        while time.monotonic() < deadline and not all(
+                any(f.startswith(f"rank{p}_") for f in os.listdir(args.out))
+                for p in peers):
+            time.sleep(0.05)
+    det = ctx._ft_detector
+    return dict(status=status, reason=reason[:200], wall=wall,
+                device=dev.name, matmul_launches=kernels.matmul_launches,
+                attempts=per, snapshots=snaps, restores=restores,
+                retries=stats.get("retries", 0),
+                last_snapshot=stats.get("last_snapshot"),
+                failed_stage=attempts[-1][0] if status != "ok" else None,
+                kill_t=kills[0] if kills else None,
+                detect_t=detects[0][0] if detects else None,
+                detect_reason=detects[0][2][:120] if detects else "",
+                evictions=det.evictions if det is not None else 0)
+
+
+def ft_line(run: str, inc: int, spawn_s: float, r: dict) -> None:
+    snaps = r["snapshots"]
+    log(f"ft.{run}", incarnation=inc, rank=r["rank"], status=r["status"],
+        wall=f"{r['wall']:.4f}", spawn_to_exit_s=f"{spawn_s:.1f}",
+        snapshots=len(snaps),
+        snapshot_bytes=sum(s["bytes"] for s in snaps),
+        snapshot_s=",".join(f"{s['stage']}:{s['s']:.3f}" for s in snaps),
+        snapshot_d2h_s=f"{sum(s['pull_s'] for s in snaps):.3f}",
+        snapshot_write_s=f"{sum(s['write_s'] for s in snaps):.3f}",
+        restore_s=",".join(f"{s['stage']}:{s['s']:.3f}"
+                           for s in r["restores"]) or "-",
+        retries=r["retries"], last_snapshot=r["last_snapshot"],
+        failed_stage=r["failed_stage"], evictions=r["evictions"],
+        matmul_launches=r["matmul_launches"],
+        device_tasks="/".join(str(a["device_tasks"]) for a in r["attempts"]),
+        local_cuda_tasks="/".join(str(a["local_cuda_tasks"])
+                                  for a in r["attempts"]),
+        attempt_stages="/".join(f"{a['stage']}{'' if a['finished'] else '!'}"
+                                for a in r["attempts"]),
+        reason=json.dumps(r["reason"][:80]))
+
+
+def phase_ft(seed: int, factor: np.ndarray, X1: np.ndarray,
+             n: int = N_MAIN, nb: int = NB_MAIN, nrhs: int = NRHS) -> dict:
+    """dposv through ft.run_with_restart on rank processes (the dposv_2
+    layout), with a chaos kill, a task fault and none; returns each
+    run's GEMM launches by incarnation and rank."""
+    M = synth_spd(n, seed)
+    Bm = uniform(n, nrhs, seed=seed + 10)
+    launches = {}
+    for run, nb_ranks in FT_RUNS.items():
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{run}_")
+        ckpt_dir = os.path.join(out_dir, "ckpt")
+        os.makedirs(ckpt_dir)
+        env = {}
+        if run == "ft_kill_2":
+            # inside stage 1 (the forward solve) of rank 1
+            n0, n1, _ = ft_stage_tasks(n, nb, nrhs, 2, 1, cuda_only=False)
+            env = dict(FT_HEARTBEAT,
+                       PARSEC_MCA_ft_inject=f"kill:rank=1:after="
+                                            f"{n0 + max(1, n1 // 2)}")
+        elif run.startswith("ft_taskfail"):
+            # inside stage 2 (the backward solve) of rank 0
+            n0, n1, n2 = ft_stage_tasks(n, nb, nrhs, nb_ranks, 0,
+                                        cuda_only=False)
+            env = dict(FT_HEARTBEAT if nb_ranks > 1 else {},
+                       PARSEC_MCA_ft_inject=f"taskfail:rank=0:nth="
+                                            f"{n0 + n1 + max(1, n2 // 2)}")
+        incs = []
+        try:
+            args = ["--ckpt", ckpt_dir]
+            while True:
+                t0 = time.perf_counter()
+                recs = spawn_ranks(run, nb_ranks, seed, out_dir, n, nb, nrhs,
+                                   extra_env=env, extra_args=args)
+                incs.append((time.perf_counter() - t0, recs, time.time()))
+                if all(r["status"] == "ok" for r in recs) or len(incs) == 2:
+                    break
+                # a fresh incarnation from the last snapshot set every
+                # rank wrote: the failed stage's, or a later one's
+                resume = min(r["failed_stage"] if r["status"] != "ok"
+                             else r["last_snapshot"] for r in recs)
+                args = ["--ckpt", ckpt_dir, "--resume-from", str(resume)]
+                env = dict(FT_HEARTBEAT)
+            disk = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                       for f in os.listdir(ckpt_dir))
+            L = assemble(out_dir, "A", (n, n), nb)
+            X = assemble(out_dir, "B", (n, nrhs), nb)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        same_L = bool(np.array_equal(L, factor))
+        same_X = bool(np.array_equal(X, X1))
+        resid_x = solve_residual(M, X, Bm, seed)
+        resid_l = residual(L, M, seed)
+        del L, X
+        for inc, (spawn_s, recs, _) in enumerate(incs, 1):
+            for r in recs:
+                ft_line(run, inc, spawn_s, r)
+        first, final = incs[0][1], incs[-1][1]
+        detected_by, latency, recovery = "-", None, None
+        if nb_ranks > 1 and run != "ft_clean_2":
+            # the survivor's detector against the failed rank's silence;
+            # recovery: that silence to the fresh incarnation's end
+            surv, dead = (first[0], first[1]) if run == "ft_kill_2" \
+                else (first[1], first[0])
+            detected_by = ("heartbeat" if "heartbeat" in surv["detect_reason"]
+                           else "socket" if surv["detect_reason"] else "none")
+            if surv["detect_t"] is not None and dead["kill_t"] is not None:
+                latency = surv["detect_t"] - dead["kill_t"]
+                recovery = incs[-1][2] - dead["kill_t"]
+        log(f"ft.{run}", ranks=nb_ranks, incarnations=len(incs),
+            walls="/".join(f"{max(r['wall'] for r in recs):.4f}"
+                           for _, recs, _ in incs),
+            spawn_to_exit_s="/".join(f"{s:.1f}" for s, _, _ in incs),
+            retries=sum(r["retries"] for r in final),
+            detected_by=detected_by,
+            detection_latency_s=(f"{latency:.4f}" if latency is not None
+                                 else "-"),
+            recovery_wall_s=(f"{recovery:.1f}" if recovery is not None
+                             else "-"),
+            checkpoint_disk_bytes=disk,
+            gemm_launches_by_rank="/".join(
+                str(r["matmul_launches"]) for r in final),
+            factor_identical=same_L, x_identical=same_X,
+            residual=resid_x, factor_residual=resid_l)
+        statuses = [[r["status"] for r in recs] for _, recs, _ in incs]
+        want = {"ft_kill_2": [["RankFailedError", "InjectedKill"],
+                              ["ok", "ok"]],
+                "ft_taskfail_2": [["InjectedTaskFault", "RankFailedError"],
+                                  ["ok", "ok"]],
+                "ft_taskfail_1": [["ok"]],
+                "ft_clean_2": [["ok", "ok"]]}[run]
+        check(statuses == want, f"{run}: outcomes {statuses}, wanted {want}")
+        if nb_ranks > 1 and run != "ft_clean_2":
+            check(detected_by == "heartbeat",
+                  f"{run}: the survivor detected the failed rank by "
+                  f"{detected_by}")
+        if run == "ft_kill_2":
+            check(first[1]["failed_stage"] == 1,
+                  f"ft_kill_2: the kill fell in stage "
+                  f"{first[1]['failed_stage']}, not 1")
+        if run == "ft_taskfail_2":
+            check(first[0]["failed_stage"] == 2,
+                  f"ft_taskfail_2: the fault fell in stage "
+                  f"{first[0]['failed_stage']}, not 2")
+        check(sum(r["retries"] for r in final) ==
+              (FT_RETRIES if run == "ft_taskfail_1" else 0),
+              f"{run}: {sum(r['retries'] for r in final)} in-world retries")
+        for r in final:
+            check(r["device"] == "cuda:0",
+                  f"{run}: rank {r['rank']} ran on {r['device']}")
+            check(r["matmul_launches"] > 0,
+                  f"{run}: rank {r['rank']} launched the GEMM kernel no time")
+        for _, recs, _ in incs:
+            for r in recs:
+                for a in r["attempts"]:
+                    check(not a["finished"]
+                          or a["device_tasks"] == a["local_cuda_tasks"],
+                          f"{run}: rank {r['rank']} stage {a['stage']}: "
+                          f"{a['device_tasks']} device tasks of its "
+                          f"{a['local_cuda_tasks']} CUDA-body tasks")
+        check(resid_x < RESID_TOL and resid_l < RESID_TOL,
+              f"{run}: residuals {resid_x}, {resid_l} >= {RESID_TOL}")
+        check(same_L and same_X, f"{run}: factor identical {same_L}, X "
+                                 f"identical {same_X} to phase dposv's")
+        launches[run] = [[r["matmul_launches"] for r in recs]
+                         for _, recs, _ in incs]
+    return launches
+
+
+TEMPLATE_JDF = """
+descA [ type="collection" ]
+
+First(k)
+
+k = 0 .. 0
+
+: descA( 0, 0 )
+
+RW A <- descA( 0, 0 )
+     -> A Middle( k )
+
+BODY [type=cuda]
+{
+    A = A * 2.0 + 1.0
+}
+END
+
+Middle(k)
+
+k = 0 .. 0
+
+: descA( 0, 0 )
+
+RW A <- A First( k )
+     -> A Last( k )
+
+BODY [type=template]
+{
+    A = A * 3.0 - 5.0
+}
+END
+
+Last(k)
+
+k = 0 .. 0
+
+: descA( 0, 0 )
+
+RW A <- A Middle( k )
+     -> descA( 0, 0 )
+
+BODY [type=cuda]
+{
+    A = A * 0.5
+}
+END
+"""
+
+
+def phase_template(seed: int, nb: int = NB_MAIN) -> None:
+    """A CUDA-body task, a BODY [type=template] task on an attached
+    TemplateDevice and a CUDA-body task on one tile: the template task
+    reads the card's newest copy, the last task stages its write back
+    in; the tile exact against the plain chain."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.devices import TemplateDevice
+    M = uniform(nb, nb, seed=seed + 20)
+    ctx = ptt.init(nb_cores=4)
+    try:
+        tdev = TemplateDevice(len(ctx.devices))
+        ctx.devices.append(tdev)
+        cdev = ctx.device_by_type("cuda")
+        A = tiled(M, nb)
+        A.name = "descA"
+        t0 = time.perf_counter()
+        ctx.add_taskpool(ptt.ptg.compile_jdf(TEMPLATE_JDF, name="chain")
+                         .new(descA=A))
+        ctx.wait()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = A.to_numpy()
+        st = dict(cdev.stats)
+    finally:
+        ctx.fini()
+    exp = ((M * np.float32(2) + np.float32(1)) * np.float32(3)
+           - np.float32(5)) * np.float32(0.5)
+    exact = bool(np.array_equal(got, exp))
+    log("template", device=cdev.name, cuda_tasks=st["tasks"],
+        template_tasks=tdev.stats["tasks"], stage_in_bytes=st["stage_in_bytes"],
+        stage_out_bytes=st["stage_out_bytes"], seconds=f"{seconds:.4f}",
+        exact=exact)
+    check(cdev.name == "cuda:0" and st["tasks"] == 2
+          and tdev.stats["tasks"] == 1,
+          f"template: {st['tasks']} CUDA and {tdev.stats['tasks']} "
+          f"template tasks on {cdev.name}")
+    # the first task's input and the template's output, each staged in
+    check(st["stage_in_bytes"] >= 2 * M.nbytes,
+          f"template: {st['stage_in_bytes']} bytes staged in, under "
+          f"{2 * M.nbytes}")
+    check(exact, "template: the tile differs from the plain chain")
+
+
+def phase_collection_ops(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
+                         nb: int = NB_MAIN) -> int:
+    """reduce_all and apply (collections/ops.py) on the dpotrf factor held
+    in a card-resident collection; returns the GEMM launches of the two
+    factorizations."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.collections import ops as cops
+    from parsec_tpu_torch.ops import kernels
+    M = synth_spd(n, seed)
+    reset_counts()
+    ctx = ptt.init(nb_cores=4)
+    try:
+        dev = ctx.device_by_type("cuda")
+        A1, A2 = tiled(M, nb), tiled(M, nb)
+        for A in (A1, A2):
+            ptt.ops.dpotrf(ctx, A)
+        torch.cuda.synchronize()
+        on_card = all(A.data_of(i, j).newest_copy().device_id
+                      == dev.device_index
+                      for A in (A1, A2) for (i, j) in A.tiles() if i >= j)
+        launches = kernels.matmul_launches
+        pulls = dev.stats["stage_out_bytes"]
+        t0 = time.perf_counter()
+        total = cops.reduce_all(ctx, A1, lambda a, b, _: a + b).to_numpy()
+        reduce_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cops.apply(ctx, A2, lambda t, region, m, k, args: t * np.float32(0.5),
+                   uplo="lower")
+        apply_s = time.perf_counter() - t0
+        pulled = dev.stats["stage_out_bytes"] - pulls
+        F = A1.to_numpy()
+        G = A2.to_numpy()
+    finally:
+        ctx.fini()
+    nt = n // nb
+    tiles = F.reshape(nt, nb, nt, nb).transpose(0, 2, 1, 3)
+    exp = tiles.astype(np.float64).sum(axis=(0, 1))
+    rel = float(np.abs(total - exp).max() / np.abs(exp).max())
+    half = np.array_equal(G.reshape(nt, nb, nt, nb).transpose(0, 2, 1, 3)
+                          [np.tril_indices(nt)],
+                          tiles[np.tril_indices(nt)] * np.float32(0.5))
+    upper = np.array_equal(G.reshape(nt, nb, nt, nb).transpose(0, 2, 1, 3)
+                           [np.triu_indices(nt, 1)],
+                           tiles[np.triu_indices(nt, 1)])
+    same = bool(np.array_equal(np.tril(F), L_ptg))
+    log("collection_ops", device=dev.name, n=n, nb=nb, factor_on_card=on_card,
+        pulled_bytes=pulled, reduce_all_s=f"{reduce_s:.4f}",
+        apply_s=f"{apply_s:.4f}", reduce_all_rel_err=rel,
+        apply_exact=bool(half and upper), factor_identical=same,
+        matmul_launches=launches)
+    check(on_card and pulled >= 2 * nt * (nt + 1) // 2 * nb * nb * 4,
+          f"collection_ops: factor on the card {on_card}, {pulled} bytes "
+          f"pulled by the host bodies")
+    check(rel < RTOL, f"collection_ops: reduce_all off by {rel}")
+    check(half and upper and same,
+          f"collection_ops: apply exact {half and upper}, factor identical "
+          f"{same}")
+    return launches
+
+
+C_DRIVER = r"""
+#include <stdio.h>
+#include "parsec_tpu_c.h"
+
+static void saxpy_body(float **tiles, int ntiles, void *user) {
+    float a = *(float *)user;
+    float *y = tiles[0];
+    const float *x = tiles[1];
+    for (int i = 0; i < 1024; i++) y[i] += a * x[i];
+}
+
+int main(void) {
+    ptc_context *ctx = ptc_init(2);
+    if (!ctx) { fprintf(stderr, "init: %s\n", ptc_last_error()); return 1; }
+    printf("version=%s\n", ptc_version());
+    printf("devices=%s\n", ptc_device_names(ctx));
+    static float ybuf[1024], xbuf[1024];
+    float a = 3.0f;
+    for (int i = 0; i < 1024; i++) { ybuf[i] = 1.0f; xbuf[i] = (float)i; }
+    ptc_taskpool *tp = ptc_dtd_taskpool_new(ctx);
+    if (!tp) { fprintf(stderr, "tp: %s\n", ptc_last_error()); return 1; }
+    ptc_tile *y = ptc_tile_of_dense(tp, ybuf, 32, 32);
+    ptc_tile *x = ptc_tile_of_dense(tp, xbuf, 32, 32);
+    ptc_tile *tiles[2] = { y, x };
+    int modes[2] = { PTC_INOUT, PTC_INPUT };
+    for (int k = 0; k < 8; k++) {
+        if (ptc_insert_task(tp, saxpy_body, &a, 2, tiles, modes) != 0) {
+            fprintf(stderr, "insert: %s\n", ptc_last_error());
+            return 1;
+        }
+    }
+    if (ptc_data_flush_all(tp) != 0 || ptc_taskpool_wait(tp) != 0) {
+        fprintf(stderr, "wait: %s\n", ptc_last_error());
+        return 1;
+    }
+    for (int i = 0; i < 1024; i++) {
+        float want = 1.0f + 24.0f * (float)i;   /* exact in fp32 */
+        if (ybuf[i] != want) {
+            fprintf(stderr, "y[%d] = %f != %f\n", i, ybuf[i], want);
+            return 2;
+        }
+    }
+    ptc_tile_free(y);
+    ptc_tile_free(x);
+    ptc_taskpool_free(tp);
+    ptc_fini(ctx);
+    printf("C-BINDING-OK\n");
+    return 0;
+}
+"""
+
+
+def phase_bindings() -> None:
+    """Build the C shim and a C program against it, and run the program:
+    ptc_init on the card, an 8-task DTD saxpy chain through the C API,
+    the values exact."""
+    from parsec_tpu_torch.bindings import build as bbuild
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    so = bbuild.build()
+    work = tempfile.mkdtemp(prefix="chip_smoke_bindings_")
+    try:
+        src = os.path.join(work, "driver.c")
+        with open(src, "w") as fh:
+            fh.write(C_DRIVER)
+        exe = os.path.join(work, "driver")
+        subprocess.run([bbuild.compiler(), "-O1", src, "-o", exe,
+                        f"-I{bbuild.include_dir()}", so,
+                        f"-Wl,-rpath,{os.path.dirname(so)}"]
+                       + bbuild.python_link_flags(), check=True)
+        build_s = time.perf_counter() - t0
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("PARSEC_MCA_")}
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        r = subprocess.run([exe], capture_output=True, text=True,
+                           timeout=300, env=env)
+        run_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    devices = next((line.split("=", 1)[1] for line in r.stdout.splitlines()
+                    if line.startswith("devices=")), "")
+    log("bindings", library=os.path.relpath(so, root), rc=r.returncode,
+        devices=devices, build_s=f"{build_s:.1f}", run_s=f"{run_s:.1f}",
+        ok="C-BINDING-OK" in r.stdout)
+    check(r.returncode == 0 and "C-BINDING-OK" in r.stdout,
+          f"bindings: the C program failed ({r.returncode}): "
+          f"{r.stderr[-2000:]}")
+    check("cuda:0" in devices.split(","),
+          f"bindings: ptc_init's context holds {devices!r}, not cuda:0")
 
 
 def lu_counts(nt: int):
@@ -2550,6 +3149,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=N_MAIN, help=argparse.SUPPRESS)
     ap.add_argument("--nb", type=int, default=NB_MAIN, help=argparse.SUPPRESS)
     ap.add_argument("--nrhs", type=int, default=NRHS, help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--resume-from", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     # the package must come from this checkout; importing it first means a
     # directory holding only this script fails before any result
@@ -2582,7 +3184,13 @@ def main(argv=None) -> int:
                                 profile=args.profile)
     for run, per_rank in multirank.items():
         gemm_launches[f"multirank_{run}"] = sum(per_rank)
+    ft = phase_ft(args.seed, factor, X_dposv)
+    for run, incs in ft.items():
+        gemm_launches[run] = sum(sum(per_rank) for per_rank in incs)
     del factor, X_dposv
+    phase_template(args.seed)
+    gemm_launches["collection_ops"] = phase_collection_ops(args.seed, L_ptg)
+    phase_bindings()
     phase_bitexact(args.seed)
     # the static engines, each factor held against the interpreted one
     refs = {("dpotrf", NB_MAIN): L_ptg, ("dgetrf_nopiv", NB_MAIN): LU,
@@ -2623,6 +3231,7 @@ def main(argv=None) -> int:
              multirank_launches_per_rank={f"multirank_{run}": per_rank
                                           for run, per_rank
                                           in multirank.items()},
+             ft_launches_by_incarnation_and_rank=ft,
              max_abs_err=gemm_err,
              **recs["gemm"]),
         dict(name="flash_fwd_f32", route="cuda",

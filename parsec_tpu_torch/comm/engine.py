@@ -11,12 +11,16 @@ Here the CE is the control plane and the host-memory data plane.
 Transports: LocalFabric (in-process ranks, the test fabric standing in
 for oversubscribed mpiexec, SURVEY.md §4) and TCPCommEngine (rank
 processes over sockets).  Device-resident tiles may ride a separate
-device data plane (comm/xfer.py).  Fault injection, telemetry spans and
-cross-rank flow tracing are not carried by this package.
+device data plane (comm/xfer.py).  The fault-tolerance hooks (ft/:
+heartbeat probes, the injected-kill silence, the chaos verdict on every
+outbound frame) live here, uniform across transports; telemetry spans,
+cross-rank flow tracing and elastic membership are not carried by this
+package.
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
@@ -59,6 +63,16 @@ class MemHandle:
 class CommEngine:
     """Transport interface (ref: parsec_comm_engine_t function table)."""
 
+    #: May the heartbeat detector evict a peer that was PROBED but never
+    #: answered? Only sound when a successful probe implies the peer was
+    #: verifiably alive and able to reply at probe time — true for TCP
+    #: (``hb_ok`` means its receiver thread processed our HELLO and
+    #: answers pings without any progress pumping), FALSE for the
+    #: in-process fabrics (a probe merely lands in an inbox; the peer
+    #: may be healthy but still initializing, not yet pumping progress —
+    #: evicting it would be a false positive).
+    ft_probe_baseline = False
+
     def __init__(self, rank: int, nb_ranks: int) -> None:
         self.rank = rank
         self.nb_ranks = nb_ranks
@@ -81,6 +95,24 @@ class CommEngine:
         self.on_peer_failure: Optional[Callable[[int, str], None]] = None
         #: the attached DeviceDataPlane, or None (host staging)
         self.device_plane: Optional[Any] = None
+        # -- fault tolerance (ft/) -------------------------------------
+        #: HeartbeatDetector when one is installed (ft/detector.py)
+        self.ft_detector: Optional[Any] = None
+        #: injected-kill flag: the engine has gone dark (drops all
+        #: traffic, answers no heartbeats) — simulates a crashed process
+        self._ft_silenced = False
+        #: deterministic fault injector (ft/inject.py), or None (the
+        #: default: one never-taken branch on the send path)
+        self._ft: Optional[Any] = None
+        from ..utils.params import params
+        spec = params.get("ft_inject")
+        if spec:
+            from ..ft.inject import FaultInjector
+            self._ft = FaultInjector.from_spec(spec, rank=rank)
+        # every engine answers heartbeat pings from its progress loop,
+        # detector installed or not — liveness proof must not depend on
+        # the *local* configuration
+        self.tag_register(TAG_HEARTBEAT, self._on_heartbeat)
 
     def _notify_arrival(self) -> None:
         cb = self.on_arrival
@@ -155,16 +187,96 @@ class CommEngine:
 
     def peer_finished(self, peer: int) -> bool:
         """True when ``peer`` shut down CLEANLY (it finished its work
-        and fini'd). Transports that can observe orderly shutdown
+        and fini'd) — such a peer stops heartbeating but must never be
+        declared failed. Transports that can observe orderly shutdown
         override this."""
         return False
 
     def peer_suspect(self, peer: int) -> bool:
         """True while ``peer``'s link is torn but a reliable session is
         still reconnecting inside its budget (comm/tcp.py) — a
-        TRANSIENT fault, not a death. Transports without sessions never
-        suspect."""
+        TRANSIENT fault, not a death. Consumers park instead of
+        escalating: the heartbeat detector defers its verdict (probes
+        cannot cross a torn link, so the silence proves nothing).
+        Transports without sessions never suspect."""
         return False
+
+    # -- fault tolerance (ft/) ----------------------------------------------
+    def ft_link_fault(self, peer: int) -> None:
+        """Chaos hook (ft/inject.py ``flap:``/``disconnect:``): tear
+        this rank's link(s) toward ``peer`` without killing anything.
+        Only socket transports have a link to tear; the in-process
+        fabric ignores it."""
+
+    def ft_silence(self) -> None:
+        """Injected kill (ft/inject.py): the engine goes dark — drops
+        all inbound and outbound traffic and answers no heartbeats,
+        simulating a crashed process whose sockets may still be open
+        (so only PROACTIVE detection can find it)."""
+        self._ft_silenced = True
+
+    def ft_outbound(self, dst: int, tag: int) -> int:
+        """Chaos consult for one outbound frame: how many copies to
+        deliver — 0 (engine silenced, or injected drop), 1 (normal),
+        or 2 (injected duplicate). Injected delays sleep inside
+        ``on_send``; an injected failsend raises from here. The ONE
+        copy of the verdict semantics every transport's
+        ``_transport_post`` applies."""
+        if self._ft_silenced:
+            return 0
+        ft = self._ft
+        if ft is None or dst == self.rank:
+            return 1
+        verdict = ft.on_send(dst, tag)
+        if verdict == "drop":
+            return 0
+        if verdict == "flap":
+            # the injector marked the link down: hard-close the
+            # socket(s) FIRST, so this frame is accepted-but-unsent —
+            # under a session it parks and replays, without one the
+            # loss is loud (lost_sends), exactly like a real link fault
+            self.ft_link_fault(dst)
+            return 1
+        return 2 if verdict == "dup" else 1
+
+    def ft_ping(self, peer: int, seq: int, t_ns: int) -> bool:
+        """Send one heartbeat probe toward ``peer``; True when a probe
+        actually left. The base path rides a TAG_HEARTBEAT active
+        message (the in-process fabric); the TCP engine overrides with
+        a wire-level K_PING frame answered by the peer's receiver
+        thread, so TCP liveness is independent of the progress
+        cadence."""
+        if self._ft_silenced or peer in self.dead_peers \
+                or self.peer_finished(peer):
+            return False
+        try:
+            self.send_am(peer, TAG_HEARTBEAT,
+                         {"op": "ping", "seq": seq, "t": t_ns})
+        except Exception:  # noqa: BLE001 - a probe must never propagate
+            return False
+        return True
+
+    def _on_heartbeat(self, src: int, payload: Any) -> None:
+        if self._ft_silenced:
+            return
+        op = payload.get("op")
+        if op == "ping":
+            # any heartbeat traffic FROM the peer proves it speaks the
+            # protocol and is alive right now
+            det = self.ft_detector
+            if det is not None:
+                det.note_alive(src)
+            try:
+                self.send_am(src, TAG_HEARTBEAT,
+                             {"op": "pong", "seq": payload["seq"],
+                              "t": payload["t"]})
+            except Exception:  # noqa: BLE001 - peer died racing the reply
+                pass
+        elif op == "pong":
+            det = self.ft_detector
+            if det is not None:
+                det.note_alive(
+                    src, rtt=(time.monotonic_ns() - payload["t"]) / 1e9)
 
     # -- registered memory + one-sided emulation ----------------------------
     def mem_register(self, array: Any, meta: Any = None,

@@ -30,7 +30,8 @@ class LocalFabric:
         self.msg_count = 0
         self.bytes_count = 0
         # ranks that fini'd CLEANLY (the in-process analog of the TCP
-        # GOODBYE)
+        # GOODBYE): the heartbeat detector must never declare these
+        # failed when their pings stop
         self.finished: set = set()
         self._stat_lock = threading.Lock()
 
@@ -101,7 +102,8 @@ class LocalCommEngine(CommEngine):
     # transport extension points: subclasses replace these two to carry
     # the same AM/GET/PUT emulation over another wire (comm/tcp.py)
     def _transport_post(self, dst: int, src: int, tag: int, payload: Any) -> None:
-        self.fabric._post(dst, src, tag, payload)
+        for _ in range(self.ft_outbound(dst, tag)):
+            self.fabric._post(dst, src, tag, payload)
 
     def _transport_drain(self):
         """Yield pending (src, tag, payload) messages."""
@@ -213,6 +215,8 @@ class LocalCommEngine(CommEngine):
 
     # -- progress -----------------------------------------------------------
     def progress(self) -> int:
+        if self._ft_silenced:
+            return 0   # injected kill: the inbox is never drained again
         n = 0
         tl = self._drain_depth
         tl.n = getattr(tl, "n", 0) + 1
@@ -244,7 +248,23 @@ class LocalCommEngine(CommEngine):
         with self.fabric._stat_lock:
             return peer in self.fabric.finished
 
+    def ft_ping(self, peer: int, seq: int, t_ns: int) -> bool:
+        """Probe-layer support gate (the in-process analog of TCP's
+        HELLO ``hb`` capability): only probe engines with a live
+        TAG_HEARTBEAT handler — the detector never judges a peer it
+        could not probe, so a handler-less (mixed-version) peer is
+        never declared dead."""
+        from .engine import TAG_HEARTBEAT
+        eng = (self.fabric.engines[peer]
+               if 0 <= peer < len(self.fabric.engines) else None)
+        if eng is None or TAG_HEARTBEAT not in eng._tag_cbs:
+            return False
+        return super().ft_ping(peer, seq, t_ns)
+
     def fini(self) -> None:
-        # clean-shutdown advertisement (the in-process GOODBYE)
-        with self.fabric._stat_lock:
-            self.fabric.finished.add(self.rank)
+        # clean-shutdown advertisement (the in-process GOODBYE): a rank
+        # under an injected kill died SILENTLY and must not mark itself
+        # finished — proactive detection is the only way peers learn
+        if not self._ft_silenced:
+            with self.fabric._stat_lock:
+                self.fabric.finished.add(self.rank)

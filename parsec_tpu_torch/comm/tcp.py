@@ -57,6 +57,13 @@ TypeError (comm/wire.py); tiles in device memory either stage to numpy
 in the remote-dep layer or ride the device data plane (comm/xfer.py).
 The wire is the JAX package's, frame for frame.
 
+Fault tolerance (ft/): heartbeat probes are wire-level K_PING/K_PONG
+frames answered by the receiver THREAD (liveness judges the transport,
+not the progress cadence) and fed to the installed HeartbeatDetector;
+every outbound frame consults the chaos layer (``ft_outbound``); an
+injected kill (``ft_silence``) drops all traffic, stops the writers
+without flushing and finis without a goodbye, as a SIGKILL would.
+
 Connection setup: rank r listens on ``endpoints[r]``; r dials every rank
 s < r and accepts from every s > r (one connection per unordered pair),
 with a rank-identifying handshake byte frame followed by a HELLO
@@ -218,7 +225,7 @@ class _Peer:
                  "rs_rx_unacked_frames", "rs_rx_unacked_bytes",
                  "rs_rx_partial", "rx_xfers", "recv_thread",
                  "rs_resuming", "qz_codec", "q_pre", "q_post",
-                 "comp_pre", "comp_post")
+                 "comp_pre", "comp_post", "rs_dup_next")
 
     def __init__(self, rank: int, sock: socket.socket) -> None:
         self.rank = rank
@@ -268,9 +275,17 @@ class _Peer:
         # accept-side resume in flight (handshakes run on their own
         # threads now; a duplicate concurrent dial must not race one)
         self.rs_resuming = False
+        # injected duplicate (ft/inject.py ``dup:``) on a session link:
+        # the writer sends the next sequenced frame twice, same seq
+        self.rs_dup_next = False
 
 
 class TCPCommEngine(LocalCommEngine):
+    #: a TCP probe only leaves when the peer's HELLO was processed
+    #: (hb_ok) — its receiver thread was alive then and answers pings
+    #: with no progress pumping, so probed-but-silent = genuinely dead
+    ft_probe_baseline = True
+
     def __init__(self, rank: int, endpoints: List[Tuple[str, int]],
                  connect_timeout: float = 30.0,
                  coalesce_max_bytes: Optional[int] = None,
@@ -596,7 +611,8 @@ class TCPCommEngine(LocalCommEngine):
                 return True   # stale thread of a resumed connection
             if not p.rs_ok or p.done:
                 return False
-        if self._closing or p.rank in self.dead_peers \
+        if self._closing or self._ft_silenced \
+                or p.rank in self.dead_peers \
                 or p.rank in self.finished_peers:
             return False
         first = False
@@ -640,7 +656,8 @@ class TCPCommEngine(LocalCommEngine):
         delay = self.reconnect_backoff
         rng = random.Random((self.rank << 16) ^ p.rank ^ id(p))
         while True:
-            if self._closing or p.rank in self.dead_peers \
+            if self._closing or self._ft_silenced \
+                    or p.rank in self.dead_peers \
                     or p.rank in self.finished_peers:
                 return
             with p.cond:
@@ -661,7 +678,9 @@ class TCPCommEngine(LocalCommEngine):
                     f"reconnect budget exhausted "
                     f"({self.reconnect_timeout:.1f}s)", lost_sends=True)
                 return
-            if self.rank > p.rank:
+            ft = self._ft
+            link_down = ft is not None and ft.link_down(p.rank)
+            if self.rank > p.rank and not link_down:
                 try:
                     self._dial_resume(p, gen)
                     return
@@ -742,9 +761,11 @@ class TCPCommEngine(LocalCommEngine):
         re-dialed us). Anything short of a valid K_RESUME from a
         session-capable peer is a stray duplicate connection and is
         closed, exactly as before."""
+        ft = self._ft
         if not (self._rs_enabled and not self._closing) \
                 or p.rank in self.dead_peers \
-                or p.rank in self.finished_peers:
+                or p.rank in self.finished_peers \
+                or (ft is not None and ft.link_down(p.rank)):
             sock.close()
             return
         with p.cond:
@@ -848,6 +869,12 @@ class TCPCommEngine(LocalCommEngine):
             self.wire_stats["reconnects"] += 1
             self.wire_stats["replayed_frames"] += nreplay
             self._suspect_ms_total += dur_ms
+        # a completed resume handshake is proof of life: reset the
+        # heartbeat silence baseline so the detector does not evict the
+        # peer in the race between the resume and its first fresh pong
+        det = self.ft_detector
+        if det is not None:
+            det.note_alive(p.rank)
         plog.warning(
             "tcp rank %d: session to peer %d RESUMED after %.0f ms "
             "(epoch %d, replaying %d frame(s))", self.rank, p.rank,
@@ -868,32 +895,91 @@ class TCPCommEngine(LocalCommEngine):
             self._recv_threads = [x for x in self._recv_threads
                                   if x.is_alive()] + [t]
 
-    # -- liveness -------------------------------------------------------
+    # -- liveness / fault tolerance ---------------------------------------
     def ping(self, peer: int, seq: int = 0) -> bool:
+        """One heartbeat probe stamped now (``ft_ping``); the pong lands
+        the round trip in ``ping_rtt[peer]``. True when a probe left."""
+        return self.ft_ping(peer, seq, time.monotonic_ns())
+
+    def ft_ping(self, peer: int, seq: int, t_ns: int) -> bool:
         """Wire-level heartbeat probe (K_PING): enqueued straight onto
         the peer's ctrl lane and answered by the peer's receiver
         thread, so a rank whose workers are all inside long kernels
-        still answers; the pong lands the round trip in
-        ``ping_rtt[peer]``. Never sent toward a peer whose HELLO did not
-        advertise heartbeat support. True when a probe left."""
-        if peer in self.dead_peers or peer in self.finished_peers:
+        still answers. Never sent toward a peer whose HELLO did not
+        advertise heartbeat support — a mixed-version peer is never
+        probed, so the detector can never (wrongly) declare it dead."""
+        if self._ft_silenced or peer in self.dead_peers \
+                or peer in self.finished_peers:
             return False
         with self._conn_cond:
             p = self._peers.get(peer)
         if p is None or not p.hb_ok or p.done:
             return False
-        frame = wire.pack_ping(seq, time.monotonic_ns())
         with p.cond:
             if p.suspect:
-                return False   # the link is torn: nothing can leave
-            p.ctrl.append(("frame", frame))
-            p.queued_bytes += len(frame)
+                # the link is torn and the session layer owns the
+                # verdict: a probe could not leave anyway, and the
+                # detector must not count this interval as silence
+                return False
+        # probe frames bypass _transport_post, so consult the chaos
+        # layer here too — ft_inject directives with hb=1 must be able
+        # to drop/duplicate heartbeats on this transport as well
+        from .engine import TAG_HEARTBEAT
+        copies = self.ft_outbound(peer, TAG_HEARTBEAT)
+        if copies == 0:
+            return False
+        frame = wire.pack_ping(seq, t_ns)
+        with p.cond:
+            for _ in range(copies):
+                p.ctrl.append(("frame", frame))
+                p.queued_bytes += len(frame)
             p.cond.notify()
         return True
 
+    def ft_link_fault(self, dst: int) -> None:
+        """Chaos hook (ft/inject.py ``flap:``/``disconnect:``): tear
+        this rank's socket(s) to every peer the injector marked
+        link-down (always including ``dst``, the triggering send's
+        target) WITHOUT killing the process — both ends see a torn
+        connection, which is a SUSPECT transition under a session and
+        instant death without one.
+
+        The tear is a WRITE-half shutdown, not a close: the next local
+        write fails at once (the triggering frame — enqueued right
+        after this hook — is picked up by the writer, retained in the
+        replay window, and its send fails, so a session flap provably
+        exercises the replay path), the peer sees EOF and parks its own
+        half, and the suspect/death transition closes the socket
+        fully."""
+        ft = self._ft
+        with self._conn_cond:
+            peers = list(self._peers.values())
+        for p in peers:
+            if p.rank != dst and not (ft is not None
+                                      and ft.link_down(p.rank)):
+                continue
+            try:
+                p.sock.shutdown(socket.SHUT_WR)
+            except OSError:
+                pass
+
+    def ft_silence(self) -> None:
+        """Injected kill: beyond the base flag, wake every writer so it
+        exits WITHOUT flushing its queue — a real SIGKILL drops queued
+        frames, and survivors must not observe a message sequence that
+        is impossible under a real crash."""
+        super().ft_silence()
+        with self._conn_cond:
+            peers = list(self._peers.values())
+        for p in peers:
+            with p.cond:
+                p.cond.notify_all()
+
     def report_peer_failure(self, peer: int, reason: str) -> None:
-        """Uniform failure funnel (base-class API): an external verdict
-        is unconditional."""
+        """Uniform failure funnel (base-class API): a proactive
+        (heartbeat) eviction is unconditional — the peer is SILENT, so
+        unlike a torn connection there is no may-have-finished
+        ambiguity for the reporting policy to weigh."""
         self._peer_died(peer, reason, lost_sends=True)
 
     def peer_finished(self, peer: int) -> bool:
@@ -909,6 +995,31 @@ class TCPCommEngine(LocalCommEngine):
 
     def _transport_post(self, dst: int, src: int, tag: int,
                         payload: Any) -> None:
+        copies = self.ft_outbound(dst, tag)
+        if copies <= 0:
+            return
+        self._transport_post_live(dst, src, tag, payload)
+        if copies <= 1:
+            return
+        # injected duplicate: on a session link the duplicate happens
+        # at the WIRE level (same frame, same seq — the receiver's
+        # seq dedup must keep the AM exactly-once); without a session
+        # it stays a double post, the historical deliver-twice chaos
+        rs = False
+        if dst != self.rank:
+            with self._conn_cond:
+                p = self._peers.get(dst)
+            if p is not None:
+                with p.cond:
+                    rs = p.rs_ok
+                    if rs:
+                        p.rs_dup_next = True
+        if not rs:
+            for _ in range(copies - 1):
+                self._transport_post_live(dst, src, tag, payload)
+
+    def _transport_post_live(self, dst: int, src: int, tag: int,
+                             payload: Any) -> None:
         self._check_live(dst)
         if dst == self.rank:
             with self._stat_lock:
@@ -1073,7 +1184,7 @@ class TCPCommEngine(LocalCommEngine):
         # holds: peer.cond
         if peer.conn_gen != gen or peer.suspect:
             return True
-        if peer.rank in self.dead_peers:
+        if peer.rank in self.dead_peers or self._ft_silenced:
             return True
         if peer.rs_replay:
             return True
@@ -1121,10 +1232,10 @@ class TCPCommEngine(LocalCommEngine):
                         return   # a resume (or the receiver's fault)
                         #          replaced this generation: the state
                         #          lives on for the next writer
-                    if peer.rank in self.dead_peers:
-                        return   # _peer_died notified us: stop
-                        #          (finally drops whatever is still
-                        #          queued — a crash sends nothing)
+                    if peer.rank in self.dead_peers or self._ft_silenced:
+                        return   # _peer_died/ft_silence notified us:
+                        #          stop (finally drops whatever is
+                        #          still queued — a crash sends nothing)
                     if peer.rs_replay:
                         pieces = peer.rs_replay.pop(0)
                         replaying = True
@@ -1231,6 +1342,13 @@ class TCPCommEngine(LocalCommEngine):
                 _sendall_vec(peer.sock,
                              [struct.pack("<Q", body_len)] + pieces)
                 dt = time.monotonic() - t0
+                if sequenced:
+                    with peer.cond:
+                        dup = peer.rs_dup_next
+                        peer.rs_dup_next = False
+                    if dup:  # injected wire-level duplicate (same seq)
+                        _sendall_vec(peer.sock,
+                                     [struct.pack("<Q", body_len)] + pieces)
                 if body_len >= _BW_SAMPLE_MIN and dt > 0:
                     inst = body_len / dt / 1e6
                     peer.bw_mbps = (inst if peer.bw_mbps is None else
@@ -1275,7 +1393,7 @@ class TCPCommEngine(LocalCommEngine):
                     peer.rs_window_bytes = 0
                     peer.rs_replay = []
                     peer.cond.notify_all()
-                if dropped and not self._closing:
+                if dropped and not self._closing and not self._ft_silenced:
                     plog.warning(
                         "tcp rank %d: dropped %d queued frame(s)/chunk(s) "
                         "to dead peer %d", self.rank, dropped, peer.rank)
@@ -1469,6 +1587,8 @@ class TCPCommEngine(LocalCommEngine):
             return
 
     def _dispatch_body(self, p: _Peer, body: memoryview) -> None:
+        if self._ft_silenced:
+            return   # injected kill: inbound traffic is never delivered
         peer = p.rank
         xfers = p.rx_xfers
         kind = body[0]
@@ -1593,8 +1713,12 @@ class TCPCommEngine(LocalCommEngine):
         elif kind == wire.K_PING:
             # answered HERE, on the receiver thread (like K_HELLO): a
             # rank whose workers are all stuck in a long kernel still
-            # proves liveness
+            # proves liveness — the detector judges the TRANSPORT, not
+            # the progress cadence
             seq, t_ns = wire.parse_ping(body)
+            det = self.ft_detector
+            if det is not None:
+                det.note_alive(peer)
             if not p.done:
                 pong = wire.pack_ping(seq, t_ns, pong=True)
                 with p.cond:
@@ -1603,8 +1727,12 @@ class TCPCommEngine(LocalCommEngine):
                     p.cond.notify()
         elif kind == wire.K_PONG:
             _seq, t_ns = wire.parse_ping(body)
+            rtt = (time.monotonic_ns() - t_ns) / 1e9
             with self._stat_lock:
-                self.ping_rtt[peer] = (time.monotonic_ns() - t_ns) / 1e9
+                self.ping_rtt[peer] = rtt
+            det = self.ft_detector
+            if det is not None:
+                det.note_alive(peer, rtt=rtt)
         elif kind == wire.K_COMP:
             self._dispatch_body(p, memoryview(
                 wire.decompress_body(body)))
@@ -1734,6 +1862,22 @@ class TCPCommEngine(LocalCommEngine):
 
     def fini(self) -> None:
         self._closing = True
+        if self._ft_silenced:
+            # injected kill: die WITHOUT a goodbye and WITHOUT flushing
+            # — peers must learn of the death proactively (heartbeat) or
+            # reactively (torn socket), exactly like a real crash
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+            with self._conn_cond:
+                peers = dict(self._peers)
+            for p in peers.values():
+                try:
+                    p.sock.close()
+                except OSError:
+                    pass
+            return
         # clean goodbye so live peers see an orderly shutdown, not a
         # crash. The writer sends it only after BOTH queues drain (the
         # final results / termdet messages must precede it), so fini

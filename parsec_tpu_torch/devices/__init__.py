@@ -64,5 +64,7 @@ def build_devices(context, device: Any = None) -> List[Device]:
     return devices
 
 
+from .template import TemplateDevice, template_chore_hook  # noqa: E402
+
 __all__ = ["Device", "CPUDevice", "build_devices", "get_best_device",
-           "resolve_device"]
+           "resolve_device", "TemplateDevice", "template_chore_hook"]

@@ -13,7 +13,10 @@ accelerator chore (jdf2c.c:6557), and inline expressions (jdf2c.c:8038).
 BODY code is Python.  ``BODY [type=cuda]`` code (PaRSEC's own spelling)
 runs under the CUDA device module — flow names are bound to device tensors
 (``torch`` is in scope) and the code's final assignments to written flow
-names become the staged-out results.
+names become the staged-out results.  A ``BODY [type=<other>]`` runs
+through ``devices.template.template_chore_hook(<other>)`` on an attached
+device module of that type (``TemplateDevice`` is the working skeleton),
+falling through to the host body when none is attached.
 
 Dependencies are tracked by the dynamic hash table
 (``ptg_dep_management=hash``, the default; one rank or several, remote
@@ -496,9 +499,14 @@ class PTGTaskClass(TaskClass):
                 chores.append(Chore("cuda", cuda_chore_hook(),
                                     dyld_fn=fn, batch_spec=spec))
             else:
-                raise NotImplementedError(
-                    f"{self.name}: BODY [type={b.device_type}] — this "
-                    f"package has device modules for cpu and cuda only")
+                # any other accelerator type routes to its attached
+                # device module (ref: per-device-type chore lists,
+                # parsec_internal.h:380-437; see devices/template.py)
+                from ...devices.template import template_chore_hook
+                fn, spec = self._device_fn_factory(b)
+                chores.append(Chore(b.device_type,
+                                    template_chore_hook(b.device_type),
+                                    dyld_fn=fn, batch_spec=spec))
         if not any(c.device_type == "cpu" for c in chores):
             # always provide a host fallback interpreting the first body
             b = bodies[0]

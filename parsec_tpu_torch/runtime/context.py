@@ -12,9 +12,14 @@ Several ranks run one DAG over a comm engine (comm/): in-process ranks
 pass ``comm=RemoteDepEngine(fabric.engine(r))``; rank processes set the
 ``comm_transport=tcp``, ``comm_endpoints`` and ``comm_rank`` knobs and
 ``init()`` wires the TCP engine itself (the launcher contract).  Fault
-tolerance, live telemetry (obs/), serving and ``jax.distributed`` of the
-JAX package are not carried, and a knob asking for one of them raises
-NotImplementedError.
+tolerance (ft/) is wired here as in the JAX package: the heartbeat
+detector when ``ft_heartbeat_interval`` is set, the fault injector from
+``ft_inject`` (its task-boundary half as a PINS module), and
+``clear_task_errors`` for the restart driver's rollback; so are the
+debug-history ring (``debug_history_size``) and the live SDE push
+(``sde_push``).  Elastic grid recovery, live telemetry (obs/), serving
+and ``jax.distributed`` of the JAX package are not carried, and a knob
+asking for one of them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -120,6 +125,27 @@ class Context:
             comm.attach(self)
             self.rank = comm.rank
             self.nb_ranks = comm.nb_ranks
+        # fault tolerance (ft/): proactive heartbeat detection when
+        # ft_heartbeat_interval is set, and the task-boundary half of
+        # the fault injector when ft_inject has kill/taskfail directives
+        self._ft_detector = None
+        self._ft_pins = None
+        self._ft_gauges: List[Any] = []
+        ft_inj = None
+        if self.comm is not None:
+            from ..ft.detector import maybe_install_detector
+            self._ft_detector = maybe_install_detector(self)
+            ft_inj = getattr(getattr(self.comm, "ce", self.comm),
+                             "_ft", None)
+        if ft_inj is None and params.get("ft_inject"):
+            from ..ft.inject import FaultInjector
+            ft_inj = FaultInjector.from_spec(params.get("ft_inject"),
+                                             rank=self.rank)
+        self.ft_injector = ft_inj
+        if ft_inj is not None and ft_inj.has_task_actions:
+            from ..ft.inject import FTInjectModule
+            self._ft_pins = FTInjectModule(ft_inj, self)
+            self._ft_pins.enable()
         self.vpmap = vpmap or VPMap.from_flat(nb_cores or default_nb_cores())
         self.nb_cores = self.vpmap.nb_total_threads
 
@@ -141,6 +167,12 @@ class Context:
         self._dot_prefix = params.get("profiling_dot") or None
         if self._dot_prefix:
             grapher.enable()
+        # debug history ring (ref: PARSEC_DEBUG_HISTORY, debug_marks.c)
+        hist_size = params.get("debug_history_size")
+        self._debug_history_on = bool(hist_size)
+        if self._debug_history_on:
+            from ..utils import debug_history
+            debug_history.enable(int(hist_size))
 
         # virtual processes + execution streams
         self.vps: List[VirtualProcess] = []
@@ -186,6 +218,25 @@ class Context:
         # (the reference's registry is per-process, which IS per-rank there)
         self.sde = SDERegistry()
         self.sde.register_poll(PENDING_TASKS, self._pending_gauge)
+        if self._ft_detector is not None:
+            from ..ft.detector import register_gauges
+            self._ft_gauges = register_gauges(self.sde, self._ft_detector)
+        # live telemetry: push SDE snapshots to an aggregator if configured
+        # (ref: PAPI-SDE counters feeding tools/aggregator_visu)
+        self._sde_pusher = None
+        push_addr = params.get("sde_push")
+        if push_addr:
+            from ..profiling.aggregator import SDEPusher
+            from ..profiling.sde import sde as _global_sde
+            try:
+                self._sde_pusher = SDEPusher(
+                    self.sde, push_addr, rank=self.rank,
+                    interval=max(0.05,
+                                 params.get("sde_push_interval_ms") / 1000.0),
+                    extra_sde=_global_sde).start()
+            except ValueError as e:
+                # telemetry must never take down the run
+                plog.warning("sde_push disabled: %s", e)
         plog.debug.verbose(3, "context: %d threads, %d vps, %d devices, sched=%s",
                            self.nb_cores, len(self.vps), len(self.devices), name)
 
@@ -294,6 +345,12 @@ class Context:
         """A task body raised: abort the DAG and surface on the waiter."""
         plog.warning("task %s raised: %r",
                      task.snprintf() if task is not None else "<progress>", exc)
+        from ..utils import debug_history
+        if debug_history.enabled():
+            debug_history.history.mark(
+                "TASK_ERROR", f"{task.snprintf() if task else '<progress>'}: "
+                              f"{exc!r}")
+            plog.warning("%s", debug_history.history.dump(limit=64))
         self._task_errors.append(exc)
         # a dead rank's tasks/actions can never settle, so waiting on
         # the detectors is a guaranteed hang — abort every active pool
@@ -308,6 +365,54 @@ class Context:
         # no count argument: a transport thread may report a dead peer
         # during comm.attach() in __init__, before nb_cores is set
         self.wake_workers()
+
+    def clear_task_errors(self) -> List[BaseException]:
+        """FT restart support (ft/restart.py): drop recorded errors and
+        every aborted taskpool's leftovers — scheduler queues, worker
+        bypass slots, deferred callbacks, the device modules' ready
+        queues and in-flight windows — so a rolled-back re-run can be
+        enqueued on this same context. Returns the drained errors.
+
+        QUIESCES the workers FIRST: ``wait()`` returns the moment the
+        error is recorded, but a worker can still be mid-task — its
+        in-place tile write, successor scheduling, or a late
+        record_task_error must not land AFTER this drain (a stale
+        error would instantly poison the retried stage). The recorded
+        errors keep ``all_tasks_done`` true while we wait, so every
+        worker drops out of its loop and parks; only then are the
+        errors, pools, and queues drained."""
+        with self._work_cond:
+            ok = self._work_cond.wait_for(
+                lambda: self._workers_in_loop == 0, timeout=10.0)
+        if not ok:  # pragma: no cover - a wedged task body
+            plog.warning("ft: %d worker(s) still busy after 10s; "
+                         "rollback may race their last task",
+                         self._workers_in_loop)
+        # device pipelines BEFORE the error drain: retiring a window
+        # entry of the aborted DAG can record one more (stale) error,
+        # and the accumulated ready queues hold undispatched tasks of
+        # the dead DAG that must never execute against the restored
+        # collections
+        self._drain_devices()
+        with self._tp_lock:
+            errors = list(self._task_errors)
+            self.taskpools.clear()
+            self._active_taskpools = 0
+            self._task_errors.clear()
+        drained = 0
+        for es in self.execution_streams:
+            es.next_task = None
+            # drain through EVERY stream: per-thread schedulers (lhq,
+            # ltq, ...) keep private buffers a select() through es0
+            # alone would never reach — a stale ready task surviving
+            # here would mutate the restored collections on the re-run
+            while self.scheduler.select(es) is not None:
+                drained += 1   # stale ready tasks of the aborted DAG
+        self._deferred.clear()
+        if drained:
+            plog.debug.verbose(2, "ft: dropped %d stale ready task(s) "
+                               "from the aborted DAG", drained)
+        return errors
 
     def raise_pending_error(self) -> None:
         if self._task_errors:
@@ -491,6 +596,10 @@ class Context:
                 self.taskpools.clear()
                 self._active_taskpools = 0
         self._finalized = True
+        if self._ft_detector is not None:
+            self._ft_detector.stop()   # before the engine dies under it
+        if self._ft_pins is not None:
+            self._ft_pins.disable()
         with self._work_cond:
             self._work_cond.notify_all()
         for t in self._threads:
@@ -504,10 +613,16 @@ class Context:
             self._comm_thread.join(timeout=5)
         if self.comm is not None:
             self.comm.fini()
+        if self._sde_pusher is not None:
+            self._sde_pusher.stop()  # sends one final snapshot
         if self._task_profiler is not None:
             # unhook from the global PINS sites: a later context's events
             # must not leak into this finalized profile
             self._task_profiler.disable()
+        if self._debug_history_on:
+            from ..utils import debug_history
+            debug_history.disable()  # refcounted across live contexts
+            self._debug_history_on = False
         if self.profile is not None and self._prof_prefix:
             self.profile.add_information("rank", self.rank)
             self.sample_sde_counters()
@@ -522,6 +637,8 @@ class Context:
         # drop the poll gauge registered in __init__: it closes over self
         # and would keep this finalized context (and its scheduler) alive
         self.sde.unregister(PENDING_TASKS, self._pending_gauge)
+        for name, fn in self._ft_gauges:
+            self.sde.unregister(name, fn)
 
     def __enter__(self) -> "Context":
         return self

@@ -362,6 +362,34 @@ def register_core_params() -> None:
                    "max rendezvous GETs prefetched for activations that "
                    "arrived ahead of their taskpool's startup counts "
                    "(0 = no GET prefetch)")
+    params.reg_string("sde_push", "",
+                      "host:port of a live counter aggregator to push SDE "
+                      "snapshots to (ref: tools/aggregator_visu)")
+    params.reg_int("sde_push_interval_ms", 1000,
+                   "milliseconds between SDE pushes")
+    # fault tolerance (ft/)
+    params.reg_string("ft_heartbeat_interval", "",
+                      "seconds between heartbeat probes per peer (e.g. "
+                      "0.05); empty/0 = proactive failure detection off")
+    params.reg_string("ft_heartbeat_timeout", "",
+                      "declare an established peer dead after this many "
+                      "seconds of heartbeat silence (default: 8x the "
+                      "interval); must exceed the longest un-pumped "
+                      "progress stretch on in-process fabrics")
+    params.reg_string("ft_detector_mode", "timeout",
+                      "liveness judgment: timeout (fixed deadline) | phi "
+                      "(phi-accrual-style: deadline scales with the "
+                      "observed inter-arrival EWMA, floored at the "
+                      "timeout)")
+    params.reg_string("ft_inject", "",
+                      "deterministic fault-injection spec, e.g. "
+                      "\"kill:rank=1:after=3,drop:pct=2:seed=7\" "
+                      "(ops: kill, taskfail, drop, dup, delay, failsend, "
+                      "flap, disconnect; see ft/inject.py)")
+    params.reg_string("ft_restart_policy", "",
+                      "restart policy for ft.restart.run_with_restart: "
+                      "\"abort\" or "
+                      "\"restart:retries=N:backoff=S:every=K\"")
     params.reg_bool("comm_thread", False,
                     "dedicated funnelled comm-progress thread (ref: the "
                     "remote_dep_dequeue_main thread); default: workers "
@@ -383,6 +411,8 @@ def register_core_params() -> None:
                       "CUDA device, loopback on the CPU), \"ipc\" (CUDA "
                       "IPC between rank processes on one card), "
                       "\"loopback\" (host sockets)")
+    params.reg_sizet("debug_history_size", 0,
+                     "debug history ring entries (0=off, ref PARSEC_DEBUG_HISTORY)")
     params.reg_int("dtd_window_size", 8000, "DTD sliding window size")
     params.reg_int("dtd_threshold_size", 4000, "DTD backpressure resume threshold")
     # the accelerator device module (devices/cuda.py)
@@ -440,14 +470,11 @@ def register_core_params() -> None:
 
 
 #: knobs of the JAX package's subsystems that this package leaves out
-#: (the comm engine's mesh-local by-reference path, fault tolerance,
-#: obs, tuning, serving, stage compilation, chip meshes, the
-#: debug-history ring, live counter push)
-TRIMMED_KNOBS = ("comm_mesh_local", "ft_heartbeat_interval",
-                 "ft_inject", "ft_elastic", "ft_restart_policy",
+#: (the comm engine's mesh-local by-reference path, elastic grid
+#: recovery, obs, tuning, serving, stage compilation, chip meshes)
+TRIMMED_KNOBS = ("comm_mesh_local", "ft_elastic",
                  "metrics", "obs_flow", "obs_live", "tune_auto", "serve",
-                 "sde_push", "stage_compile", "device_mesh_shape",
-                 "debug_history_size")
+                 "stage_compile", "device_mesh_shape")
 
 
 register_core_params()

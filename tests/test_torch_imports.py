@@ -41,7 +41,14 @@ def test_sources_import_no_jax():
     seen = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for mod in ("comm/engine.py", "comm/wire.py", "comm/local.py",
                 "comm/tcp.py", "comm/remote_dep.py", "comm/xfer.py",
-                "xfer/loopback.py", "utils/spmd.py"):
+                "xfer/loopback.py", "utils/spmd.py", "core/sync.py",
+                "core/mempool.py", "utils/debug_history.py",
+                "utils/checkpoint.py", "ft/__init__.py", "ft/inject.py",
+                "ft/detector.py", "ft/restart.py", "devices/template.py",
+                "collections/ops.py", "dsl/ptg/unparse.py",
+                "profiling/otf2.py", "profiling/aggregator.py",
+                "bindings/__init__.py", "bindings/build.py",
+                "bindings/chelper.py"):
         assert os.path.join("parsec_tpu_torch", mod) in seen, mod
     for path in _port_sources():
         with open(path) as fh:
@@ -220,6 +227,81 @@ FRONT_END_DRIVES = {
         ptt.ptg.wave(ptt.ops.dpotrf_taskpool(A)).run(device="cpu")
         assert np.isfinite(A.to_numpy()).all()
     """,
+    "core.sync": """
+        from parsec_tpu_torch.core.sync import RWLock, ValueArray
+        lock = RWLock(); lock.write_lock(); lock.write_unlock()
+        va = ValueArray(2); va.push_back(b"ab"); assert va.get(0) == b"ab"
+    """,
+    "core.mempool": """
+        from parsec_tpu_torch.core.mempool import Mempool
+        pool = Mempool(lambda: np.empty(4)); a = pool.allocate(); pool.free(a)
+        assert pool.allocate() is a
+    """,
+    "utils.debug_history": """
+        from parsec_tpu_torch.utils import debug_history
+        debug_history.enable(8); debug_history.history.mark("x")
+        assert len(debug_history.history) == 1; debug_history.disable()
+    """,
+    "utils.checkpoint": """
+        import tempfile
+        from parsec_tpu_torch.utils import checkpoint as ckpt
+        A = TwoDimBlockCyclic(64, 64, 32, 32).from_numpy(ptt.ops.make_spd(64))
+        ptt.ops.dpotrf(ctx, A)
+        p = tempfile.mkdtemp() + "/ck"
+        ckpt.save_collection(A, p, context=ctx)
+        B = TwoDimBlockCyclic(64, 64, 32, 32)
+        assert ckpt.restore_collection(B, p) == 4
+        assert np.array_equal(B.to_numpy(), A.to_numpy())
+    """,
+    "ft.restart": """
+        import tempfile
+        from parsec_tpu_torch.ft import RestartPolicy, run_with_restart
+        A = TwoDimBlockCyclic(64, 64, 32, 32).from_numpy(ptt.ops.make_spd(64))
+        st = run_with_restart(ctx, [lambda: ptt.ops.dpotrf_taskpool(A)], [A],
+                              tempfile.mkdtemp() + "/ck", RestartPolicy())
+        assert st["snapshots"] == 2
+    """,
+    "ft.detector": """
+        from parsec_tpu_torch.comm import LocalFabric
+        from parsec_tpu_torch.ft import FaultInjector, HeartbeatDetector
+        fab = LocalFabric(2); e0 = fab.engine(0); fab.engine(1)
+        HeartbeatDetector(e0, 0.1, 1.0).stop()
+        assert FaultInjector.from_spec("kill:rank=0", 0).has_task_actions
+        assert "parsec_tpu_torch.ft.inject" in sys.modules
+    """,
+    "devices.template": """
+        from parsec_tpu_torch.devices import TemplateDevice
+        ctx.devices.append(TemplateDevice(len(ctx.devices)))
+        assert ctx.device_by_type("template") is not None
+    """,
+    "collections.ops": """
+        from parsec_tpu_torch.collections import ops as cops
+        A = TwoDimBlockCyclic(8, 8, 4, 4).from_numpy(np.ones((8, 8), np.float32))
+        d = cops.reduce_all(ctx, A, lambda a, b, _: a + b)
+        assert float(d.to_numpy()[0, 0]) == 4.0
+    """,
+    "dsl.ptg.unparse": """
+        from parsec_tpu_torch.dsl.ptg.parser import parse_jdf
+        from parsec_tpu_torch.dsl.ptg.unparse import unparse
+        jdf = sys.modules["parsec_tpu_torch.ops.dpotrf"].DPOTRF_L_JDF
+        assert "BODY" in unparse(parse_jdf(jdf, name="d"))
+    """,
+    "profiling.otf2": """
+        import tempfile
+        from parsec_tpu_torch.profiling.otf2 import read_otf2, write_otf2
+        from parsec_tpu_torch.profiling.trace import Profile
+        prof = Profile(rank=0); prof._t0 = 0
+        prof.stream(0, "w").events = [(1, "i", "m", None)]
+        assert read_otf2(write_otf2(prof, tempfile.mkdtemp())).rank == 0
+    """,
+    "profiling.aggregator": """
+        from parsec_tpu_torch.profiling.aggregator import AggregatorServer
+        srv = AggregatorServer().start(); srv.stop()
+    """,
+    "bindings.chelper": """
+        from parsec_tpu_torch.bindings import chelper
+        assert chelper.device_names(ctx) == "cpu,cpu"
+    """,
     "collections.subtile": """
         from parsec_tpu_torch.collections import SubtileView
         arr = np.zeros((8, 8), np.float32)
@@ -302,7 +384,7 @@ def test_init_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("stage_compile", "1"), ("ft_inject", "kill:rank=0"),
+    ("stage_compile", "1"), ("ft_elastic", "shrink"),
     ("device_mesh_shape", "2x2"), ("device_donate", "1"),
     ("device_batch_mode", "vmap")])
 def test_trimmed_knobs_raise(knob, value):
