@@ -41,12 +41,32 @@ Phases, each reporting on its own lines:
             operands each must pass, and getrf_nopiv's lu_factor_ex
             against its masked loop, at nb = 1024, single and batched
             z = 4; batched results bit-exact against single calls;
+4c. batch_semantics a device body written for one tile keeps its
+            single-tile semantics when the device module or the wave
+            engine groups its tasks: 16 independent tasks, each
+            A = A - A * A.sum() on its own 1024 x 1024 fp32 tile, at
+            device_batch_max 16 (one worker, so the burst groups),
+            through the interpreted PTG path, DTD (add_chore, unmarked)
+            and the wave engine on cuda:0; each tile within 1e-5
+            relative of numpy in fp64, task by task; each path's batch
+            count (dispatch groups, and the wave's body calls);
 5. main     the dpotrf path at full size, through the entry points a user
             calls: init() -> TwoDimBlockCyclic.from_numpy -> ops.dpotrf
             on a 16384^2 fp32 matrix in 1024^2 tiles (816 tasks); every
             task on cuda:0, the GEMM kernel launched, the mean batch
             (GEMM and SYRK tasks per launch), and the factor's matvec
             residual under 1e-4;
+5a. obs     telemetry on one rank: dpotrf at main's size and input with
+            profile=True and the metrics knob, through init(); the
+            report of obs.analyze (per-class breakdown, overlap fraction,
+            device-busy seconds from the timed CUDA events around each
+            dispatch), the rank's wall split (obs.rank_wall_split), the
+            H2D and D2H copies' event-timed seconds beside the host's
+            spans and waits; checks: the dispatch intervals disjoint on
+            the one stream, their sum positive and within the wall, the
+            factor bit-identical to main's, the Prometheus exposition
+            parsing; under --profile the same run under torch.profiler,
+            its busy share printed beside the events' share;
 5b. dplasma the rest of the family at the same size, one line each with
             the wall seconds, GFLOP/s by DPLASMA's flop counts, the tasks
             on cuda:0 against their count, the GEMM kernel's launches and
@@ -94,6 +114,29 @@ Phases, each reporting on its own lines:
             IPC run and no park leaked, the chain's value exact.  A rank
             that exits non-zero or passes its 300 s deadline fails the
             phase;
+5e'. obs_2  telemetry on two ranks: ONE spawn of two rank processes
+            (dposv_2: phase dposv's input, A and B on 2 x 1, TCP, with
+            heartbeats every 0.5 s in every run), each alternating four
+            dposv runs with telemetry off, on, off, on (init and fini
+            between them; "on" = profile, metrics, obs_flow, obs_live,
+            and sde_push to an aggregator the parent serves).  Each rank
+            returns per run its wall, GEMM launches, device tasks against
+            its CUDA-body tasks and a hash of every local result tile;
+            per "on" run its Chrome trace, its exposition's series and
+            its clock-offset estimate.  The parent merges the two traces
+            (obs.merge_trace_docs), stitches the flows, runs
+            distributed_critical_path and per_link_exposed_wait, and
+            prints rank 0's wall split into device compute (events), H2D
+            and D2H, comm sends and deliveries, the exposed wait on each
+            link and the rest, and the walls with telemetry on and off.
+            Under --profile two more runs split "on": "trace" (profile
+            alone) and "counters" (the knobs, no trace).  Checks: factor
+            and X bit-identical to phase dposv's in every run; every
+            rank's device tasks equal its CUDA-body tasks and
+            the GEMM kernel launched on both; every stitched flow has
+            both halves; the clock offset under 1 ms; each exposition
+            parses and names device, comm, ft and health series; the
+            aggregator's fleet /health merge reports both ranks;
 5f. ft      the same dposv (A and B on 2 x 1, the TCP engine, phase
             dposv's input, N = 16384) through ft.run_with_restart over
             its three pools, a snapshot of A and B after every stage
@@ -866,6 +909,242 @@ def phase_dposv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
 
 
 # ---------------------------------------------------------------------- #
+# batch semantics: a grouped dispatch keeps each body's single-tile       #
+# meaning                                                                #
+# ---------------------------------------------------------------------- #
+PROBE_TASKS = 16
+PROBE_RTOL = 1e-5      # each tile against numpy in fp64, relative max
+PROBE_JDF = """
+descA [ type="collection" ]
+NT [ type="int" ]
+
+T(k)
+
+k = 0 .. NT-1
+
+: descA( k, 0 )
+
+RW A <- descA( k, 0 )
+     -> descA( k, 0 )
+
+BODY [type=cuda]
+{
+    A = A - A * A.sum()
+}
+END
+"""
+
+
+def probe_report(path: str, got: np.ndarray, want: np.ndarray, nb: int,
+                 **extra) -> None:
+    """One path's line: its worst tile's relative max error against
+    numpy in fp64, then the check."""
+    errs = []
+    for k in range(PROBE_TASKS):
+        g = got[k * nb:(k + 1) * nb].astype(np.float64)
+        w = want[k * nb:(k + 1) * nb]
+        errs.append(float(np.abs(g - w).max() / np.abs(w).max()))
+    log("batch_semantics", path=path, tasks=PROBE_TASKS, **extra,
+        max_rel_err=max(errs))
+    check(max(errs) <= PROBE_RTOL,
+          f"batch_semantics {path}: relative error {max(errs)} > "
+          f"{PROBE_RTOL}")
+
+
+def phase_batch_semantics(seed: int, nb: int = NB_MAIN) -> None:
+    """16 independent A = A - A * A.sum() tasks at device_batch_max 16
+    through interpreted PTG, DTD and the wave engine on cuda:0, each
+    tile held against numpy in fp64 (the body sums ITS tile: a body run
+    once over the stacked tiles would sum all 16)."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch import dtd, ptg
+    from parsec_tpu_torch.dsl.dtd import INOUT, unpack_args
+    from parsec_tpu_torch.utils.params import params
+    M = uniform(PROBE_TASKS * nb, nb, seed=seed + 50)
+    want = M.astype(np.float64)
+    for k in range(PROBE_TASKS):
+        t = want[k * nb:(k + 1) * nb]
+        t -= t * t.sum()
+    with params.cmdline_override("device_batch_max", str(PROBE_TASKS)):
+        # one worker: the submitting thread accumulates the burst
+        ctx = ptt.init(nb_cores=1)
+        try:
+            A = tiled(M, nb)
+            ctx.add_taskpool(ptg.compile_jdf(PROBE_JDF, name="probe").new(
+                NT=PROBE_TASKS, descA=A))
+            ctx.wait()
+            dev = ctx.device_by_type("cuda")
+            for (m, n) in A.tiles():
+                A.data_of(m, n).sync_to_host(ctx.devices)
+            st = dict(dev.stats)
+            check(dev.name == "cuda:0" and st["tasks"] == PROBE_TASKS,
+                  f"batch_semantics ptg: {st['tasks']} tasks on {dev.name}")
+            check(st["batches"] > 0, "batch_semantics ptg: no task grouped")
+            probe_report("ptg", A.to_numpy(), want, nb,
+                         batches=st["batches"],
+                         batched_tasks=st["batched_tasks"],
+                         stack_bytes=st["stack_bytes"])
+        finally:
+            ctx.fini()
+        ctx = ptt.init(nb_cores=1)
+        try:
+            tp = dtd.taskpool_new("probe")
+            ctx.add_taskpool(tp)
+
+            def body(es, task):   # host body: the boot task's
+                (x,) = unpack_args(task)
+                x -= x * x.sum()
+
+            tp.insert_task(body, (tp.tile_of_array(
+                np.zeros((nb, nb), np.float32)), INOUT))
+            tp.add_chore(body, "cuda", lambda x: x - x * x.sum())
+            tiles = [tp.tile_of_array(M[k * nb:(k + 1) * nb].copy())
+                     for k in range(PROBE_TASKS)]
+            for t in tiles:
+                tp.insert_task(body, (t, INOUT))
+            tp.data_flush_all()
+            tp.wait()
+            dev = ctx.device_by_type("cuda")
+            st = dict(dev.stats)
+            check(st["tasks"] >= PROBE_TASKS and st["batches"] > 0,
+                  f"batch_semantics dtd: {st['tasks']} device tasks, "
+                  f"{st['batches']} groups")
+            probe_report("dtd", np.concatenate(
+                [np.asarray(t.data.get_copy(0).payload) for t in tiles]),
+                want, nb, batches=st["batches"],
+                batched_tasks=st["batched_tasks"],
+                stack_bytes=st["stack_bytes"])
+        finally:
+            ctx.fini()
+    A = tiled(M, nb)
+    w = ptg.wave(ptg.compile_jdf(PROBE_JDF, name="probe").new(
+        NT=PROBE_TASKS, descA=A))
+    w.run()
+    torch.cuda.synchronize()
+    check(str(w.device) == "cuda:0" and w.stats["tasks"] == PROBE_TASKS,
+          f"batch_semantics wave: {w.stats['tasks']} tasks on {w.device}")
+    probe_report("wave", A.to_numpy(), want, nb, waves=w.stats["waves"],
+                 body_calls=w.stats["kernel_calls"])
+
+
+# ---------------------------------------------------------------------- #
+# obs: telemetry on one rank                                             #
+# ---------------------------------------------------------------------- #
+def copy_report(phase: str, ivs) -> None:
+    """The H2D and D2H copies of a rank's trace intervals: event-timed
+    copy seconds (``dev:xfer_*``) beside the host's waits before them
+    (``dev:wait_*``) and the host's whole spans (their sum)."""
+    for d, name in (("in", "h2d"), ("out", "d2h")):
+        xs = [iv for iv in ivs if iv.name == f"dev:xfer_{d}"]
+        copy_s = sum(iv.duration for iv in xs) / 1e6
+        wait_s = sum(iv.duration for iv in ivs
+                     if iv.name == f"dev:wait_{d}") / 1e6
+        host_s = copy_s + wait_s
+        log(phase, copies=name, n=len(xs),
+            bytes=sum(iv.args["bytes"] for iv in xs),
+            copy_seconds=f"{copy_s:.6f}", host_wait_seconds=f"{wait_s:.6f}",
+            copy_share_of_host_span=(f"{copy_s / host_s:.4f}"
+                                     if host_s > 0 else "n/a"))
+
+
+def busy_intervals(ivs) -> list:
+    """The ``dev:busy`` spans of a rank's trace: (start, end) µs."""
+    return sorted((iv.begin, iv.end) for iv in ivs if iv.name == "dev:busy")
+
+
+def check_busy(phase: str, ivs, wall_s: float) -> float:
+    """The dispatch intervals disjoint on the one stream, their sum
+    positive and within the wall; returns the sum in seconds."""
+    busy = busy_intervals(ivs)
+    overlaps = sum(1 for a, b in zip(busy, busy[1:]) if b[0] < a[1])
+    busy_s = sum(e - b for b, e in busy) / 1e6
+    log(phase, dispatches=len(busy), busy_seconds=f"{busy_s:.6f}",
+        wall_seconds=f"{wall_s:.6f}", busy_share=f"{busy_s / wall_s:.4f}",
+        overlapping_intervals=overlaps)
+    check(overlaps == 0, f"{phase}: {overlaps} dispatch intervals overlap")
+    check(0 < busy_s <= wall_s, f"{phase}: busy {busy_s} s, wall {wall_s} s")
+    return busy_s
+
+
+def split_report(phase: str, split: dict) -> None:
+    wall = split["wall_us"]
+    parts = {k[:-3]: v for k, v in split.items()
+             if k.endswith("_us") and k != "wall_us"
+             and not isinstance(v, dict)}
+    log(phase, wall_seconds=f"{wall / 1e6:.6f}",
+        **{f"{k}_seconds": f"{v / 1e6:.6f}" for k, v in parts.items()},
+        **{f"{k}_share": f"{v / wall:.4f}" for k, v in parts.items()})
+    for link, us in split["exposed_wait_us"].items():
+        log(phase, link=link, exposed_wait_seconds=f"{us / 1e6:.6f}",
+            share=f"{us / wall:.4f}")
+
+
+def phase_obs(seed: int, L_ref: np.ndarray, n: int = N_MAIN,
+              nb: int = NB_MAIN, profile: bool = False) -> int:
+    """dpotrf at main's size and input with profile=True and metrics
+    on; returns the GEMM kernel's launches."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch import obs
+    from parsec_tpu_torch.obs.critpath import load_trace_intervals
+    from parsec_tpu_torch.ops import kernels
+    from parsec_tpu_torch.utils.params import params
+    M = synth_spd(n, seed)
+    A = tiled(M, nb)
+    prof = contextlib.nullcontext()
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+    with params.cmdline_override("metrics", "1"):
+        ctx = ptt.init(nb_cores=4, profile=True)
+        try:
+            dev = ctx.device_by_type("cuda")
+            reset_counts()
+            with prof:
+                t0 = time.monotonic_ns()
+                ptt.ops.dpotrf(ctx, A)
+                torch.cuda.synchronize()
+                t1 = time.monotonic_ns()
+            launches = kernels.matmul_launches
+            tasks = dev.stats["tasks"]
+            for (m, k) in A.tiles():
+                A.data_of(m, k).sync_to_host(ctx.devices)
+            dev._obs.flush()   # the pulls' events
+            ctx.stamp_profile_meta()
+            doc = ctx.profile.to_chrome_trace()
+            expo = obs.parse_exposition(ctx.obs.render_prometheus())
+        finally:
+            ctx.fini()
+    same = bool(np.array_equal(np.tril(A.to_numpy()), L_ref))
+    summary = obs.validate_chrome_trace(doc)
+    rep = obs.analyze([doc])
+    for line in obs.format_report(rep).splitlines():
+        print(f"[obs] report | {line}", flush=True)
+    ivs = load_trace_intervals(doc)
+    busy_s = check_busy("obs", ivs, (t1 - t0) / 1e9)
+    t0_tr = doc["metadata"]["trace_t0_ns"]
+    split_report("obs.split", obs.rank_wall_split(
+        ivs, 0, (t0 - t0_tr) / 1e3, (t1 - t0_tr) / 1e3))
+    copy_report("obs", ivs)
+    ov = rep["overlap"][0]
+    log("obs", device=dev.name, tasks=tasks, matmul_launches=launches,
+        trace_spans=summary["spans"], trace_events=summary["events"],
+        series=len(expo), overlap_fraction=f"{ov['overlap_fraction']:.4f}",
+        factor_identical=same)
+    check(dev.name == "cuda:0" and launches > 0,
+          f"obs: ran on {dev.name}, {launches} GEMM launches")
+    check(rep["device"][0]["busy_us"] > 0, "obs: no device-busy span")
+    check(same, "obs: the factor differs from main's")
+    check(any(k[0].startswith("parsec_device_cuda_0") for k in expo),
+          "obs: the exposition names no device series")
+    if profile:
+        prof_busy = profile_report("obs_dpotrf", prof, (t1 - t0) / 1e9)
+        log("obs", events_busy_share=f"{busy_s / ((t1 - t0) / 1e9):.4f}",
+            profiler_busy_share=f"{prof_busy / 1e6 / ((t1 - t0) / 1e9):.4f}")
+    return launches
+
+
+# ---------------------------------------------------------------------- #
 # multirank: rank processes over the TCP comm engine                     #
 # ---------------------------------------------------------------------- #
 #: run -> (ranks, A grid P x Q, B grid P, device data plane)
@@ -1034,6 +1313,11 @@ def rank_worker(args) -> int:
     # the ranks share the host's cores: 4 workers a rank as on one rank,
     # fewer when that would oversubscribe the host (4 ranks on 8 cores)
     cores = max(1, min(4, (os.cpu_count() or 4) // args.nb_ranks))
+    if args.run == "obs_2":
+        out = rank_obs(args, cores)
+        out.update(rank=args.rank, run=args.run, nb_cores=cores)
+        print(json.dumps(out), flush=True)
+        return 0
     ctx = ptt.init(nb_cores=cores)
     try:
         check(ctx.nb_ranks == args.nb_ranks and ctx.rank == args.rank,
@@ -1212,6 +1496,268 @@ def phase_multirank(seed: int, factor: np.ndarray, X1: np.ndarray,
               f"device tasks for {r['local_cuda_tasks']} hops and 1 boot "
               f"task")
     check(recs[0]["exact"] is True, "dtd_chain_2: the tile is not exact")
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# obs_2: telemetry on two rank processes                                 #
+# ---------------------------------------------------------------------- #
+#: the runs of each rank, in order, in ONE spawn; --profile appends
+#: two runs that split "on" in its halves
+OBS_MODES = ("off", "on", "off", "on")
+OBS_PROFILE_MODES = ("trace", "counters")
+#: mode -> (the trace: profile=True, the telemetry knobs)
+OBS_MODE_KNOBS = {
+    "off": (False, ()),
+    "on": (True, ("metrics", "obs_flow", "obs_live", "sde_push")),
+    "trace": (True, ()),
+    "counters": (False, ("metrics", "obs_flow", "obs_live", "sde_push")),
+}
+#: heartbeats in every run (the ft series of the exposition need a
+#: detector, and "off" must differ from "on" by telemetry alone)
+OBS_HEARTBEAT_S = "0.5"
+#: the series each rank's exposition must name
+OBS_SERIES = ("parsec_device_", "parsec_comm_", "parsec_ft_",
+              "parsec_obs_health_")
+CLOCK_OFFSET_MAX_US = 1000.0
+OBS_CLOCK_SETTLE_S = 1.0
+
+
+def tile_hashes(ctx, A, B) -> dict:
+    """sha1 of every local result tile (the factor's lower tiles and X),
+    pulled through the device module, keyed name_i_j."""
+    import hashlib
+    out = {}
+    for name, d in (("A", A), ("B", B)):
+        for (i, j) in d.local_tiles():
+            if name == "A" and i < j:
+                continue
+            host = d.data_of(i, j).sync_to_host(ctx.devices)
+            out[f"{name}_{i}_{j}"] = hashlib.sha1(np.ascontiguousarray(
+                host.payload).tobytes()).hexdigest()
+    return out
+
+
+def rank_obs(args, cores: int) -> dict:
+    """One rank of obs_2: dposv runs in the modes of ``--obs-modes``
+    (telemetry off, on, off, on, ...), a fresh context (and TCP engine,
+    on its own ports) for each."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.utils.params import params
+    ports = [int(p) for p in args.obs_ports.split(",")]
+    runs = []
+    for k, mode in enumerate(args.obs_modes.split(",")):
+        knobs = {"comm_endpoints": ",".join(
+                     f"127.0.0.1:{p}" for p in ports[2 * k:2 * k + 2]),
+                 "ft_heartbeat_interval": OBS_HEARTBEAT_S}
+        trace, names = OBS_MODE_KNOBS[mode]
+        knobs.update({name: args.push if name == "sde_push" else "1"
+                      for name in names})
+        with contextlib.ExitStack() as st:
+            for key, v in knobs.items():
+                st.enter_context(params.cmdline_override(key, v))
+            ctx = ptt.init(nb_cores=cores, profile=trace)
+            try:
+                rec = rank_obs_run(ctx, args, mode == "on", k)
+            finally:
+                ctx.fini()
+        rec["mode"] = mode
+        runs.append(rec)
+    return {"runs": runs, "device": runs[0]["device"]}
+
+
+def rank_obs_run(ctx, args, on: bool, k: int) -> dict:
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch import obs
+    from parsec_tpu_torch.obs.critpath import load_trace_intervals
+    from parsec_tpu_torch.ops import kernels
+    nb_ranks, (P, Q), PB, _ = MULTIRANK_RUNS["dposv_2"]
+    rank = ctx.rank
+    A, B = rank_inputs(args, rank, nb_ranks, (P, Q), PB)
+    expected = local_cuda_tasks(
+        [ptt.ops.dpotrf_taskpool(A, rank=rank, nb_ranks=nb_ranks),
+         ptt.ops.dtrsm_lower_taskpool(A, B, rank=rank, nb_ranks=nb_ranks),
+         ptt.ops.dtrsm_lower_trans_taskpool(A, B, rank=rank,
+                                            nb_ranks=nb_ranks)], rank)
+    dev = ctx.device_by_type("cuda")
+    ce = ctx.comm.ce
+    ce.sync()
+    reset_counts()
+    t0 = time.monotonic_ns()
+    ptt.ops.dposv(ctx, A, B, rank=rank, nb_ranks=nb_ranks)
+    if dev.is_cuda:
+        torch.cuda.synchronize()
+    t1 = time.monotonic_ns()
+    rec = dict(wall=(t1 - t0) / 1e9, matmul_launches=kernels.matmul_launches,
+               device=dev.name, device_tasks=dev.stats["tasks"],
+               local_cuda_tasks=expected,
+               hashes=tile_hashes(ctx, A, B),
+               obs_sink=dev._obs is not None, flow=ce._flow is not None)
+    if not on:
+        return rec
+    dev._obs.flush()   # the pulls' events
+    # the clock sampler pings every 0.25 s: let a few samples land while
+    # both ranks are idle before the estimate is read and stamped
+    time.sleep(OBS_CLOCK_SETTLE_S)
+    ctx.stamp_profile_meta()
+    doc = ctx.profile.to_chrome_trace()
+    path = os.path.join(args.out, f"obs_run{k}.rank{rank}.json")
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+    names = [key[0] for key in
+             obs.parse_exposition(ctx.obs.render_prometheus())]
+    busy = busy_intervals(load_trace_intervals(doc))
+    t0_tr = doc["metadata"]["trace_t0_ns"]
+    rec.update(
+        trace=path, window_us=[(t0 - t0_tr) / 1e3, (t1 - t0_tr) / 1e3],
+        series=len(names),
+        series_found={p: any(n.startswith(p) for n in names)
+                      for p in OBS_SERIES},
+        clock_offset_us=ce.clock_offset_us(1 - rank),
+        busy_seconds=sum(e - b for b, e in busy) / 1e6,
+        dispatches=len(busy),
+        overlapping_intervals=sum(1 for a, b in zip(busy, busy[1:])
+                                  if b[0] < a[1]),
+        live_windows=ctx.obs.live.counts["windows"])
+    return rec
+
+
+def phase_obs_ranks(seed: int, factor: np.ndarray, X1: np.ndarray,
+                    n: int = N_MAIN, nb: int = NB_MAIN, nrhs: int = NRHS,
+                    profile: bool = False) -> dict:
+    """obs_2 (module docstring, 5e'); returns the GEMM launches of each
+    rank's runs."""
+    modes = OBS_MODES + (OBS_PROFILE_MODES if profile else ())
+    import hashlib
+    from parsec_tpu_torch import obs
+    from parsec_tpu_torch.comm import free_ports
+    from parsec_tpu_torch.obs.critpath import load_trace_intervals
+    from parsec_tpu_torch.profiling.aggregator import AggregatorServer
+    ref = {}
+    for name, M in (("A", factor), ("B", X1)):
+        for i in range(M.shape[0] // nb):
+            for j in range(M.shape[1] // nb):
+                if name == "A" and i < j:
+                    continue
+                ref[f"{name}_{i}_{j}"] = hashlib.sha1(np.ascontiguousarray(
+                    M[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb]).tobytes()
+                ).hexdigest()
+    srv = AggregatorServer().start()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_2_")
+    try:
+        t0 = time.perf_counter()
+        recs = spawn_ranks(
+            "obs_2", 2, seed, out_dir, n, nb, nrhs,
+            extra_args=["--obs-ports", ",".join(
+                str(p) for p in free_ports(2 * len(modes))),
+                "--obs-modes", ",".join(modes),
+                "--push", f"{srv.host}:{srv.port}"])
+        spawn_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and \
+                srv.health_fleet()["nb_ranks"] < 2:
+            time.sleep(0.05)
+        health = srv.health_fleet()
+        reports = {}
+        for k, mode in enumerate(modes):
+            if mode != "on":
+                continue
+            docs = []
+            for r in recs:
+                with open(r["runs"][k]["trace"]) as fh:
+                    docs.append(json.load(fh))
+            reports[k] = (docs, obs.merge_trace_docs(docs),
+                          obs.analyze(docs))
+    finally:
+        srv.stop()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    walls = {mode: [] for mode in modes}
+    launches = {}
+    for r in recs:
+        for k, run in enumerate(r["runs"]):
+            walls[run["mode"]].append(run["wall"])
+            launches[f"rank{r['rank']}_run{k}_{run['mode']}"] = \
+                run["matmul_launches"]
+            same = all(ref.get(key) == h for key, h in run["hashes"].items())
+            log("obs_2", rank=r["rank"], run=k, mode=run["mode"],
+                wall=f"{run['wall']:.4f}",
+                matmul_launches=run["matmul_launches"],
+                device_tasks=run["device_tasks"],
+                local_cuda_tasks=run["local_cuda_tasks"],
+                tiles=len(run["hashes"]), tiles_identical=same,
+                obs_sink=run["obs_sink"], flow=run["flow"],
+                **({} if run["mode"] != "on" else dict(
+                    busy_seconds=f"{run['busy_seconds']:.6f}",
+                    dispatches=run["dispatches"],
+                    overlapping_intervals=run["overlapping_intervals"],
+                    clock_offset_us=run["clock_offset_us"],
+                    series=run["series"], live_windows=run["live_windows"],
+                    **{f"has_{p.strip('_')}": v for p, v in
+                       run["series_found"].items()})))
+            check(run["device"] == "cuda:0",
+                  f"obs_2: rank {r['rank']} ran on {run['device']}")
+            check(same and len(run["hashes"]) > 0,
+                  f"obs_2: rank {r['rank']} run {k} ({run['mode']}) differs "
+                  f"from phase dposv's factor or X")
+            check(run["device_tasks"] == run["local_cuda_tasks"],
+                  f"obs_2: rank {r['rank']} run {k} ran "
+                  f"{run['device_tasks']} device tasks of its "
+                  f"{run['local_cuda_tasks']} CUDA-body tasks")
+            check(run["matmul_launches"] > 0,
+                  f"obs_2: rank {r['rank']} launched the GEMM kernel no time")
+            trace, names = OBS_MODE_KNOBS[run["mode"]]
+            check(run["obs_sink"] == (trace or bool(names))
+                  and run["flow"] == ("obs_flow" in names),
+                  f"obs_2: rank {r['rank']} run {k} ({run['mode']}): sink "
+                  f"{run['obs_sink']}, flow {run['flow']}")
+            if run["mode"] == "on":
+                off = run["clock_offset_us"]
+                check(off is not None and abs(off) < CLOCK_OFFSET_MAX_US,
+                      f"obs_2: rank {r['rank']} clock offset {off} us")
+                check(all(run["series_found"].values()),
+                      f"obs_2: rank {r['rank']} exposition lacks "
+                      f"{run['series_found']}")
+                check(run["overlapping_intervals"] == 0
+                      and run["busy_seconds"] > 0,
+                      f"obs_2: rank {r['rank']} busy intervals "
+                      f"{run['overlapping_intervals']} overlapping, "
+                      f"{run['busy_seconds']} s")
+    for k, (docs, merged, rep) in reports.items():
+        v = obs.validate_chrome_trace(merged)
+        cr = rep["cross_rank"]
+        dcp = cr["critical_path"]
+        log("obs_2", run=k, merged_events=v["events"], flows=v["flows"],
+            unmatched_flows=v["unmatched_flows"],
+            flow_edges=cr["flow_edges"],
+            edges_per_link=json.dumps(cr["edges_per_link"]),
+            negative_lag_edges=cr["negative_lag_edges"],
+            min_lag_us=cr["min_lag_us"],
+            critical_path_seconds=f"{dcp['length_us'] / 1e6:.6f}",
+            critical_path_cross_edges=dcp["cross_edges"],
+            per_link_exposed_us=json.dumps(cr["per_link_exposed_us"]))
+        for line in obs.format_report(rep).splitlines():
+            print(f"[obs_2] run={k} report | {line}", flush=True)
+        check(v["flows"] > 0 and v["unmatched_flows"] == 0
+              and cr["unmatched_flows"] == 0,
+              f"obs_2: run {k}: {v['flows']} flows, "
+              f"{v['unmatched_flows']} without both halves")
+        r0 = next(r for r in recs if r["rank"] == 0)["runs"][k]
+        ivs0 = load_trace_intervals(docs[0])
+        split_report(f"obs_2.split run={k} rank=0", obs.rank_wall_split(
+            ivs0, 0, *r0["window_us"]))
+        copy_report(f"obs_2.copies run={k} rank=0", ivs0)
+    mean = {m: sum(w) / len(w) for m, w in walls.items()}
+    log("obs_2", ranks=2, n=n, nb=nb, nrhs=nrhs,
+        **{f"walls_{m}": ",".join(f"{w:.4f}" for w in ws)
+           for m, ws in walls.items()},
+        **{f"mean_wall_{m}": f"{w:.4f}" for m, w in mean.items()},
+        on_over_off=f"{mean['on'] / mean['off']:.4f}",
+        fleet_health_ranks=health["nb_ranks"],
+        fleet_health_status=health["status"],
+        spawn_to_exit_s=f"{spawn_s:.1f}")
+    check(health["nb_ranks"] == 2,
+          f"obs_2: the fleet /health merge reports {health['nb_ranks']} "
+          f"ranks")
     return launches
 
 
@@ -2157,7 +2703,8 @@ def phase_wave(seed: int, refs: dict, inputs: dict, n: int = N_MAIN,
 def dtd_boot(tp, classes, nb: int):
     """Register each DTD task class with its CUDA chore: a class exists
     from its first insert, so each takes one boot task on a small tile
-    first.  ``classes`` is [(name, chore, access modes)]; returns the host
+    first.  ``classes`` is [(name, chore, access modes)], each chore an
+    ops/linalg.py tile body declared stacked; returns the host
     bodies by name.  A host body runs only for a boot task (insertion
     index below the count of boot tasks): for any other task it raises."""
     n_boot = len(classes)
@@ -2174,7 +2721,8 @@ def dtd_boot(tp, classes, nb: int):
     for name, chore, modes in classes:
         bodies[name] = host_body(name)
         tp.insert_task(bodies[name], *[(boot, m) for m in modes])
-        tp.add_chore(bodies[name], "cuda", chore)
+        # the tile bodies (ops/linalg.py) take a leading batch dimension
+        tp.add_chore(bodies[name], "cuda", chore, stacked=True)
     return bodies
 
 
@@ -2955,9 +3503,10 @@ def backward_instances() -> None:
                     f"{lib.ptt_error_string(rc).decode()}")
 
 
-def profile_report(label: str, prof, seconds: float, top: int = 12) -> None:
+def profile_report(label: str, prof, seconds: float, top: int = 12) -> float:
     """Device time by kernel from a profiler run, and the device's busy
-    share of the wall time (the union of its kernel and copy intervals)."""
+    share of the wall time (the union of its kernel and copy intervals);
+    returns the busy microseconds."""
     from torch.autograd import DeviceType
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(bool(evs), f"{label}: the profiler recorded no device activity")
@@ -2981,6 +3530,7 @@ def profile_report(label: str, prof, seconds: float, top: int = 12) -> None:
                                     key=lambda kv: -kv[1][1])[:top]:
         log("profile", path=label, calls=calls, ms=f"{us / 1e3:.3f}",
             share_of_busy=f"{us / busy_us:.4f}", kernel=repr(name[:100]))
+    return busy_us
 
 
 def phase_profile(dev: torch.device, seed: int, n: int = N_MAIN,
@@ -3152,6 +3702,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--resume-from", type=int, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--obs-ports", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--obs-modes", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--push", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     # the package must come from this checkout; importing it first means a
     # directory holding only this script fails before any result
@@ -3167,9 +3720,16 @@ def main(argv=None) -> int:
     gemm_err = phase_kernel(dev, args.seed)
     attn_err = phase_attention(dev, args.seed)
     gemm_err = max(gemm_err, phase_bodies(dev, args.seed))
+    t0 = time.perf_counter()
+    phase_batch_semantics(args.seed)
+    log("batch_semantics", seconds=f"{time.perf_counter() - t0:.1f}")
     # each path run with the counters set to 0 just before it
     gemm_launches = {}
     gemm_launches["dpotrf"], L_ptg = phase_main(args.seed)
+    t0 = time.perf_counter()
+    gemm_launches["obs_dpotrf"] = phase_obs(args.seed, L_ptg,
+                                            profile=args.profile)
+    log("obs", seconds=f"{time.perf_counter() - t0:.1f}")
     gemm_launches["dtd"], L_dtd = phase_dtd(args.seed, L_ptg)
     gemm_launches["dtd_gemm"] = phase_dtd_gemm(args.seed)
     gemm_launches["dposv"], factor, X_dposv = phase_dposv(args.seed)
@@ -3184,6 +3744,11 @@ def main(argv=None) -> int:
                                 profile=args.profile)
     for run, per_rank in multirank.items():
         gemm_launches[f"multirank_{run}"] = sum(per_rank)
+    t0 = time.perf_counter()
+    obs_launches = phase_obs_ranks(args.seed, factor, X_dposv,
+                                   profile=args.profile)
+    gemm_launches["obs_dposv_2"] = sum(obs_launches.values())
+    log("obs_2", seconds=f"{time.perf_counter() - t0:.1f}")
     ft = phase_ft(args.seed, factor, X_dposv)
     for run, incs in ft.items():
         gemm_launches[run] = sum(sum(per_rank) for per_rank in incs)
@@ -3232,6 +3797,7 @@ def main(argv=None) -> int:
                                           for run, per_rank
                                           in multirank.items()},
              ft_launches_by_incarnation_and_rank=ft,
+             obs_2_launches_by_rank_and_run=obs_launches,
              max_abs_err=gemm_err,
              **recs["gemm"]),
         dict(name="flash_fwd_f32", route="cuda",

@@ -15,9 +15,13 @@ host or moved over CUDA IPC by a ``DeviceDataPlane``):
     ctx.fini()
 
 DTD pools (``dtd.taskpool_new``, ``insert_task``, ``add_chore(body,
-"cuda", fn)``), their composition (``compose``, ``recursive_call``), and
-whole-graph capture of either front end as one CUDA graph
-(``ptg.capture``, ``dtd.capture.dtd_capture``); and the flagship transformer's forward (``models``, over ``parallel``):
+"cuda", fn)``; a body runs once per task unless it declares a leading
+batch dimension, ``stacked=True`` or ``BODY [... batch=stacked]``),
+their composition (``compose``, ``recursive_call``), whole-graph
+capture of either front end as one CUDA graph (``ptg.capture``,
+``dtd.capture.dtd_capture``), telemetry (``obs``: ``profile=True``
+and the ``metrics``, ``obs_flow``, ``obs_live`` knobs); and the
+flagship transformer's forward (``models``, over ``parallel``):
 
     cfg = models.TransformerConfig(...)
     forward = models.make_forward(cfg)              # on cuda:0

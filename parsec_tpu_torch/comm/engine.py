@@ -13,15 +13,53 @@ for oversubscribed mpiexec, SURVEY.md §4) and TCPCommEngine (rank
 processes over sockets).  Device-resident tiles may ride a separate
 device data plane (comm/xfer.py).  The fault-tolerance hooks (ft/:
 heartbeat probes, the injected-kill silence, the chaos verdict on every
-outbound frame) live here, uniform across transports; telemetry spans,
-cross-rank flow tracing and elastic membership are not carried by this
-package.
+outbound frame) and the telemetry seams (obs/: the ``_obs`` span sink,
+the ``_flow`` trace-context allocator) live here, uniform across
+transports; elastic membership is not carried by this package.
 """
 from __future__ import annotations
 
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+
+class FlowIds:
+    """Per-rank allocator of wire trace contexts: a context is the
+    compact ``(origin_rank, span_id)`` pair stamped on data-plane
+    messages under the ``obs_flow`` knob, shared by the sender's and the
+    receiver's flow events so the fleet merge can stitch the edge.
+    Installed as ``ce._flow`` by the obs wiring — None keeps every send
+    on the one-attribute-check fast path.
+
+    ``live`` (obs_live) widens the stamped context to ``(origin, span,
+    pool_tp_id, t_send_ns)`` — the taskpool wire id for per-pool
+    attribution and the sender's monotonic send instant for live
+    flow-lag — but ONLY toward peers whose ``live_to`` capability
+    negotiated it, so a plain obs_flow receiver keeps seeing the 2-tuple
+    its ``origin, span = ctx`` unpacking expects."""
+
+    __slots__ = ("rank", "_next", "_lock", "live")
+
+    def __init__(self, rank: int) -> None:
+        self.rank = rank
+        self._next = 0
+        self._lock = threading.Lock()
+        self.live = False
+
+    def next_ctx(self) -> Tuple[int, int]:
+        with self._lock:
+            self._next += 1
+            return (self.rank, self._next)
+
+
+#: data-plane tags that carry a wire trace context when flow tracing is
+#: negotiated: activations, GET request/reply, one-sided puts, DTD tile
+#: traffic, and memory writebacks — every payload is a dict, so the
+#: context rides a ``"_tr"`` key inside the pickled body (chunked
+#: transfers inherit it for free).  Control traffic (termdet, barrier,
+#: heartbeat) is never stamped.
+_FLOW_TAGS = frozenset((1, 2, 3, 4, 6, 7))  # values asserted below
 
 
 class RankFailedError(RuntimeError):
@@ -95,6 +133,14 @@ class CommEngine:
         self.on_peer_failure: Optional[Callable[[int, str], None]] = None
         #: the attached DeviceDataPlane, or None (host staging)
         self.device_plane: Optional[Any] = None
+        # telemetry sink (obs.spans.CommObs) — None keeps every
+        # instrumented site on the one-attribute-check fast path
+        # (the PINS ``_active == 0`` pattern)
+        self._obs: Optional[Any] = None
+        # cross-rank flow tracing: a FlowIds allocator when the
+        # ``obs_flow`` knob is on AND telemetry is wired — the same
+        # None-is-off pattern as ``_obs``
+        self._flow: Optional[FlowIds] = None
         # -- fault tolerance (ft/) -------------------------------------
         #: HeartbeatDetector when one is installed (ft/detector.py)
         self.ft_detector: Optional[Any] = None
@@ -144,6 +190,20 @@ class CommEngine:
         A tag that never gets a handler is a bug: warn once, and fail
         loudly if the hold queue grows past MAX_DEFERRED instead of
         leaking quietly."""
+        obs = self._obs
+        if obs is not None:
+            # counted at ARRIVAL (deferred or not) so sent/received
+            # totals balance across ranks
+            obs.am_arrived(src, tag, payload)
+            if tag in _FLOW_TAGS and isinstance(payload, dict):
+                # the sender's wire trace context: record the receive
+                # half of the flow edge at arrival — exactly once per
+                # message even when the tag defers, so every ``ph:"s"``
+                # has its ``ph:"f"``.  Only data-plane tags: a USER
+                # payload's "_tr" key is the application's business
+                ctx = payload.get("_tr")
+                if ctx is not None:
+                    obs.flow_recv(src, tag, ctx)
         with self._deferred_lock:
             cb = self._tag_cbs.get(tag)
             if cb is None:
@@ -162,6 +222,11 @@ class CommEngine:
                     1, "rank %d: deferring message(s) for unregistered "
                     "tag %d", self.rank, tag)
             return False
+        if obs is not None:
+            t0 = time.monotonic_ns()
+            cb(src, payload)
+            obs.delivered(src, self.rank, tag, t0)
+            return True
         cb(src, payload)
         return True
 
@@ -170,6 +235,57 @@ class CommEngine:
 
     def send_am(self, dst: int, tag: int, payload: Any) -> None:
         raise NotImplementedError
+
+    # -- cross-rank flow tracing --------------------------------------------
+    def flow_to(self, dst: int) -> bool:
+        """May a wire trace context travel toward ``dst``?  In-process
+        fabrics share this build (always True); the TCP engine gates on
+        the peer's HELLO ``"tr"`` capability, so a mixed peer's wire
+        bytes stay exactly what a knob-unset build would send."""
+        return True
+
+    def live_to(self, dst: int) -> bool:
+        """May the EXTENDED obs_live context (pool id + send instant)
+        travel toward ``dst``?  In-process fabrics: yes; the TCP engine
+        gates on the peer's HELLO ``"lv"`` capability so an
+        obs_flow-only receiver never sees a 4-tuple."""
+        return True
+
+    def _flow_stamp(self, dst: int, tag: int,
+                    payload: Any) -> Tuple[Any, Optional[Tuple[int, ...]]]:
+        """Stamp one outbound data-plane message with a fresh trace
+        context: returns ``(payload', ctx)`` where ``payload'`` is a
+        SHALLOW copy carrying ``"_tr": (origin_rank, span_id)`` — the
+        caller's dict is never mutated (one activation dict fans out to
+        several bcast children; each hop is its own flow edge).  ctx is
+        None for self-sends, control tags, non-dict payloads, and peers
+        the capability negotiation excluded — and on THAT path any
+        inbound ``"_tr"`` a re-forwarded message still carries is
+        STRIPPED (again on a copy): a bcast hop re-sends the received
+        dict, and the upstream context must neither leak to a peer
+        whose wire bytes must stay knob-unset-identical nor fake a
+        second receive half of the upstream edge."""
+        if tag not in _FLOW_TAGS or not isinstance(payload, dict):
+            # control/user tags pass through UNTOUCHED — an application
+            # payload's "_tr" key is never ours to strip
+            return payload, None
+        fl = self._flow
+        if fl is None or dst == self.rank or not self.flow_to(dst):
+            if "_tr" in payload:
+                payload = dict(payload)
+                del payload["_tr"]
+            return payload, None
+        ctx = fl.next_ctx()
+        if fl.live and self.live_to(dst):
+            # obs_live extension: taskpool wire id (per-pool
+            # attribution — the data-plane dicts already carry "tp_id";
+            # GET traffic does not, and attributes to None) and the
+            # sender's monotonic send instant (flow lag)
+            ctx = (ctx[0], ctx[1], payload.get("tp_id"),
+                   time.monotonic_ns())
+        payload = dict(payload)
+        payload["_tr"] = ctx
+        return payload, ctx
 
     # -- failures -----------------------------------------------------------
     def report_peer_failure(self, peer: int, reason: str) -> None:
@@ -327,3 +443,8 @@ TAG_DTD_DATA = 6
 TAG_MEM_PUT = 7
 TAG_HEARTBEAT = 8   # liveness probes (tcp rides wire-level K_PING frames)
 TAG_USER_BASE = 16
+
+# the flow-traced data-plane tag set is spelled with literals above
+# (the tags are defined after the class body); keep the two in sync
+assert _FLOW_TAGS == {TAG_ACTIVATE, TAG_GET_REQ, TAG_GET_DATA,
+                      TAG_PUT_DATA, TAG_DTD_DATA, TAG_MEM_PUT}

@@ -9,6 +9,7 @@ network backend (SURVEY.md §4) — except the "node" is one process.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -118,7 +119,18 @@ class LocalCommEngine(CommEngine):
         # self-sends also loop back through the inbox for ordering fidelity
         if dst != self.rank and dst in self.dead_peers:
             raise RankFailedError(dst, "send to failed rank")
+        obs = self._obs
+        if obs is None:
+            self._transport_post(dst, self.rank, tag, _wire_copy(payload))
+            return
+        ctx = None
+        if self._flow is not None:
+            payload, ctx = self._flow_stamp(dst, tag, payload)
+        t0 = time.monotonic_ns()
         self._transport_post(dst, self.rank, tag, _wire_copy(payload))
+        obs.am_sent(self.rank, dst, tag, payload, t0)
+        if ctx is not None:
+            obs.flow_sent(dst, tag, ctx, t0)
 
     # -- one-sided emulation (GET-req AM + data reply) ----------------------
     def get(self, src_rank: int, remote_handle_id: int,
@@ -128,6 +140,9 @@ class LocalCommEngine(CommEngine):
             token = self._get_iter
             self._get_cbs[token] = on_complete
             self._get_srcs[token] = src_rank
+        obs = self._obs
+        if obs is not None:
+            obs.get_begin(token, src_rank)
         if getattr(self._drain_depth, "n", 0) > 0:
             # inside a progress drain on this thread: batch — the flush
             # at the end of this progress call sends one request per
@@ -182,10 +197,14 @@ class LocalCommEngine(CommEngine):
 
     def _on_get_data(self, src: int, payload: Any) -> None:
         first_exc = None
+        obs = self._obs
         for item in payload["items"]:
             with self._lock:
                 cb = self._get_cbs.pop(item["token"])
                 self._get_srcs.pop(item["token"], None)
+            if obs is not None:
+                # one matched begin/end span per one-sided transfer
+                obs.get_end(item["token"], src, item["data"])
             try:
                 cb(item["data"])
             except Exception as exc:  # noqa: BLE001
@@ -201,8 +220,12 @@ class LocalCommEngine(CommEngine):
             on_complete: Optional[Callable] = None) -> None:
         """One-sided put: copy into the remote registered region
         (PUT-data AM applied on the receiver's progress)."""
+        obs = self._obs
+        t0 = time.monotonic_ns() if obs is not None else 0
         self.send_am(dst_rank, TAG_PUT_DATA,
                      {"handle": remote_handle_id, "data": array})
+        if obs is not None:
+            obs.put(dst_rank, array, t0)
         if on_complete is not None:
             on_complete(array)
 
@@ -218,6 +241,8 @@ class LocalCommEngine(CommEngine):
         if self._ft_silenced:
             return 0   # injected kill: the inbox is never drained again
         n = 0
+        obs = self._obs
+        t0 = time.monotonic_ns() if obs is not None else 0
         tl = self._drain_depth
         tl.n = getattr(tl, "n", 0) + 1
         ok = False
@@ -239,7 +264,18 @@ class LocalCommEngine(CommEngine):
                         self._flush_gets()
                     except Exception:  # noqa: BLE001
                         pass
+        if obs is not None:
+            obs.progress(n, t0)  # span only when work was done
         return n
+
+    def clock_offset_us(self, peer: int) -> float:
+        """In-process ranks share ONE monotonic clock: the cross-rank
+        trace offset is identically zero — the estimator only exists on
+        cross-process transports (comm/tcp.py)."""
+        return 0.0
+
+    def clock_offsets_us(self) -> Dict[int, float]:
+        return {p: 0.0 for p in range(self.nb_ranks) if p != self.rank}
 
     def sync(self) -> None:
         self.fabric.barrier.wait()

@@ -21,9 +21,11 @@ Payloads on the wire are host numpy arrays: a tile whose newest copy is
 a tensor comes down through the device module (``sync_to_host`` /
 ``to_host_array``), so the copy queues behind the kernel that wrote it.
 With a device data plane attached (comm/xfer.py), a device tile above
-the short limit is handed over device to device instead.  The JAX
-package's mesh-local by-reference path, cross-rank stage elision and
-telemetry spans are not carried.
+the short limit is handed over device to device instead.  With
+telemetry on (obs/), each activation batch and each DTD send is a
+``comm:*`` span, and an activation's wire trace context is published to
+the delivering thread.  The JAX package's mesh-local by-reference path
+and cross-rank stage elision are not carried.
 """
 from __future__ import annotations
 
@@ -291,6 +293,8 @@ class RemoteDepEngine:
         flow per broadcast tree (the reference aggregates by remote_deps
         struct, remote_dep.h:143-160).
         """
+        obs = self.ce._obs
+        t0 = time.monotonic_ns() if obs is not None else 0
         by_flow: Dict[int, Dict[int, List[Tuple]]] = {}
         for dst, edges in remote_edges.items():
             for e in edges:
@@ -366,6 +370,11 @@ class RemoteDepEngine:
             for child_pos in bcast_children(0, len(positions), self.topology):
                 self.ce.send_am(positions[child_pos], TAG_ACTIVATE, msg)
                 self.stats["activates_sent"] += 1
+        if obs is not None:
+            obs.span("comm:activate_batch", t0,
+                     {"task": getattr(task, "locals", None),
+                      "flows": len(by_flow),
+                      "dsts": sorted(remote_edges)})
 
     def _on_activate(self, src: int, msg: Dict, replay: bool = False) -> None:
         held = prefetch = None
@@ -432,16 +441,18 @@ class RemoteDepEngine:
                     return
                 raise
             self.ce.send_am(xf["src"], TAG_XFER_ACK, {"uuid": uuid})
-            self._deliver_activation(tp, my_edges, arr, msg.get("dtt"))
+            self._deliver_activation(tp, my_edges, arr, msg.get("dtt"),
+                                     tr=msg.get("_tr"))
             return
         if "data" in msg or msg.get("handle") is None:
             self._deliver_activation(tp, my_edges, msg.get("data"),
-                                     msg.get("dtt"))
+                                     msg.get("dtt"), tr=msg.get("_tr"))
         else:
             # rendezvous: GET the payload from the data holder — unless
             # a prefetched GET already fetched (or is fetching) it
             def on_data(arr):
-                self._deliver_activation(tp, my_edges, arr, msg.get("dtt"))
+                self._deliver_activation(tp, my_edges, arr, msg.get("dtt"),
+                                         tr=msg.get("_tr"))
             key = (msg["data_rank"], msg["handle"])
             rec = None
             with self._lock:
@@ -550,11 +561,17 @@ class RemoteDepEngine:
             self.stats["prefetch_cancels"] += dropped
 
     def _deliver_activation(self, tp, edges: List[Tuple], arr,
-                            dtt=None) -> None:
+                            dtt=None, tr=None) -> None:
         """Incoming data releases local successors
         (ref: remote_dep_release_incoming, remote_dep_mpi.c:997).
         Device-plane arrivals stay tensors (the device module adopts
-        them); wire arrivals are numpy arrays."""
+        them); wire arrivals are numpy arrays.
+
+        ``tr`` is the activation's wire trace context (None when flow
+        tracing is off): published thread-locally around the activation
+        walk (``obs.inbound_flow_ctx``), covering the synchronous
+        delivery, the counts_ready replay and the rendezvous-GET
+        callback, none of which share a call signature."""
         copy = None
         if arr is not None:
             payload = arr if is_device_array(arr) else np.asarray(arr)
@@ -563,12 +580,20 @@ class RemoteDepEngine:
             copy.version = 1
             copy.coherency = Coherency.OWNED
             d.attach_copy(copy)
+        if tr is not None:
+            from ..obs.spans import set_inbound_flow_ctx
+            set_inbound_flow_ctx(tuple(tr))
         ready = []
-        for (succ_tc_id, succ_locals, flow_name, _out) in edges:
-            tc = tp.task_classes[succ_tc_id]
-            t = tc.activate(tuple(succ_locals), flow_name, copy)
-            if t is not None:
-                ready.append(t)
+        try:
+            for (succ_tc_id, succ_locals, flow_name, _out) in edges:
+                tc = tp.task_classes[succ_tc_id]
+                t = tc.activate(tuple(succ_locals), flow_name, copy)
+                if t is not None:
+                    ready.append(t)
+        finally:
+            if tr is not None:
+                from ..obs.spans import set_inbound_flow_ctx
+                set_inbound_flow_ctx(None)
         if ready and self.context is not None:
             es0 = self.context.execution_streams[0]
             schedule(es0, ready)
@@ -691,6 +716,8 @@ class RemoteDepEngine:
         """Small payloads ride inline in the AM; larger ones go through
         the same GET rendezvous as PTG edges (short proto vs rendezvous,
         ref: remote_dep_mpi.c:244-252); both carry host arrays."""
+        obs = self.ce._obs
+        t0 = time.monotonic_ns() if obs is not None else 0
         arr = _host(arr)
         msg = {"tp_id": tp.comm_tp_id, "tile": tile_key, "seq": seq}
         if self._quantize_eligible(tp, arr):
@@ -714,6 +741,10 @@ class RemoteDepEngine:
             msg["data_rank"] = self.rank
         self.ce.send_am(dst, TAG_DTD_DATA, msg)
         self.stats["dtd_sends"] += 1
+        if obs is not None:
+            obs.span("comm:dtd_send", t0,
+                     {"dst": dst, "bytes": nbytes,
+                      "rendezvous": "handle" in msg})
 
     def dtd_expect(self, tp, tile_key: Any, seq: int,
                    cb: Callable[[np.ndarray], None]) -> None:

@@ -64,6 +64,14 @@ every outbound frame consults the chaos layer (``ft_outbound``); an
 injected kill (``ft_silence``) drops all traffic, stops the writers
 without flushing and finis without a goodbye, as a SIGKILL would.
 
+Telemetry (obs/): with ``obs_flow`` (or ``obs_live``) set, the HELLO
+advertises ``"tr"`` (and ``"lv"``), data AMs toward peers that
+advertised it carry a wire trace context, and pings toward them grow a
+clock word whose pong feeds a per-peer clock-offset EWMA (a sampler
+thread keeps it fresh).  Unset on either end, the bytes that end sends
+are the knob-unset ones.  Spans and flow halves land in the engine's
+``_obs`` sink.
+
 Connection setup: rank r listens on ``endpoints[r]``; r dials every rank
 s < r and accepts from every s > r (one connection per unordered pair),
 with a rank-identifying handshake byte frame followed by a HELLO
@@ -219,7 +227,8 @@ class _Peer:
     __slots__ = ("rank", "sock", "ctrl", "bulk", "cond", "writer",
                  "goodbye", "bw_mbps", "codec", "engaged", "frames",
                  "probe_ratio", "done", "queued_bytes", "hb_ok",
-                 "rs_ok", "hello_seen", "connected_at", "conn_gen",
+                 "tr_ok", "lv_ok", "rs_ok", "hello_seen", "connected_at",
+                 "conn_gen",
                  "suspect", "suspect_since", "rs_epoch", "rs_tx_seq",
                  "rs_rx_seq", "rs_window", "rs_window_bytes", "rs_replay",
                  "rs_rx_unacked_frames", "rs_rx_unacked_bytes",
@@ -249,6 +258,8 @@ class _Peer:
         self.comp_pre = 0          # per-peer lossless codec accounting
         self.comp_post = 0
         self.hb_ok = False         # HELLO advertised heartbeat support
+        self.tr_ok = False         # HELLO advertised flow tracing ("tr")
+        self.lv_ok = False         # HELLO advertised obs_live ("lv")
         # -- reliable session --------------------------------
         self.rs_ok = False         # both ends advertised "rs"
         self.hello_seen = False    # the peer's HELLO was processed
@@ -295,7 +306,9 @@ class TCPCommEngine(LocalCommEngine):
                  reconnect_backoff: Optional[float] = None,
                  replay_window_bytes: Optional[int] = None,
                  quantize: Optional[str] = None,
-                 quantize_threshold_mbps: Optional[float] = None) -> None:
+                 quantize_threshold_mbps: Optional[float] = None,
+                 obs_flow: Optional[bool] = None,
+                 obs_live: Optional[bool] = None) -> None:
         from ..utils.params import params
         self._inbox: Fifo = Fifo()
         # GET tokens whose reply has ARRIVED (pushed to the inbox by a
@@ -366,6 +379,32 @@ class TCPCommEngine(LocalCommEngine):
         self._codecs = wire.available_codecs()
         #: last heartbeat round trip per peer, seconds (K_PING/K_PONG)
         self.ping_rtt: Dict[int, float] = {}
+        # cross-rank flow tracing + clock alignment: when the
+        # ``obs_flow`` knob is set, the HELLO advertises a "tr"
+        # capability (symmetric like "qz": an unset knob leaves every
+        # wire byte, HELLO included, bit-for-bit unchanged), data AMs
+        # toward tr-peers carry a (origin, span) trace context inside
+        # their pickled payload, and heartbeat pings toward tr-peers
+        # grow a trailing clock word — the pong echoes the responder's
+        # monotonic clock, feeding an NTP-style midpoint offset estimate
+        # per peer (an EWMA over the samples whose round trip is near
+        # the shortest seen, exported to the trace metadata so the fleet
+        # merge can fuse rank timelines)
+        if obs_flow is None:
+            obs_flow = bool(params.get_or("obs_flow", "bool", False))
+        # obs_live rides the same machinery and adds its own symmetric
+        # "lv" capability: toward lv-peers the stamped context widens to
+        # (origin, span, pool, t_send_ns).  The knob implies the
+        # obs_flow wire behavior (contexts + clock words)
+        if obs_live is None:
+            obs_live = bool(params.get_or("obs_live", "bool", False))
+        self._live_enabled = bool(obs_live)
+        self._flow_enabled = bool(obs_flow) or self._live_enabled
+        self._clock: Dict[int, float] = {}      # peer -> offset EWMA us
+        self._clock_n: Dict[int, int] = {}      # peer -> sample count
+        self._clock_rtt: Dict[int, float] = {}  # peer -> best round trip us
+        self._clock_stop = threading.Event()
+        self._clock_thread: Optional[threading.Thread] = None
         #: wire fast-path counters (plain dict: obs polls it when
         #: telemetry is on, nothing on the hot path otherwise)
         self.wire_stats = {
@@ -396,6 +435,15 @@ class TCPCommEngine(LocalCommEngine):
         deadline = time.time() + connect_timeout
         for peer in range(rank):
             self._dial(peer, deadline)
+        if self._flow_enabled and self.nb_ranks > 1:
+            # clock-alignment sampler: periodic extended pings toward
+            # tr-peers so offsets exist even when the heartbeat detector
+            # is not installed; the detector's own probes contribute
+            # extra samples for free
+            self._clock_thread = threading.Thread(
+                target=self._clock_loop, daemon=True,
+                name=f"tcp-clock-r{rank}")
+            self._clock_thread.start()
 
     # -- connection management ------------------------------------------
     def _dial(self, peer: int, deadline: float) -> None:
@@ -480,6 +528,18 @@ class TCPCommEngine(LocalCommEngine):
                 "codecs": self._codecs,
                 "hb": True,
                 "rs": self._rs_enabled}
+        if self._flow_enabled:
+            # flow tracing is advertised ONLY when the local knob is
+            # set (symmetric like "qz"): a knob-unset build keeps every
+            # wire byte — this HELLO included — bit-for-bit, and a peer
+            # without it simply never negotiates, so neither trace
+            # contexts nor extended pings travel toward it
+            info["tr"] = True
+        if self._live_enabled:
+            # obs_live: extended (pool, send-instant) flow contexts —
+            # gated like "tr", so an unset knob's HELLO is bit-identical
+            # and obs_flow-only peers keep 2-tuples
+            info["lv"] = True
         if self._quantize is not None:
             # quantized codecs are advertised ONLY when the local knob
             # is set — symmetric like "rs", so a knob-unset build keeps
@@ -514,6 +574,92 @@ class TCPCommEngine(LocalCommEngine):
         with self._conn_cond:
             p = self._peers.get(peer)
         return p.bw_mbps if p is not None else None
+
+    # -- clock alignment + flow tracing --------------------------------
+    #: EWMA smoothing of the per-peer offset estimate, and the sampler
+    #: thread's cadence: a quick burst for fresh links (offsets exist
+    #: within ~a second of the HELLO), then a slow steady trickle
+    _CLOCK_ALPHA = 0.25
+    _CLOCK_BURST = 4
+    _CLOCK_BURST_INTERVAL = 0.05
+    _CLOCK_INTERVAL = 0.25
+    #: a sample folds into the estimate only while its round trip stays
+    #: within this factor of the shortest one seen toward the peer: the
+    #: midpoint's error is bounded by half the round trip, and a round
+    #: trip a busy process stretched (a pong queued behind worker
+    #: threads) is the asymmetric kind
+    _CLOCK_RTT_FACTOR = 2.0
+
+    def _note_clock(self, peer: int, offset_us: float,
+                    rtt_us: Optional[float] = None) -> None:
+        with self._stat_lock:
+            if rtt_us is not None:
+                best = self._clock_rtt.get(peer)
+                if best is None or rtt_us < best:
+                    self._clock_rtt[peer] = best = rtt_us
+                if rtt_us > self._CLOCK_RTT_FACTOR * best:
+                    return
+            cur = self._clock.get(peer)
+            self._clock[peer] = (offset_us if cur is None else
+                                 (1 - self._CLOCK_ALPHA) * cur
+                                 + self._CLOCK_ALPHA * offset_us)
+            self._clock_n[peer] = self._clock_n.get(peer, 0) + 1
+
+    def clock_offset_us(self, peer: int) -> Optional[float]:
+        """NTP-style estimate of ``peer_clock - my_clock`` in µs (the
+        ``PARSEC::OBS::CLOCK_OFFSET_US::R<peer>`` gauge; None until a
+        clock-extended pong has been measured)."""
+        with self._stat_lock:
+            off = self._clock.get(peer)
+        return None if off is None else round(off, 3)
+
+    def clock_offsets_us(self) -> Dict[int, float]:
+        """Every measured per-peer offset — stamped into the trace
+        metadata at export so ``obs.merge_trace_docs`` can fuse the
+        rank timelines onto one reference clock."""
+        with self._stat_lock:
+            return {p: round(v, 3) for p, v in self._clock.items()}
+
+    def _clock_loop(self) -> None:
+        """Dedicated sampler: one extended ping per tr-peer per tick.
+        Rides ``ft_ping`` (ctrl lane, receiver-thread pong), so the
+        chaos layer's ``hb=1`` directives shape these probes exactly
+        like detector probes."""
+        seq = 1 << 24   # distinct range from the detector's seqs
+        rounds = 0
+        while not self._clock_stop.wait(
+                self._CLOCK_BURST_INTERVAL if rounds < self._CLOCK_BURST
+                else self._CLOCK_INTERVAL):
+            if self._closing or self._ft_silenced:
+                return
+            rounds += 1
+            with self._conn_cond:
+                peers = list(self._peers.values())
+            for p in peers:
+                if not p.tr_ok or p.done or p.rank in self.dead_peers \
+                        or p.rank in self.finished_peers:
+                    continue
+                seq += 1
+                try:
+                    self.ft_ping(p.rank, seq, time.monotonic_ns())
+                except Exception:  # noqa: BLE001 - sampling must not die
+                    pass
+
+    def flow_to(self, dst: int) -> bool:
+        """Trace contexts travel only toward peers whose HELLO
+        advertised ``"tr"`` — a peer without it (or with the knob unset)
+        receives byte-identical data-plane traffic."""
+        with self._conn_cond:
+            p = self._peers.get(dst)
+        return p is not None and p.tr_ok
+
+    def live_to(self, dst: int) -> bool:
+        """Extended obs_live contexts travel only toward peers whose
+        HELLO advertised ``"lv"`` — an obs_flow-only peer keeps
+        receiving the plain 2-tuple its unpacking expects."""
+        with self._conn_cond:
+            p = self._peers.get(dst)
+        return p is not None and p.lv_ok
 
     def compress_ratio(self) -> Optional[float]:
         """Cumulative post/pre compression byte ratio (None: nothing
@@ -928,7 +1074,10 @@ class TCPCommEngine(LocalCommEngine):
         copies = self.ft_outbound(peer, TAG_HEARTBEAT)
         if copies == 0:
             return False
-        frame = wire.pack_ping(seq, t_ns)
+        # clock-alignment extension: extended pings only toward peers
+        # that negotiated "tr" — the responding pong carries the peer's
+        # clock, the midpoint-method sample
+        frame = wire.pack_ping(seq, t_ns, clock_ns=0 if p.tr_ok else None)
         with p.cond:
             for _ in range(copies):
                 p.ctrl.append(("frame", frame))
@@ -991,7 +1140,22 @@ class TCPCommEngine(LocalCommEngine):
         # needs the anti-aliasing wire copy the local fabric applies
         if dst == self.rank:
             payload = _wire_copy(payload)
+        obs = self._obs
+        ctx = None
+        if self._flow is not None or self._flow_enabled:
+            # _flow_enabled without an armed allocator (knob on,
+            # telemetry off): the stamp declines but still STRIPS a
+            # re-forwarded inbound "_tr" — this rank advertised "tr",
+            # so upstream contexts reach it and must not leak onward
+            payload, ctx = self._flow_stamp(dst, tag, payload)
+        if obs is None:
+            self._transport_post(dst, self.rank, tag, payload)
+            return
+        t0 = time.monotonic_ns()
         self._transport_post(dst, self.rank, tag, payload)
+        obs.am_sent(self.rank, dst, tag, payload, t0)
+        if ctx is not None:
+            obs.flow_sent(dst, tag, ctx, t0)
 
     def _transport_post(self, dst: int, src: int, tag: int,
                         payload: Any) -> None:
@@ -1632,6 +1796,11 @@ class TCPCommEngine(LocalCommEngine):
             p.codec = wire.negotiate_codec(
                 self._codecs, info.get("codecs", ()))
             p.hb_ok = bool(info.get("hb"))
+            # flow tracing negotiates SYMMETRICALLY like "rs": both
+            # ends must run with obs_flow set or neither stamps
+            p.tr_ok = bool(info.get("tr")) and self._flow_enabled
+            # obs_live's extended contexts are symmetric the same way
+            p.lv_ok = bool(info.get("lv")) and self._live_enabled
             with p.cond:
                 # quantize capability is symmetric like "rs": only a
                 # peer that advertised the requested codec under "qz"
@@ -1720,14 +1889,33 @@ class TCPCommEngine(LocalCommEngine):
             if det is not None:
                 det.note_alive(peer)
             if not p.done:
-                pong = wire.pack_ping(seq, t_ns, pong=True)
+                # an EXTENDED ping requests clock alignment: the pong
+                # echoes (seq, t_ns) and stamps THIS rank's monotonic
+                # clock in the trailing word — only in answer to an
+                # extension only tr-enabled peers send, so pongs toward
+                # other peers stay byte-identical
+                ext = wire.ping_clock(body)
+                pong = wire.pack_ping(
+                    seq, t_ns, pong=True,
+                    clock_ns=(time.monotonic_ns()
+                              if ext is not None else None))
                 with p.cond:
                     p.ctrl.append(("frame", pong))
                     p.queued_bytes += len(pong)
                     p.cond.notify()
         elif kind == wire.K_PONG:
             _seq, t_ns = wire.parse_ping(body)
-            rtt = (time.monotonic_ns() - t_ns) / 1e9
+            now_ns = time.monotonic_ns()
+            rtt = (now_ns - t_ns) / 1e9
+            t_peer = wire.ping_clock(body)
+            if t_peer:
+                # midpoint method: the responder stamped its clock
+                # mid-round-trip — offset = peer_clock - my_clock
+                # assuming symmetric legs (error bounded by half the
+                # path asymmetry), folded into a per-peer EWMA
+                self._note_clock(
+                    peer, (t_peer - (t_ns + now_ns) / 2.0) / 1e3,
+                    rtt_us=(now_ns - t_ns) / 1e3)
             with self._stat_lock:
                 self.ping_rtt[peer] = rtt
             det = self.ft_detector
@@ -1862,6 +2050,10 @@ class TCPCommEngine(LocalCommEngine):
 
     def fini(self) -> None:
         self._closing = True
+        self._clock_stop.set()   # stand the clock sampler down first
+        t = self._clock_thread
+        if t is not None:
+            t.join(timeout=2.0)
         if self._ft_silenced:
             # injected kill: die WITHOUT a goodbye and WITHOUT flushing
             # — peers must learn of the death proactively (heartbeat) or

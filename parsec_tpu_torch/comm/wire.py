@@ -142,6 +142,7 @@ _BUFSPEC = struct.Struct("<BQ")      # chunked?, size
 _CHUNK = struct.Struct("<BQIQ")      # kind, xfer_id, buf_index, offset
 _COMP = struct.Struct("<BBQ")        # kind, codec_id, raw_len
 _PING = struct.Struct("<BIQ")        # kind, seq, t_ns (sender monotonic)
+_PINGX = struct.Struct("<BIQQ")      # + responder clock (the "tr" ext)
 _SEQHDR = struct.Struct("<BIQ")      # kind, epoch, seq (K_SEQ / K_ACK)
 _FRAGHDR = struct.Struct("<BIQQ")    # kind, epoch, seq, byte offset
 
@@ -400,15 +401,40 @@ def load_message(frame: memoryview, bufs: Sequence[Any]) -> Any:
 
 
 # -- heartbeats ----------------------------------------------------------
-def pack_ping(seq: int, t_ns: int, pong: bool = False) -> bytes:
-    """One heartbeat frame; the pong echoes the ping's (seq, t_ns)."""
-    return _PING.pack(K_PONG if pong else K_PING, seq & 0xFFFFFFFF, t_ns)
+def pack_ping(seq: int, t_ns: int, pong: bool = False,
+              clock_ns: Optional[int] = None) -> bytes:
+    """One heartbeat frame; the pong echoes the ping's (seq, t_ns).
+
+    ``clock_ns`` is the clock-alignment extension (the ``"tr"`` HELLO
+    capability): when not None the frame grows a trailing u64 carrying
+    the SENDER's monotonic clock.  An extended PING marks the exchange
+    (the value itself is unused, 0 by convention); the answering pong
+    stamps its responder clock there, which is the midpoint-method
+    sample the receiver folds into its per-peer offset EWMA.
+    ``clock_ns=None`` keeps the original 13-byte frame bit-for-bit, so
+    a knob-unset build and every frame toward a peer without the
+    capability are byte-identical; parsers read the leading fields
+    positionally and ignore the trailing u64."""
+    kind = K_PONG if pong else K_PING
+    if clock_ns is None:
+        return _PING.pack(kind, seq & 0xFFFFFFFF, t_ns)
+    return _PINGX.pack(kind, seq & 0xFFFFFFFF, t_ns, clock_ns)
 
 
 def parse_ping(body: memoryview) -> Tuple[int, int]:
-    """-> (seq, t_ns); same layout for K_PING and K_PONG."""
+    """-> (seq, t_ns); same layout for K_PING and K_PONG (extended
+    frames carry a trailing clock word read via :func:`ping_clock`)."""
     _kind, seq, t_ns = _PING.unpack_from(body, 0)
     return seq, t_ns
+
+
+def ping_clock(body: memoryview) -> Optional[int]:
+    """The clock-alignment extension word of a K_PING/K_PONG frame
+    (None on a plain 13-byte frame — a peer without the capability, or
+    with the knob unset, never sends the extension)."""
+    if len(body) < _PINGX.size:
+        return None
+    return _PINGX.unpack_from(body, 0)[3]
 
 
 # -- reliable session (comm/tcp.py "rs" capability) ---------------------

@@ -18,7 +18,8 @@ from __future__ import annotations
 import itertools
 import threading
 from enum import IntEnum
-from typing import Any, Dict, List, Optional
+import weakref
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -45,10 +46,18 @@ def is_device_array(x: Any) -> bool:
 #: and copy on (registered by devices/cuda.py).  A host read of a tensor
 #: must queue behind that stream, not the reading thread's own.
 _device_streams: Dict[Any, Any] = {}
+_device_pulls: Dict[Any, Any] = {}
 
 
-def register_device_stream(device: Any, stream: Any) -> None:
+def register_device_stream(device: Any, stream: Any,
+                           pull: Optional[Callable] = None) -> None:
+    """The device module's stream, and its D2H copy (``pull``: the
+    module's own bound method, which telemetry instruments; held weakly,
+    so a finalized module's tiles are not kept alive) for
+    ``to_host_array``."""
     _device_streams[device] = stream
+    if pull is not None:
+        _device_pulls[device] = weakref.WeakMethod(pull)
 
 
 def to_host_array(x: Any) -> Any:
@@ -58,6 +67,10 @@ def to_host_array(x: Any) -> Any:
     for the kernel that produced it."""
     if not is_device_array(x):
         return np.array(x)
+    ref = _device_pulls.get(x.device)
+    pull = ref() if ref is not None else None
+    if pull is not None:
+        return pull(x)
     stream = _device_streams.get(x.device)
     if stream is None:
         return x.detach().to("cpu", copy=True).numpy()

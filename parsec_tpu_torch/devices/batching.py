@@ -13,15 +13,21 @@ those tensors).  The device module groups ready tasks whose (spec, static
 context, shapes, dtypes) agree and dispatches each group through
 :func:`stacked_call`.
 
-Stacking: each batch argument is stacked into one ``[n, ...]`` tensor and
-the body runs ONCE over the leading batch dimension.  The tile operations
-the bodies call (ops/linalg.py) take that dimension natively: the GEMM
-and SYRK updates launch one kernel over ``gridDim.z = n``, each z-slice
-doing exactly the per-task arithmetic in the same order, and POTRF/TRSM
-loop over the slices.  Results are therefore bit-exact vs per-task
-dispatch (``device_batch_mode=unroll``, the only mode of this package).
-The stack is one extra device copy of every input tile; a pointer-array
-grouped launch would avoid it.
+A dispatch keeps each body's single-tile semantics unless the body says
+otherwise.  A spec marked ``stacked`` (a JDF ``BODY [... batch=stacked]``,
+a DTD ``add_chore(..., stacked=True)``) declares that its body takes a
+leading batch dimension: each batch argument is stacked into one
+``[n, ...]`` tensor and the body runs ONCE over it.  The tile operations
+of ops/linalg.py take that dimension natively: the GEMM and SYRK updates
+launch one kernel over ``gridDim.z = n``, each z-slice doing exactly the
+per-task arithmetic in the same order, and POTRF/TRSM loop over the
+slices.  Results are therefore bit-exact vs per-task dispatch
+(``device_batch_mode=unroll``, the only mode of this package).  The stack
+is one extra device copy of every input tile; a pointer-array grouped
+launch would avoid it.  Every other body runs once per member of the
+group, inside the same dispatch and on the same stream, exactly as
+per-task dispatch would run it (the JAX package's ``unroll`` mode emits
+one subgraph per member likewise).
 
 Batch sizes are bucketed to powers of two, as in the JAX package, so a
 burst dispatches as a few large launches.
@@ -44,19 +50,25 @@ class DeviceBatchSpec:
         absent-flow mask, ...).  ``None`` means this task cannot batch
         (it goes through per-task ``dyld_fn`` dispatch).
 
-    ``call(bargs, static) -> tuple`` — the body over tensors with a
-        leading batch dimension: the written flows' outputs, in flow
-        order, each with the same leading dimension.
+    ``call(bargs, static) -> tuple`` — the body: the written flows'
+        outputs, in flow order.  With ``stacked`` it takes tensors with a
+        leading batch dimension and returns outputs with the same leading
+        dimension; without, it takes one task's tensors.
+
+    ``stacked`` — the body declared that it takes a leading batch
+        dimension; otherwise :func:`stacked_call` runs it per member.
     """
 
-    __slots__ = ("name", "extract", "call")
+    __slots__ = ("name", "extract", "call", "stacked")
 
     def __init__(self, name: str,
                  extract: Callable[[Any, Any], Optional[Tuple]],
-                 call: Callable[[Tuple, Any], Tuple]) -> None:
+                 call: Callable[[Tuple, Any], Tuple],
+                 stacked: bool = False) -> None:
         self.name = name
         self.extract = extract
         self.call = call
+        self.stacked = bool(stacked)
 
 
 def bucket_size(navail: int, batch_max: int) -> int:
@@ -86,9 +98,13 @@ def segment_plan(n: int, requested: int) -> int:
 
 def stacked_call(spec: DeviceBatchSpec, static: Any,
                  rows: Sequence[Sequence[Any]]) -> List[List[Any]]:
-    """Run ``spec``'s body once over ``len(rows)`` tasks: ``rows[i][j]``
-    is batch argument ``j`` of task ``i``; returns, per task, its list of
-    outputs (views into the stacked results)."""
+    """Run ``spec``'s body over ``len(rows)`` tasks: ``rows[i][j]`` is
+    batch argument ``j`` of task ``i``; returns, per task, its list of
+    outputs.  A ``stacked`` spec runs once over the stacked arguments
+    (the outputs are views into the stacked results); any other runs once
+    per task, in order."""
+    if not spec.stacked:
+        return [list(spec.call(tuple(r), static)) for r in rows]
     import torch
     n = len(rows)
     cols = tuple(torch.stack([r[j] for r in rows])

@@ -24,6 +24,14 @@ Because one stream orders every kernel, dependency release can happen at
 launch (``cuda_eager_complete``): a successor's launch is queued behind
 its producer's.
 
+Telemetry (obs/): while the context's ``DeviceObs`` is installed as
+``_obs``, every dispatch is bracketed by timed CUDA events on the stream
+(the device-busy intervals), and every host copy (``_put``, ``_pull``,
+which stage-in, prefetch, eviction write-back, ``pull_to_host`` and
+``data.to_host_array`` go through) records its start event and the
+host's wait before it.  With ``_obs`` unset the module records no timed
+event and launches exactly what it launches without telemetry.
+
 ``device="cpu"`` drives the same module over host tensors: there is no
 stream or event, every launch is complete when it returns, and the tile
 operations take their plain PyTorch versions.  The tests use it to run
@@ -95,7 +103,7 @@ class CudaDevice(Device):
         self.stream = (torch.cuda.Stream(device=torch_device)
                        if self.is_cuda else None)
         if self.is_cuda:
-            register_device_stream(torch_device, self.stream)
+            register_device_stream(torch_device, self.stream, self._pull)
         self.time_estimate_default = 1.0
         # device manager state (ref: gpu_device->mutex + pending)
         self.pending = Dequeue()
@@ -170,12 +178,26 @@ class CudaDevice(Device):
         if is_device_array(payload):
             return payload.to(self.torch_device, copy=True)
         arr = np.ascontiguousarray(payload)
-        return torch.from_numpy(arr).to(self.torch_device, copy=True)
+        obs = self._obs
+        if obs is None:
+            return torch.from_numpy(arr).to(self.torch_device, copy=True)
+        t0 = time.monotonic_ns()
+        ev0 = obs.mark()
+        out = torch.from_numpy(arr).to(self.torch_device, copy=True)
+        obs.xfer("in", arr.nbytes, t0, ev0)
+        return out
 
     def _pull(self, payload: Any) -> np.ndarray:
         """D2H copy on the device stream (waits for the producer)."""
+        obs = self._obs
         with self.on_stream():
-            return payload.detach().to("cpu", copy=True).numpy()
+            if obs is None:
+                return payload.detach().to("cpu", copy=True).numpy()
+            t0 = time.monotonic_ns()
+            ev0 = obs.mark()
+            out = payload.detach().to("cpu", copy=True).numpy()
+            obs.xfer("out", out.nbytes, t0, ev0)
+            return out
 
     # ------------------------------------------------------------------ #
     # submission: the accelerator chore calls this and returns ASYNC     #
@@ -313,9 +335,15 @@ class CudaDevice(Device):
         chore = tc.incarnations[task.selected_chore]
         fn = chore.dyld_fn
         assert fn is not None, f"cuda chore of {tc.name} has no executable"
+        obs = self._obs
         t0 = time.perf_counter_ns()
         with self.on_stream():
-            outputs = fn(task, inputs)
+            if obs is None:
+                outputs = fn(task, inputs)
+            else:
+                m0, ev0 = time.monotonic_ns(), obs.mark()
+                outputs = fn(task, inputs)
+                obs.dispatch(tc.name, 1, ev0, m0)
             event = self._record_event()
         dt = time.perf_counter_ns() - t0
         self.stats["dispatch_ns"] += dt
@@ -424,20 +452,28 @@ class CudaDevice(Device):
 
     def _dispatch_stacked(self, es, spec, static,  # holds: self._manager_lock
                           chunk: List[Tuple]) -> None:
-        """ONE stacked launch for ``chunk``."""
+        """ONE dispatch for ``chunk``: a stacked launch, or the body once
+        per member (batching.stacked_call)."""
         from .batching import stacked_call
         n = len(chunk)
+        obs = self._obs
         t0 = time.perf_counter_ns()
         with self.on_stream():
-            per_task = stacked_call(spec, static, [e[3] for e in chunk])
+            if obs is None:
+                per_task = stacked_call(spec, static, [e[3] for e in chunk])
+            else:
+                m0, ev0 = time.monotonic_ns(), obs.mark()
+                per_task = stacked_call(spec, static, [e[3] for e in chunk])
+                obs.dispatch(chunk[0][0].task_class.name, n, ev0, m0)
             event = self._record_event()
         dt = time.perf_counter_ns() - t0
         self.stats["dispatch_ns"] += dt
         self.stats["dispatch_tasks"] += n
         self.stats["batches"] += 1
         self.stats["batched_tasks"] += n
-        self.stats["stack_bytes"] += sum(a.nbytes for e in chunk
-                                         for a in e[3])
+        if spec.stacked:
+            self.stats["stack_bytes"] += sum(a.nbytes for e in chunk
+                                             for a in e[3])
         self._note_profile(es, chunk[0][0].task_class.name, dt / 1e3 / n, n)
         for (task, est, _inputs, _), outputs in zip(chunk, per_task):
             out_flows = self._out_flows(task)
@@ -534,6 +570,9 @@ class CudaDevice(Device):
                 self._retire(rec, context=context)
             self._window = []
             self._prefetched.clear()
+        obs = self._obs
+        if obs is not None:
+            obs.flush()   # the run's timed events become spans
 
     def _retire(self, rec: _InFlight, es=None, context=None) -> None:
         """Release a window entry: drop its load contribution and surface

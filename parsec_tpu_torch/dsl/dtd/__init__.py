@@ -314,21 +314,25 @@ class DTDTaskpool(Taskpool):
                              f"{tc.nb_flows}")
         return tc
 
-    def add_chore(self, body: Callable, device_type: str, fn: Any) -> None:
+    def add_chore(self, body: Callable, device_type: str, fn: Any,
+                  stacked: bool = False) -> None:
         """ref: parsec_dtd_task_class_add_chore (insert_function.c:2432).
 
         ``device_type`` is ``"cuda"``.  ``fn`` takes one argument per
         inserted parameter in insertion order — a tensor on the device
         module's torch device for each tile, the raw value of each VALUE
         param (the order of unpack_args) — and returns new tensors for the
-        written tiles, in order.  It runs per task on single tiles, or
-        ONCE on a burst of same-class tasks with every tile argument
-        stacked on a leading batch dimension (VALUE params must then be
-        equal and hashable; tasks passing different values never stack).
-        A chore that fails on a stack is not retried per task: the error
-        aborts the DAG and re-raises from ``wait()``.  The chore applies
-        to the class's tasks inserted after this call; the class exists
-        from its first insert."""
+        written tiles, in order.  A burst of same-class tasks (equal,
+        hashable VALUE params; tasks passing different values never
+        group) dispatches as one group.  By default ``fn`` keeps
+        single-tile semantics: the group calls it once per task, on that
+        task's tiles.  ``stacked=True`` declares that ``fn`` takes a
+        leading batch dimension (write ``.mT``, never ``.T``; concatenate
+        on ``dim=-2``): the group then calls it ONCE with every tile
+        argument stacked.  A stacked chore that fails is not retried per
+        task: the error aborts the DAG and re-raises from ``wait()``.
+        The chore applies to the class's tasks inserted after this call;
+        the class exists from its first insert."""
         if device_type != "cuda":
             raise ValueError(f"add_chore: device type {device_type!r}; this "
                              f"package has one accelerator chore type, "
@@ -374,7 +378,8 @@ class DTDTaskpool(Taskpool):
         from ...devices.cuda import cuda_chore_hook
         tc.incarnations.append(Chore(
             "cuda", cuda_chore_hook(), dyld_fn=wrapped,
-            batch_spec=DeviceBatchSpec(tc.name, extract, call)))
+            batch_spec=DeviceBatchSpec(tc.name, extract, call,
+                                       stacked=stacked)))
 
     @property
     def my_rank(self) -> int:

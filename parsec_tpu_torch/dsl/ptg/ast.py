@@ -208,6 +208,13 @@ class BodyAST:
     def device_type(self) -> str:
         return self.properties.get("type", "cpu").lower()
 
+    @property
+    def stacked(self) -> bool:
+        """``BODY [... batch=stacked]``: the body takes a leading batch
+        dimension, so a batched dispatch may run it once over stacked
+        tiles; any other body keeps single-tile semantics."""
+        return self.properties.get("batch", "").lower() == "stacked"
+
 
 @dataclass
 class TaskClassAST:

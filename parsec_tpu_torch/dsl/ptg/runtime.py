@@ -586,13 +586,15 @@ class PTGTaskClass(TaskClass):
         return fn, self._device_batch_spec(body, code, written)
 
     def _device_batch_spec(self, body: BodyAST, code, written):
-        """Batching recipe for a JDF device body: present flow tensors
-        are stacked on a leading batch dimension and the body runs once
-        over them (its tile operations take that dimension); the locals the body actually READS
-        (co_names ∩ declared locals) go into the static group key, so
-        e.g. every GEMM(k, m, n) of a wave stacks into one dispatch
-        (the body references no locals) while a body indexing on ``k``
-        still batches within equal ``k``."""
+        """Batching recipe for a JDF device body.  A body marked
+        ``batch=stacked`` runs once over its present flow tensors stacked
+        on a leading batch dimension (its tile operations take that
+        dimension); any other body runs once per member inside the same
+        dispatch.  The locals the body actually READS (co_names ∩
+        declared locals) go into the static group key, so e.g. every
+        GEMM(k, m, n) of a wave stacks into one dispatch (the body
+        references no locals) while a body indexing on ``k`` still
+        batches within equal ``k``."""
         from ...devices.batching import DeviceBatchSpec
         names = set(code.co_names)
         if "this_task" in names:
@@ -642,7 +644,7 @@ class PTGTaskClass(TaskClass):
             return tuple(env[nm] for i, nm in written if i in out_present)
 
         return DeviceBatchSpec(f"{self.name}[{body.device_type}]",
-                               extract, call)
+                               extract, call, stacked=body.stacked)
 
 
 def _newest_device_copy(copy) -> Optional[DataCopy]:

@@ -168,8 +168,10 @@ def ptg_to_dtd(ptg_tp: PTGTaskpool, context) -> Any:
             # the class exists before its first insert, so every one of its
             # tasks takes the chore
             dtd_tp._task_class_of(bodies[key], len(args), tc.name)
-            if _pick_body(tc.ast).device_type not in ("cpu", "recursive"):
-                dtd_tp.add_chore(bodies[key], "cuda", _device_chore(tc))
+            dev_body = _pick_body(tc.ast)
+            if dev_body.device_type not in ("cpu", "recursive"):
+                dtd_tp.add_chore(bodies[key], "cuda", _device_chore(tc),
+                                 stacked=dev_body.stacked)
         dtd_tp.insert_task(bodies[key], *args, ((locals_, binds), VALUE | REF),
                            name=tc.name)
     dtd_tp.data_flush_all()

@@ -14,19 +14,24 @@ host work:
   once per run;
 - each ready antichain ("wave") runs as ONE Python call (fused mode,
   default): every class/group gathers its input tiles from the pre-wave
-  pools (``index_select``), each class's body runs ONCE on the stacked
-  tensors — the bodies take a leading batch dimension, so the GEMM and
-  SYRK updates are one GEMM-kernel launch over ``gridDim.z`` = the chunk
-  — and written tiles scatter back in place (``index_copy_``). Waves
-  whose gathers exceed ``wave_fuse_bytes`` run per-(class, chunk) calls;
-- dispatch cost is per *wave* (fused) or per *chunk* (~classes x
-  log2(wave size)), never per task.
+  pools (``index_select``), runs its body over the gathered stack, and
+  written tiles scatter back in place (``index_copy_``). Waves whose
+  gathers exceed ``wave_fuse_bytes`` run per-(class, chunk) calls;
+- host dispatch cost is per *wave* (fused) or per *chunk* (~classes x
+  log2(wave size)), plus, for a body that keeps single-tile semantics,
+  one body call per member.
 
-Where the JAX package vmaps a single-instance body, this package calls
-the body once on the stacked tensors with its static body locals bound
-to concrete values: the range locals the body reads (directly or
-through a derived local) split a class's members into groups of equal
-values, as the device module's batching does (devices/batching.py).
+Every body keeps single-tile semantics, as the JAX package's ``vmap`` of
+a single-instance body does: a body is called once per member of the
+gathered stack, and its outputs are stacked for the scatter.  A body
+marked ``BODY [type=cuda batch=stacked]`` declares that it takes a
+leading batch dimension and is called ONCE on the whole stack: the
+DPLASMA bodies (ops/) do, so their GEMM and SYRK updates are one
+GEMM-kernel launch over ``gridDim.z`` = the chunk.  Either way the
+static body locals are bound to concrete values: the range locals the
+body reads (directly or through a derived local) split a class's members
+into groups of equal values, as the device module's batching does
+(devices/batching.py).
 
 Semantics notes:
 - priorities are ignored: execution is breadth-first by dependence
@@ -86,8 +91,8 @@ class _ClassPlan:
 
     __slots__ = ("tc", "ast", "flow_idx", "flow_names",
                  "written", "reads", "range_locals", "body_locals",
-                 "derived", "code", "kernels", "in_tnames", "wb_names",
-                 "in_tname", "wb_name", "_kplan")
+                 "derived", "code", "stacked", "kernels", "in_tnames",
+                 "wb_names", "in_tname", "wb_name", "_kplan")
 
     def __init__(self, tc) -> None:
         self.tc = tc
@@ -112,8 +117,10 @@ class _ClassPlan:
         self.wb_name: List[Optional[str]] = [None] * nf
         self.range_locals = [ld.name for ld in tc.ast.locals
                              if ld.range is not None]
-        self.code = compile(_pick_body(tc.ast).code,
-                            f"<jdf:{tc.ast.name}:BODY[wave]>", "exec")
+        body = _pick_body(tc.ast)
+        self.code = compile(body.code, f"<jdf:{tc.ast.name}:BODY[wave]>",
+                            "exec")
+        self.stacked = body.stacked
         # locals the body reads (co_names: exec reads them as globals),
         # closed over the derived locals it reads: bodies branch on them
         # in Python (`BETA if k == 0 else 1.0`) and see one value per
@@ -148,7 +155,7 @@ class _ClassPlan:
 class _KPlan:
     __slots__ = ("name", "nf", "flow_names", "written", "wb_name",
                  "in_tname", "range_locals", "body_locals", "derived",
-                 "code")
+                 "code", "stacked")
 
     def __init__(self, p: _ClassPlan) -> None:
         self.name = p.ast.name
@@ -164,6 +171,7 @@ class _KPlan:
         self.body_locals = p.body_locals
         self.derived = p.derived
         self.code = p.code
+        self.stacked = p.stacked
 
 
 # --------------------------------------------------------------------- #
@@ -190,15 +198,17 @@ def _resolve_dst_f(genv, p: _KPlan, k, nm, tile_shape, pool_dtype):
 def _make_call_f(genv, p: _KPlan, statics: Tuple):
     """The class body over stacked tensors, with the given static
     body-local values: ``call(*flow_vals) -> written outputs``, each
-    input ``[k, ...]`` and each output expected ``[k, ...]``.
-    [type]/[type_data] input conversions (masked casts) apply to the
-    gathered stack first (ref: parsec_reshape.c consumer-side promise
-    trigger)."""
+    input ``[k, ...]`` and each output ``[k, ...]``.  A ``batch=stacked``
+    body runs once on the stacks; any other runs once per member and its
+    outputs are stacked.  [type]/[type_data] input conversions (masked
+    casts) apply to the gathered stack first (ref: parsec_reshape.c
+    consumer-side promise trigger)."""
     flow_names = p.flow_names
     written = p.written
     in_tname = p.in_tname
     derived = p.derived
     code = p.code
+    stacked = p.stacked
     static_pairs = [(p.range_locals[i], v)
                     for i, v in zip(p.body_locals, statics)]
 
@@ -212,20 +222,28 @@ def _make_call_f(genv, p: _KPlan, statics: Tuple):
             return v
         return reshape_batch(v, dst)
 
-    def call(*flow_vals):
+    def run(vals):
         env = dict(genv)
         for nm, v in static_pairs:  # concrete: bodies may branch
             env[nm] = v
         for nm, ex in derived:
             env[nm] = ex(env)
-        for j, (nm, v) in enumerate(zip(flow_names, flow_vals)):
-            env[nm] = conv_in(j, v)
+        for nm, v in zip(flow_names, vals):
+            env[nm] = v
         env["np"] = np
         env["torch"] = torch
         env["es_rank"] = 0
         env["this_task"] = None
         exec(code, env)
         return tuple(env[nm] for nm, w in zip(flow_names, written) if w)
+
+    def call(*flow_vals):
+        vals = [conv_in(j, v) for j, v in enumerate(flow_vals)]
+        if stacked or not vals:
+            return run(vals)
+        outs = [run([v[i] for v in vals]) for i in range(vals[0].shape[0])]
+        return tuple(torch.stack([torch.as_tensor(o[j]) for o in outs])
+                     for j in range(len(outs[0])))
 
     return call
 
@@ -252,8 +270,9 @@ def _check_out(p: _KPlan, j, val, pool, k):
         shape = tuple(val.shape) if hasattr(val, "shape") else type(val)
         raise WaveError(
             f"{p.name}.{p.flow_names[j]}: the body returned {shape} for "
-            f"{k} tiles of {tuple(pool.shape[1:])}; a wave body must take "
-            f"and return a leading batch dimension")
+            f"{k} tiles of {tuple(pool.shape[1:])}; a wave body must "
+            f"return one pool tile a task (a stack with a leading batch "
+            f"dimension when it is marked batch=stacked)")
     return val if val.dtype == pool.dtype else val.to(pool.dtype)
 
 

@@ -67,8 +67,8 @@ Safety rules (the acceptance bar for never evicting a healthy peer):
   inter-arrival EWMA (a phi-accrual-style accrual: slow-but-steady
   links earn longer deadlines), never below ``ft_heartbeat_timeout``.
 
-Gauges (:func:`register_gauges`, on the context's SDE registry, under
-the JAX package's names): ``FT_PEER_ALIVE`` (peers confirmed alive) and
+Gauges (obs ``CommObs.register_engine_gauges``, on the context's SDE
+registry): ``FT_PEER_ALIVE`` (peers confirmed alive) and
 ``FT_HB_RTT_PREFIX::R<peer>`` (each peer's probe round-trip EWMA, ms).
 """
 from __future__ import annotations
@@ -77,16 +77,12 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from ..obs.spans import FT_HB_RTT_PREFIX, FT_PEER_ALIVE
 from ..utils import logging as plog
 from ..utils.params import params
 
 __all__ = ["HeartbeatDetector", "maybe_install_detector",
-           "register_gauges", "FT_PEER_ALIVE", "FT_HB_RTT_PREFIX"]
-
-#: SDE gauge names (the JAX package keeps them in obs/spans.py; obs is
-#: not carried by this package, so the detector owns them here)
-FT_PEER_ALIVE = "PARSEC::FT::PEER_ALIVE"
-FT_HB_RTT_PREFIX = "PARSEC::FT::HB_RTT"
+           "FT_PEER_ALIVE", "FT_HB_RTT_PREFIX"]
 
 #: EWMA smoothing for the heartbeat round-trip and inter-arrival gap
 _ALPHA = 0.2
@@ -182,7 +178,7 @@ class HeartbeatDetector:
                 st.rtt_s = (rtt if st.rtt_s is None
                             else (1 - _ALPHA) * st.rtt_s + _ALPHA * rtt)
 
-    # -- gauges (register_gauges) ---------------------------------------
+    # -- gauges (obs register_engine_gauges) ----------------------------
     def alive_count(self) -> int:
         """Peers currently confirmed alive (established, not evicted,
         not cleanly finished)."""
@@ -268,8 +264,8 @@ class HeartbeatDetector:
 def maybe_install_detector(ctx: Any) -> Optional[HeartbeatDetector]:
     """Build + start a detector for ``ctx``'s comm engine when the
     ``ft_heartbeat_interval`` knob is set (and there is anyone to
-    watch). Called by ``Context.__init__`` right after comm binding;
-    the context then exports the detector's gauges (``register_gauges``)."""
+    watch). Called by ``Context.__init__`` right after comm binding —
+    before the obs wiring, so ``register_engine_gauges`` sees it."""
     if ctx.comm is None or ctx.nb_ranks < 2:
         return None
     raw = str(params.get("ft_heartbeat_interval") or "").strip()
@@ -284,20 +280,3 @@ def maybe_install_detector(ctx: Any) -> Optional[HeartbeatDetector]:
     ce = getattr(ctx.comm, "ce", ctx.comm)
     return HeartbeatDetector(ce, interval, timeout, mode=mode).start()
 
-
-def register_gauges(sde: Any, det: HeartbeatDetector) -> list:
-    """Export ``det``'s liveness on ``sde`` as poll gauges: peers alive
-    and each peer's heartbeat round trip (ms, 0.0 before the first
-    pong). Returns the (name, poll fn) pairs for ``sde.unregister``."""
-    ce = det.ce
-    out = [(FT_PEER_ALIVE, det.alive_count)]
-    for peer in range(ce.nb_ranks):
-        if peer == ce.rank:
-            continue
-        out.append((f"{FT_HB_RTT_PREFIX}::R{peer}",
-                    lambda d=det, p=peer: (lambda r: 0.0 if r is None
-                                           else round(r * 1e3, 3))(
-                        d.rtt_s(p))))
-    for name, fn in out:
-        sde.register_poll(name, fn)
-    return out

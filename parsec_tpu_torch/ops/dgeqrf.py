@@ -37,7 +37,7 @@ WRITE Q -> Q UNMQR( k, k+1 .. NT-1 )  [shape="(descA.tile_shape(k, k)[0],) * 2"]
 
 ; (KT - k) * 1000
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     A, Q = ops.geqrt(A) if k < NT - 1 else ops.geqrt_r(A)
 }
@@ -57,7 +57,7 @@ RW   C <- (k == 0) ? descA( k, n ) : A2 TSMQR( k-1, k, n )
 
 ; (KT - k) * 100
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     C = ops.unmqr(Q, C)
 }
@@ -78,7 +78,7 @@ WRITE Q2 -> Q2 TSMQR( k, m, k+1 .. NT-1 )  [shape="(descA.tile_shape(k, k)[0] + 
 
 ; (KT - k) * 1000 + (MT - m)
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     R, A2, Q2 = ops.tsqrt(R, A2) if k < NT - 1 else ops.tsqrt_r(R, A2)
 }
@@ -103,7 +103,7 @@ RW A2 <- (k == 0) ? descA( m, n ) : A2 TSMQR( k-1, m, n )
 
 ; (KT - k) * 10 + (MT - m)
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     A1, A2 = ops.tsmqr(Q2, A1, A2)
 }

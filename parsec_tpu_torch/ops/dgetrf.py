@@ -42,7 +42,7 @@ RW A <- (k == 0) ? descA( k, k ) : C GEMM( k-1, k, k )
 
 ; (KT - k) * 1000
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     A = ops.getrf_nopiv(A)
 }
@@ -62,7 +62,7 @@ RW   C <- (k == 0) ? descA( k, n ) : C GEMM( k-1, k, n )
 
 ; (KT - k) * 100
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     C = ops.trsm_lower_unit(T, C)
 }
@@ -82,7 +82,7 @@ RW   C <- (k == 0) ? descA( m, k ) : C GEMM( k-1, m, k )
 
 ; (KT - k) * 100
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     C = ops.trsm_upper_right(T, C)
 }
@@ -106,7 +106,7 @@ RW   C <- (k == 0) ? descA( m, n ) : C GEMM( k-1, m, n )
 
 ; (KT - k) * 10
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     C = ops.gemm_nn_sub(C, A, B)
 }

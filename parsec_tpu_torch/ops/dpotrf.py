@@ -32,7 +32,7 @@ RW T <- (k == 0) ? descA( k, k ) : T SYRK( k-1, k )
 
 ; (NT - k) * 1000
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     T = ops.potrf(T)
 }
@@ -54,7 +54,7 @@ RW   C <- (k == 0) ? descA( m, k ) : C GEMM( k-1, m, k )
 
 ; (NT - m) * 100 + (NT - k) * 10
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     C = ops.trsm_panel(T, C)
 }
@@ -73,7 +73,7 @@ RW   T <- (k == 0) ? descA( m, m ) : T SYRK( k-1, m )
 
 ; (NT - m) * 1000
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     T = ops.syrk_ln(T, A)
 }
@@ -94,7 +94,7 @@ RW   C <- (k == 0) ? descA( m, n ) : C GEMM( k-1, m, n )
 
 ; (NT - m) * 10
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     C = ops.gemm_nt(C, A, B)
 }

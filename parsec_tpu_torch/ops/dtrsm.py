@@ -71,7 +71,7 @@ RW   X <- (k == 0) ? descB( k, n ) : C GEMM( k-1, k, n )
 
 ; (MT - k) * 10
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     X = ops.trsm_lower(T, X)
 }
@@ -92,7 +92,7 @@ RW   C <- (k == 0) ? descB( m, n ) : C GEMM( k-1, m, n )
 
 ; MT - k
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     C = ops.gemm_nn_sub(C, A, B)
 }
@@ -151,7 +151,7 @@ RW   X <- (k == MT-1) ? descB( k, n ) : C GEMM( k, k+1, n )
 
 ; (k + 1) * 10
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     X = ops.trsm_lower_trans(T, X)
 }
@@ -172,7 +172,7 @@ RW   C <- (m == MT-1) ? descB( k, n ) : C GEMM( k, m+1, n )
 
 ; k + 1
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     C = ops.gemm_tn_sub(C, A, B)
 }

@@ -81,7 +81,7 @@ RW   C <- (k == 0) ? descC( m, n ) : C GEMM( m, n, k-1 )
 
 ; KT - k
 
-BODY [type=cuda]
+BODY [type=cuda batch=stacked]
 {
     Ae = A if TRANSA == 'n' else ops.transpose(A)
     C = ops.gemm(C, Ae, B, float(ALPHA), float(BETA) if k == 0 else 1.0,

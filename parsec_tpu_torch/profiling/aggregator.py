@@ -14,13 +14,6 @@ the same min/max/last/sum_of_last table ``tools/counter_aggregate.py``
 computes offline — to pull clients that send the single line ``QUERY``.
 Enable from any run with ``--mca sde_push host:port`` (interval knob
 ``sde_push_interval_ms``).
-
-Two endpoints of the JAX package's server are backed by its obs/
-subsystem, which this package does not carry yet (ROADMAP Queue 1 item
-7): Prometheus exposition (``GET /metrics``, ``fleet_to_prometheus``)
-and the fleet-merged health document (``GET /health``,
-``AggregatorServer.health_fleet``). Both raise NotImplementedError (the
-HTTP server answers 501); ``QUERY``, pushes and ``GET /timeline`` work.
 """
 from __future__ import annotations
 
@@ -31,16 +24,9 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from ..obs.prometheus import fleet_to_prometheus
+
 __all__ = ["AggregatorServer", "SDEPusher", "fleet_to_prometheus"]
-
-_OBS_MISSING = ("needs the obs/ subsystem, which this package does not "
-                "carry yet (ROADMAP Queue 1 item 7)")
-
-
-def fleet_to_prometheus(fleet: Dict[str, Any]) -> str:
-    """Prometheus text exposition of a fleet aggregate — the JAX
-    package's ``obs.prometheus.fleet_to_prometheus``; raises here."""
-    raise NotImplementedError(f"fleet_to_prometheus {_OBS_MISSING}")
 
 
 class _Handler(socketserver.StreamRequestHandler):
@@ -75,23 +61,17 @@ class _Handler(socketserver.StreamRequestHandler):
                 break
         path = request.split()[1].decode(errors="replace") \
             if len(request.split()) > 1 else "/"
-        if path in ("/metrics", "/", "/health"):
-            # obs-backed endpoints: refused loudly, never an empty 200
-            try:
-                if path == "/health":
-                    server.health_fleet()
-                else:
-                    fleet_to_prometheus(server.fleet())
-                raise AssertionError("unreachable")  # pragma: no cover
-            except NotImplementedError as exc:
-                body = f"{exc}\n".encode()
-            head = (b"HTTP/1.0 501 Not Implemented\r\n"
-                    b"Content-Type: text/plain\r\n"
+        if path in ("/metrics", "/"):
+            body = fleet_to_prometheus(server.fleet()).encode()
+            head = (b"HTTP/1.0 200 OK\r\n"
+                    b"Content-Type: text/plain; version=0.0.4\r\n"
                     b"Content-Length: " + str(len(body)).encode() +
                     b"\r\n\r\n")
-        elif path == "/timeline":
+        elif path in ("/health", "/timeline"):
+            # obs_live: fleet-merged health snapshot /
             # merged detector-firing timeline, JSON
-            doc = server.timeline()
+            doc = (server.health_fleet() if path == "/health"
+                   else server.timeline())
             body = json.dumps(doc).encode() + b"\n"
             head = (b"HTTP/1.0 200 OK\r\n"
                     b"Content-Type: application/json\r\n"
@@ -123,8 +103,9 @@ class AggregatorServer:
         self._lock = threading.Lock()
         # {counter: {rank: {"last", "min", "max", "n", "ts"}}}
         self._series: Dict[str, Dict[int, Dict[str, Any]]] = {}
-        # latest per-rank health snapshot (the "health" key of a push,
-        # present only when the sender runs the JAX package's obs_live)
+        # obs_live: latest per-rank health snapshot (the
+        # "health" key of a push, present only when the sender runs
+        # with the knob set)
         self._health: Dict[int, Dict[str, Any]] = {}
         self.nb_pushes = 0
         self._thread: Optional[threading.Thread] = None
@@ -192,10 +173,14 @@ class AggregatorServer:
             return {"counters": out, "nb_pushes": self.nb_pushes}
 
     def health_fleet(self) -> Dict[str, Any]:
-        """The fleet-merged health document (the JAX package folds the
-        per-rank snapshots with ``obs.live.fleet_health``); raises
-        here."""
-        raise NotImplementedError(f"fleet_health {_OBS_MISSING}")
+        """The fleet-merged health document ``GET /health`` serves:
+        per-rank snapshots folded over the comm plane exactly like the
+        counter aggregation (worst status, merged firings, fleet-wide
+        per-link exposure and worst link)."""
+        from ..obs.live import fleet_health
+        with self._lock:
+            per_rank = {r: dict(s) for r, s in self._health.items()}
+        return fleet_health(per_rank)
 
     def timeline(self) -> Dict[str, Any]:
         """The merged detector-firing timeline ``GET /timeline``
@@ -234,8 +219,9 @@ class SDEPusher:
         # global one: named mempools, contextless user counters); the
         # primary registry wins on name collision
         self._extra_sde = extra_sde
-        # optional zero-arg callable returning the rank's health
-        # snapshot dict, shipped under "health" with each push
+        # obs_live: optional zero-arg callable returning the
+        # rank's health snapshot dict, shipped under "health" with each
+        # push (absent when the knob is unset)
         self._health_fn = health_fn
         self.rank = rank
         self.interval = interval

@@ -17,9 +17,10 @@ detector when ``ft_heartbeat_interval`` is set, the fault injector from
 ``ft_inject`` (its task-boundary half as a PINS module), and
 ``clear_task_errors`` for the restart driver's rollback; so are the
 debug-history ring (``debug_history_size``) and the live SDE push
-(``sde_push``).  Elastic grid recovery, live telemetry (obs/), serving
-and ``jax.distributed`` of the JAX package are not carried, and a knob
-asking for one of them raises NotImplementedError.
+(``sde_push``), and telemetry (obs/: ``profile``, ``metrics``,
+``obs_flow``, ``obs_live``).  Elastic grid recovery, self-tuning,
+serving and ``jax.distributed`` of the JAX package are not carried, and
+a knob asking for one of them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -130,7 +131,6 @@ class Context:
         # the fault injector when ft_inject has kill/taskfail directives
         self._ft_detector = None
         self._ft_pins = None
-        self._ft_gauges: List[Any] = []
         ft_inj = None
         if self.comm is not None:
             from ..ft.detector import maybe_install_detector
@@ -218,9 +218,12 @@ class Context:
         # (the reference's registry is per-process, which IS per-rank there)
         self.sde = SDERegistry()
         self.sde.register_poll(PENDING_TASKS, self._pending_gauge)
-        if self._ft_detector is not None:
-            from ..ft.detector import register_gauges
-            self._ft_gauges = register_gauges(self.sde, self._ft_detector)
+        # unified telemetry wiring (obs/): metrics registry over ctx.sde,
+        # comm/device/ft gauges always, hot-path span hooks only when
+        # profiling, ``metrics`` or ``obs_live`` is on
+        from ..obs import ContextObs
+        self.obs = ContextObs(self)
+        self.metrics = self.obs.metrics
         # live telemetry: push SDE snapshots to an aggregator if configured
         # (ref: PAPI-SDE counters feeding tools/aggregator_visu)
         self._sde_pusher = None
@@ -233,7 +236,13 @@ class Context:
                     self.sde, push_addr, rank=self.rank,
                     interval=max(0.05,
                                  params.get("sde_push_interval_ms") / 1000.0),
-                    extra_sde=_global_sde).start()
+                    extra_sde=_global_sde,
+                    # obs_live: ship the rank's health snapshot with each
+                    # push so the aggregator can serve a fleet-merged
+                    # GET /health
+                    health_fn=(self.obs.live.snapshot
+                               if self.obs.live is not None else None),
+                ).start()
             except ValueError as e:
                 # telemetry must never take down the run
                 plog.warning("sde_push disabled: %s", e)
@@ -362,6 +371,11 @@ class Context:
                 pools = list(self.taskpools.values())
             for tp in pools:
                 tp.abort()
+            # failure forensics: under an active file-backed profile, a
+            # rank-failure abort flight-records its trace NOW — fini may
+            # never run cleanly on an aborting fleet, and a post-mortem
+            # per rank can still be merged
+            self.dump_forensics(reason=repr(exc))
         # no count argument: a transport thread may report a dead peer
         # during comm.attach() in __init__, before nb_cores is set
         self.wake_workers()
@@ -619,12 +633,15 @@ class Context:
             # unhook from the global PINS sites: a later context's events
             # must not leak into this finalized profile
             self._task_profiler.disable()
+        # unhook telemetry (PINS latency module, engine and device sinks;
+        # the device sinks resolve their last timed events here)
+        self.obs.fini()
         if self._debug_history_on:
             from ..utils import debug_history
             debug_history.disable()  # refcounted across live contexts
             self._debug_history_on = False
         if self.profile is not None and self._prof_prefix:
-            self.profile.add_information("rank", self.rank)
+            self.stamp_profile_meta()
             self.sample_sde_counters()
             path = self.profile.dump(self._prof_prefix)
             bpath = self.profile.dump_binary(self._prof_prefix)
@@ -637,8 +654,50 @@ class Context:
         # drop the poll gauge registered in __init__: it closes over self
         # and would keep this finalized context (and its scheduler) alive
         self.sde.unregister(PENDING_TASKS, self._pending_gauge)
-        for name, fn in self._ft_gauges:
-            self.sde.unregister(name, fn)
+
+    def stamp_profile_meta(self) -> None:
+        """Trace metadata for the fleet merge: the rank and the measured
+        per-peer clock offsets (µs) land in the profile's info dict,
+        which ``to_chrome_trace`` exports as metadata next to
+        ``trace_t0_ns`` — what ``obs.merge_trace_docs`` needs to fuse N
+        rank timelines onto one clock.  ``fini`` calls it before writing
+        the trace; a caller reading an in-memory profile calls it
+        first."""
+        if self.profile is None:
+            return
+        import json as _json
+        self.profile.add_information("rank", self.rank)
+        ce = getattr(self.comm, "ce", self.comm) \
+            if self.comm is not None else None
+        fn = getattr(ce, "clock_offsets_us", None)
+        if callable(fn):
+            try:
+                offs = fn()
+            except Exception:  # noqa: BLE001 - metadata must not abort
+                offs = {}
+            if offs:
+                self.profile.add_information(
+                    "clock_offsets_us",
+                    _json.dumps({str(k): v for k, v in offs.items()}))
+
+    def dump_forensics(self, reason: str = "taskpool abort") -> str:
+        """Flight-recorder export: write the live profile's trace to
+        ``<profile prefix>.forensics.rank<r>.trace.json`` (once per
+        context; no-op without a file-backed profile). Returns the
+        path written, or ""."""
+        if self.profile is None or not self._prof_prefix \
+                or self._forensics_dumped:
+            return ""
+        self._forensics_dumped = True
+        try:
+            self.stamp_profile_meta()
+            self.sample_sde_counters()
+            path = self.profile.dump(f"{self._prof_prefix}.forensics")
+        except Exception as exc:  # noqa: BLE001 - must not mask the abort
+            plog.warning("forensics trace export failed: %r", exc)
+            return ""
+        plog.warning("forensics trace written to %s (%s)", path, reason)
+        return path
 
     def __enter__(self) -> "Context":
         return self

@@ -461,6 +461,38 @@ def register_core_params() -> None:
                     "upward-rank boost per task class; priority "
                     "schedulers pop critical-path classes first, with "
                     "the PTG spec's static priority as the tiebreak")
+    params.reg_bool("metrics", False,
+                    "collect runtime metrics (latency histograms + comm/"
+                    "device counters) without full trace capture; "
+                    "exposition via obs.prometheus / the aggregator")
+    params.reg_bool("obs_flow", False,
+                    "cross-rank flow tracing: stamp data-plane messages "
+                    "with a (origin, span) trace context negotiated via "
+                    "the HELLO \"tr\" capability, estimate per-peer "
+                    "clock offsets from extended ping/pong exchanges, "
+                    "and emit Chrome-trace flow events so "
+                    "obs.merge_trace_docs can fuse rank timelines; off "
+                    "(default) keeps every wire byte bit-for-bit "
+                    "unchanged")
+    params.reg_bool("obs_live", False,
+                    "in-runtime streaming health monitor: fold closing "
+                    "comm/device/exec spans and stitched flow pairs into "
+                    "rolling-window per-link exposed-wait, per-rank "
+                    "overlap, per-link flow lag, and per-taskpool "
+                    "attribution (the flow context grows a taskpool wire "
+                    "id + send timestamp toward peers that negotiated "
+                    "the HELLO \"lv\" capability); an anomaly layer "
+                    "fires straggler / degraded-link / stuck-progress "
+                    "detectors against self-calibrated baselines, each "
+                    "firing a trace annotation plus PARSEC::OBS::HEALTH::* "
+                    "gauges; snapshots ride sde_push so the aggregator "
+                    "serves GET /health.  Implies the obs_flow machinery; "
+                    "off (default) is bit-for-bit inert: no threads, no "
+                    "gauges, no wire change")
+    params.reg_int("obs_live_window_ms", 250,
+                   "rolling-window tick of the obs_live monitor: "
+                   "detector baselines fold one sample per window "
+                   "(smaller = faster detection, noisier baselines)")
     # knobs of subsystems this package does not carry yet: registered
     # so that a caller who sets one gets NotImplementedError at init
     # (runtime/context.py) instead of a silently ignored request
@@ -471,9 +503,8 @@ def register_core_params() -> None:
 
 #: knobs of the JAX package's subsystems that this package leaves out
 #: (the comm engine's mesh-local by-reference path, elastic grid
-#: recovery, obs, tuning, serving, stage compilation, chip meshes)
-TRIMMED_KNOBS = ("comm_mesh_local", "ft_elastic",
-                 "metrics", "obs_flow", "obs_live", "tune_auto", "serve",
+#: recovery, tuning, serving, stage compilation, chip meshes)
+TRIMMED_KNOBS = ("comm_mesh_local", "ft_elastic", "tune_auto", "serve",
                  "stage_compile", "device_mesh_shape")
 
 

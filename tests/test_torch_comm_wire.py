@@ -964,10 +964,18 @@ def _messages():
         (2, 6, {"tp_id": 0, "tile": ("C", "x"), "seq": 4,
                 "data": np.arange(70000, dtype=np.float32)}),
         (0, 15, ["release", 1.5, None, (True, b"raw")]),
+        # activations stamped with a wire trace context (obs_flow), and
+        # with the obs_live extension (pool id, send instant)
+        (0, 1, {"tp_id": 3, "root": 0, "ranks": [1], "edges": {1: []},
+                "dtt": None, "data": rng.rand(8, 8).astype(np.float32),
+                "_tr": (0, 41)}),
+        (1, 1, {"tp_id": 3, "root": 1, "ranks": [0], "edges": {0: []},
+                "dtt": None, "data": rng.rand(8, 8).astype(np.float32),
+                "_tr": (1, 42, 3, 987654321)}),
     ]
 
 
-@pytest.mark.parametrize("idx", range(4))
+@pytest.mark.parametrize("idx", range(6))
 def test_frames_byte_identical_to_jax_package(idx):
     """A frame carrying only numpy and Python values, encoded by the JAX
     package's wire and by the port's, is the same bytes (the segment,
@@ -1038,6 +1046,206 @@ def test_each_package_decodes_the_others_frames():
             done = rx.feed(bidx, o, data)
         assert done and xid == 5
         _assert_same(rx.message(), msg)
+
+
+def test_extended_ping_pong_byte_identical_and_cross_decodes():
+    """The clock-extended PING/PONG (the "tr" capability) is the JAX
+    package's frame byte for byte, each package reads the other's seq,
+    send instant and clock word, and the plain frame keeps its 13
+    bytes and reads no clock word."""
+    for pong in (False, True):
+        for clock in (None, 0, 123456789012):
+            j = jax_wire.pack_ping(77, 5_000_000_001, pong=pong,
+                                   clock_ns=clock)
+            t = wire.pack_ping(77, 5_000_000_001, pong=pong, clock_ns=clock)
+            assert t == j
+            assert len(t) == (13 if clock is None else 21)
+            for enc, dec in ((t, jax_wire), (j, wire)):
+                body = memoryview(enc)
+                assert dec.parse_ping(body) == (77, 5_000_000_001)
+                assert dec.ping_clock(body) == clock
+    assert wire.pack_ping(1, 2) == wire.pack_ping(1, 2, clock_ns=None)
+
+
+def _capture_leg(flow_r0=False, live_r0=False, flow_r1=False):
+    """Two fresh TCP engines, every outbound frame captured at the
+    ``_sendall_vec`` seam; rank 0 sends a scripted sequence of data
+    messages (one frame each, drained in between).  Returns (rank 0's
+    HELLO frame, its data frames, the messages rank 1 received)."""
+    import contextlib
+    from parsec_tpu_torch.comm import tcp as tcpmod
+    from parsec_tpu_torch.comm.engine import (TAG_ACTIVATE, TAG_DTD_DATA,
+                                              TAG_MEM_PUT, FlowIds)
+    captured = {}
+    orig = tcpmod._sendall_vec
+
+    def capturing(sock, pieces):
+        captured.setdefault(threading.current_thread().name, []).append(
+            b"".join(bytes(p) for p in pieces))
+        orig(sock, pieces)
+
+    class _NullObs:   # what the obs wiring installs, minus the records
+        def am_sent(self, *a):
+            pass
+
+        def flow_sent(self, *a):
+            pass
+
+    with contextlib.ExitStack() as st:
+        st.enter_context(params.cmdline_override("comm_coalesce_max_bytes",
+                                                 "0"))
+        st.enter_context(params.cmdline_override("comm_chunk_bytes", "4096"))
+        tcpmod._sendall_vec = capturing
+        st.callback(setattr, tcpmod, "_sendall_vec", orig)
+        knobs = [dict(obs_flow=flow_r0, obs_live=live_r0),
+                 dict(obs_flow=flow_r1)]
+        e0, e1 = _engines_with(knobs)
+        try:
+            if flow_r0 or live_r0:
+                e0._flow = FlowIds(0)
+                e0._flow.live = live_r0
+                e0._obs = _NullObs()
+            assert _wait(lambda: _peer_obj(e0, 1) is not None
+                         and _peer_obj(e0, 1).hello_seen
+                         and _peer_obj(e1, 0) is not None
+                         and _peer_obj(e1, 0).hello_seen)
+            got = []
+            for tag in (TAG_ACTIVATE, TAG_DTD_DATA, TAG_MEM_PUT):
+                e1.tag_register(tag, lambda src, p: got.append(p))
+            rng = np.random.RandomState(7)
+            small, big = rng.rand(16, 16), rng.rand(64, 64)
+            msgs = [(TAG_ACTIVATE, {"tp_id": 0, "root": 0, "ranks": [1],
+                                    "edges": {1: []}, "data": small}),
+                    (TAG_DTD_DATA, {"tp_id": 0, "tile": (0, 0), "seq": 1,
+                                    "data": small * 2}),
+                    (TAG_MEM_PUT, {"tp_id": 0, "coll": "descA",
+                                   "args": (1, 0), "data": big}),
+                    (TAG_ACTIVATE, {"tp_id": 0, "root": 0, "ranks": [1],
+                                    "edges": {1: []}, "data": big + 1})]
+            for tag, payload in msgs:
+                e0.send_am(1, tag, payload)
+                p = e0._peer_to(1)
+                assert _wait(lambda: not p.ctrl and not p.bulk)
+            _drain_until(e1, lambda: len(got) == len(msgs))
+        finally:
+            e0.fini()
+            e1.fini()
+    frames = [b for name, bodies in captured.items()
+              if "tcp-send-r0" in name for b in bodies]
+    hello = [b for b in frames if len(b) > 8 and b[8] == wire.K_HELLO]
+    data = [b for b in frames if not (len(b) > 8 and b[8] == wire.K_HELLO)]
+    return hello[0], data, got
+
+
+def _engines_with(knobs):
+    """``_engines`` with per-rank constructor knobs."""
+    import concurrent.futures as cf
+    for _ in range(5):
+        eps = [("127.0.0.1", p) for p in free_ports(2)]
+        with cf.ThreadPoolExecutor(2) as ex:
+            futs = [ex.submit(TCPCommEngine, r, eps, **knobs[r])
+                    for r in range(2)]
+            out, err = [], None
+            for f in futs:
+                try:
+                    out.append(f.result())
+                except OSError as exc:
+                    if exc.errno != errno.EADDRINUSE:
+                        raise
+                    err = exc
+        if err is None:
+            return out
+        for e in out:
+            e._closing = True
+            e.fini()
+    raise err
+
+
+def test_obs_knob_unset_frames_unchanged_and_mixed_peer_negotiates_down():
+    """With obs_flow and obs_live unset the HELLO is the one this
+    package sent before telemetry (no "tr", no "lv") and the data frames
+    carry no trace context, run after run; with either knob set on rank
+    0 only, rank 1 never advertised "tr", so rank 0 negotiates down and
+    its data frames stay byte-identical to the unset run (only its
+    HELLO grows the advertisement).  With both ends set, the same
+    messages carry a context and the frames differ."""
+    hello_a, a, got_a = _capture_leg()
+    hello_b, b, _ = _capture_leg()
+    _, c, got_c = _capture_leg(flow_r0=True)
+    hello_d, d, _ = _capture_leg(live_r0=True)
+    _, e, got_e = _capture_leg(flow_r0=True, flow_r1=True)
+    assert a and a == b == c == d
+    info = wire.parse_hello(memoryview(hello_a)[8:])
+    assert set(info) == {"ver", "rank", "codecs", "hb", "rs"}
+    assert hello_a == hello_b
+    assert hello_a == struct.pack("<Q", len(hello_a) - 8) + \
+        wire.pack_hello(info)
+    assert wire.parse_hello(memoryview(hello_d)[8:]).keys() \
+        == set(info) | {"tr", "lv"}
+    assert all("_tr" not in m for m in got_a + got_c)
+    assert e != a and all(len(m["_tr"]) == 2 for m in got_e)
+
+
+def test_obs_knob_unset_builds_no_sink_thread_or_timed_event(monkeypatch):
+    """No telemetry knob: the engines and the device module carry no
+    sink (``_obs``, ``_flow`` stay None), no obs_live monitor or clock
+    sampler thread starts, and a dpotrf records no timed CUDA event."""
+    import parsec_tpu_torch
+    from parsec_tpu_torch.collections import TwoDimBlockCyclic
+    from parsec_tpu_torch.comm import LocalFabric, RemoteDepEngine
+    from parsec_tpu_torch.ops import dpotrf, make_spd
+    timed = []
+    real = torch.cuda.Event
+
+    def event(*a, **kw):
+        if kw.get("enable_timing"):
+            timed.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    fab = LocalFabric(1)
+    ctx = parsec_tpu_torch.init(nb_cores=2, device="cpu",
+                                comm=RemoteDepEngine(fab.engine(0)))
+    try:
+        A = TwoDimBlockCyclic(96, 96, 32, 32).from_numpy(make_spd(96))
+        dpotrf(ctx, A)
+        assert ctx.obs.enabled is False and ctx.obs.live is None
+        assert all(d._obs is None for d in ctx.devices)
+        assert ctx.comm.ce._obs is None and ctx.comm.ce._flow is None
+        names = [t.name for t in threading.enumerate()]
+        assert not any(n.startswith(("obs-live", "tcp-clock"))
+                       for n in names), names
+    finally:
+        ctx.fini()
+    e0, e1 = _engines(2)
+    try:
+        assert e0._clock_thread is None and not e0._flow_enabled
+        assert e0._obs is None and e0._flow is None
+    finally:
+        e0.fini()
+        e1.fini()
+    assert not timed
+
+
+def test_clock_estimate_ignores_stretched_round_trips():
+    """A clock sample folds into the peer's offset estimate only while
+    its round trip stays within twice the shortest seen: a pong delayed
+    by a busy process (a long, lopsided round trip) is dropped, a quick
+    one folds, and a new shortest round trip raises the bar."""
+    e0, e1 = _engines(2)
+    try:
+        e0._note_clock(1, 10.0, rtt_us=100.0)
+        e0._note_clock(1, 4000.0, rtt_us=9000.0)    # stretched: dropped
+        assert e0.clock_offset_us(1) == 10.0
+        e0._note_clock(1, 30.0, rtt_us=180.0)       # within 2x: folds
+        assert e0.clock_offset_us(1) == pytest.approx(15.0)
+        e0._note_clock(1, 20.0, rtt_us=40.0)        # new best round trip
+        e0._note_clock(1, 900.0, rtt_us=100.0)      # now 2.5x: dropped
+        assert e0.clock_offset_us(1) == pytest.approx(16.25)
+        e0._note_clock(1, 80.0)                     # no round trip given
+        assert e0.clock_offsets_us() == {1: pytest.approx(32.188, abs=1e-3)}
+    finally:
+        e0.fini()
+        e1.fini()
 
 
 def test_torch_tensor_on_the_wire_raises():

@@ -651,7 +651,7 @@ def _gemm_burst(ctx, burst, nb, seed=0):
 
     boot = tp.tile_of_array(np.zeros((nb, nb), np.float32))
     tp.insert_task(body, (boot, INOUT), (boot, INPUT), (boot, INPUT))
-    tp.add_chore(body, "cuda", ops.gemm_nt)
+    tp.add_chore(body, "cuda", ops.gemm_nt, stacked=True)
     rng = np.random.RandomState(seed)
     tiles = [[tp.tile_of_array(rng.rand(nb, nb).astype(np.float32))
               for _ in range(3)] for _ in range(burst)]
@@ -738,7 +738,7 @@ def test_batched_dispatch_divergent_shapes():
                                           np.ones(s, np.float32))
 
 
-def _transpose_burst(ctx):
+def _transpose_burst(ctx, stacked=False):
     tp = tdtd.taskpool_new()
     ctx.add_taskpool(tp)
 
@@ -749,7 +749,7 @@ def _transpose_burst(ctx):
     boot = tp.tile_of_array(np.zeros((3, 3), np.float32))
     tp.insert_task(body, (boot, INOUT))
     # .T reverses every dimension: right on one tile, wrong on a stack
-    tp.add_chore(body, "cuda", lambda x: x.T + 1.0)
+    tp.add_chore(body, "cuda", lambda x: x.T + 1.0, stacked=stacked)
     rng = np.random.RandomState(4)
     tiles = [tp.tile_of_array(rng.rand(3, 3).astype(np.float32))
              for _ in range(8)]
@@ -763,14 +763,25 @@ def _transpose_burst(ctx):
 
 def test_stacked_chore_failure_raises_from_wait():
     """A chore that is right per task but wrong on a stack (``.T``, not
-    ``.mT``) is not downgraded to per-task dispatch: the stacked call's
-    error aborts the DAG and re-raises from wait()."""
+    ``.mT``) keeps single-tile semantics by default, batched or not.
+    Declared ``stacked=True``, it is not downgraded to per-task
+    dispatch: the stacked call's error aborts the DAG and re-raises from
+    wait()."""
+    rng = np.random.RandomState(4)
+    want = [rng.rand(3, 3).astype(np.float32).T + 1.0 for _ in range(8)]
     with _burst_ctx(device_batch_max=1) as c:
-        for t in _transpose_burst(c):   # per task: right
-            assert t.data.get_copy(0).payload.shape == (3, 3)
+        ref = [t.data.get_copy(0).payload.copy()
+               for t in _transpose_burst(c)]   # per task: right
+    with _burst_ctx(device_batch_max=8) as c:
+        got = [t.data.get_copy(0).payload.copy()
+               for t in _transpose_burst(c)]
+        assert _cuda(c).stats["batches"] > 0
+    for r, g, w in zip(ref, got, want):
+        np.testing.assert_array_equal(r, g)
+        np.testing.assert_allclose(r, w, rtol=1e-6)
     with _burst_ctx(device_batch_max=8) as c:
         with pytest.raises(RuntimeError, match="task body failed") as ei:
-            _transpose_burst(c)
+            _transpose_burst(c, stacked=True)
         assert isinstance(ei.value.__cause__, ValueError)
 
 
@@ -801,7 +812,7 @@ def dtd_cholesky(ctx, A):
                             (syrk, ops.syrk_ln, (INOUT, INPUT)),
                             (gemm, ops.gemm_nt, (INOUT, INPUT, INPUT))]:
         tp.insert_task(body, *[(boot, m) for m in modes])
-        tp.add_chore(body, "cuda", fn)
+        tp.add_chore(body, "cuda", fn, stacked=True)
     T = lambda m, n: tp.tile_of(A, (m, n))   # noqa: E731
     n_tasks = 0
     for k in range(A.nt):

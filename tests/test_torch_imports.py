@@ -48,7 +48,9 @@ def test_sources_import_no_jax():
                 "collections/ops.py", "dsl/ptg/unparse.py",
                 "profiling/otf2.py", "profiling/aggregator.py",
                 "bindings/__init__.py", "bindings/build.py",
-                "bindings/chelper.py"):
+                "bindings/chelper.py", "obs/__init__.py", "obs/metrics.py",
+                "obs/prometheus.py", "obs/spans.py", "obs/critpath.py",
+                "obs/live.py"):
         assert os.path.join("parsec_tpu_torch", mod) in seen, mod
     for path in _port_sources():
         with open(path) as fh:
@@ -297,6 +299,30 @@ FRONT_END_DRIVES = {
     "profiling.aggregator": """
         from parsec_tpu_torch.profiling.aggregator import AggregatorServer
         srv = AggregatorServer().start(); srv.stop()
+    """,
+    "obs": """
+        from parsec_tpu_torch import obs
+        from parsec_tpu_torch.utils.params import params
+        with params.cmdline_override("metrics", "1"), \
+                params.cmdline_override("obs_live", "1"):
+            c2 = ptt.init(nb_cores=2, device="cpu", profile=True)
+            A = TwoDimBlockCyclic(96, 96, 32, 32).from_numpy(
+                ptt.ops.make_spd(96))
+            ptt.ops.dpotrf(c2, A)
+            c2.stamp_profile_meta()
+            doc = c2.profile.to_chrome_trace()
+            text = c2.obs.render_prometheus()
+            c2.fini()
+        obs.validate_chrome_trace(doc)
+        assert "device" in obs.analyze([doc])
+        assert obs.parse_exposition(text)
+    """,
+    "obs.live": """
+        from parsec_tpu_torch.obs.live import LiveHealth, fleet_health
+        lh = LiveHealth(0)
+        lh.note_comm(0, 1000, src=1)
+        lh.tick()
+        assert fleet_health({0: lh.snapshot()})["nb_ranks"] == 1
     """,
     "bindings.chelper": """
         from parsec_tpu_torch.bindings import chelper

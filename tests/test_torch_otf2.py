@@ -231,17 +231,22 @@ def test_aggregator_ignores_nonobject_json():
 
 
 def test_obs_backed_endpoints_refuse():
-    """/metrics and /health need obs (ROADMAP Queue 1 item 7): the
-    functions raise and the HTTP server answers 501, never an empty
-    200; /timeline works."""
+    """/metrics and /health are backed by obs/ now: the functions answer
+    (a strict-parser-clean exposition, a fleet health document), and the
+    HTTP server answers 200 on every endpoint, none of them 501."""
+    from parsec_tpu_torch.obs import parse_exposition
     srv = AggregatorServer().start()
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            fleet_to_prometheus(srv.fleet())
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            srv.health_fleet()
-        for path, status in (("/metrics", b"501"), ("/health", b"501"),
-                             ("/timeline", b"200")):
+        with socket.create_connection((srv.host, srv.port), timeout=5) as s:
+            s.sendall(json.dumps({"rank": 0, "counters": {"X": 1},
+                                  "health": {"rank": 0,
+                                             "status": 0}}).encode()
+                      + b"\n")
+            _wait_pushes(srv, 1)
+        samples = parse_exposition(fleet_to_prometheus(srv.fleet()))
+        assert samples[("x", (("rank", "0"),))] == 1.0, samples
+        assert srv.health_fleet()["nb_ranks"] == 1
+        for path in ("/metrics", "/health", "/timeline"):
             with socket.create_connection((srv.host, srv.port),
                                           timeout=5) as s:
                 s.sendall(f"GET {path} HTTP/1.0\r\n\r\n".encode())
@@ -251,7 +256,7 @@ def test_obs_backed_endpoints_refuse():
                     if not chunk:
                         break
                     buf += chunk
-            assert buf.split(b"\r\n")[0].split()[1] == status, (path, buf)
+            assert buf.split(b"\r\n")[0].split()[1] == b"200", (path, buf)
     finally:
         srv.stop()
 

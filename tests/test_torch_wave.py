@@ -486,8 +486,10 @@ END
 
 
 def test_wave_body_branching_on_data_raises():
-    """A body that branches in Python on a tile's values cannot run on a
-    stack of tiles: named as a WaveError, not a bare torch error."""
+    """A body marked ``batch=stacked`` that branches in Python on a
+    tile's values cannot run on a stack of tiles: named as a WaveError,
+    not a bare torch error.  Unmarked, the same body keeps single-tile
+    semantics and runs per task."""
     jdf = """
 descA [ type="collection" ]
 NT [ type="int" ]
@@ -497,7 +499,7 @@ k = 0 .. NT-1
 : descA( k, 0 )
 RW A <- descA( k, 0 )
      -> descA( k, 0 )
-BODY
+BODY%s
 {
     A = A * 2.0 if A[0, 0] > 0 else A
 }
@@ -505,9 +507,15 @@ END
 """
     descA = TwoDimBlockCyclic(8, 4, 4, 4).from_numpy(
         np.ones((8, 4), np.float32))
-    w = wave(ptg.compile_jdf(jdf, name="branchy").new(NT=2, descA=descA))
+    w = wave(ptg.compile_jdf(jdf % " [batch=stacked]", name="branchy")
+             .new(NT=2, descA=descA))
     with pytest.raises(WaveError, match="cannot run on a batch"):
         w.run(device="cpu")
+    w = wave(ptg.compile_jdf(jdf % "", name="branchy1")
+             .new(NT=2, descA=descA))
+    w.run(device="cpu")
+    np.testing.assert_array_equal(descA.to_numpy(),
+                                  np.full((8, 4), 2.0, np.float32))
 
 
 def test_wave_stats():
