@@ -114,6 +114,23 @@ Phases, each reporting on its own lines:
             IPC run and no park leaked, the chain's value exact.  A rank
             that exits non-zero or passes its 300 s deadline fails the
             phase;
+    redist  inside the dposv_2 and dposv_2_ipc spawns, after each rank's
+            timed dposv (the newest versions of A's tiles still on the
+            card) and before it saves its tiles, three moves of the
+            factor A through collections.redistribute, in this order:
+            (b) the whole A from 2 x 1 to 1 x 2 at NB 1024 through the
+            collective planner (xfer_collective_redist: coalesced
+            alltoall rounds over the TCP wire in dposv_2, over the
+            CUDA-IPC plane in dposv_2_ipc), (a) the same move on the DTD
+            path, (c) A[100:12100, 200:12200] at NB 1024 on 2 x 1 into a
+            12288 x 12288 target at NB 768 on 1 x 2, at offset (50, 0)
+            (the fragment walk).  Per move: seconds (barrier to
+            barrier), the global redist_bytes and the bytes landed per
+            rank, wire messages and bytes, planner rounds and
+            transfers, plane pulls, GB/s over the region's bytes; the
+            parent assembles each target, bit-identical to the matching
+            slice of phase dposv's factor (its tiles above the diagonal:
+            the input);
 5e'. obs_2  telemetry on two ranks: ONE spawn of two rank processes
             (dposv_2: phase dposv's input, A and B on 2 x 1, TCP, with
             heartbeats every 0.5 s in every run), each alternating four
@@ -157,6 +174,21 @@ Phases, each reporting on its own lines:
             detector and detection latency, the disk its snapshots took,
             and the factor and X, bit-identical to phase dposv's with
             residuals under 1e-4;
+5f'. elastic_3 the same dposv on 3 rank processes (A and B on 3 x 1)
+            through run_with_restart with an ElasticPolicy under
+            ft_elastic=shrink, a snapshot every stage; ft_inject kills
+            rank 2 halfway through its stage-1 tasks.  In ONE spawn the
+            survivors detect it, agree on members (0, 1), rebuild on
+            2 x 1 (world ranks kept), reshard-restore the stage-1
+            snapshot (rank 2's shards read from disk) and replay.  The
+            recovery wall (rank 2's silence to the survivors' end) is
+            printed beside ft_kill_2's, with its parts: detection,
+            agreement, rebuild, the reshard-restore (shard load and
+            move), replay.  Checks: outcomes ok/ok/InjectedKill, grid
+            (0, 1), one resize, reshard bytes > 0, device tasks equal
+            CUDA-body tasks in every finished attempt, GEMM launches on
+            both survivors after the resize, factor and X bit-identical
+            to phase dposv's, residuals under 1e-4;
 5g. template a CUDA-body task, a BODY [type=template] task on an
             attached TemplateDevice and a CUDA-body task on one 1024 x
             1024 tile: exact against the plain chain, the template's
@@ -1153,6 +1185,9 @@ MULTIRANK_RUNS = {"dposv_2": (2, (2, 1), 2, False),
                   "dposv_2_ipc": (2, (2, 1), 2, True)}
 DTD_HOPS = 64
 RANK_DEADLINE = 300.0    # seconds a rank process may take
+#: the runs whose ranks also move the factor between distributions
+#: (phase redist), after the timed dposv and before saving their tiles
+REDIST_RUNS = ("dposv_2", "dposv_2_ipc")
 
 
 def local_cuda_tasks(pools, rank: int, cuda_only: bool = True) -> int:
@@ -1200,6 +1235,79 @@ def save_tiles(ctx, out: str, A, B) -> None:
             host = d.data_of(i, j).sync_to_host(ctx.devices)
             np.save(os.path.join(out, f"{name}_{i}_{j}.npy"),
                     np.asarray(host.payload))
+
+
+def redist_region(n: int, nb: int):
+    """Move (c) at N = 16384, NB = 1024: A[100:12100, 200:12200] into a
+    12288 x 12288 target at NB 768, at target offset (50, 0); the same
+    proportions at a smaller n (the CPU rehearsal).  Returns (disi_Y,
+    disj_Y, rows, cols, target n, target NB, disi_T, disj_T)."""
+    def sc(x):
+        return x * n // N_MAIN
+    return (sc(100), sc(200), sc(12000), sc(12000), sc(12288), 3 * nb // 4,
+            sc(50), 0)
+
+
+def rank_redist(ctx, args, A, dp) -> dict:
+    """Phase redist on this rank, after the timed dposv while the newest
+    versions of A's tiles may still be on the card: (b) the whole A from
+    2 x 1 to 1 x 2 at the same NB through the collective planner
+    (xfer_collective_redist on; the TCP wire, or the IPC plane where one
+    is attached), (a) the same move on the DTD path, (c) a sub-region
+    into a target of another size, tile and offset (the fragment walk).
+    Each move is timed from a barrier to a barrier and reports the
+    global ``redist_bytes``, the bytes landed here, the wire messages and
+    bytes this rank sent, the planner's rounds and transfers, the plane's
+    pulls.  Saves (b)'s and (c)'s local tiles (as Rb_*, Rc_*); (a)'s must
+    equal (b)'s, tile for tile."""
+    from parsec_tpu_torch.collections import TwoDimBlockCyclic, redistribute
+    from parsec_tpu_torch.utils.params import params
+    rank, n, nb = ctx.rank, args.n, args.nb
+    ce = ctx.comm.ce
+    iy, jy, rows, cols, tn, tnb, it, jt = redist_region(n, nb)
+
+    def target(lm, tb, name):
+        T = TwoDimBlockCyclic(lm, lm, tb, tb, P=1, Q=2, nodes=2, rank=rank,
+                              dtype=np.float32)
+        T.name = name
+        return T
+
+    def move(T, region, planner):
+        sent0 = (ce.fabric.msg_count, ce.fabric.bytes_count)
+        pulls0 = dp.stats["pulls"] if dp is not None else 0
+        ce.sync()
+        t0 = time.perf_counter()
+        with params.cmdline_override("xfer_collective_redist",
+                                     "1" if planner else "0"):
+            tp = redistribute(A, T, *region, context=ctx)
+        ce.sync()
+        seconds = time.perf_counter() - t0
+        return dict(seconds=seconds, redist_bytes=tp.redist_bytes,
+                    landed_bytes=sum(int(np.prod(T.tile_shape(*c))) * 4
+                                     for c in T.local_tiles()),
+                    msgs=ce.fabric.msg_count - sent0[0],
+                    bytes=ce.fabric.bytes_count - sent0[1],
+                    planned=hasattr(tp, "plan_digest"),
+                    rounds=getattr(tp, "redist_rounds", 0),
+                    transfers=getattr(tp, "redist_transfers", 0),
+                    plane_pulls=(dp.stats["pulls"] - pulls0
+                                 if dp is not None else 0))
+
+    def host(T, c):
+        return np.asarray(T.data_of(*c).sync_to_host(ctx.devices).payload)
+
+    whole = (n, n, 0, 0, 0, 0)
+    Tb, Ta = target(n, nb, "redist_b"), target(n, nb, "redist_a")
+    Tc = target(tn, tnb, "redist_c")
+    out = {"b": move(Tb, whole, True), "a": move(Ta, whole, False),
+           "c": move(Tc, (rows, cols, iy, jy, it, jt), False)}
+    out["a_equals_b"] = all(np.array_equal(host(Ta, c), host(Tb, c))
+                            for c in Tb.local_tiles())
+    for name, T in (("Rb", Tb), ("Rc", Tc)):
+        for (i, j) in T.local_tiles():
+            np.save(os.path.join(args.out, f"{name}_{i}_{j}.npy"),
+                    host(T, (i, j)))
+    return out
 
 
 def rank_dposv(ctx, args, plane: bool) -> dict:
@@ -1251,6 +1359,10 @@ def rank_dposv(ctx, args, plane: bool) -> dict:
                    plane_bytes=dp.stats["bytes_pulled"],
                    leaked_parks=dp.leaked_parks,
                    plane_backend=dp.backend_name)
+    if args.run in REDIST_RUNS:
+        out["redist"] = rank_redist(ctx, args, A, dp)
+        if dp is not None:
+            out["leaked_parks"] = dp.leaked_parks
     save_tiles(ctx, args.out, A, B)
     return out
 
@@ -1325,7 +1437,7 @@ def rank_worker(args) -> int:
               f"of {args.nb_ranks}")
         if args.run == "dtd_chain_2":
             out = rank_dtd_chain(ctx, args)
-        elif args.run in FT_RUNS:
+        elif args.run in FT_RUNS or args.run in ELASTIC_RUNS:
             out = rank_ft(ctx, args)
         else:
             out = rank_dposv(ctx, args, MULTIRANK_RUNS[args.run][3])
@@ -1393,6 +1505,58 @@ def spawn_ranks(run: str, nb_ranks: int, seed: int, out_dir: str,
     return recs
 
 
+def dposv_source(factor: np.ndarray, M: np.ndarray, nb: int) -> np.ndarray:
+    """What a rank's A holds after dposv, whole: the factor in the lower
+    and diagonal tiles (POTRF leaves the diagonal tiles' upper triangle
+    zero, as np.tril does), the input in the tiles above the diagonal,
+    which dposv never writes."""
+    S = factor.copy()
+    for j in range(nb, M.shape[1], nb):   # tile column j // nb
+        S[:j, j:j + nb] = M[:j, j:j + nb]
+    return S
+
+
+def redist_report(run: str, recs: list, out_dir: str, S: np.ndarray,
+                  n: int, nb: int) -> dict:
+    """The parent's half of phase redist: assemble each move's target
+    from the ranks' tiles, hold it bit for bit to the matching slice of
+    S (phase dposv's factor, its upper tiles the input), print one line
+    a move and return each move's seconds."""
+    iy, jy, rows, cols, tn, tnb, it, jt = redist_region(n, nb)
+    Rb = assemble(out_dir, "Rb", (n, n), nb)
+    Rc = assemble(out_dir, "Rc", (tn, tn), tnb)
+    want_c = np.zeros_like(Rc)
+    want_c[it:it + rows, jt:jt + cols] = S[iy:iy + rows, jy:jy + cols]
+    same = {"b": bool(np.array_equal(Rb, S)),
+            "a": bool(np.array_equal(Rb, S))
+            and all(r["redist"]["a_equals_b"] for r in recs),
+            "c": bool(np.array_equal(Rc, want_c))}
+    del Rb, Rc, want_c
+    region = {"a": n * n * 4, "b": n * n * 4, "c": rows * cols * 4}
+    what = {"b": "planner", "a": "dtd", "c": "fragments"}
+    seconds = {}
+    for k in ("b", "a", "c"):
+        mv = [r["redist"][k] for r in recs]
+        s = max(m["seconds"] for m in mv)
+        seconds[k] = s
+        log(f"redist.{run}", move=k, path=what[k],
+            planned=mv[0]["planned"], seconds=f"{s:.4f}",
+            region_bytes=region[k], redist_bytes=mv[0]["redist_bytes"],
+            landed_bytes="/".join(str(m["landed_bytes"]) for m in mv),
+            wire_msgs="/".join(str(m["msgs"]) for m in mv),
+            wire_bytes="/".join(str(m["bytes"]) for m in mv),
+            rounds=mv[0]["rounds"], transfers=mv[0]["transfers"],
+            plane_pulls="/".join(str(m["plane_pulls"]) for m in mv),
+            gbps=f"{region[k] / s / 1e9:.3f}", identical=same[k])
+        check(same[k], f"redist.{run}: move {k} is not bit-identical to "
+                       f"phase dposv's factor")
+        check(all(m["redist_bytes"] == mv[0]["redist_bytes"] for m in mv),
+              f"redist.{run}: move {k}'s redist_bytes differ between ranks")
+        check(mv[0]["planned"] == (k == "b"),
+              f"redist.{run}: move {k} took the wrong path")
+    return seconds
+
+
 def assemble(out_dir: str, name: str, shape, nb: int) -> np.ndarray:
     out = np.zeros(shape, np.float32)
     for f in os.listdir(out_dir):
@@ -1407,12 +1571,13 @@ def phase_multirank(seed: int, factor: np.ndarray, X1: np.ndarray,
                     n: int = N_MAIN, nb: int = NB_MAIN, nrhs: int = NRHS,
                     profile: bool = False):
     """dposv across 2 and 4 rank processes, host-staged and over the
-    CUDA-IPC plane, then the DTD chain; returns each dposv run's GEMM
-    launches by rank."""
+    CUDA-IPC plane (the redist moves inside dposv_2 and dposv_2_ipc),
+    then the DTD chain; returns each dposv run's GEMM launches by rank."""
     M = synth_spd(n, seed)
     Bm = uniform(n, nrhs, seed=seed + 10)
     flops = n ** 3 / 3 + 2.0 * n * n * nrhs
     launches = {}
+    S = None
     for run, (nb_ranks, grid, PB, plane) in MULTIRANK_RUNS.items():
         out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{run}_")
         try:
@@ -1422,6 +1587,13 @@ def phase_multirank(seed: int, factor: np.ndarray, X1: np.ndarray,
             spawn_s = time.perf_counter() - t0
             L = assemble(out_dir, "A", (n, n), nb)
             X = assemble(out_dir, "B", (n, nrhs), nb)
+            if run in REDIST_RUNS:
+                if S is None:
+                    S = dposv_source(factor, M, nb)
+                t1 = time.perf_counter()
+                moved = redist_report(run, recs, out_dir, S, n, nb)
+                log(f"redist.{run}", moves_s=f"{sum(moved.values()):.4f}",
+                    check_s=f"{time.perf_counter() - t1:.1f}")
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
         wall = max(r["wall"] for r in recs)
@@ -1779,6 +1951,11 @@ FT_HEARTBEAT = {"PARSEC_MCA_ft_heartbeat_interval": "0.05",
                 "PARSEC_MCA_ft_heartbeat_timeout": "2"}
 FT_RETRIES = 1
 FT_DARK_S = 120.0        # a killed rank stays dark at most this long
+#: phase elastic_3: dposv on 3 rank processes (A, B on 3 x 1) under
+#: ft_elastic=shrink; rank ELASTIC_KILLED is killed inside stage 1 and
+#: the survivors shrink in-world to 2 x 1
+ELASTIC_RUNS = ("elastic_3",)
+ELASTIC_RANKS, ELASTIC_KILLED = 3, 2
 
 
 def ft_stages(A, B, rank: int, nb_ranks: int) -> list:
@@ -1807,25 +1984,70 @@ def rank_ft(ctx, args) -> dict:
     """One rank's dposv through ``run_with_restart`` (snapshots under
     ``args.ckpt``, every stage), timed per attempt, snapshot and
     restore; a rank that failed reports how and where, a killed rank
-    stays dark until rank 0 has raised, a rank that finished saves its
-    tiles."""
+    stays dark until its peers have raised or finished, a rank that
+    finished saves its tiles.  The elastic run builds its collections
+    through an ElasticPolicy's rebuild (on the grid of the members) and
+    also reports its agreement, rebuilds, grid and elastic counters."""
     import parsec_tpu_torch as ptt  # noqa: F401
-    from parsec_tpu_torch.ft import RestartPolicy, run_with_restart
+    from parsec_tpu_torch.ft import (ElasticPolicy, RestartPolicy,
+                                     run_with_restart)
     from parsec_tpu_torch.ops import kernels
     from parsec_tpu_torch.utils import checkpoint as ckpt
     restart = sys.modules["parsec_tpu_torch.ft.restart"]
     rank, nb_ranks = ctx.rank, ctx.nb_ranks
-    A, B = rank_inputs(args, rank, nb_ranks, (nb_ranks, 1), nb_ranks)
-    expected = ft_stage_tasks(args.n, args.nb, args.nrhs, nb_ranks, rank,
-                              cuda_only=True)
+    n, nb, nrhs = args.n, args.nb, args.nrhs
+    elastic = args.run in ELASTIC_RUNS
     dev = ctx.device_by_type("cuda")
     attempts, snaps, restores, kills, detects = [], [], [], [], []
+    agrees, rebuilds, live = [], [], {}
 
     def attempt(i, mk):
         def make():
-            attempts.append((i, dev.stats["tasks"]))
+            attempts.append((i, dev.stats["tasks"],
+                             local_cuda_tasks([mk()], rank)))
             return mk()
         return make
+
+    if elastic:
+        M = synth_spd(n, args.seed)
+        Bm = uniform(n, nrhs, seed=args.seed + 10)
+
+        def rebuild(grid):
+            """dposv's collections and stages on the grid of ``grid``'s
+            members (world ranks stay world ranks), local tiles filled
+            with phase dposv's input; a resize reshard-restores over
+            them."""
+            t0 = time.time()
+            A, B = (grid.collection(n, w, nb, nb, dtype=np.float32)
+                    for w in (n, nrhs))
+            A.name, B.name = "descA", "descB"
+            for d, src in ((A, M), (B, Bm)):
+                for (i, j) in d.local_tiles():
+                    np.copyto(d.tile(i, j), src[i * nb:(i + 1) * nb,
+                                                j * nb:(j + 1) * nb])
+            live.update(A=A, B=B)
+            rebuilds.append((t0, time.time(), kernels.matmul_launches))
+            return ([attempt(i, mk) for i, mk in
+                     enumerate(ft_stages(A, B, rank, nb_ranks))], [A, B])
+
+        co = ctx._ft_elastic
+        agree0 = co.agree
+
+        def timed_agree(*a, **kw):
+            t0 = time.time()
+            try:
+                return agree0(*a, **kw)
+            finally:
+                agrees.append((t0, time.time()))
+
+        co.agree = timed_agree
+        stages = colls = None
+    else:
+        A, B = rank_inputs(args, rank, nb_ranks, (nb_ranks, 1), nb_ranks)
+        live.update(A=A, B=B)
+        stages = [attempt(i, mk) for i, mk in
+                  enumerate(ft_stages(A, B, rank, nb_ranks))]
+        colls = [A, B]
 
     save0, restore0 = restart._save, restart._restore
 
@@ -1838,10 +2060,16 @@ def rank_ft(ctx, args) -> dict:
                           write_s=st["write_s"] - before["write_s"],
                           bytes=st["bytes"] - before["bytes"]))
 
-    def timed_restore(collections, prefix, stage, context=None):
-        t0 = time.perf_counter()
-        restore0(collections, prefix, stage, context)
-        restores.append(dict(stage=stage, s=time.perf_counter() - t0))
+    def timed_restore(collections, prefix, stage, context=None,
+                      reshard=False):
+        es = ctx.comm.ce.elastic_stats if ctx.comm is not None else {}
+        load0 = es.get("reshard_load_us", 0)
+        t0 = time.time()
+        restore0(collections, prefix, stage, context, reshard=reshard)
+        restores.append(dict(stage=stage, s=time.time() - t0, t0=t0,
+                             t1=time.time(), reshard=reshard,
+                             load_s=(es.get("reshard_load_us", 0)
+                                     - load0) / 1e6))
 
     restart._save, restart._restore = timed_save, timed_restore
     ce = ctx.comm.ce if ctx.comm is not None else None
@@ -1863,34 +2091,33 @@ def rank_ft(ctx, args) -> dict:
     t0 = time.perf_counter()
     try:
         stats = run_with_restart(
-            ctx, [attempt(i, mk) for i, mk in
-                  enumerate(ft_stages(A, B, rank, nb_ranks))], [A, B],
-            os.path.join(args.ckpt, "dposv"),
+            ctx, stages, colls, os.path.join(args.ckpt, "dposv"),
             RestartPolicy("restart", retries=FT_RETRIES, every=1),
-            resume_from=args.resume_from)
+            resume_from=args.resume_from,
+            elastic=ElasticPolicy(rebuild) if elastic else None)
     except RuntimeError as exc:
         root = exc.__cause__ or exc
         status, reason = type(root).__name__, str(root)
     if dev.is_cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    end_t = time.time()
     # per attempt: device tasks against the stage's local CUDA-body tasks
     ends = [a[1] for a in attempts[1:]] + [dev.stats["tasks"]]
     per = []
-    for k, (stage, before) in enumerate(attempts):
+    for k, (stage, before, expected) in enumerate(attempts):
         done = (attempts[k + 1][0] == stage + 1 if k + 1 < len(attempts)
                 else status == "ok")
         per.append(dict(stage=stage, device_tasks=ends[k] - before,
-                        local_cuda_tasks=expected[stage], finished=done))
+                        local_cuda_tasks=expected, finished=done))
     if status == "ok":
-        save_tiles(ctx, args.out, A, B)
+        save_tiles(ctx, args.out, live["A"], live["B"])
     open(os.path.join(args.out, f"rank{rank}_{status}"), "w").close()
     if ce is not None and status not in ("ok", "RankFailedError"):
-        # this rank's own stage failed: under the strict contract its
-        # peers cannot observe the abort, so the rank aborts the job as
-        # its process would, dark with its sockets open, until every
-        # peer has raised or finished: their heartbeat detectors, not
-        # this process's exit, must find it
+        # this rank's own stage failed (or it was killed): its peers must
+        # find it by their heartbeat detectors, not by this process's
+        # exit, so it stays dark with its sockets open until every peer
+        # has raised or finished
         if not ce._ft_silenced:
             ce.ft_silence()
         deadline = time.monotonic() + FT_DARK_S
@@ -1900,16 +2127,24 @@ def rank_ft(ctx, args) -> dict:
                 for p in peers):
             time.sleep(0.05)
     det = ctx._ft_detector
-    return dict(status=status, reason=reason[:200], wall=wall,
-                device=dev.name, matmul_launches=kernels.matmul_launches,
-                attempts=per, snapshots=snaps, restores=restores,
-                retries=stats.get("retries", 0),
-                last_snapshot=stats.get("last_snapshot"),
-                failed_stage=attempts[-1][0] if status != "ok" else None,
-                kill_t=kills[0] if kills else None,
-                detect_t=detects[0][0] if detects else None,
-                detect_reason=detects[0][2][:120] if detects else "",
-                evictions=det.evictions if det is not None else 0)
+    out = dict(status=status, reason=reason[:200], wall=wall,
+               device=dev.name, matmul_launches=kernels.matmul_launches,
+               attempts=per, snapshots=snaps, restores=restores,
+               retries=stats.get("retries", 0),
+               last_snapshot=stats.get("last_snapshot"),
+               failed_stage=attempts[-1][0] if status != "ok" else None,
+               kill_t=kills[0] if kills else None,
+               detect_t=detects[0][0] if detects else None,
+               detect_reason=detects[0][2][:120] if detects else "",
+               evictions=det.evictions if det is not None else 0)
+    if elastic:
+        out.update(grid=stats.get("grid"), resizes=stats.get("resizes", 0),
+                   elastic_stats=dict(ce.elastic_stats), agrees=agrees,
+                   rebuilds=rebuilds, end_t=end_t,
+                   launches_after_resize=(kernels.matmul_launches
+                                          - rebuilds[-1][2]
+                                          if len(rebuilds) > 1 else 0))
+    return out
 
 
 def ft_line(run: str, inc: int, spawn_s: float, r: dict) -> None:
@@ -1938,10 +2173,11 @@ def phase_ft(seed: int, factor: np.ndarray, X1: np.ndarray,
              n: int = N_MAIN, nb: int = NB_MAIN, nrhs: int = NRHS) -> dict:
     """dposv through ft.run_with_restart on rank processes (the dposv_2
     layout), with a chaos kill, a task fault and none; returns each
-    run's GEMM launches by incarnation and rank."""
+    run's GEMM launches by incarnation and rank, and each failed run's
+    recovery wall in seconds."""
     M = synth_spd(n, seed)
     Bm = uniform(n, nrhs, seed=seed + 10)
-    launches = {}
+    launches, recoveries = {}, {}
     for run, nb_ranks in FT_RUNS.items():
         out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{run}_")
         ckpt_dir = os.path.join(out_dir, "ckpt")
@@ -2001,7 +2237,7 @@ def phase_ft(seed: int, factor: np.ndarray, X1: np.ndarray,
                            else "socket" if surv["detect_reason"] else "none")
             if surv["detect_t"] is not None and dead["kill_t"] is not None:
                 latency = surv["detect_t"] - dead["kill_t"]
-                recovery = incs[-1][2] - dead["kill_t"]
+                recovery = recoveries[run] = incs[-1][2] - dead["kill_t"]
         log(f"ft.{run}", ranks=nb_ranks, incarnations=len(incs),
             walls="/".join(f"{max(r['wall'] for r in recs):.4f}"
                            for _, recs, _ in incs),
@@ -2059,7 +2295,125 @@ def phase_ft(seed: int, factor: np.ndarray, X1: np.ndarray,
                                  f"identical {same_X} to phase dposv's")
         launches[run] = [[r["matmul_launches"] for r in recs]
                          for _, recs, _ in incs]
-    return launches
+    return launches, recoveries
+
+
+def phase_elastic(seed: int, factor: np.ndarray, X1: np.ndarray,
+                  recoveries: dict, n: int = N_MAIN, nb: int = NB_MAIN,
+                  nrhs: int = NRHS) -> list:
+    """dposv on 3 rank processes (A and B on 3 x 1, TCP, heartbeats
+    every 0.05 s with a 2 s timeout) through ft.run_with_restart with an
+    ElasticPolicy under ft_elastic=shrink, a snapshot every stage;
+    ft_inject kills rank 2 halfway through its stage-1 tasks.  The
+    survivors must detect it, agree on members (0, 1), rebuild on 2 x 1,
+    reshard-restore the stage-1 snapshot (rank 2's shards read from
+    disk) and replay, in the same processes: one spawn.  Prints the
+    recovery wall (rank 2's silence to the survivors' end) beside
+    ft_kill_2's from the same call, and its parts; returns the
+    survivors' GEMM launches."""
+    M = synth_spd(n, seed)
+    Bm = uniform(n, nrhs, seed=seed + 10)
+    run, k = "elastic_3", ELASTIC_KILLED
+    n0, n1, _ = ft_stage_tasks(n, nb, nrhs, ELASTIC_RANKS, k,
+                               cuda_only=False)
+    env = dict(FT_HEARTBEAT, PARSEC_MCA_ft_elastic="shrink",
+               PARSEC_MCA_ft_inject=f"kill:rank={k}:after="
+                                    f"{n0 + max(1, n1 // 2)}")
+    out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{run}_")
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    os.makedirs(ckpt_dir)
+    try:
+        t0 = time.perf_counter()
+        recs = spawn_ranks(run, ELASTIC_RANKS, seed, out_dir, n, nb, nrhs,
+                           extra_env=env, extra_args=["--ckpt", ckpt_dir])
+        spawn_s, spawn_end = time.perf_counter() - t0, time.time()
+        L = assemble(out_dir, "A", (n, n), nb)
+        X = assemble(out_dir, "B", (n, nrhs), nb)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    same_L = bool(np.array_equal(L, factor))
+    same_X = bool(np.array_equal(X, X1))
+    resid_x = solve_residual(M, X, Bm, seed)
+    resid_l = residual(L, M, seed)
+    del L, X
+    dead = recs[k]
+    surv = [r for r in recs if r["rank"] != k]
+    for r in recs:
+        ft_line(run, 1, spawn_s, r)
+    kill_t = dead["kill_t"]
+    parts = {}
+    if kill_t is not None and all(r["agrees"] and len(r["rebuilds"]) > 1
+                                  for r in surv):
+        reshards = [[x for x in r["restores"] if x["reshard"]][0]
+                    for r in surv]
+        parts = dict(
+            detection_s=min(r["detect_t"] for r in surv) - kill_t,
+            agreement_s=max(r["agrees"][-1][1] - r["agrees"][-1][0]
+                            for r in surv),
+            rebuild_s=max(r["rebuilds"][-1][1] - r["rebuilds"][-1][0]
+                          for r in surv),
+            reshard_restore_s=max(x["s"] for x in reshards),
+            shard_load_s=max(x["load_s"] for x in reshards),
+            reshard_move_s=max(x["s"] - x["load_s"] for x in reshards),
+            replay_s=max(r["end_t"] - x["t1"]
+                         for r, x in zip(surv, reshards)))
+    recovery = (max(r["end_t"] for r in surv) - kill_t
+                if kill_t is not None else None)
+    ft_kill = recoveries.get("ft_kill_2")
+    log(f"ft.{run}", ranks=ELASTIC_RANKS, killed=k,
+        spawn_to_exit_s=f"{spawn_s:.1f}",
+        walls="/".join(f"{r['wall']:.4f}" for r in recs),
+        recovery_wall_s=(f"{recovery:.3f}" if recovery is not None
+                         else "-"),
+        recovery_to_exit_s=(f"{spawn_end - kill_t:.3f}"
+                            if kill_t is not None else "-"),
+        ft_kill_2_recovery_wall_s=(f"{ft_kill:.3f}" if ft_kill is not None
+                                   else "-"),
+        **{k_: f"{v:.4f}" for k_, v in parts.items()},
+        grids="/".join(str(r.get("grid")) for r in surv),
+        resizes="/".join(str(r.get("resizes")) for r in surv),
+        reshard_bytes="/".join(str(r["elastic_stats"]["reshard_bytes"])
+                               for r in surv),
+        launches_after_resize="/".join(str(r["launches_after_resize"])
+                                       for r in surv),
+        factor_identical=same_L, x_identical=same_X, residual=resid_x,
+        factor_residual=resid_l)
+    statuses = [r["status"] for r in recs]
+    want = ["ok"] * ELASTIC_RANKS
+    want[k] = "InjectedKill"
+    check(statuses == want, f"{run}: outcomes {statuses}, wanted {want}")
+    check(bool(parts), f"{run}: the survivors recorded no resize")
+    check(dead["failed_stage"] == 1,
+          f"{run}: the kill fell in stage {dead['failed_stage']}, not 1")
+    for r in surv:
+        es = r["elastic_stats"]
+        check(tuple(r["grid"] or ()) == (0, 1) and r["resizes"] == 1
+              and es["elastic_resizes"] == 1 and es["reshard_bytes"] > 0,
+              f"{run}: rank {r['rank']} grid {r['grid']}, resizes "
+              f"{r['resizes']}, counters {es}")
+        check(r["device"] == "cuda:0",
+              f"{run}: rank {r['rank']} ran on {r['device']}")
+        check(r["launches_after_resize"] > 0,
+              f"{run}: rank {r['rank']} launched the GEMM kernel no time "
+              f"after the resize")
+    # the first survivor to learn of the death, by its own detector (the
+    # other may learn it first from that survivor's membership view)
+    first = min(surv, key=lambda r: r["detect_t"] or float("inf"))
+    check("heartbeat" in first["detect_reason"],
+          f"{run}: the death was first detected by "
+          f"{first['detect_reason']!r}")
+    for r in recs:
+        for a in r["attempts"]:
+            check(not a["finished"]
+                  or a["device_tasks"] == a["local_cuda_tasks"],
+                  f"{run}: rank {r['rank']} stage {a['stage']}: "
+                  f"{a['device_tasks']} device tasks of its "
+                  f"{a['local_cuda_tasks']} CUDA-body tasks")
+    check(resid_x < RESID_TOL and resid_l < RESID_TOL,
+          f"{run}: residuals {resid_x}, {resid_l} >= {RESID_TOL}")
+    check(same_L and same_X, f"{run}: factor identical {same_L}, X "
+                             f"identical {same_X} to phase dposv's")
+    return [r["matmul_launches"] for r in surv]
 
 
 TEMPLATE_JDF = """
@@ -3749,9 +4103,13 @@ def main(argv=None) -> int:
                                    profile=args.profile)
     gemm_launches["obs_dposv_2"] = sum(obs_launches.values())
     log("obs_2", seconds=f"{time.perf_counter() - t0:.1f}")
-    ft = phase_ft(args.seed, factor, X_dposv)
+    ft, recoveries = phase_ft(args.seed, factor, X_dposv)
     for run, incs in ft.items():
         gemm_launches[run] = sum(sum(per_rank) for per_rank in incs)
+    t0 = time.perf_counter()
+    elastic_launches = phase_elastic(args.seed, factor, X_dposv, recoveries)
+    gemm_launches["elastic_3"] = sum(elastic_launches)
+    log("elastic_3", seconds=f"{time.perf_counter() - t0:.1f}")
     del factor, X_dposv
     phase_template(args.seed)
     gemm_launches["collection_ops"] = phase_collection_ops(args.seed, L_ptg)
@@ -3797,6 +4155,7 @@ def main(argv=None) -> int:
                                           for run, per_rank
                                           in multirank.items()},
              ft_launches_by_incarnation_and_rank=ft,
+             elastic_3_launches_by_survivor=elastic_launches,
              obs_2_launches_by_rank_and_run=obs_launches,
              max_abs_err=gemm_err,
              **recs["gemm"]),

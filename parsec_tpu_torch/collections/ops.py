@@ -296,7 +296,6 @@ END
 _REDUCE_ALL_JDF = """
 descA [ type="collection" ]
 dest [ type="collection" ]
-MT [ type="int" ]
 NT [ type="int" ]
 MB [ type="int" ]
 NB [ type="int" ]
@@ -400,7 +399,7 @@ def reduce_all_taskpool(A: TiledMatrix, operation: Callable,
     nleaf = A.mt * A.nt
     dest = dest if dest is not None else _default_dest(A, 1, 1)
     tp = _reduce_factory("all", A.dtype).new(
-        descA=A, dest=dest, MT=A.mt, NT=A.nt, MB=A.mb, NB=A.nb,
+        descA=A, dest=dest, NT=A.nt, MB=A.mb, NB=A.nb,
         NLEAF=nleaf, DEPTH=_depth(nleaf), rank=rank, nb_ranks=nb_ranks)
     tp.global_env["operation"] = operation
     tp.global_env["op_args"] = op_args

@@ -1,8 +1,8 @@
 """Communication: comm-engine abstraction, transports, remote-dep protocol
 and the device data plane (SURVEY.md §2.4)."""
 from .engine import (CommEngine, MemHandle, RankFailedError, TAG_ACTIVATE,
-                     TAG_DTD_DATA, TAG_GET_DATA, TAG_GET_REQ, TAG_HEARTBEAT,
-                     TAG_TERMDET, TAG_USER_BASE)
+                     TAG_DTD_DATA, TAG_ELASTIC, TAG_GET_DATA, TAG_GET_REQ,
+                     TAG_HEARTBEAT, TAG_TERMDET, TAG_USER_BASE)
 from .local import LocalCommEngine, LocalFabric
 from .tcp import TCPCommEngine, free_ports
 from .remote_dep import RemoteDepEngine, bcast_children
@@ -12,4 +12,4 @@ __all__ = ["CommEngine", "MemHandle", "RankFailedError", "LocalFabric",
            "LocalCommEngine", "TCPCommEngine", "free_ports",
            "RemoteDepEngine", "bcast_children", "DeviceDataPlane",
            "TAG_ACTIVATE", "TAG_DTD_DATA", "TAG_GET_DATA", "TAG_GET_REQ",
-           "TAG_HEARTBEAT", "TAG_TERMDET", "TAG_USER_BASE"]
+           "TAG_ELASTIC", "TAG_HEARTBEAT", "TAG_TERMDET", "TAG_USER_BASE"]

@@ -13,9 +13,9 @@ for oversubscribed mpiexec, SURVEY.md §4) and TCPCommEngine (rank
 processes over sockets).  Device-resident tiles may ride a separate
 device data plane (comm/xfer.py).  The fault-tolerance hooks (ft/:
 heartbeat probes, the injected-kill silence, the chaos verdict on every
-outbound frame) and the telemetry seams (obs/: the ``_obs`` span sink,
-the ``_flow`` trace-context allocator) live here, uniform across
-transports; elastic membership is not carried by this package.
+outbound frame, elastic membership frames) and the telemetry seams
+(obs/: the ``_obs`` span sink, the ``_flow`` trace-context allocator)
+live here, uniform across transports.
 """
 from __future__ import annotations
 
@@ -144,6 +144,24 @@ class CommEngine:
         # -- fault tolerance (ft/) -------------------------------------
         #: HeartbeatDetector when one is installed (ft/detector.py)
         self.ft_detector: Optional[Any] = None
+        #: ElasticCoordinator when one is attached (ft/elastic.py);
+        #: TAG_ELASTIC traffic arriving before the attach is buffered
+        #: (a joiner may announce while the incumbents are mid-stage)
+        self.ft_elastic: Optional[Any] = None
+        self._elastic_buf: List[Tuple[int, Any]] = []
+        #: elastic-recovery counters (ft/elastic.py + ft/restart.py);
+        #: polled by obs.register_engine_gauges as the FT::ELASTIC_* /
+        #: FT::RESHARD_* gauges — plain dict, nothing on any hot path
+        self.elastic_stats: Dict[str, int] = {
+            "elastic_resizes": 0, "reshard_bytes": 0, "reshard_us": 0,
+            "elastic_joins": 0, "reshard_load_us": 0}
+        #: device-plane / planned-redistribution counters (comm/xfer.py,
+        #: xfer/plan.py); polled as the COMM::DPLANE_* and
+        #: COMM::REDIST_ROUNDS gauges ("two_level_reduces" stays 0: the
+        #: wave's collective lane is not carried yet)
+        self.dplane_stats: Dict[str, int] = {
+            "dplane_bytes": 0, "dplane_xfers": 0, "redist_rounds": 0,
+            "two_level_reduces": 0}
         #: injected-kill flag: the engine has gone dark (drops all
         #: traffic, answers no heartbeats) — simulates a crashed process
         self._ft_silenced = False
@@ -159,6 +177,9 @@ class CommEngine:
         # detector installed or not — liveness proof must not depend on
         # the *local* configuration
         self.tag_register(TAG_HEARTBEAT, self._on_heartbeat)
+        # elastic membership traffic (ft/elastic.py) is likewise always
+        # receivable: a coordinator may attach later and drain the buffer
+        self.tag_register(TAG_ELASTIC, self._on_elastic)
 
     def _notify_arrival(self) -> None:
         cb = self.on_arrival
@@ -287,6 +308,17 @@ class CommEngine:
         payload["_tr"] = ctx
         return payload, ctx
 
+    def dplane_to(self, dst: int) -> bool:
+        """May bulk planner payloads toward ``dst`` ride the device plane
+        (xfer/plan.py)?  Only when a plane is attached here and the
+        peer's plane address arrived (``DeviceDataPlane.exchange``): the
+        plane's address exchange checks both ends run the same backend,
+        which is this package's negotiation (its TCP HELLO carries no
+        ``"dp"`` capability).  Otherwise the payload stays on the
+        session wire."""
+        plane = self.device_plane
+        return plane is not None and dst in plane.addresses
+
     # -- failures -----------------------------------------------------------
     def report_peer_failure(self, peer: int, reason: str) -> None:
         """Uniform failure funnel: mark ``peer`` dead and notify the
@@ -300,6 +332,12 @@ class CommEngine:
         cb = self.on_peer_failure
         if cb is not None:
             cb(peer, reason)
+        # a membership change invalidates any in-flight resize
+        # agreement: wake the elastic coordinator so it re-proposes
+        # from the reduced survivor set instead of waiting out its tick
+        co = self.ft_elastic
+        if co is not None:
+            co.membership_changed()
 
     def peer_finished(self, peer: int) -> bool:
         """True when ``peer`` shut down CLEANLY (it finished its work
@@ -372,6 +410,41 @@ class CommEngine:
             return False
         return True
 
+    MAX_ELASTIC_BUF = 256
+
+    def ft_elastic_send(self, peer: int, payload: Any) -> bool:
+        """Send one elastic membership frame toward ``peer``; True when
+        it actually left. Gated like ``ft_ping``: the base path rides a
+        TAG_ELASTIC active message (the in-process fabric introspects
+        the peer's handler); the TCP engine overrides with a wire-level
+        K_ELASTIC frame delivered by the peer's receiver thread, gated
+        on the HELLO ``el`` capability — a peer without it is never
+        part of a resize agreement."""
+        if self._ft_silenced or peer in self.dead_peers \
+                or self.peer_finished(peer):
+            return False
+        try:
+            self.send_am(peer, TAG_ELASTIC, dict(payload))
+        except Exception:  # noqa: BLE001 - a proposal must never propagate
+            return False
+        return True
+
+    def _on_elastic(self, src: int, payload: Any) -> None:
+        """TAG_ELASTIC / K_ELASTIC arrival (progress drain or, on TCP,
+        the receiver thread): hand to the attached coordinator, or
+        buffer until one attaches (ElasticCoordinator.__init__ drains
+        under the same lock, so no message can slip between the
+        attach-check and the buffer append)."""
+        if self._ft_silenced:
+            return
+        with self._deferred_lock:
+            co = self.ft_elastic
+            if co is None:
+                if len(self._elastic_buf) < self.MAX_ELASTIC_BUF:
+                    self._elastic_buf.append((src, payload))
+                return
+        co.deliver(src, payload)
+
     def _on_heartbeat(self, src: int, payload: Any) -> None:
         if self._ft_silenced:
             return
@@ -442,6 +515,7 @@ TAG_TERMDET = 5
 TAG_DTD_DATA = 6
 TAG_MEM_PUT = 7
 TAG_HEARTBEAT = 8   # liveness probes (tcp rides wire-level K_PING frames)
+TAG_ELASTIC = 9     # elastic membership (grid resize / join; K_ELASTIC)
 TAG_USER_BASE = 16
 
 # the flow-traced data-plane tag set is spelled with literals above

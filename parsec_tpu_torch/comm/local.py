@@ -297,6 +297,18 @@ class LocalCommEngine(CommEngine):
             return False
         return super().ft_ping(peer, seq, t_ns)
 
+    def ft_elastic_send(self, peer: int, payload: Any) -> bool:
+        """Same support gate as ``ft_ping``, for membership traffic
+        (the in-process analog of TCP's HELLO ``el`` capability): a
+        peer without a TAG_ELASTIC handler must never be drawn into a
+        resize agreement."""
+        from .engine import TAG_ELASTIC
+        eng = (self.fabric.engines[peer]
+               if 0 <= peer < len(self.fabric.engines) else None)
+        if eng is None or TAG_ELASTIC not in eng._tag_cbs:
+            return False
+        return super().ft_elastic_send(peer, payload)
+
     def fini(self) -> None:
         # clean-shutdown advertisement (the in-process GOODBYE): a rank
         # under an injected kill died SILENTLY and must not mark itself

@@ -201,6 +201,27 @@ class RemoteDepEngine:
         # early activations stay buffered: they deliver in counts_ready(),
         # once startup has credited nb_tasks (see _on_activate)
 
+    @property
+    def next_tp_id(self) -> int:
+        """The wire id the NEXT registered taskpool will get."""
+        with self._lock:
+            return self._next_tp_id
+
+    def sync_tp_ids(self, base: int) -> None:
+        """Advance the wire-id counter to ``base`` so the next
+        registration agrees with peers that registered more pools than
+        this rank — the elastic-recovery alignment (ft/elastic.py): a
+        late joiner registered nothing while the incumbents ran whole
+        stages, and even survivors of a mid-stage failure can diverge
+        by one registration (a rank leaves a pool's wait as soon as
+        global termination is detected, so it may register the next
+        stage's pool while a peer is still waiting). Ids only ever
+        advance; traffic addressed to ids this rank never registers
+        stays parked in the early buffers, which is where stale frames
+        for foreign pools belong."""
+        with self._lock:
+            self._next_tp_id = max(self._next_tp_id, int(base))
+
     def progress(self, es) -> int:
         return self.ce.progress()
 

@@ -227,7 +227,7 @@ class _Peer:
     __slots__ = ("rank", "sock", "ctrl", "bulk", "cond", "writer",
                  "goodbye", "bw_mbps", "codec", "engaged", "frames",
                  "probe_ratio", "done", "queued_bytes", "hb_ok",
-                 "tr_ok", "lv_ok", "rs_ok", "hello_seen", "connected_at",
+                 "el_ok", "tr_ok", "lv_ok", "rs_ok", "hello_seen", "connected_at",
                  "conn_gen",
                  "suspect", "suspect_since", "rs_epoch", "rs_tx_seq",
                  "rs_rx_seq", "rs_window", "rs_window_bytes", "rs_replay",
@@ -258,6 +258,7 @@ class _Peer:
         self.comp_pre = 0          # per-peer lossless codec accounting
         self.comp_post = 0
         self.hb_ok = False         # HELLO advertised heartbeat support
+        self.el_ok = False         # HELLO advertised elastic membership
         self.tr_ok = False         # HELLO advertised flow tracing ("tr")
         self.lv_ok = False         # HELLO advertised obs_live ("lv")
         # -- reliable session --------------------------------
@@ -527,6 +528,7 @@ class TCPCommEngine(LocalCommEngine):
                 "rank": self.rank,
                 "codecs": self._codecs,
                 "hb": True,
+                "el": True,
                 "rs": self._rs_enabled}
         if self._flow_enabled:
             # flow tracing is advertised ONLY when the local knob is
@@ -1082,6 +1084,29 @@ class TCPCommEngine(LocalCommEngine):
             for _ in range(copies):
                 p.ctrl.append(("frame", frame))
                 p.queued_bytes += len(frame)
+            p.cond.notify()
+        return True
+
+    def ft_elastic_send(self, peer: int, payload) -> bool:
+        """Wire-level elastic membership frame (K_ELASTIC): like
+        ``ft_ping``, enqueued on the ctrl lane and delivered by the
+        peer's receiver thread — a resize proposal or join announcement
+        lands even while every worker is inside a long kernel. Gated on
+        the HELLO ``el`` capability: a peer without it is never drawn
+        into an agreement it cannot answer. Exempt from the chaos layer
+        (control plane, like heartbeats without ``hb=1``); the
+        coordinator's resend tick covers real frame loss."""
+        if self._ft_silenced or peer in self.dead_peers \
+                or peer in self.finished_peers:
+            return False
+        with self._conn_cond:
+            p = self._peers.get(peer)
+        if p is None or not p.el_ok or p.done:
+            return False
+        frame = wire.pack_elastic(dict(payload))
+        with p.cond:
+            p.ctrl.append(("frame", frame))
+            p.queued_bytes += len(frame)
             p.cond.notify()
         return True
 
@@ -1796,6 +1821,7 @@ class TCPCommEngine(LocalCommEngine):
             p.codec = wire.negotiate_codec(
                 self._codecs, info.get("codecs", ()))
             p.hb_ok = bool(info.get("hb"))
+            p.el_ok = bool(info.get("el"))
             # flow tracing negotiates SYMMETRICALLY like "rs": both
             # ends must run with obs_flow set or neither stamps
             p.tr_ok = bool(info.get("tr")) and self._flow_enabled
@@ -1924,6 +1950,12 @@ class TCPCommEngine(LocalCommEngine):
         elif kind == wire.K_COMP:
             self._dispatch_body(p, memoryview(
                 wire.decompress_body(body)))
+        elif kind == wire.K_ELASTIC:
+            # delivered HERE, on the receiver thread (like K_PING): a
+            # resize proposal or join announcement must reach the
+            # coordinator even while every worker is inside a long
+            # kernel; the coordinator's deliver only notifies
+            self._on_elastic(peer, wire.parse_elastic(body))
         else:
             raise ValueError(f"unknown frame kind {kind}")
 

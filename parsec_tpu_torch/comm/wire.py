@@ -124,7 +124,7 @@ K_HELLO = 3
 K_COMP = 4
 K_PING = 5
 K_PONG = 6
-K_ELASTIC = 7     # the JAX package's elastic membership; not carried
+K_ELASTIC = 7     # elastic membership (ft/elastic.py)
 K_SEQ = 8
 K_ACK = 9
 K_RESUME = 10
@@ -435,6 +435,16 @@ def ping_clock(body: memoryview) -> Optional[int]:
     if len(body) < _PINGX.size:
         return None
     return _PINGX.unpack_from(body, 0)[3]
+
+
+# -- elastic membership (ft/elastic.py) ---------------------------------
+def pack_elastic(payload: Dict[str, Any]) -> bytes:
+    """One membership frame (view / join / welcome / commit / abort)."""
+    return bytes([K_ELASTIC]) + pickle.dumps(payload, protocol=4)
+
+
+def parse_elastic(body: memoryview) -> Dict[str, Any]:
+    return pickle.loads(body[1:])
 
 
 # -- reliable session (comm/tcp.py "rs" capability) ---------------------

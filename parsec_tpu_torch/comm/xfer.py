@@ -246,6 +246,11 @@ class DeviceDataPlane:
             self.stats["serves"] += 1
         return uuid, tuple(arr.shape), str(arr.dtype).split(".")[-1]
 
+    def is_parked(self, uuid: int) -> bool:
+        """True until the consumer's ACK released ``uuid``'s park."""
+        with self._lock:
+            return uuid in self._parked
+
     def descriptor(self, uuid: int) -> Any:
         with self._lock:
             return self._descs.get(uuid)
@@ -282,6 +287,11 @@ class DeviceDataPlane:
         with self._lock:
             self.stats["pulls"] += 1
             self.stats["bytes_pulled"] += nbytes
+        ds = getattr(self.ce, "dplane_stats", None)
+        if ds is not None:
+            # the engine-owned gauges (obs COMM::DPLANE_*)
+            ds["dplane_xfers"] += 1
+            ds["dplane_bytes"] += nbytes
         return out
 
     def fini(self) -> None:

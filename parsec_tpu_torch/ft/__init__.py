@@ -7,7 +7,7 @@ silent mid-rendezvous hangs termination detection forever. At the job
 lengths the source paper targets ("Large Scale Distributed Linear
 Algebra With Tensor Processing Units", arXiv:2112.09017 — multi-hour
 tile factorizations), mean-time-to-failure is shorter than job time,
-so the runtime itself must detect, tolerate, and recover. Three
+so the runtime itself must detect, tolerate, and recover. Four
 pillars, as in the JAX package:
 
 - :mod:`ft.detector` — **proactive failure detection**: heartbeat
@@ -27,19 +27,28 @@ pillars, as in the JAX package:
   abort cleanly or roll back to the last snapshot and re-run with
   bounded, backed-off retries. Snapshots pull the newest tile copies
   from the card.
-
-The JAX package's fourth pillar, elastic grid recovery
-(``ft/elastic.py``), needs ``collections/redistribute.py`` and is not
-carried yet (ROADMAP Queue 1 item 5): the ``ft_elastic`` knob raises
-NotImplementedError.
+- :mod:`ft.elastic` — **elastic grid recovery**: cross-grid checkpoint
+  reshard (``reshard_restore`` — a snapshot written on any rank count /
+  process grid lands on the current one via
+  ``collections/redistribute``), and in-world grid RESIZE — with
+  ``ft_elastic=shrink`` the survivors of a rank loss agree on a
+  reduced grid over ``TAG_ELASTIC``/``K_ELASTIC`` membership frames,
+  rebuild, reshard, and replay from the last snapshot; with ``grow``
+  late-arriving ranks are folded in at stage boundaries. Like the JAX
+  package's, it acts on hard failures (a peer's ``RankFailedError``)
+  only.
 
 Knobs: ``ft_heartbeat_interval``, ``ft_heartbeat_timeout``,
-``ft_detector_mode``, ``ft_inject``, ``ft_restart_policy``.
+``ft_detector_mode``, ``ft_inject``, ``ft_restart_policy``,
+``ft_elastic``, ``ft_elastic_grow_min``, ``ft_elastic_timeout``.
 """
 from __future__ import annotations
 
 from .detector import (FT_HB_RTT_PREFIX, FT_PEER_ALIVE, HeartbeatDetector,
                        maybe_install_detector)
+from .elastic import (ElasticBlockCyclic, ElasticCoordinator, ElasticError,
+                      ElasticPolicy, GridSpec, maybe_install_elastic,
+                      plan_grid, reshard_restore)
 from .inject import (FaultInjector, FTInjectModule, InjectedKill,
                      InjectedTaskFault)
 from .restart import RestartPolicy, run_with_restart
@@ -49,4 +58,7 @@ __all__ = [
     "FT_PEER_ALIVE", "FT_HB_RTT_PREFIX",
     "FaultInjector", "FTInjectModule", "InjectedKill", "InjectedTaskFault",
     "RestartPolicy", "run_with_restart",
+    "ElasticBlockCyclic", "ElasticCoordinator", "ElasticError",
+    "ElasticPolicy", "GridSpec", "maybe_install_elastic", "plan_grid",
+    "reshard_restore",
 ]

@@ -29,11 +29,11 @@ the card (``checkpoint.save_collection``); a rollback writes the host
 copies and bumps their versions, so the re-run stages the restored
 values back in instead of reading the failed attempt's device copies.
 
-This package carries the strict contract only: the JAX package's
-elastic grid recovery (``ft/elastic.py``: shrink/grow resizes and the
-resharding restore) needs ``collections/redistribute.py`` (ROADMAP
-Queue 1 item 5), and an ``elastic=`` argument raises
-NotImplementedError.
+With an ``elastic`` policy (``ft/elastic.py``) a peer's hard loss is
+recovered in-world instead: the survivors agree on a reduced grid,
+rebuild their collections on it, reshard-restore the last snapshot and
+replay; joiners are folded in at stage boundaries. No process is
+started for it.
 
 Policy grammar (``--mca ft_restart_policy``)::
 
@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 from ..utils import checkpoint as ckpt
 from ..utils import logging as plog
@@ -112,14 +112,14 @@ def _save(collections: Sequence[Any], prefix: str, stage: int,
 
 
 def _restore(collections: Sequence[Any], prefix: str, stage: int,
-             context: Any = None) -> None:
+             context: Any = None, reshard: bool = False) -> None:
     for i, coll in enumerate(collections):
         ckpt.restore_collection(coll, f"{_stage_prefix(prefix, stage)}.c{i}",
-                                context=context)
+                                reshard=reshard, context=context)
 
 
 def _restore_fallback(collections: Sequence[Any], prefix: str, stage: int,
-                      context: Any = None) -> int:
+                      context: Any = None, reshard: bool = False) -> int:
     """Restore the stage-``stage`` snapshot set, falling back to the
     previous COMPLETE snapshot when a shard is torn/corrupt (a rank
     that crashed mid-write before atomic saves, or truncating storage,
@@ -130,7 +130,8 @@ def _restore_fallback(collections: Sequence[Any], prefix: str, stage: int,
     s = stage
     while True:
         try:
-            _restore(collections, prefix, s, context=context)
+            _restore(collections, prefix, s, context=context,
+                     reshard=reshard)
             return s
         except ckpt.CheckpointCorruptError as exc:
             if s <= 0:
@@ -145,26 +146,16 @@ def _restore_fallback(collections: Sequence[Any], prefix: str, stage: int,
             s -= 1   # not a snapshot boundary (every > 1): keep walking
 
 
-def _participants(man: Dict[str, Any]) -> List[int]:
-    """World ranks that own at least one logical grid slot of a
-    snapshot's manifest: ``members`` when recorded (a remapped grid
-    written by the JAX package's elastic recovery), else the identity
-    map over the logical grid (this package's own copy of the JAX
-    package's ``ft/elastic._participants``, manifest form)."""
-    if man.get("members") is not None:
-        return list(man["members"])
-    p, q = man.get("P"), man.get("Q")
-    if p and q:
-        return list(range(int(p) * int(q)))
-    return list(range(int(man.get("nodes", 1))))
-
-
 def _complete_stage(ncolls: int, prefix: str, stage: int) -> int:
     """Latest stage <= ``stage`` whose FULL writer shard set is on disk
-    for every collection. A rank killed after its stage completed but
-    before its atomic save PUBLISHED leaves the newest snapshot one
-    shard short. Disk state is shared, so every survivor probing the
-    same snapshot set computes the same answer."""
+    for every collection — the stage this rank can safely VOTE in a
+    shrink round. A rank killed after its stage completed but before
+    its atomic save PUBLISHED leaves the newest snapshot one shard
+    short; a reshard restore of it would dead-end mid-collective. Disk
+    state is shared, so every survivor probing the same snapshot set
+    computes the same answer (the SPMD consistency the vote needs)."""
+    from .elastic import _participants
+
     def complete(s: int) -> bool:
         for i in range(ncolls):
             p = f"{_stage_prefix(prefix, s)}.c{i}"
@@ -183,8 +174,8 @@ def _complete_stage(ncolls: int, prefix: str, stage: int) -> int:
     return s
 
 
-def run_with_restart(ctx: Any, stages: Sequence[Callable[[], Any]],
-                     collections: Sequence[Any], prefix: str,
+def run_with_restart(ctx: Any, stages: Optional[Sequence[Callable[[], Any]]],
+                     collections: Optional[Sequence[Any]], prefix: str,
                      policy: Optional[RestartPolicy] = None,
                      resume_from: Optional[int] = None,
                      elastic: Optional[Any] = None) -> Dict[str, Any]:
@@ -195,30 +186,96 @@ def run_with_restart(ctx: Any, stages: Sequence[Callable[[], Any]],
     (``<prefix>.stage<k>.c<i>.rank<r>.npz``).
 
     Returns ``{"stages", "retries", "snapshots", "last_snapshot",
-    "resizes", "grid"}`` (``resizes`` 0 and ``grid`` None: no elastic
-    recovery here). ``resume_from=k`` skips the initial snapshot,
-    restores the stage-k snapshot set, and continues with stage k — the
-    fresh-incarnation entry point after a hard rank loss.
+    "resizes", "grid"}``. ``resume_from=k`` skips the initial
+    snapshot, restores the stage-k snapshot set, and continues with
+    stage k — the fresh-incarnation entry point after a hard rank
+    loss.
 
-    ``elastic`` (the JAX package's ElasticPolicy) raises
-    NotImplementedError: grid resizes need the resharding restore
-    (ROADMAP Queue 1 item 5).
+    ``elastic`` (an :class:`ft.elastic.ElasticPolicy`) turns hard rank
+    loss from a dead end into a resize: on a ``RankFailedError`` with
+    shrink enabled the survivors agree on a reduced grid, rebuild the
+    run via ``elastic.rebuild(grid)``, reshard-restore the last
+    snapshot onto it, and replay from ``last_snap``; with grow
+    enabled, announced joiners are folded in at stage boundaries
+    (fresh-snapshot quiescent points), gated by
+    ``elastic.grow_min``. With ``elastic`` the ``stages``/
+    ``collections`` arguments may be ``None`` — ``rebuild`` is then
+    the single source of truth for the initial grid too. Strict runs
+    (no ``elastic``, or ``ft_elastic`` unset) keep today's fail-fast
+    behavior exactly.
     """
-    if elastic is not None:
-        raise NotImplementedError(
-            "run_with_restart(elastic=...): elastic grid recovery needs "
-            "ft/elastic.py and collections/redistribute.py, which this "
-            "package does not carry yet (ROADMAP Queue 1 item 5)")
+    # a coordinator this call creates is detached on exit: leaving it
+    # attached would carry pending joins/views into a LATER run on the
+    # same context (phantom grow rounds holding every boundary). One
+    # installed by Context (maybe_install_elastic) outlives the call.
+    co_made = None
+    if (elastic is not None and elastic.mode and ctx.comm is not None
+            and ctx.nb_ranks >= 2):
+        ce = getattr(ctx.comm, "ce", ctx.comm)
+        if ce.ft_elastic is None:
+            from .elastic import ElasticCoordinator
+            co_made = ElasticCoordinator(ce)
+    try:
+        return _run_with_restart(ctx, stages, collections, prefix,
+                                 policy, resume_from, elastic)
+    finally:
+        if co_made is not None:
+            co_made.detach()
+
+
+def _run_with_restart(ctx, stages, collections, prefix, policy,
+                      resume_from, elastic) -> Dict[str, Any]:
     policy = policy or RestartPolicy.from_params()
+    co = grid = ce = None
+    joined_at: Optional[int] = None
+    if elastic is not None and not elastic.mode:
+        elastic = None   # knob off: strict contract, bit for bit
+    if elastic is not None:
+        if ctx.comm is None or ctx.nb_ranks < 2:
+            raise ValueError(
+                "elastic recovery needs a multi-rank comm world")
+        from .elastic import ElasticCoordinator, plan_grid
+        ce = getattr(ctx.comm, "ce", ctx.comm)
+        co = ce.ft_elastic or ElasticCoordinator(ce)
+        members = elastic.members or tuple(range(ctx.nb_ranks))
+        grid = plan_grid(members, ctx.nb_ranks, ctx.rank)
+        if elastic.join:
+            # late joiner: announce, learn the member set + resume
+            # stage from the welcome, reshard into the grown grid
+            welcome = co.announce_join(deadline_s=elastic.timeout)
+            if welcome.get("tp_base") is not None:
+                # align taskpool WIRE ids with the incumbents (DTD
+                # traffic is keyed by registration order, and they
+                # registered pools for every stage we never ran)
+                ctx.comm.sync_tp_ids(int(welcome["tp_base"]))
+            grid = plan_grid(tuple(welcome["members"]), ctx.nb_ranks,
+                             ctx.rank)
+            stages, collections = elastic.rebuild(grid)
+            joined_at = int(welcome["stage"])
+            _restore(collections, prefix, joined_at, context=ctx,
+                     reshard=True)
+            ce.elastic_stats["elastic_resizes"] += 1
+            ce.elastic_stats["elastic_joins"] += 1
+            plog.inform("ft.restart: rank %d joined grid %dx%d (members "
+                        "%s) at stage %d", ctx.rank, grid.P, grid.Q,
+                        grid.members, joined_at)
+        elif stages is None:
+            stages, collections = elastic.rebuild(grid)
+    assert stages is not None and collections is not None, \
+        "stages/collections may only be omitted with an elastic policy"
     n = len(stages)
-    retries_total = snapshots = 0
-    if resume_from is None:
+    retries_total = snapshots = resizes = 0
+    if joined_at is not None:
+        i = last_snap = joined_at
+        resizes = 1   # the join itself resized this rank's grid
+    elif resume_from is None:
         _save(collections, prefix, 0, ctx)
         snapshots += 1
         i = last_snap = 0
     else:
         i = last_snap = _restore_fallback(
-            collections, prefix, resume_from, context=ctx)
+            collections, prefix, resume_from, context=ctx,
+            reshard=elastic is not None)
     # per-STAGE attempt counters: with every>1 a rollback replays
     # earlier (succeeding) stages, and a single shared counter reset on
     # their completion would let a persistently failing stage retry
@@ -238,6 +295,112 @@ def run_with_restart(ctx: Any, stages: Sequence[Callable[[], Any]],
             # its engine is permanently dark; retrying a stage on it
             # would hang termdet, the exact failure ft/ exists to stop)
             hard = isinstance(root, (RankFailedError, InjectedKill))
+            # elastic shrink: a PEER's loss is recoverable in-world —
+            # the survivors agree on a reduced grid and reshard the
+            # last snapshot onto it. Our OWN kill (InjectedKill) is
+            # not: this engine is dark — and neither is a silenced
+            # (kill-injected) engine whose own detector evicted every
+            # peer it stopped hearing: a dead rank must never "win" a
+            # phantom agreement with itself. Bounded by the world size
+            # so a cascade of losses cannot loop forever.
+            # split-brain guard: a LINK fault partitions the
+            # grid without killing anyone — both sides of the partition
+            # would otherwise shrink to themselves and double-complete.
+            # Only the side still seeing a STRICT MAJORITY of the
+            # current members may resize; a minority partition takes
+            # the strict abort (its snapshots stay consistent, and a
+            # fresh incarnation can resume). Kill-based losses on >= 3
+            # ranks are unaffected: the survivors ARE the majority.
+            majority = True
+            if (co is not None and grid is not None
+                    and isinstance(root, RankFailedError)):
+                reachable = [m for m in grid.members
+                             if m == ctx.rank or m not in ce.dead_peers]
+                majority = 2 * len(reachable) > len(grid.members)
+                if not majority and elastic.allows_shrink:
+                    plog.warning(
+                        "ft.restart: only %d of %d members reachable — "
+                        "a minority partition must not shrink (split-"
+                        "brain); falling back to the strict abort path",
+                        len(reachable), len(grid.members))
+            if (co is not None and elastic.allows_shrink and majority
+                    and isinstance(root, RankFailedError)
+                    and not isinstance(root, InjectedKill)
+                    and not getattr(ce, "_ft_silenced", False)
+                    and resizes < ctx.nb_ranks):
+                from .elastic import ElasticError, plan_grid
+                recovered = False
+                tries = 0
+                # another rank can die DURING the agreement or the
+                # reshard itself — re-enter with the further-reduced
+                # survivor set; bounded by the world size
+                while resizes + tries < ctx.nb_ranks:
+                    try:
+                        ctx.clear_task_errors()
+                        # vote a snapshot this rank can PROVE complete:
+                        # the dead rank may have died between finishing
+                        # the stage and publishing its shard
+                        safe = _complete_stage(len(collections), prefix,
+                                               last_snap)
+                        decision = co.agree(
+                            "shrink", grid.members, safe,
+                            deadline_s=elastic.timeout,
+                            tp_next=getattr(ctx.comm, "next_tp_id", None))
+                        if 2 * len(decision["members"]) \
+                                <= len(grid.members):
+                            # deaths DURING the round can shrink the
+                            # committed set below a majority (down to
+                            # this rank alone on a full partition):
+                            # re-validate the decision, not just the
+                            # entry view — the minority side must abort
+                            raise ElasticError(
+                                f"committed members "
+                                f"{tuple(decision['members'])} are a "
+                                f"minority of {grid.members} — refusing "
+                                f"a split-brain resize")
+                        if decision["tp_base"] is not None:
+                            # survivors can diverge by one registration
+                            # at a mid-stage failure: align wire ids
+                            # before the reshard pool registers
+                            ctx.comm.sync_tp_ids(decision["tp_base"])
+                        grid = plan_grid(decision["members"],
+                                         ctx.nb_ranks, ctx.rank)
+                        stages, collections = elastic.rebuild(grid)
+                        assert len(stages) == n, \
+                            "elastic rebuild changed the stage count"
+                        # the COMMITTED stage (min over votes — peers a
+                        # snapshot behind us reconcile the round there;
+                        # every voter provably wrote that snapshot)
+                        last_snap = int(decision["stage"])
+                        _restore(collections, prefix, last_snap,
+                                 context=ctx, reshard=True)
+                        ce.elastic_stats["elastic_resizes"] += 1
+                        resizes += 1
+                        recovered = True
+                        break
+                    except Exception as eexc:  # noqa: BLE001 - triaged below
+                        nested = eexc.__cause__ or eexc
+                        if isinstance(nested, RankFailedError) \
+                                and not isinstance(nested, InjectedKill):
+                            tries += 1
+                            plog.warning(
+                                "ft.restart: rank failure during elastic "
+                                "shrink (%s) — re-agreeing on the reduced "
+                                "survivor set", nested)
+                            continue
+                        plog.warning(
+                            "ft.restart: elastic shrink failed (%s: %s) — "
+                            "falling back to the strict abort path",
+                            type(eexc).__name__, eexc)
+                        break
+                if recovered:
+                    plog.warning(
+                        "ft.restart: elastic shrink -> %dx%d over members "
+                        "%s after %s; resharded snapshot %d, replaying",
+                        grid.P, grid.Q, grid.members,
+                        type(root).__name__, last_snap)
+                    i = last_snap
+                    continue
             # in-world rollback is a LOCAL act: on a multi-rank run the
             # peers saw no error and keep waiting on the original
             # taskpool (whose wire id a lone re-registration would
@@ -288,6 +451,60 @@ def run_with_restart(ctx: Any, stages: Sequence[Callable[[], Any]],
             _save(collections, prefix, i, ctx)
             snapshots += 1
             last_snap = i
+        # elastic grow: fold announced joiners in at a quiescent point
+        # that has a FRESH snapshot (the joiner reshards from it). The
+        # round is optional — the leader holds the boundary only
+        # ``grow_window`` seconds, so a straggling incumbent defers
+        # the resize to the next boundary instead of stalling the run.
+        if (co is not None and elastic.allows_grow and i < n
+                and last_snap == i):
+            # a fast, purely-local stage can complete without one comm
+            # progress cycle: drain the engine HERE or a join sitting in
+            # the inbox is invisible at exactly the boundary it targets
+            ce.progress()
+            joins = co.pending_joins(grid.members)
+            if len(joins) >= elastic.grow_min:
+                from .elastic import ElasticError, plan_grid
+                try:
+                    decision = co.agree(
+                        "grow", grid.members, last_snap,
+                        deadline_s=elastic.timeout,
+                        window_s=elastic.grow_window,
+                        tp_next=getattr(ctx.comm, "next_tp_id", None))
+                except ElasticError as eexc:
+                    # the round is OPTIONAL: a non-converging agreement
+                    # (e.g. a peer saw the join only after passing its
+                    # own boundary check, so it never voted) must not
+                    # abort a healthy run — release the boundary, the
+                    # joiner stays pending for the next one
+                    plog.warning(
+                        "ft.restart: grow round at stage %d released "
+                        "(%s); joiners stay pending", last_snap, eexc)
+                    decision = None
+                if decision is not None:
+                    committed = decision["members"]
+                    if decision["tp_base"] is not None:
+                        ctx.comm.sync_tp_ids(decision["tp_base"])
+                    new = [r for r in committed if r not in grid.members]
+                    grid = plan_grid(committed, ctx.nb_ranks, ctx.rank)
+                    stages, collections = elastic.rebuild(grid)
+                    assert len(stages) == n, \
+                        "elastic rebuild changed the stage count"
+                    # adopt the COMMITTED stage: an incumbent a boundary
+                    # ahead of the slowest voter replays from the common
+                    # snapshot so every member (joiner included) runs
+                    # the same remaining stage sequence in lockstep
+                    i = last_snap = int(decision["stage"])
+                    _restore(collections, prefix, last_snap, context=ctx,
+                             reshard=True)
+                    ce.elastic_stats["elastic_resizes"] += 1
+                    ce.elastic_stats["elastic_joins"] += len(new)
+                    resizes += 1
+                    plog.inform(
+                        "ft.restart: elastic grow -> %dx%d over members "
+                        "%s (+%s); resharded snapshot %d",
+                        grid.P, grid.Q, grid.members, new, last_snap)
     return {"stages": n, "retries": retries_total,
             "snapshots": snapshots, "last_snapshot": last_snap,
-            "resizes": 0, "grid": None}
+            "resizes": resizes,
+            "grid": grid.members if grid is not None else None}

@@ -551,6 +551,26 @@ class CommObs:
                     f"{OBS_CLOCK_OFFSET_PREFIX}::R{peer}",
                     lambda c=ce, p=peer: (lambda o: 0.0 if o is None
                                           else o)(c.clock_offset_us(p)))
+        ds = getattr(ce, "dplane_stats", None)
+        if ds is not None:
+            sde.register_poll(COMM_DPLANE_BYTES,
+                              lambda s=ds: s["dplane_bytes"])
+            sde.register_poll(COMM_DPLANE_XFERS,
+                              lambda s=ds: s["dplane_xfers"])
+            sde.register_poll(COMM_REDIST_ROUNDS,
+                              lambda s=ds: s["redist_rounds"])
+            sde.register_poll(COMM_TWO_LEVEL_REDUCES,
+                              lambda s=ds: s["two_level_reduces"])
+        es = getattr(ce, "elastic_stats", None)
+        if es is not None:
+            sde.register_poll(FT_ELASTIC_RESIZES,
+                              lambda s=es: s["elastic_resizes"])
+            sde.register_poll(FT_ELASTIC_JOINS,
+                              lambda s=es: s["elastic_joins"])
+            sde.register_poll(FT_RESHARD_BYTES,
+                              lambda s=es: s["reshard_bytes"])
+            sde.register_poll(FT_RESHARD_US,
+                              lambda s=es: s["reshard_us"])
         det = getattr(ce, "ft_detector", None)
         if det is not None:
             sde.register_poll(FT_PEER_ALIVE, det.alive_count)

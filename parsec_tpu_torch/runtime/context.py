@@ -13,14 +13,15 @@ pass ``comm=RemoteDepEngine(fabric.engine(r))``; rank processes set the
 ``comm_transport=tcp``, ``comm_endpoints`` and ``comm_rank`` knobs and
 ``init()`` wires the TCP engine itself (the launcher contract).  Fault
 tolerance (ft/) is wired here as in the JAX package: the heartbeat
-detector when ``ft_heartbeat_interval`` is set, the fault injector from
+detector when ``ft_heartbeat_interval`` is set, the elastic membership
+coordinator when ``ft_elastic`` is set, the fault injector from
 ``ft_inject`` (its task-boundary half as a PINS module), and
 ``clear_task_errors`` for the restart driver's rollback; so are the
 debug-history ring (``debug_history_size``) and the live SDE push
 (``sde_push``), and telemetry (obs/: ``profile``, ``metrics``,
-``obs_flow``, ``obs_live``).  Elastic grid recovery, self-tuning,
-serving and ``jax.distributed`` of the JAX package are not carried, and
-a knob asking for one of them raises NotImplementedError.
+``obs_flow``, ``obs_live``).  Self-tuning, serving and the JAX
+package's ``jax.distributed`` are not carried, and a knob asking for one
+of them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -66,9 +67,9 @@ def _comm_from_params():
 
 
 def _check_trimmed_knobs() -> None:
-    """Refuse knobs of subsystems this package does not carry yet (fault
-    tolerance, obs, tuning, serving, stage compilation, chip meshes):
-    a request for one raises instead of being ignored."""
+    """Refuse knobs of subsystems this package does not carry yet (the
+    mesh-local by-reference path, tuning, serving, stage compilation,
+    chip meshes): a request for one raises instead of being ignored."""
     for name in TRIMMED_KNOBS:
         v = str(params.get(name)).strip().lower()
         if v not in ("", "0", "false", "off", "no"):
@@ -131,10 +132,18 @@ class Context:
         # the fault injector when ft_inject has kill/taskfail directives
         self._ft_detector = None
         self._ft_pins = None
+        self._ft_elastic = None
         ft_inj = None
         if self.comm is not None:
             from ..ft.detector import maybe_install_detector
             self._ft_detector = maybe_install_detector(self)
+            # elastic membership coordinator (ft/elastic.py) when the
+            # ft_elastic knob is set — attached AFTER the detector (its
+            # evictions wake pending agreements) and before the obs
+            # wiring, so a joiner announcing mid-stage reaches a live
+            # coordinator; ft.run_with_restart reuses this instance
+            from ..ft.elastic import maybe_install_elastic
+            self._ft_elastic = maybe_install_elastic(self)
             ft_inj = getattr(getattr(self.comm, "ce", self.comm),
                              "_ft", None)
         if ft_inj is None and params.get("ft_inject"):
@@ -612,6 +621,8 @@ class Context:
         self._finalized = True
         if self._ft_detector is not None:
             self._ft_detector.stop()   # before the engine dies under it
+        if self._ft_elastic is not None:
+            self._ft_elastic.detach()
         if self._ft_pins is not None:
             self._ft_pins.disable()
         with self._work_cond:

@@ -27,10 +27,11 @@ writes the host copy and bumps its version, so a stale device copy of
 the same tile is never read again: the next device task stages the
 restored values in.
 
-Cross-grid restore (``reshard=True``) needs
-``collections/redistribute.py``, which this package does not carry yet
-(ROADMAP Queue 1 item 5): it raises NotImplementedError, and never falls
-back to the per-rank path.
+Cross-grid restore (``reshard=True``): a snapshot written on another
+rank count or process grid is redistributed onto the restoring
+collection's grid (``ft.reshard_restore``, over
+``collections/redistribute``); on the identical grid it takes the
+per-rank path.
 """
 from __future__ import annotations
 
@@ -242,13 +243,14 @@ def restore_collection(coll: Any, prefix: str, reshard: bool = False,
     dtype, extent) hard-fail either way.
     """
     if reshard:
-        # never the per-rank path in its place: a caller asking for a
-        # reshard may be on another grid, where the per-rank files would
-        # restore a silent partial collection
-        raise NotImplementedError(
-            "restore_collection(reshard=True) needs "
-            "collections/redistribute.py and ft/elastic.py, which this "
-            "package does not carry yet (ROADMAP Queue 1 item 5)")
+        # "rank" is writer-local (find_manifest returns SOME shard's
+        # manifest) — it cannot distinguish grids, only shards
+        man = find_manifest(prefix)
+        if [k for k in _mismatches(man, _manifest_of(coll))
+                if k != "rank"]:
+            from ..ft.elastic import reshard_restore
+            return reshard_restore(coll, prefix, context=context)
+        # identical grid: fall through to the plain per-rank fast path
     path = checkpoint_path(prefix, coll.rank)
     with _open_snapshot(path) as z:
         man = json.loads(str(z["__manifest__"]))
@@ -267,9 +269,11 @@ def restore_collection(coll: Any, prefix: str, reshard: bool = False,
             # dead-ending the operator on a grid change
             hint = ""
             if all(k in DISTRIBUTION_KEYS for k in bad):
-                hint = (" The tile geometry matches: a resharding "
-                        "restore onto the current grid is ROADMAP "
-                        "Queue 1 item 5 of this package.")
+                hint = (" The tile geometry matches: pass reshard=True "
+                        "(ft.reshard_restore) to redistribute the "
+                        "snapshot onto the current grid, or run under "
+                        "--mca ft_elastic shrink for automatic "
+                        "grid-resize recovery.")
             raise CheckpointMismatchError(
                 f"checkpoint {path} is incompatible with the restoring "
                 f"collection ({'; '.join(detail)}). The snapshot was "

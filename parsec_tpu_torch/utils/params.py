@@ -390,6 +390,20 @@ def register_core_params() -> None:
                       "restart policy for ft.restart.run_with_restart: "
                       "\"abort\" or "
                       "\"restart:retries=N:backoff=S:every=K\"")
+    params.reg_string("ft_elastic", "",
+                      "elastic grid recovery (ft/elastic.py): \"shrink\" "
+                      "(survivors of a rank loss agree on a reduced grid, "
+                      "reshard the last snapshot onto it, and replay), "
+                      "\"grow\" (fold announced joiners in at stage "
+                      "boundaries), \"both\", or empty (default) for "
+                      "the fail-fast abort")
+    params.reg_int("ft_elastic_grow_min", 1,
+                   "minimum announced joiners worth a grid resize at a "
+                   "stage boundary (grow mode)")
+    params.reg_string("ft_elastic_timeout", "",
+                      "membership-agreement deadline in seconds "
+                      "(default 30); on expiry the run falls back to the "
+                      "strict abort path with consistent snapshots")
     params.reg_bool("comm_thread", False,
                     "dedicated funnelled comm-progress thread (ref: the "
                     "remote_dep_dequeue_main thread); default: workers "
@@ -411,6 +425,13 @@ def register_core_params() -> None:
                       "CUDA device, loopback on the CPU), \"ipc\" (CUDA "
                       "IPC between rank processes on one card), "
                       "\"loopback\" (host sockets)")
+    params.reg_bool("xfer_collective_redist", False,
+                    "plan collections/redistribute's whole-matrix "
+                    "same-grid moves as coalesced alltoall-style "
+                    "collective rounds (xfer/plan.py) instead of one DTD "
+                    "task per tile; the payload rides the device plane "
+                    "where one is attached on both ends. Off (default) "
+                    "keeps the DTD path")
     params.reg_sizet("debug_history_size", 0,
                      "debug history ring entries (0=off, ref PARSEC_DEBUG_HISTORY)")
     params.reg_int("dtd_window_size", 8000, "DTD sliding window size")
@@ -502,9 +523,9 @@ def register_core_params() -> None:
 
 
 #: knobs of the JAX package's subsystems that this package leaves out
-#: (the comm engine's mesh-local by-reference path, elastic grid
-#: recovery, tuning, serving, stage compilation, chip meshes)
-TRIMMED_KNOBS = ("comm_mesh_local", "ft_elastic", "tune_auto", "serve",
+#: (the comm engine's mesh-local by-reference path, tuning, serving,
+#: stage compilation, chip meshes)
+TRIMMED_KNOBS = ("comm_mesh_local", "tune_auto", "serve",
                  "stage_compile", "device_mesh_shape")
 
 

@@ -1,8 +1,8 @@
 """The port's collection checkpoint/resume (parsec_tpu_torch/utils/
 checkpoint.py): quiescent-point tile snapshots per rank, in the JAX
 package's file format.  Mirrors the JAX package's
-``tests/test_checkpoint.py`` (its cross-grid reshard tests excepted:
-``reshard=True`` raises here), plus restores across the two packages in
+``tests/test_checkpoint.py`` (its cross-grid reshard tests are mirrored
+in ``test_torch_reshard.py``), plus restores across the two packages in
 both directions, and the device path: a snapshot pulls the device
 module's newest copies, and a restore into collections whose tiles
 still have (stale) device copies makes the re-run read the restored
@@ -231,8 +231,10 @@ def test_torn_snapshot_raises_corrupt_not_mismatch(tmp_path):
 
 
 def test_mismatch_error_names_the_reshard_roadmap_item(tmp_path):
-    """Distribution-only mismatches name the resharding restore (not
-    carried yet: ROADMAP Queue 1 item 5); geometry mismatches do not."""
+    """Distribution-only mismatches name the escape hatch — the
+    resharding restore (``reshard=True``) and ``ft_elastic`` shrink — as
+    the JAX package's message does; geometry mismatches do not (a tile
+    size change is unrecoverable by resharding)."""
     n, nb = 128, 32
     prefix = str(tmp_path / "hatch")
     _save_grid(prefix, 4, n, nb, 2, 2)
@@ -240,25 +242,32 @@ def test_mismatch_error_names_the_reshard_roadmap_item(tmp_path):
                                    rank=0, dtype=np.float32)
     with pytest.raises(ckpt.CheckpointMismatchError) as ei:
         ckpt.restore_collection(wrong_grid, prefix)
-    assert "Queue 1 item 5" in str(ei.value)
+    assert "reshard=True" in str(ei.value)
+    assert "ft_elastic" in str(ei.value)
     wrong_geom = TwoDimBlockCyclic(n, n, 16, 16, P=2, Q=2, nodes=4,
                                    rank=0, dtype=np.float32)
     with pytest.raises(ckpt.CheckpointMismatchError) as ei:
         ckpt.restore_collection(wrong_geom, prefix)
-    assert "Queue 1 item 5" not in str(ei.value)
+    assert "reshard=True" not in str(ei.value)
 
 
-def test_reshard_true_raises_never_partial(tmp_path):
-    """reshard=True is refused on ANY grid, the matching one included:
-    it never falls back to the per-rank path, so no tile is touched."""
+def test_reshard_true_on_the_matching_grid_restores_per_rank(tmp_path,
+                                                             monkeypatch):
+    """reshard=True on the grid the snapshot was written on takes the
+    plain per-rank path (no redistribution), bit for bit."""
+    import parsec_tpu_torch.ft.elastic as elastic
+
+    def refuse(*a, **kw):
+        raise AssertionError("the matching grid must not reshard")
+
+    monkeypatch.setattr(elastic, "reshard_restore", refuse)
     M = np.arange(64 * 64, dtype=np.float32).reshape(64, 64)
     A = TwoDimBlockCyclic(64, 64, 32, 32, dtype=np.float32).from_numpy(M)
     prefix = str(tmp_path / "rs")
     ckpt.save_collection(A, prefix)
     B = TwoDimBlockCyclic(64, 64, 32, 32, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ckpt.restore_collection(B, prefix, reshard=True)
-    assert not B.to_numpy().any()
+    assert ckpt.restore_collection(B, prefix, reshard=True) == 4
+    np.testing.assert_array_equal(B.to_numpy(), M)
 
 
 # --------------------------------------------------------------------- #

@@ -1176,7 +1176,9 @@ def test_obs_knob_unset_frames_unchanged_and_mixed_peer_negotiates_down():
     _, e, got_e = _capture_leg(flow_r0=True, flow_r1=True)
     assert a and a == b == c == d
     info = wire.parse_hello(memoryview(hello_a)[8:])
-    assert set(info) == {"ver", "rank", "codecs", "hb", "rs"}
+    # "el" (elastic membership) is advertised unconditionally, as the
+    # JAX package does: no knob gates it
+    assert set(info) == {"ver", "rank", "codecs", "hb", "el", "rs"}
     assert hello_a == hello_b
     assert hello_a == struct.pack("<Q", len(hello_a) - 8) + \
         wire.pack_hello(info)

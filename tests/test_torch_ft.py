@@ -1,9 +1,8 @@
 """The port's fault-tolerance subsystem (parsec_tpu_torch/ft/): heartbeat
 detection, deterministic fault injection, checkpoint-integrated restart.
 
-Mirrors the JAX package's ``tests/test_ft.py`` (its elastic tests
-excepted: elastic recovery is not carried, and asking for it raises),
-on ``device="cpu"`` contexts over the port's ``LocalFabric`` and TCP
+Mirrors the JAX package's ``tests/test_ft.py`` (its elastic tests are
+mirrored in ``test_torch_elastic.py``), on ``device="cpu"`` contexts over the port's ``LocalFabric`` and TCP
 engine.  The injector's verdict streams and the chaos-killed dpotrf's
 factor are also held against the JAX package's on the same input.
 Every wait on a heartbeat or a rank is bounded (30 s at most).
@@ -724,16 +723,45 @@ def test_complete_stage_walks_back_to_full_shard_set(tmp_path):
     assert _complete_stage(1, prefix, 1) == 1
 
 
-def test_elastic_is_refused(tmp_path):
-    """Elastic recovery is not carried: the knob and the argument raise
-    NotImplementedError, never a silent strict run."""
+def test_elastic_knob_installs_coordinator_and_unset_stays_strict(tmp_path):
+    """ft_elastic unset: an ElasticPolicy is inert (the strict run, no
+    coordinator, ``resizes`` 0 and ``grid`` None). ft_elastic=shrink:
+    every rank's context attaches a membership coordinator to its engine
+    at init and detaches it at fini; on one rank there is none, and an
+    elastic policy there refuses (recovery needs a multi-rank world)."""
+    from parsec_tpu_torch.ft import ElasticPolicy
+    A = TwoDimBlockCyclic(64, 64, 32, 32, dtype=np.float32).from_numpy(
+        np.ones((64, 64), np.float32))
+    factory = ptg.compile_jdf(SCALE_JDF, name="scale_el")
     ctx = _ctx()
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            run_with_restart(ctx, [], [], str(tmp_path / "el"),
-                             elastic=object())
+        st = run_with_restart(
+            ctx, [lambda: factory.new(descA=A, MT=1, NT=1)], [A],
+            str(tmp_path / "el"),
+            elastic=ElasticPolicy(lambda g: ([], [])))
+        assert (st["resizes"], st["grid"]) == (0, None)
+        np.testing.assert_array_equal(A.to_numpy(), 3.0)
     finally:
         ctx.fini()
     params.set_cmdline("ft_elastic", "shrink")
-    with pytest.raises(NotImplementedError, match="ft_elastic"):
-        _ctx()
+    ctx = _ctx()
+    try:
+        assert ctx._ft_elastic is None
+        with pytest.raises(ValueError, match="multi-rank"):
+            run_with_restart(ctx, None, None, str(tmp_path / "el1"),
+                             elastic=ElasticPolicy(lambda g: ([], [])))
+    finally:
+        ctx.fini()
+
+    def rank_fn(rank, fabric):
+        eng = RemoteDepEngine(fabric.engine(rank))
+        ctx = _ctx(comm=eng)
+        try:
+            co = ctx._ft_elastic
+            attached = co is not None and eng.ce.ft_elastic is co
+        finally:
+            ctx.fini()
+        return attached, eng.ce.ft_elastic is None
+
+    got, _ = spmd(2, rank_fn)
+    assert got == [(True, True), (True, True)]

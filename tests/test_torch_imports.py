@@ -410,7 +410,7 @@ def test_init_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("stage_compile", "1"), ("ft_elastic", "shrink"),
+    ("stage_compile", "1"), ("tune_auto", "1"),
     ("device_mesh_shape", "2x2"), ("device_donate", "1"),
     ("device_batch_mode", "vmap")])
 def test_trimmed_knobs_raise(knob, value):
@@ -418,6 +418,24 @@ def test_trimmed_knobs_raise(knob, value):
     with params.cmdline_override(knob, value):
         with pytest.raises(NotImplementedError):
             parsec_tpu_torch.init(nb_cores=1, device="cpu")
+
+
+def test_ft_elastic_knob_is_carried():
+    """ft_elastic is no longer a trimmed knob: init accepts every mode
+    (a one-rank context attaches no coordinator), and an unknown mode
+    raises ValueError where a policy reads it."""
+    from parsec_tpu_torch.ft import ElasticPolicy
+    for mode in ("shrink", "grow", "both"):
+        with params.cmdline_override("ft_elastic", mode):
+            ctx = parsec_tpu_torch.init(nb_cores=1, device="cpu")
+            try:
+                assert ctx._ft_elastic is None
+                assert ElasticPolicy(lambda g: ([], [])).mode == mode
+            finally:
+                ctx.fini()
+    with params.cmdline_override("ft_elastic", "sideways"):
+        with pytest.raises(ValueError, match="ft_elastic"):
+            ElasticPolicy(lambda g: ([], []))
 
 
 def test_multirank_and_static_deps_raise():
