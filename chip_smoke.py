@@ -91,6 +91,28 @@ Phases, each reporting on its own lines:
             NT^3 = 4096 tasks, chore ops.gemm_nn, chained on C(m, n) in
             k order; all on cuda:0, GFLOP/s (2 N^3 over the wall), the
             residual;
+5d'. wave_dist the distributed wave (dsl/ptg/wave_dist.py) in this
+            process: 4 SPMD rank threads on MeshFabric([cuda:0] * 4),
+            each building phase main's input on 2 x 2 (its own tiles
+            filled) and calling wave(tp, comm=ce).run(): broadcast trees
+            (wave_dist_collective=off), the in-process lane (on), the
+            lane at wave_reduce_dtype=bf16, and trees again warm.  Per
+            rank: the wall (a barrier to torch.cuda.synchronize()),
+            waves, body calls, its tasks against its CUDA-body tasks,
+            its GEMM launches (counted on its thread), the static
+            schedule's tiles and bytes sent and received by kind
+            (pre-exchange, pushes, returns), lane groups, calls, tiles
+            and quantized contributions, mesh-local sends and their
+            device-to-device bytes, the sliced pools' stage-in bytes.
+            Checks: the factor bit-identical to phase main's for trees
+            and the lane; the bf16 lane's max |L - L_main| / max |L_main|
+            under 1e-2 with quantized reductions; every rank's tasks on
+            cuda:0, GEMM launches on every rank, no stack through the
+            host, each rank's pools under the matrix's bytes;
+   mesh_chain_2 dtd_chain_2 (below) on MeshFabric([cuda:0] * 2): two
+            rank threads with a context each, every hop mesh-local (the
+            producer's private device copy), no tile through the host,
+            the tile exact as the TCP chain's;
 5e. multirank dposv across rank processes on the one card, through the
             entry points a user calls: the script spawns itself as
             ``chip_smoke.py --rank R --nb-ranks N --run RUN`` with
@@ -113,7 +135,15 @@ Phases, each reporting on its own lines:
             no tile above the short limit staged through the host in the
             IPC run and no park leaked, the chain's value exact.  A rank
             that exits non-zero or passes its 300 s deadline fails the
-            phase;
+            phase.  Inside each dposv spawn, after its dposv (and its
+            redist moves), the ranks run one distributed-wave dpotrf of
+            phase main's input on the run's grid ([wave_dist.<run>]
+            lines, as phase wave_dist's): dposv_2 over TCP as host bytes
+            (wave_dist_plane=off), dposv_2_ipc over its CUDA-IPC plane
+            (no stack through the host, no park left), dposv_4 with its
+            ranks in one torch.distributed gloo group (the dist_*
+            knobs), so the multi-process lane carries the broadcast
+            groups; each factor bit-identical to phase main's;
     redist  inside the dposv_2 and dposv_2_ipc spawns, after each rank's
             timed dposv (the newest versions of A's tiles still on the
             card) and before it saves its tiles, three moves of the
@@ -1188,6 +1218,28 @@ RANK_DEADLINE = 300.0    # seconds a rank process may take
 #: the runs whose ranks also move the factor between distributions
 #: (phase redist), after the timed dposv and before saving their tiles
 REDIST_RUNS = ("dposv_2", "dposv_2_ipc")
+#: the runs whose ranks then run one distributed-wave dpotrf of phase
+#: main's input (A on the run's grid), each with its knobs: dposv_2 moves
+#: the exchanged tiles as host bytes over TCP, dposv_2_ipc over the
+#: CUDA-IPC plane its ranks attached, dposv_4 joins a torch.distributed
+#: (gloo) group at init(), so the multi-process lane engages under auto
+WAVE_IN_SPAWNS = {"dposv_2": {"wave_dist_plane": "off"},
+                  "dposv_2_ipc": {}, "dposv_4": {}}
+GLOO_RUNS = ("dposv_4",)
+#: phase wave_dist: 4 rank threads of this process on
+#: MeshFabric([cuda:0] * 4), A on 2 x 2, the runs: broadcast trees, the
+#: in-process lane, the lane quantizing its contributions to bf16
+WAVE_DIST_RANKS, WAVE_DIST_GRID = 4, (2, 2)
+WAVE_DIST_RUNS = (("trees", {"wave_dist_collective": "off"}),
+                  ("lane", {"wave_dist_collective": "on"}),
+                  ("lane_bf16", {"wave_dist_collective": "on",
+                                 "wave_reduce_dtype": "bf16"}),
+                  # the first run pays the rank pools' first allocations
+                  # and first kernel loads: trees again, warm
+                  ("trees_warm", {"wave_dist_collective": "off"}))
+#: the bf16 lane's bound on max |L - L_exact| / max |L_exact|, L_exact
+#: phase main's factor (the JAX package's tests/test_quantize.py:255-295)
+WAVE_BF16_TOL = 1e-2
 
 
 def local_cuda_tasks(pools, rank: int, cuda_only: bool = True) -> int:
@@ -1204,12 +1256,25 @@ def local_cuda_tasks(pools, rank: int, cuda_only: bool = True) -> int:
     return n
 
 
+#: the input matrix inside a rank process, synthesised once: its dposv
+#: and its distributed wave read the same one
+_rank_matrix: dict = {}
+
+
+def rank_matrix(n: int, seed: int) -> np.ndarray:
+    M = _rank_matrix.get((n, seed))
+    if M is None:
+        _rank_matrix.clear()
+        M = _rank_matrix[(n, seed)] = synth_spd(n, seed)
+    return M
+
+
 def rank_inputs(args, rank: int, nb_ranks: int, grid, PB: int):
     """This rank's share of phase dposv's input: A on ``grid``, B on
     PB x 1, only the local tiles filled."""
     from parsec_tpu_torch.collections import TwoDimBlockCyclic
     n, nb = args.n, args.nb
-    M = synth_spd(n, args.seed)
+    M = rank_matrix(n, args.seed)
     Bm = uniform(n, args.nrhs, seed=args.seed + 10)
 
     def dist(src, p, q):
@@ -1363,6 +1428,8 @@ def rank_dposv(ctx, args, plane: bool) -> dict:
         out["redist"] = rank_redist(ctx, args, A, dp)
         if dp is not None:
             out["leaked_parks"] = dp.leaked_parks
+    if args.run in WAVE_IN_SPAWNS:
+        out["wave"] = rank_wave(ctx, args, dp)
     save_tiles(ctx, args.out, A, B)
     return out
 
@@ -1413,9 +1480,265 @@ def rank_dtd_chain(ctx, args) -> dict:
                local_cuda_tasks=DTD_HOPS // 2, msgs=ctx.comm.ce.fabric.msg_count,
                bytes=ctx.comm.ce.fabric.bytes_count)
     if rank == 0:
-        x = np.asarray(tile_c.data_of("x").get_copy(0).payload)
+        from parsec_tpu_torch.data.data import to_host_array
+        # the home copy may hold a tensor handed over device to device
+        x = to_host_array(tile_c.data_of("x").get_copy(0).payload)
         out["exact"] = bool(np.all(x == np.float32(DTD_HOPS)))
     return out
+
+
+@contextlib.contextmanager
+def knobs(kv: dict):
+    """The port's knobs set for a block (the process's registry, shared
+    by its rank threads), restored after."""
+    from parsec_tpu_torch.utils.params import params
+    with contextlib.ExitStack() as stack:
+        for k, v in kv.items():
+            stack.enter_context(params.cmdline_override(k, str(v)))
+        yield
+
+
+def wave_dist_rank(M: np.ndarray, n: int, nb: int, rank: int, nb_ranks: int,
+                   grid, comm, sync) -> dict:
+    """One rank's distributed-wave dpotrf of ``M`` at NB ``nb``, A on
+    ``grid`` with only this rank's tiles filled: ``wave(tp, comm=comm)``,
+    then ``run()`` on cuda:0 from ``sync()`` (a barrier) to
+    ``torch.cuda.synchronize()``.  Returns the rank's record, its owned
+    lower tiles pulled to the host under ``tiles``."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.collections import TwoDimBlockCyclic
+    from parsec_tpu_torch.ops import kernels
+    A = TwoDimBlockCyclic(n, n, nb, nb, P=grid[0], Q=grid[1],
+                          nodes=nb_ranks, rank=rank, dtype=np.float32)
+    A.name = "descW"
+    for (i, j) in A.local_tiles():
+        np.copyto(A.tile(i, j), M[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb])
+    tp = ptt.ops.dpotrf_taskpool(A, rank=rank, nb_ranks=nb_ranks)
+    expected = local_cuda_tasks([tp], rank)
+    w = ptt.ptg.wave(tp, comm=comm)
+    ce = getattr(comm, "ce", comm)
+    sent0 = getattr(ce, "d2d_sent_bytes", 0)
+    sync()
+    l0 = kernels.thread_matmul_launches()
+    t0 = time.perf_counter()
+    w.run()
+    if w.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = w.stats
+    rec = dict(rank=rank, wall=wall, device=str(w.device),
+               waves=st["waves"], kernel_calls=st["kernel_calls"],
+               local_tasks=st["local_tasks"], local_cuda_tasks=expected,
+               matmul_launches=kernels.thread_matmul_launches() - l0,
+               stage_in_bytes=w.stage_in_bytes,
+               local_tiles=st["local_tiles"], sched=w.schedule_summary(),
+               lane=st["collective_lane"],
+               lane_calls=st["collective_calls"],
+               lane_joins=st["collective_joins"],
+               lane_tiles=st["collective_tiles"],
+               quantized=st["collective_quantized"],
+               reduce_dtype=st["collective_reduce_dtype"],
+               messages=st["messages_sent"], tiles_sent=st["tiles_sent"],
+               tiles_recv=st["tiles_recv"],
+               tiles_forwarded=st["tiles_forwarded"],
+               mesh_local_sends=st["mesh_local_sends"],
+               plane_sends=st["plane_sends"], host_sends=st["host_sends"],
+               device_plane=st["device_plane"],
+               d2d_bytes=getattr(ce, "d2d_sent_bytes", 0) - sent0)
+    t1 = time.perf_counter()
+    rec["tiles"] = {(i, j): np.asarray(A.data_of(i, j).sync_to_host()
+                                       .payload).copy()
+                    for (i, j) in A.local_tiles() if i >= j}
+    rec["pull_seconds"] = time.perf_counter() - t1
+    return rec
+
+
+def rank_wave(ctx, args, dp) -> dict:
+    """Inside a dposv spawn, after its dposv: one distributed-wave dpotrf
+    of phase main's input on the run's grid, with WAVE_IN_SPAWNS' knobs;
+    the owned factor tiles saved as W_i_j.npy under ``args.out``."""
+    nb_ranks, grid, _PB, _plane = MULTIRANK_RUNS[args.run]
+    M = rank_matrix(args.n, args.seed)
+    pulls0 = dp.stats["pulls"] if dp is not None else 0
+    with knobs(WAVE_IN_SPAWNS[args.run]):
+        rec = wave_dist_rank(M, args.n, args.nb, ctx.rank, nb_ranks, grid,
+                             ctx.comm, ctx.comm.ce.sync)
+    for (i, j), t in rec.pop("tiles").items():
+        np.save(os.path.join(args.out, f"W_{i}_{j}.npy"), t)
+    if dp is not None:
+        rec.update(plane_pulls=dp.stats["pulls"] - pulls0,
+                   leaked_parks=dp.leaked_parks)
+    return rec
+
+
+def wave_dist_lines(phase: str, recs: list, n: int) -> None:
+    """One line per rank of a distributed-wave run, then its checks:
+    every local task on cuda:0 and of a class with a CUDA body, the GEMM
+    kernel launched on every rank, the sliced pools under the matrix."""
+    for r in recs:
+        sc = r["sched"]
+        log(phase, rank=r["rank"], device=r["device"],
+            wall=f"{r['wall']:.4f}", waves=r["waves"],
+            kernel_calls=r["kernel_calls"], local_tasks=r["local_tasks"],
+            local_cuda_tasks=r["local_cuda_tasks"],
+            matmul_launches=r["matmul_launches"],
+            **{f"{k}_sent": f"{sc[k]['sent']}/{sc[k]['sent_bytes']}"
+               for k in ("pre", "push", "return")},
+            **{f"{k}_recv": f"{sc[k]['recv']}/{sc[k]['recv_bytes']}"
+               for k in ("pre", "push", "return")},
+            lane=r["lane"], lane_groups=sc["lane"]["groups"],
+            lane_calls=r["lane_calls"], lane_joins=r["lane_joins"],
+            lane_tiles=r["lane_tiles"], quantized=r["quantized"],
+            messages=r["messages"], tiles_sent=r["tiles_sent"],
+            tiles_recv=r["tiles_recv"],
+            tiles_forwarded=r["tiles_forwarded"],
+            mesh_local_sends=r["mesh_local_sends"],
+            d2d_bytes=r["d2d_bytes"], plane_sends=r["plane_sends"],
+            plane_pulls=r.get("plane_pulls", 0),
+            leaked_parks=r.get("leaked_parks", 0),
+            host_sends=r["host_sends"], local_tiles=r["local_tiles"],
+            stage_in_bytes=r["stage_in_bytes"],
+            pull_seconds=f"{r['pull_seconds']:.4f}")
+        check(r["device"] == "cuda:0",
+              f"{phase}: rank {r['rank']} ran on {r['device']}")
+        check(r["local_tasks"] == r["local_cuda_tasks"],
+              f"{phase}: rank {r['rank']} ran {r['local_tasks']} tasks on "
+              f"the card of its {r['local_cuda_tasks']} CUDA-body tasks")
+        check(r["matmul_launches"] > 0,
+              f"{phase}: rank {r['rank']} launched the GEMM kernel no time")
+        check(r["stage_in_bytes"] < n * n * 4,
+              f"{phase}: rank {r['rank']} staged {r['stage_in_bytes']} "
+              f"bytes, not under the matrix's {n * n * 4}")
+
+
+def assemble_tiles(recs: list, n: int, nb: int) -> np.ndarray:
+    out = np.zeros((n, n), np.float32)
+    for r in recs:
+        for (i, j), t in r.pop("tiles").items():
+            out[i * nb:i * nb + t.shape[0], j * nb:j * nb + t.shape[1]] = t
+    return np.tril(out)
+
+
+def phase_wave_dist(seed: int, L_main: np.ndarray, n: int = N_MAIN,
+                    nb: int = NB_MAIN, profile: bool = False) -> dict:
+    """The distributed wave in this process: WAVE_DIST_RANKS rank threads
+    on MeshFabric([cuda:0] * 4) (exchanged stacks handed over device to
+    device), A on WAVE_DIST_GRID, phase main's input; each WAVE_DIST_RUNS
+    run's factor assembled and held to phase main's: bit-identical for
+    trees and the lane, within WAVE_BF16_TOL with quantized reductions
+    for the bf16 lane.  Under --profile the lane run runs under
+    torch.profiler (the busy share).  Returns each run's GEMM launches
+    by rank."""
+    from parsec_tpu_torch.comm import MeshFabric
+    from parsec_tpu_torch.utils.spmd import spmd_threads
+    M = synth_spd(n, seed)
+    dev = torch.device("cuda", 0)
+    launches = {}
+    for name, kv in WAVE_DIST_RUNS:
+        fabric = MeshFabric(devices=[dev] * WAVE_DIST_RANKS)
+
+        def rank_fn(r, f):
+            return wave_dist_rank(M, n, nb, r, WAVE_DIST_RANKS,
+                                  WAVE_DIST_GRID, f.engine(r),
+                                  f.barrier.wait)
+
+        prof = contextlib.nullcontext()
+        if profile and name == "lane":
+            from torch.profiler import ProfilerActivity, profile as tprof
+            prof = tprof(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
+        reset_counts()
+        t0 = time.perf_counter()
+        with knobs(kv), prof:
+            recs, _ = spmd_threads(WAVE_DIST_RANKS, rank_fn,
+                                   timeout=RANK_DEADLINE, fabric=fabric)
+        seconds = time.perf_counter() - t0
+        if not isinstance(prof, contextlib.nullcontext):
+            profile_report(f"wave_dist_{name}", prof,
+                           max(r["wall"] for r in recs))
+        phase = f"wave_dist.{name}"
+        wave_dist_lines(phase, recs, n)
+        L = assemble_tiles(recs, n, nb)
+        err = float(np.abs(L - L_main).max() / np.abs(L_main).max())
+        same = bool(np.array_equal(L, L_main))
+        del L
+        log(phase, ranks=WAVE_DIST_RANKS,
+            grid=f"{WAVE_DIST_GRID[0]}x{WAVE_DIST_GRID[1]}", n=n, nb=nb,
+            wall=f"{max(r['wall'] for r in recs):.4f}",
+            d2d_bytes=fabric.d2d_bytes, d2d_transfers=fabric.d2d_transfers,
+            run_seconds=f"{seconds:.1f}", identical=same, rel_err=err)
+        check(all(r["host_sends"] == 0 for r in recs)
+              and sum(r["mesh_local_sends"] for r in recs) > 0,
+              f"{phase}: an exchanged stack went through the host")
+        if "wave_reduce_dtype" in kv:
+            check(all(r["lane"] == "inproc" and r["reduce_dtype"] == "qbf16"
+                      for r in recs), f"{phase}: the bf16 lane did not run")
+            check(sum(r["quantized"] for r in recs) > 0,
+                  f"{phase}: no reduction was quantized")
+            check(err < WAVE_BF16_TOL,
+                  f"{phase}: {err} not under {WAVE_BF16_TOL}")
+        else:
+            check(same, f"{phase}: the factor is not bit-identical to "
+                        f"phase main's (rel err {err})")
+            lane = kv["wave_dist_collective"] == "on"
+            check(all((r["lane"] == "inproc") == lane for r in recs)
+                  and (sum(r["lane_calls"] for r in recs) > 0) == lane,
+                  f"{phase}: the lane's engagement is not the run's")
+        launches[name] = [r["matmul_launches"] for r in recs]
+    return launches
+
+
+def phase_mesh_chain(seed: int, nb: int = NB_MAIN) -> None:
+    """dtd_chain_2 on MeshFabric([cuda:0] * 2): two rank threads of this
+    process, each with its own context on the card, one nb x nb tile
+    through DTD_HOPS CUDA-chore hops alternating between them.  Every
+    hop is mesh-local (the producer's private device copy travels, no
+    host bytes); the tile is exact, as the TCP chain's."""
+    import types
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.comm import MeshFabric, RemoteDepEngine
+    from parsec_tpu_torch.utils.spmd import spmd_threads
+    fabric = MeshFabric(devices=[torch.device("cuda", 0)] * 2)
+    args = types.SimpleNamespace(nb=nb, seed=seed)
+
+    def rank_fn(r, f):
+        ctx = ptt.Context(nb_cores=2, comm=RemoteDepEngine(f.engine(r)))
+        try:
+            out = rank_dtd_chain(ctx, args)
+            out.update(rank=r, mesh_local_sends=ctx.comm.stats[
+                "mesh_local_sends"],
+                host_staged_bytes=ctx.comm.stats["host_staged_bytes"],
+                rendezvous_host=ctx.comm.stats["rendezvous_host"],
+                d2d_bytes=f.engines[r].d2d_sent_bytes)
+            return out
+        finally:
+            ctx.fini()
+
+    t0 = time.perf_counter()
+    recs, _ = spmd_threads(2, rank_fn, timeout=RANK_DEADLINE, fabric=fabric)
+    for r in recs:
+        boot_on_device = r["device_tasks"] - r["local_cuda_tasks"]
+        log("mesh_chain_2", rank=r["rank"], device=r["device"],
+            hops=DTD_HOPS, wall=f"{r['wall']:.4f}",
+            device_tasks=r["device_tasks"],
+            local_cuda_tasks=r["local_cuda_tasks"],
+            boot_on_device=boot_on_device,
+            mesh_local_sends=r["mesh_local_sends"],
+            d2d_bytes=r["d2d_bytes"],
+            host_staged_bytes=r["host_staged_bytes"],
+            rendezvous_host=r["rendezvous_host"], msgs=r["msgs"],
+            exact=r.get("exact"))
+        check(r["device"] == "cuda:0" and 0 <= boot_on_device <= 1,
+              f"mesh_chain_2: rank {r['rank']} ran {r['device_tasks']} "
+              f"device tasks for {r['local_cuda_tasks']} hops")
+        check(r["mesh_local_sends"] > 0 and r["host_staged_bytes"] == 0
+              and r["rendezvous_host"] == 0,
+              f"mesh_chain_2: rank {r['rank']} staged tiles through the "
+              f"host ({r['host_staged_bytes']} bytes)")
+    check(recs[0]["exact"] is True, "mesh_chain_2: the tile is not exact")
+    log("mesh_chain_2", d2d_bytes=fabric.d2d_bytes,
+        d2d_transfers=fabric.d2d_transfers,
+        seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 def rank_worker(args) -> int:
@@ -1450,23 +1773,30 @@ def rank_worker(args) -> int:
 
 def spawn_ranks(run: str, nb_ranks: int, seed: int, out_dir: str,
                 n: int, nb: int, nrhs: int, profile: bool = False,
-                extra_env: dict = None, extra_args: list = None) -> list:
+                extra_env: dict = None, extra_args: list = None,
+                dist: bool = False) -> list:
     """Start the rank processes of ``run`` (knobs of ``extra_env`` and
-    flags of ``extra_args`` added to each) and wait for them; a rank that
-    exits non-zero or passes RANK_DEADLINE fails the phase (every rank
-    is killed first).  One rank runs without a comm engine.  Returns
-    each rank's JSON record."""
+    flags of ``extra_args`` added to each; with ``dist`` the ``dist_*``
+    knobs of one gloo process group, its store on a port of its own) and
+    wait for them; a rank that exits non-zero or passes RANK_DEADLINE
+    fails the phase (every rank is killed first).  One rank runs without
+    a comm engine.  Returns each rank's JSON record."""
     from parsec_tpu_torch.comm import free_ports
-    ports = free_ports(nb_ranks)
+    ports = free_ports(nb_ranks + 1)
     procs = []
     for r in range(nb_ranks):
         env = {k: v for k, v in os.environ.items()
-               if not k.startswith(("PARSEC_MCA_comm_", "PARSEC_MCA_ft_"))}
+               if not k.startswith(("PARSEC_MCA_comm_", "PARSEC_MCA_ft_",
+                                    "PARSEC_MCA_dist_"))}
         if nb_ranks > 1:
             env.update(PARSEC_MCA_comm_transport="tcp",
                        PARSEC_MCA_comm_endpoints=",".join(
-                           f"127.0.0.1:{p}" for p in ports),
+                           f"127.0.0.1:{p}" for p in ports[:nb_ranks]),
                        PARSEC_MCA_comm_rank=str(r))
+        if dist:
+            env.update(PARSEC_MCA_dist_coordinator=f"127.0.0.1:{ports[-1]}",
+                       PARSEC_MCA_dist_num_processes=str(nb_ranks),
+                       PARSEC_MCA_dist_process_id=str(r))
         env.update(extra_env or {})
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
@@ -1567,12 +1897,47 @@ def assemble(out_dir: str, name: str, shape, nb: int) -> np.ndarray:
     return out
 
 
+def wave_report(run: str, recs: list, n: int, plane: bool,
+                same: bool) -> None:
+    """The parent's half of a spawn's distributed wave: its lines and
+    checks (the factor bit-identical to phase main's; over CUDA IPC every
+    stack on the plane and no park left; on dposv_4 the multi-process
+    lane, on the others the trees)."""
+    phase = f"wave_dist.{run}"
+    ws = [r["wave"] for r in recs]
+    wave_dist_lines(phase, ws, n)
+    log(phase, ranks=len(recs), wall=f"{max(w['wall'] for w in ws):.4f}",
+        lane=ws[0]["lane"], device_plane=ws[0]["device_plane"],
+        identical=same)
+    check(same, f"{phase}: the factor is not bit-identical to phase main's")
+    for w in ws:
+        if plane:
+            check(w["plane_sends"] > 0 and w["host_sends"] == 0
+                  and w["leaked_parks"] == 0,
+                  f"{phase}: rank {w['rank']} sent {w['host_sends']} "
+                  f"stacks through the host, {w['leaked_parks']} parks "
+                  f"left")
+        else:
+            check(w["plane_sends"] == 0,
+                  f"{phase}: rank {w['rank']} sent on a device plane")
+        want = "multiproc" if run in GLOO_RUNS else None
+        check(w["lane"] == want, f"{phase}: lane {w['lane']}, not {want}")
+    if not plane:
+        check(sum(w["host_sends"] for w in ws) > 0,
+              f"{phase}: no stack travelled as host bytes")
+    if run in GLOO_RUNS:
+        check(sum(w["lane_calls"] for w in ws) > 0,
+              f"{phase}: the multi-process lane carried no tile")
+
+
 def phase_multirank(seed: int, factor: np.ndarray, X1: np.ndarray,
-                    n: int = N_MAIN, nb: int = NB_MAIN, nrhs: int = NRHS,
-                    profile: bool = False):
+                    L_main: np.ndarray, n: int = N_MAIN, nb: int = NB_MAIN,
+                    nrhs: int = NRHS, profile: bool = False):
     """dposv across 2 and 4 rank processes, host-staged and over the
-    CUDA-IPC plane (the redist moves inside dposv_2 and dposv_2_ipc),
-    then the DTD chain; returns each dposv run's GEMM launches by rank."""
+    CUDA-IPC plane (the redist moves inside dposv_2 and dposv_2_ipc, a
+    distributed-wave dpotrf inside every spawn, held to phase main's
+    factor ``L_main``), then the DTD chain; returns each dposv run's GEMM
+    launches by rank, and each spawn's wave's under wave_dist_<run>."""
     M = synth_spd(n, seed)
     Bm = uniform(n, nrhs, seed=seed + 10)
     flops = n ** 3 / 3 + 2.0 * n * n * nrhs
@@ -1583,10 +1948,17 @@ def phase_multirank(seed: int, factor: np.ndarray, X1: np.ndarray,
         try:
             t0 = time.perf_counter()
             recs = spawn_ranks(run, nb_ranks, seed, out_dir, n, nb, nrhs,
-                               profile)
+                               profile, dist=run in GLOO_RUNS)
             spawn_s = time.perf_counter() - t0
             L = assemble(out_dir, "A", (n, n), nb)
             X = assemble(out_dir, "B", (n, nrhs), nb)
+            if run in WAVE_IN_SPAWNS:
+                W = np.tril(assemble(out_dir, "W", (n, n), nb))
+                same_W = bool(np.array_equal(W, L_main))
+                del W
+                wave_report(run, recs, n, plane, same_W)
+                launches[f"wave_dist_{run}"] = [
+                    r["wave"]["matmul_launches"] for r in recs]
             if run in REDIST_RUNS:
                 if S is None:
                     S = dposv_source(factor, M, nb)
@@ -4091,11 +4463,19 @@ def main(argv=None) -> int:
     gemm_launches["dgeqrf"], QR = phase_geqrf(args.seed)
     gemm_launches["pdgemm"], C_nn = phase_pdgemm(args.seed)
     phase_dense(dev, args.seed, factor)
+    t0 = time.perf_counter()
+    wave_dist = phase_wave_dist(args.seed, L_ptg, profile=args.profile)
+    for run, per_rank in wave_dist.items():
+        gemm_launches[f"wave_dist_{run}"] = sum(per_rank)
+    phase_mesh_chain(args.seed)
+    log("wave_dist", seconds=f"{time.perf_counter() - t0:.1f}")
     # the rank processes share the card: the parent keeps off it
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    multirank = phase_multirank(args.seed, factor, X_dposv,
+    t0 = time.perf_counter()
+    multirank = phase_multirank(args.seed, factor, X_dposv, L_ptg,
                                 profile=args.profile)
+    log("multirank", seconds=f"{time.perf_counter() - t0:.1f}")
     for run, per_rank in multirank.items():
         gemm_launches[f"multirank_{run}"] = sum(per_rank)
     t0 = time.perf_counter()
@@ -4154,6 +4534,7 @@ def main(argv=None) -> int:
              multirank_launches_per_rank={f"multirank_{run}": per_rank
                                           for run, per_rank
                                           in multirank.items()},
+             wave_dist_launches_per_rank=wave_dist,
              ft_launches_by_incarnation_and_rank=ft,
              elastic_3_launches_by_survivor=elastic_launches,
              obs_2_launches_by_rank_and_run=obs_launches,

@@ -20,7 +20,7 @@ copy before the body reads it, and the written target tile's host copy
 becomes the newest version, so a later device task stages it in again.
 
 ``reshard_array`` (the JAX package's move between mesh shardings)
-belongs with the mesh (ROADMAP Queue 1 part D) and raises here.
+belongs with the mesh (ROADMAP Queue 1, part D2) and raises here.
 """
 from __future__ import annotations
 
@@ -334,7 +334,7 @@ def redistribute_ptg(source: TiledMatrix, target: TiledMatrix,
 def reshard_array(arr: Any, mesh: Any, spec: Any) -> Any:
     """The JAX package's move of a mesh-resident array between two
     shardings. It belongs with the mesh, which this package does not
-    carry yet (ROADMAP Queue 1 part D): it raises."""
+    carry yet (ROADMAP Queue 1, part D2): it raises."""
     raise NotImplementedError(
         "reshard_array moves an array between mesh shardings; the mesh "
-        "is not carried by this package yet (ROADMAP Queue 1 part D)")
+        "is not carried by this package yet (ROADMAP Queue 1, part D2)")

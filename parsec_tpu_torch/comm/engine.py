@@ -320,6 +320,14 @@ class CommEngine:
         return plane is not None and dst in plane.addresses
 
     # -- failures -----------------------------------------------------------
+    def mesh_local_with(self, peer: int) -> bool:
+        """True when ``peer`` shares this process, so a device-tensor
+        payload can travel device to device instead of serialize ->
+        wire -> deserialize (the mesh-local path of remote_dep).
+        Cross-process transports stay False; in-process fabrics
+        override."""
+        return False
+
     def report_peer_failure(self, peer: int, reason: str) -> None:
         """Uniform failure funnel: mark ``peer`` dead and notify the
         runtime. Idempotent."""

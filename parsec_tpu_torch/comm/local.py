@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core.lists import Fifo
-from ..data.data import is_device_array
+from ..data.data import is_device_array, mark_ready, wait_ready
 from .engine import (CommEngine, RankFailedError, TAG_GET_DATA,
                      TAG_GET_REQ, TAG_PUT_DATA)
 
@@ -70,7 +70,9 @@ def _wire_copy(payload: Any) -> Any:
     if isinstance(payload, np.ndarray):
         return payload.copy()
     if is_device_array(payload):
-        return payload.detach().clone()
+        # a tensor from another stream (mark_ready) is copied after its
+        # producer's event, and the copy is marked for its consumer
+        return mark_ready(wait_ready(payload).detach().clone())
     if isinstance(payload, dict):
         return {k: _wire_copy(v) for k, v in payload.items()}
     if isinstance(payload, tuple):
@@ -121,16 +123,23 @@ class LocalCommEngine(CommEngine):
             raise RankFailedError(dst, "send to failed rank")
         obs = self._obs
         if obs is None:
-            self._transport_post(dst, self.rank, tag, _wire_copy(payload))
+            self._transport_post(dst, self.rank, tag,
+                                 self._copy_for_wire(payload))
             return
         ctx = None
         if self._flow is not None:
             payload, ctx = self._flow_stamp(dst, tag, payload)
         t0 = time.monotonic_ns()
-        self._transport_post(dst, self.rank, tag, _wire_copy(payload))
+        self._transport_post(dst, self.rank, tag,
+                             self._copy_for_wire(payload))
         obs.am_sent(self.rank, dst, tag, payload, t0)
         if ctx is not None:
             obs.flow_sent(dst, tag, ctx, t0)
+
+    def _copy_for_wire(self, payload: Any) -> Any:
+        """What the receiver gets (transport hook: the mesh engine hands
+        device tensors over by reference)."""
+        return _wire_copy(payload)
 
     # -- one-sided emulation (GET-req AM + data reply) ----------------------
     def get(self, src_rank: int, remote_handle_id: int,
@@ -174,6 +183,11 @@ class LocalCommEngine(CommEngine):
         if first_exc is not None:
             raise first_exc
 
+    def _serve_get(self, requester: int, h: Any) -> Any:
+        """One GET reply's payload (transport hook: the mesh engine
+        copies the buffer onto the requester's device here)."""
+        return h.array
+
     def _on_get_req(self, src: int, payload: Any) -> None:
         req = payload["requester"]
         items = []
@@ -183,7 +197,8 @@ class LocalCommEngine(CommEngine):
             if h is None:
                 raise RuntimeError(f"GET for unknown mem handle {handle_id}")
             quantize_ok = quantize_ok and h.quantize_ok
-            items.append({"token": token, "data": h.array, "meta": h.meta})
+            items.append({"token": token, "data": self._serve_get(req, h),
+                          "meta": h.meta})
         # every same-cycle GET from one requester rides ONE reply frame;
         # the reply is quantize-eligible only when EVERY served handle
         # was registered as a tile payload
@@ -267,6 +282,13 @@ class LocalCommEngine(CommEngine):
         if obs is not None:
             obs.progress(n, t0)  # span only when work was done
         return n
+
+    def mesh_local_with(self, peer: int) -> bool:
+        """In-process SPMD ranks share one address space and one CUDA
+        context: a device tensor can be handed to ``peer`` device to
+        device, with no host bytes (the test-fabric analog of two ranks
+        whose devices sit on one mesh)."""
+        return 0 <= peer < self.nb_ranks
 
     def clock_offset_us(self, peer: int) -> float:
         """In-process ranks share ONE monotonic clock: the cross-rank

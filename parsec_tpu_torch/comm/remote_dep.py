@@ -36,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..data.data import (Coherency, Data, DataCopy, is_device_array,
-                         to_host_array)
+                         mark_ready, to_host_array)
 from ..runtime.scheduling import schedule
 from ..utils import logging as plog
 from ..utils.params import params
@@ -141,6 +141,13 @@ class RemoteDepEngine:
         ce.tag_register(TAG_TERMDET, self._on_termdet)
         ce.tag_register(TAG_XFER_ACK, self._on_xfer_ack)
         ce.on_get_served = self.note_get_served
+        # mesh-local path: device-tensor payloads to peers that share
+        # this process (comm/mesh.py) travel device to device, any size,
+        # never as host bytes.  A torch tile is mutable, so what travels
+        # is a private device copy taken on the producer's stream (one
+        # on-card copy; the JAX package ships its immutable buffer by
+        # reference and copies only under donation)
+        self._mesh_local = bool(params.get("comm_mesh_local"))
         # remote-GET prefetch: an activation that races ahead
         # of its taskpool's registration/startup counts is BUFFERED
         # (see _early_activations) — but its rendezvous payload need
@@ -157,7 +164,7 @@ class RemoteDepEngine:
                       "dtd_sends": 0, "dtd_recvs": 0, "forwards": 0,
                       "mem_puts_sent": 0, "mem_puts_recv": 0,
                       "plane_sends": 0, "host_staged_bytes": 0,
-                      "rendezvous_host": 0,
+                      "rendezvous_host": 0, "mesh_local_sends": 0,
                       # prefetched-GET outcomes, DISTINCT from plain
                       # GETs so the overlap gauges stay debuggable
                       "prefetch_gets": 0, "prefetch_hits": 0,
@@ -254,6 +261,29 @@ class RemoteDepEngine:
             return False
 
     # ------------------------------------------------------------------ #
+    # mesh-local path                                                    #
+    # ------------------------------------------------------------------ #
+    def mesh_local_to(self, dst: int) -> bool:
+        """Whether a device-tensor payload for ``dst`` takes the
+        mesh-local path (``comm_mesh_local`` on, ``dst`` in this
+        process)."""
+        return self._mesh_local and self.ce.mesh_local_with(dst)
+
+    def _private_copy(self, t: Any) -> Any:
+        """The mesh-local payload: a private device copy of ``t`` on this
+        rank's device module's stream, behind the kernel that wrote
+        ``t`` and ahead of any later write to it, marked ready for the
+        consumer's stream (``data.mark_ready``)."""
+        dev = (self.context.device_by_type("cuda")
+               if self.context is not None else None)
+        stream = getattr(dev, "stream", None)
+        if stream is None:
+            return t.detach().clone()
+        import torch
+        with torch.cuda.stream(stream):
+            return mark_ready(t.detach().clone(), stream)
+
+    # ------------------------------------------------------------------ #
     # adaptive eager/rendezvous cutoff                                   #
     # ------------------------------------------------------------------ #
     _RTT_ALPHA = 0.2
@@ -341,7 +371,13 @@ class RemoteDepEngine:
             # agreeable to all of them — take the most conservative
             limit = min(self.short_limit_for(r) for r in ranks)
             inline = payload_arr is None or payload_arr.nbytes <= limit
-            if (plane is not None and not inline
+            if (is_device_array(payload_arr)
+                    and all(self.mesh_local_to(r) for r in ranks)):
+                # mesh-local: every participant shares this process —
+                # the private device copy rides the activation, any size
+                msg["data"] = self._private_copy(payload_arr)
+                self.stats["mesh_local_sends"] += 1
+            elif (plane is not None and not inline
                     and is_device_array(payload_arr)):
                 # device data plane: park the DEVICE buffer, consumers
                 # pull it device-to-device (no host pickling); one uuid
@@ -736,13 +772,25 @@ class RemoteDepEngine:
                  arr: np.ndarray) -> None:
         """Small payloads ride inline in the AM; larger ones go through
         the same GET rendezvous as PTG edges (short proto vs rendezvous,
-        ref: remote_dep_mpi.c:244-252); both carry host arrays."""
+        ref: remote_dep_mpi.c:244-252); both carry host arrays.  A device
+        tensor for a peer in this process takes the mesh-local path."""
         obs = self.ce._obs
         t0 = time.monotonic_ns() if obs is not None else 0
-        arr = _host(arr)
         msg = {"tp_id": tp.comm_tp_id, "tile": tile_key, "seq": seq}
         if self._quantize_eligible(tp, arr):
             msg["_qz_ok"] = True   # DTD tile payload: may quantize
+        if is_device_array(arr) and self.mesh_local_to(dst):
+            # mesh-local: the private device copy travels, any size
+            nbytes = arr.numel() * arr.element_size()
+            msg["data"] = self._private_copy(arr)
+            self.stats["mesh_local_sends"] += 1
+            self.ce.send_am(dst, TAG_DTD_DATA, msg)
+            self.stats["dtd_sends"] += 1
+            if obs is not None:
+                obs.span("comm:dtd_send", t0,
+                         {"dst": dst, "bytes": nbytes, "rendezvous": False})
+            return
+        arr = _host(arr)
         nbytes = arr.nbytes
         self.stats["host_staged_bytes"] += nbytes
         if nbytes <= self.short_limit_for(dst):

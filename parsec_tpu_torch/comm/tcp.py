@@ -607,6 +607,14 @@ class TCPCommEngine(LocalCommEngine):
                                  + self._CLOCK_ALPHA * offset_us)
             self._clock_n[peer] = self._clock_n.get(peer, 0) + 1
 
+    def mesh_local_with(self, peer: int) -> bool:
+        """Rank processes never share a CUDA context: the in-process
+        fabric's device-to-device handover (inherited from
+        LocalCommEngine) must not fire here, or device tensors would be
+        pickled inside the message instead of riding the device plane
+        or the GET rendezvous."""
+        return False
+
     def clock_offset_us(self, peer: int) -> Optional[float]:
         """NTP-style estimate of ``peer_clock - my_clock`` in µs (the
         ``PARSEC::OBS::CLOCK_OFFSET_US::R<peer>`` gauge; None until a

@@ -85,6 +85,10 @@ class _IPCBackend:
         that wrote ``arr``; the copy is a fresh allocation, so no later
         write to ``arr`` reaches the consumer."""
         import torch
+        from ..data.data import wait_ready
+        # a tile written on another stream of this process (a rank
+        # thread's) is copied only after its producer's event
+        wait_ready(arr, self.stream)
         with torch.cuda.stream(self.stream):
             t = arr.detach().to(self.device).contiguous().clone()
             (dev, handle, size, off, rc, rco, ev,

@@ -60,13 +60,47 @@ def register_device_stream(device: Any, stream: Any,
         _device_pulls[device] = weakref.WeakMethod(pull)
 
 
+def mark_ready(t: Any, stream: Any = None) -> Any:
+    """Hand-over of a CUDA tensor to a consumer on another stream (a rank
+    thread of the same process): record, on ``stream`` (default: the
+    current one), the event the consumer's stream must wait for before
+    it reads ``t``.  A host tensor needs nothing.  Returns ``t``."""
+    if is_device_array(t) and t.is_cuda:
+        import torch
+        s = stream if stream is not None else torch.cuda.current_stream(
+            t.device)
+        ev = torch.cuda.Event()
+        ev.record(s)
+        t._ptt_ready = ev
+    return t
+
+
+def wait_ready(t: Any, stream: Any = None) -> Any:
+    """The consumer's half of :func:`mark_ready`: ``stream`` (default:
+    the current one) waits for the producer's event, and the caching
+    allocator learns that ``stream`` uses ``t``'s memory.  Returns
+    ``t``."""
+    ev = getattr(t, "_ptt_ready", None)
+    if ev is not None:
+        import torch
+        s = stream if stream is not None else torch.cuda.current_stream(
+            t.device)
+        s.wait_event(ev)
+        t.record_stream(s)
+    return t
+
+
 def to_host_array(x: Any) -> Any:
     """A writable numpy array holding ``x``'s values, never sharing
     memory with a device payload (host bodies mutate in place).  A CUDA
     tensor is copied on its device module's stream, so the copy waits
-    for the kernel that produced it."""
+    for the kernel that produced it (and for the producer's event of a
+    tensor handed over from another stream, :func:`mark_ready`)."""
     if not is_device_array(x):
         return np.array(x)
+    ev = getattr(x, "_ptt_ready", None)
+    if ev is not None:
+        ev.synchronize()
     ref = _device_pulls.get(x.device)
     pull = ref() if ref is not None else None
     if pull is not None:

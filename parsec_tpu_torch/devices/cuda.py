@@ -54,7 +54,8 @@ import numpy as np
 
 from ..core.lists import Dequeue
 from ..data.data import (Coherency, Data, DataCopy, FlowAccess,
-                         is_device_array, register_device_stream)
+                         is_device_array, register_device_stream,
+                         wait_ready)
 from ..runtime.taskpool import HookReturn, Task
 from ..utils import logging as plog
 from ..utils.params import params
@@ -176,6 +177,9 @@ class CudaDevice(Device):
         a private device copy of a tensor; caller holds the stream."""
         import torch
         if is_device_array(payload):
+            # a tensor handed over from another rank's stream
+            # (comm/mesh.py) is read only after its producer's event
+            wait_ready(payload, self.stream)
             return payload.to(self.torch_device, copy=True)
         arr = np.ascontiguousarray(payload)
         obs = self._obs

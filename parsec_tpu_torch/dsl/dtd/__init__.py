@@ -40,7 +40,8 @@ import numpy as np
 
 from ...core.hashtable import HashTable
 from ...profiling.grapher import grapher
-from ...data.data import Data, FlowAccess, data_new_with_payload
+from ...data.data import (Data, FlowAccess, data_new_with_payload,
+                         is_device_array)
 from ...runtime.scheduling import _Backoff, schedule, task_progress
 from ...runtime.taskpool import Chore, Flow, HookReturn, Task, TaskClass, Taskpool
 from ...runtime.termdet import termdet_new
@@ -715,7 +716,12 @@ def _dtd_recv_body(es, task: Task) -> None:
     tile: DTDTile = task.user[1].value
     arr = box["data"]
     host = tile.data.host_copy()
-    if host.payload is None:
+    if is_device_array(arr):
+        # the mesh-local path (comm/mesh.py): the producer's private
+        # device copy becomes this version as it is; the next device
+        # task stages it in device to device, a host read pulls it
+        host.payload = arr
+    elif host.payload is None:
         host.payload = np.array(arr)
     else:
         # the host copy may transiently hold a tensor: write into a
@@ -729,6 +735,13 @@ def _dtd_send_body(es, task: Task) -> None:
     copy, if any, queues on the device module's stream)."""
     tile, seq, dst = task.user[0].value
     tp: DTDTaskpool = task.taskpool
+    newest = tile.data.newest_copy()
+    if newest is not None and is_device_array(newest.payload) \
+            and tp.comm.mesh_local_to(dst):
+        # a peer in this process: the device version travels device to
+        # device (the comm engine takes the private copy on our stream)
+        tp.comm.dtd_send(tp, tile.comm_key, seq, dst, newest.payload)
+        return
     host = tile.data.sync_to_host(es.context.devices)
     if host.payload is None:
         raise RuntimeError(f"dtd_send of tile {tile.comm_key} with no local "

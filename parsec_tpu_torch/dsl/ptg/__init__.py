@@ -22,6 +22,7 @@ from .lower import LoweredDAG, lower
 from .parser import JDFParseError, parse_jdf
 from .runtime import PTGTaskClass, PTGTaskpool
 from .wave import WaveError, WaveRunner, wave
+from .wave_dist import TAG_WAVE, DistWaveRunner, lane_device_pool
 
 
 class JDFFactory:
@@ -52,4 +53,5 @@ def compile_jdf_file(path: str) -> JDFFactory:
 __all__ = ["compile_jdf", "compile_jdf_file", "JDFFactory", "JDFParseError",
            "PTGTaskpool", "PTGTaskClass", "CaptureError", "CapturedSequence",
            "CapturedTaskpool", "capture", "capture_sequence", "lower",
-           "LoweredDAG", "wave", "WaveRunner", "WaveError"]
+           "LoweredDAG", "wave", "WaveRunner", "WaveError",
+           "DistWaveRunner", "TAG_WAVE", "lane_device_pool"]

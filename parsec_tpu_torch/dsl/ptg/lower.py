@@ -143,17 +143,20 @@ def _purge_jdf(jid: int) -> None:
             del _cache[k]
 
 
-def lower(tp, use_cache: bool = True) -> LoweredDAG:
+def lower(tp, use_cache: bool = True,
+          allow_multirank: bool = False) -> LoweredDAG:
     """Enumerate ``tp``'s task space and dependence edges into a
     LoweredDAG.
 
     The enumeration is rank-independent (the FULL task space and edge
-    set), but the static engines have no foreign-edge bookkeeping and
-    the static engines keep no foreign-edge bookkeeping, so only
-    single-rank pools lower (a multi-rank pool runs the hash mode)."""
+    set — SPMD ranks lowering the same JDF get identical DAGs), but the
+    static engines keep no foreign-edge bookkeeping, so only single-rank
+    pools lower for them (a multi-rank pool runs the hash mode).  The
+    distributed wave (wave_dist.py) partitions the full DAG by rank
+    itself and passes ``allow_multirank=True``."""
     import weakref
 
-    if tp.nb_ranks != 1:
+    if tp.nb_ranks != 1 and not allow_multirank:
         raise ValueError("static lowering is single-rank; use dynamic "
                          "dep management for multi-rank taskpools")
     key = None

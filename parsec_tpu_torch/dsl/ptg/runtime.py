@@ -428,15 +428,19 @@ class PTGTaskClass(TaskClass):
             remote_edges.setdefault(dst, []).append(
                 (succ_tc.task_class_id, succ_locals, flow_name, out_idx))
             if out_idx not in flow_payloads and copy is not None:
-                ce = getattr(self.tp.comm, "ce", None)
-                plane = getattr(ce, "device_plane", None)
+                comm = self.tp.comm
+                plane = getattr(getattr(comm, "ce", None), "device_plane",
+                                None)
+                mesh = getattr(comm, "mesh_local_to", None)
                 on_dev = (_newest_device_copy(copy)
-                          if plane is not None else None)
+                          if plane is not None
+                          or (mesh is not None and mesh(dst)) else None)
                 if on_dev is not None:
-                    # device data plane attached and the newest version
-                    # lives on the device (perhaps beside an equal host
-                    # copy a host body pulled): hand over the tensor
-                    # itself — the consumer pulls it device to device
+                    # device data plane attached, or a peer in this
+                    # process, and the newest version lives on the
+                    # device (perhaps beside an equal host copy a host
+                    # body pulled): hand over the tensor itself — it
+                    # moves device to device
                     flow_payloads[out_idx] = on_dev.payload
                     flow_dtts[out_idx] = on_dev.dtt
                 elif copy.data is not None:

@@ -52,10 +52,14 @@ class _PoolHolder:
     and its copies) keeps only the pools alive, not the runner's
     entries/plans/taskpool graph."""
 
-    __slots__ = ("pools",)
+    __slots__ = ("pools", "ready")
 
     def __init__(self) -> None:
         self.pools: Tuple = ()
+        # the CUDA event after the run that wrote the pools, when a read
+        # may queue on another stream (the distributed wave's rank
+        # threads); None: reads are ordered already
+        self.ready = None
 
 
 class LazyPoolCopy(DataCopy):
@@ -80,6 +84,8 @@ class LazyPoolCopy(DataCopy):
     def payload(self):
         if not self._mat:
             self._val = self._holder.pools[self._pid][self._row]
+            if self._holder.ready is not None:
+                self._val._ptt_ready = self._holder.ready
             self._mat = True
         return self._val
 
@@ -98,7 +104,7 @@ def _task_fn_f(genv, kplans, spec):
     applies) into its out view, and the dual-output merge into its wbx
     view. Module-level, so the closure cached on the DAG captures kplans
     and a pruned env only — never a runner or its pools."""
-    ci, _k, statics, _incols, _outcols, wbflags, _wbxcols = spec
+    ci, _k, statics, _incols, _outcols, wbflags, _wbxcols, _cnv = spec
     p = kplans[ci]
     call = _make_call_f(genv, p, statics)
     masked = [bool(wbflags and wbflags[j] and p.written[j]
@@ -278,7 +284,7 @@ class TurboRunner(WaveRunner):
             ids = np.asarray([t], np.int64)
             ent, _ = self._frontier_entries(ids, dag.class_of[ids], pools)
             spec, a = ent[0]
-            _ci, _k, _st, incols, outcols, _wbf, wbxcols = spec
+            _ci, _k, _st, incols, outcols, _wbf, wbxcols, _cnv = spec
             nf = len(incols)
             rows = (tuple((incols[j], int(a["idx_in"][j, 0]))
                           for j in range(nf)),

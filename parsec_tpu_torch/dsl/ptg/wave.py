@@ -51,7 +51,15 @@ Semantics notes:
 (``cuda:0`` unless ``device_cuda_platform`` names another) and raises
 without a card; ``run(device="cpu")`` runs the same code over host
 tensors with each kernel's plain version (what the tests do).  The pools of ``build_pools``
-may not be sharded over several devices in this package.
+may not be sharded over several devices in this package (that waits for
+the chip mesh, ROADMAP Queue 1, part D2).
+
+A multi-rank taskpool (or any call with an explicit ``comm``) runs
+through ``DistWaveRunner`` (wave_dist.py): every rank walks the same
+waves over its slice of the pools, and tiles move between ranks on a
+static schedule.  The seams it uses here: ``_multirank``, the
+global-to-local pool-row maps ``_g2l`` and the per-instance wire
+conversions ``_wconv`` ([type_remote] on a cross-rank edge).
 """
 from __future__ import annotations
 
@@ -195,14 +203,17 @@ def _resolve_dst_f(genv, p: _KPlan, k, nm, tile_shape, pool_dtype):
     return dst
 
 
-def _make_call_f(genv, p: _KPlan, statics: Tuple):
+def _make_call_f(genv, p: _KPlan, statics: Tuple, wires: Tuple = ()):
     """The class body over stacked tensors, with the given static
     body-local values: ``call(*flow_vals) -> written outputs``, each
     input ``[k, ...]`` and each output ``[k, ...]``.  A ``batch=stacked``
     body runs once on the stacks; any other runs once per member and its
     outputs are stacked.  [type]/[type_data] input conversions (masked
     casts) apply to the gathered stack first (ref: parsec_reshape.c
-    consumer-side promise trigger)."""
+    consumer-side promise trigger).  ``wires`` carries this group's
+    per-flow [type_remote] names (distributed wave: instances whose
+    bound producer lives on another rank convert the received raw tile
+    consumer-side, the remote_dep_mpi.c:766 lookup)."""
     flow_names = p.flow_names
     written = p.written
     in_tname = p.in_tname
@@ -213,7 +224,8 @@ def _make_call_f(genv, p: _KPlan, statics: Tuple):
                     for i, v in zip(p.body_locals, statics)]
 
     def conv_in(j, v):
-        nm = in_tname[j]
+        nm = (wires[j] if wires and wires[j] is not None
+              else in_tname[j])
         if nm is None:
             return v
         dst = _resolve_dst_f(genv, p, j, nm, tuple(v.shape[1:]), v.dtype)
@@ -280,7 +292,7 @@ def _gather_group_f(kplans, pools, spec, idx):
     """Gather one group's inputs + masked-merge destinations from the
     (pre-scatter) pools: ``idx`` holds the chunk's device index
     tensors."""
-    _ci, _k, _st, incols, outcols, wbflags, wbxcols = spec
+    _ci, _k, _st, incols, outcols, wbflags, wbxcols, _cnv = spec
     p = kplans[_ci]
     nf = p.nf
     gathered = [pools[incols[j]].index_select(0, idx.inp[j])
@@ -305,7 +317,7 @@ def _compute_scatter_f(genv, kplans, call, pools, spec, staged, idx) -> None:
     see the FULL body output. A dual-output flow additionally scatters
     the region-merge into its memory target (wbx) while the rename slot
     carries the full value."""
-    ci, k, _statics, _incols, outcols, _wbflags, wbxcols = spec
+    ci, k, _statics, _incols, outcols, _wbflags, wbxcols, _cnv = spec
     p = kplans[ci]
     gathered, dest_old, wbx_old = staged
     outs = call(*gathered)
@@ -359,14 +371,16 @@ def _stage_indices(entries, device) -> List[_Idx]:
 class WaveRunner:
     """Executor for one single-rank PTG taskpool in wave mode."""
 
+    _multirank = False   # DistWaveRunner (wave_dist.py) overrides
+
     def __init__(self, tp: PTGTaskpool, max_chunk: int = 256) -> None:
-        if tp.nb_ranks != 1:
-            raise NotImplementedError(
-                f"wave: the taskpool has nb_ranks={tp.nb_ranks}, but "
-                f"this package runs one rank")
+        if tp.nb_ranks != 1 and not self._multirank:
+            raise WaveError(
+                f"single-rank wave on a taskpool with nb_ranks="
+                f"{tp.nb_ranks}; use wave(tp, comm=...) / DistWaveRunner")
         self.tp = tp
         self.max_chunk = max(1, int(max_chunk))
-        self.dag: LoweredDAG = lower(tp)
+        self.dag: LoweredDAG = lower(tp, allow_multirank=self._multirank)
         from ...collections.collection import DataCollection
         self.collections: Dict[str, Any] = {
             name: c for name, c in tp.global_env.items()
@@ -433,6 +447,7 @@ class WaveRunner:
         self.stats: Dict[str, Any] = {}
         self.stage_in_bytes = 0     # host bytes the last build_pools moved
         self.device = None          # the last build_pools' device
+        self._g2l = None   # DistWaveRunner: global->local pool row maps
         # slot tables: per task, per (non-ctl) flow position in the
         # class's flow_idx list -> flat tile index (collection fixed per
         # class/flow, validated during assignment)
@@ -444,9 +459,20 @@ class WaveRunner:
     # ------------------------------------------------------------------ #
     # slot assignment                                                    #
     # ------------------------------------------------------------------ #
+    def _wire_tname_of(self, tc, f, env) -> Optional[str]:
+        """[type_remote] hook: wire conversions exist only on cross-rank
+        edges — the distributed runner overrides this; a single-rank
+        wave has no remote edges."""
+        return None
+
     def _assign_slots(self) -> None:
         dag = self.dag
         n = dag.n_tasks
+        # per-INSTANCE wire conversions ([type_remote] on a bound remote
+        # edge, distributed only): sparse (task, flow) -> name; chunks
+        # group by the per-flow name tuple so per-class closures stay
+        # uniform while local and remote instances convert differently
+        self._wconv: Dict[Tuple[int, int], str] = {}
         max_df = max((len(p.flow_idx) for p in self.plans), default=0)
         slot = np.full((n, max_df), -1, np.int32)
         # topo order via Kahn over the lowered CSR
@@ -520,6 +546,9 @@ class WaveRunner:
                 slot[t, k] = idx
                 tname = self._inst_in_tname(f, env)
                 p.in_tnames[k].add(tname)
+                wnm = self._wire_tname_of(tc, f, env)
+                if wnm is not None:
+                    self._wconv[(t, k)] = wnm
                 if p.written[k]:
                     out_cid, out_idx, has_target = self._out_slot_of_flow(
                         t, p, k, f, env, coll_id, idx, tname,
@@ -812,21 +841,23 @@ class WaveRunner:
     # a pruned env, never the runner)                                    #
     # ------------------------------------------------------------------ #
     def _kernel(self, ci: int, k: int, statics: Tuple, incols: Tuple,
-                outcols: Tuple, wbflags: Tuple = (), wbxcols: Tuple = ()):
+                outcols: Tuple, wbflags: Tuple = (), wbxcols: Tuple = (),
+                cnv: Tuple = ()):
         """The chunk closure for class ``ci``, chunk size ``k``, static
         body-local values ``statics``, per-flow pool ids
         ``incols``/``outcols``, per-flow writeback-mask applicability
         ``wbflags``, and per-flow extra masked-scatter pool ids
         ``wbxcols`` (guarded deps may bind different pools / have or
         lack a memory target per instance — chunks group by the full
-        signature): fn(pools, idx) gathers, runs the body once on the
-        stacks and scatters the written slots in place."""
+        signature), and per-flow [type_remote] conversions ``cnv``:
+        fn(pools, idx) gathers, runs the body once on the stacks and
+        scatters the written slots in place."""
         p = self.plans[ci]
-        key = (k, statics, incols, outcols, wbflags, wbxcols)
+        key = (k, statics, incols, outcols, wbflags, wbxcols, cnv)
         kern = p.kernels.get(key)
         if kern is not None:
             return kern
-        spec = (ci, k, statics, incols, outcols, wbflags, wbxcols)
+        spec = (ci, k, statics, incols, outcols, wbflags, wbxcols, cnv)
         if self._kernels_shareable:
             kern = self.dag.kernel_cache.get(spec)
             if kern is not None:
@@ -834,7 +865,7 @@ class WaveRunner:
                 return kern
         kplans = self._kplans
         genv = self._trace_env
-        call = _make_call_f(genv, kplans[ci], statics)
+        call = _make_call_f(genv, kplans[ci], statics, cnv)
 
         def chunk_fn(pools, idx):
             staged = _gather_group_f(kplans, pools, spec, idx)
@@ -865,7 +896,8 @@ class WaveRunner:
                 return kern
         kplans = self._kplans
         genv = self._trace_env
-        calls = [_make_call_f(genv, kplans[sp[0]], sp[2]) for sp in specs]
+        calls = [_make_call_f(genv, kplans[sp[0]], sp[2], sp[7])
+                 for sp in specs]
 
         def wave_fn(pools, idxs):
             staged = [_gather_group_f(kplans, pools, sp, ix)
@@ -916,6 +948,7 @@ class WaveRunner:
             p = self.plans[int(ci)]
             nf = len(p.flow_idx)
             groups: Dict[Tuple, List[int]] = {}
+            none_cnv = (None,) * nf
             for t in members:
                 sv = tuple(int(dag.locals_of[t][i])
                            for i in p.body_locals)
@@ -923,24 +956,50 @@ class WaveRunner:
                 ocl = tuple(int(c) for c in self._slot_out_coll[t, :nf])
                 wfl = tuple(bool(b) for b in self._wb_apply[t, :nf])
                 xcl = tuple(int(c) for c in self._wbx_cid[t, :nf])
-                groups.setdefault((sv, icl, ocl, wfl, xcl),
+                cnv = (tuple(self._wconv.get((int(t), j))
+                             for j in range(nf))
+                       if self._wconv else none_cnv)
+                groups.setdefault((sv, icl, ocl, wfl, xcl, cnv),
                                   []).append(int(t))
-            for (statics, icl, ocl, wfl, xcl), g in groups.items():
+            for (statics, icl, ocl, wfl, xcl, cnv), g in groups.items():
                 garr = np.asarray(g, np.int64)
                 off = 0
                 for k in self._chunks(len(garr), self.max_chunk):
                     chunk = garr[off:off + k]
                     off += k
-                    spec = (int(ci), k, statics, icl, ocl, wfl, xcl)
-                    entries.append((spec, {
-                        "idx_in": self._slot[chunk, :nf].T.copy(),
-                        "idx_out": self._slot_out[chunk, :nf].T.copy(),
-                        "idx_wbx": self._wbx_idx[chunk, :nf].T.copy()}))
+                    idx_in = self._slot[chunk, :nf].T.copy()
+                    idx_out = self._slot_out[chunk, :nf].T.copy()
+                    idx_wbx = self._wbx_idx[chunk, :nf].T.copy()
+                    if self._g2l is not None:
+                        self._to_local_rows(nf, icl, ocl, xcl, idx_in,
+                                            idx_out, idx_wbx)
+                    spec = (int(ci), k, statics, icl, ocl, wfl, xcl, cnv)
+                    entries.append((spec, {"idx_in": idx_in,
+                                           "idx_out": idx_out,
+                                           "idx_wbx": idx_wbx}))
                     for j in range(nf):
                         pl = pools[icl[j]]
                         total += k * int(np.prod(pl.shape[1:])) * \
                             pl.element_size()
         return entries, total
+
+    def _to_local_rows(self, nf, icl, ocl, xcl, idx_in, idx_out,
+                       idx_wbx) -> None:
+        """Sliced pools (distributed): translate a chunk's global tile
+        indices into this rank's pool rows, in place."""
+        bad = False
+        for j in range(nf):
+            idx_in[j] = self._g2l[icl[j]][idx_in[j]]
+            bad |= bool((idx_in[j] < 0).any())
+            if ocl[j] >= 0:
+                idx_out[j] = self._g2l[ocl[j]][idx_out[j]]
+                bad |= bool((idx_out[j] < 0).any())
+            if xcl[j] >= 0:
+                idx_wbx[j] = self._g2l[xcl[j]][idx_wbx[j]]
+                bad |= bool((idx_wbx[j] < 0).any())
+        if bad:
+            raise WaveError("sliced-pool translation hit a tile this rank "
+                            "never staged (local-map construction bug)")
 
     @staticmethod
     def _trace_error(exc: Exception, label: str):
@@ -1170,7 +1229,7 @@ class WaveRunner:
         if sharding is not None:
             raise NotImplementedError(
                 "build_pools(sharding=...): sharded wave pools come with "
-                "the mesh on torch.distributed (ROADMAP Queue 1 item 5)")
+                "the chip mesh (ROADMAP Queue 1, part D2)")
         device = resolve_device(device)
         pools = []
         staged = 0
@@ -1278,7 +1337,12 @@ class WaveRunner:
         return self.dag.n_tasks
 
 
-def wave(tp: PTGTaskpool, max_chunk: int = 256) -> WaveRunner:
-    """Build a wave-mode executor for a single-rank taskpool; a
-    multi-rank one raises (the distributed wave is not carried)."""
+def wave(tp: PTGTaskpool, max_chunk: int = 256, comm=None) -> WaveRunner:
+    """Build a wave-mode executor.  Single-rank taskpools get the local
+    WaveRunner; multi-rank taskpools (or an explicit ``comm``) get the
+    distributed runner (wave_dist.py), which partitions the DAG by the
+    data distribution and exchanges tiles between waves."""
+    if tp.nb_ranks != 1 or comm is not None:
+        from .wave_dist import DistWaveRunner
+        return DistWaveRunner(tp, max_chunk=max_chunk, comm=comm)
     return WaveRunner(tp, max_chunk=max_chunk)

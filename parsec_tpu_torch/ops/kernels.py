@@ -65,7 +65,8 @@ __all__ = ["build", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_plain",
            "flash_attention_stats", "flash_attention_stats_plain",
            "flash_bwd_launches", "flash_launches", "flash_stats_launches",
-           "gemm", "gemm_plain", "load", "matmul", "matmul_launches"]
+           "gemm", "gemm_plain", "load", "matmul", "matmul_launches",
+           "thread_matmul_launches"]
 
 #: launches of each kernel since the process started (or since a caller
 #: reset it to 0); the plain versions do not count
@@ -73,6 +74,14 @@ matmul_launches = 0
 flash_launches = 0
 flash_stats_launches = 0
 flash_bwd_launches = 0
+#: the GEMM kernel's launches by the calling thread, counted at the same
+#: place: in-process rank threads share the module's totals
+_per_thread = threading.local()
+
+
+def thread_matmul_launches() -> int:
+    """The GEMM kernel's launches made by the calling thread."""
+    return getattr(_per_thread, "matmul", 0)
 
 #: the Pallas kernels' mask value, kept so masked rows match
 NEG_INF = -1e30
@@ -272,6 +281,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
             int(trans_b), float(alpha), float(beta), stream)
     _raise_launch("gemm", lib, rc)
     matmul_launches += 1
+    _per_thread.matmul = getattr(_per_thread, "matmul", 0) + 1
     return out
 
 

@@ -5,7 +5,8 @@ expert-parallel MoE feed-forward.
 This package runs on one device, where every axis has size 1: the ring
 is one step over the diagonal block, the all-to-alls, the pipeline's
 sends and the experts' psum are the identity.  Collectives over several
-devices come with ``torch.distributed`` (ROADMAP Queue 1 item 5)."""
+devices come with the chip mesh (ROADMAP Queue 1, part D2).  The
+reduced-precision collectives of the distributed wave live in ``mesh``."""
 from .mesh import AXES, Mesh, axis_size, make_mesh
 from .ring_attention import local_attention, ring_attention
 from .sequence import ulysses_attention

@@ -19,9 +19,12 @@ coordinator when ``ft_elastic`` is set, the fault injector from
 ``clear_task_errors`` for the restart driver's rollback; so are the
 debug-history ring (``debug_history_size``) and the live SDE push
 (``sde_push``), and telemetry (obs/: ``profile``, ``metrics``,
-``obs_flow``, ``obs_live``).  Self-tuning, serving and the JAX
-package's ``jax.distributed`` are not carried, and a knob asking for one
-of them raises NotImplementedError.
+``obs_flow``, ``obs_live``).  The counterpart of the JAX package's
+``jax.distributed`` bootstrap is ``torch.distributed`` over gloo, set up
+from the ``dist_coordinator``, ``dist_num_processes`` and
+``dist_process_id`` knobs (the distributed wave's multi-process lane
+rides it).  Self-tuning and serving are not carried, and a knob asking
+for one of them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,6 +42,30 @@ from .scheduling import ExecutionStream, context_wait_loop, schedule
 from .taskpool import Taskpool
 from .termdet import termdet_new
 from .vpmap import VPMap, VirtualProcess, default_nb_cores
+
+
+def _maybe_init_torch_distributed() -> None:
+    """``torch.distributed.init_process_group("gloo")`` from the
+    ``dist_*`` knobs, so every participating rank process joins ONE
+    process group (the JAX package's ``jax.distributed.initialize``
+    bootstrap).  Idempotent per process; off unless
+    ``dist_coordinator`` is set.  gloo is the only backend: NCCL does
+    not run two ranks on one card.  The coordinator's TCP store needs a
+    port of its own, apart from the comm engine's listeners."""
+    coord = params.get("dist_coordinator")
+    if not coord:
+        return
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return
+    world = int(params.get("dist_num_processes"))
+    rank = int(params.get("dist_process_id"))
+    if world < 1 or not 0 <= rank < world:
+        raise ValueError(
+            f"dist_coordinator={coord!r} needs dist_num_processes >= 1 "
+            f"and 0 <= dist_process_id < it (got {world}, {rank})")
+    dist.init_process_group("gloo", init_method=f"tcp://{coord}",
+                            world_size=world, rank=rank)
 
 
 def _comm_from_params():
@@ -92,6 +119,9 @@ class Context:
         if argv:
             params.parse_argv(argv)
         _check_trimmed_knobs()
+        # multi-process bootstrap (launcher-provided params): one
+        # torch.distributed process group, before the comm engine
+        _maybe_init_torch_distributed()
         if comm is None:
             comm = _comm_from_params()
         if comm is None and (nb_ranks != 1 or rank != 0):

@@ -292,6 +292,37 @@ def register_core_params() -> None:
                    "wave execution: at most this many cached fused wave "
                    "closures per runner; later wave shapes run per "
                    "(class, chunk)")
+    # the distributed wave (dsl/ptg/wave_dist.py)
+    params.reg_string("wave_dist_collective", "auto",
+                      "distributed wave broadcast groups: auto (one "
+                      "all_reduce per group over torch.distributed when "
+                      "it spans exactly one process per rank, else "
+                      "broadcast trees), on (also the in-process lane of "
+                      "rank threads in one process; a lane that cannot "
+                      "attach raises), off (trees)")
+    params.reg_int("wave_dist_collective_min_pct", 50,
+                   "multiproc lane: a partial broadcast group smaller "
+                   "than this share of the ranks rides trees instead")
+    params.reg_string("wave_dist_plane", "auto",
+                      "distributed wave payload hop: auto (attach a "
+                      "DeviceDataPlane on the TCP transport unless the "
+                      "multiproc lane has groups scheduled), on (force), "
+                      "off (host bytes over the comm engine)")
+    params.reg_string("wave_dist_bcast", "binomial",
+                      "distributed wave static broadcast trees: binomial, "
+                      "chain or star")
+    params.reg_string("wave_reduce_dtype", "",
+                      "quantize each collective-lane contribution at the "
+                      "reduction boundary (bf16 | int8, the wire codecs); "
+                      "empty = full precision")
+    params.reg_bool("wave_lazy_writeback", True,
+                    "distributed wave: results stay card-resident as lazy "
+                    "pool slices pulled one tile at a time on first read "
+                    "(0 = one eager pull of the owned rows)")
+    params.reg_int("xfer_group_size", 0,
+                   "two-level collective group size (ranks per full-"
+                   "precision partial sum before the quantized boundary "
+                   "hop); 0 = 2")
     params.reg_int("arena_max_used", -1, "cap on arena allocated buffers (-1 off)")
     params.reg_int("arena_max_cached", -1, "cap on arena cached buffers (-1 off)")
     params.reg_int("task_startup_iter", 64, "startup enumerator chunk iterations")
@@ -420,6 +451,16 @@ def register_core_params() -> None:
                       "comma list of host:port control-plane endpoints, "
                       "one per rank, identical on every rank")
     params.reg_int("comm_rank", -1, "this process's rank in comm_endpoints")
+    params.reg_string("dist_coordinator", "",
+                      "host:port of the torch.distributed TCP store "
+                      "(gloo); set on every rank process to initialise "
+                      "one process group at init() (a port other than the "
+                      "comm engine's listeners)")
+    params.reg_int("dist_num_processes", 0,
+                   "world size for torch.distributed.init_process_group")
+    params.reg_int("dist_process_id", -1,
+                   "this process's rank for "
+                   "torch.distributed.init_process_group")
     params.reg_string("xfer_backend", "auto",
                       "device data plane backend: \"auto\" (ipc on a "
                       "CUDA device, loopback on the CPU), \"ipc\" (CUDA "
@@ -430,8 +471,15 @@ def register_core_params() -> None:
                     "same-grid moves as coalesced alltoall-style "
                     "collective rounds (xfer/plan.py) instead of one DTD "
                     "task per tile; the payload rides the device plane "
-                    "where one is attached on both ends. Off (default) "
-                    "keeps the DTD path")
+                    "where one is attached on both ends; it also switches "
+                    "the wave collective lane to the two-level reduction "
+                    "(parallel/mesh.two_level_allreduce). Off (default) "
+                    "keeps the DTD path and the flat lane")
+    params.reg_bool("comm_mesh_local", True,
+                    "hand device-tensor payloads to peers in this process "
+                    "(comm/mesh.py) device to device, as a private copy "
+                    "taken on the producer's stream, never through host "
+                    "bytes; off stages every payload through the host")
     params.reg_sizet("debug_history_size", 0,
                      "debug history ring entries (0=off, ref PARSEC_DEBUG_HISTORY)")
     params.reg_int("dtd_window_size", 8000, "DTD sliding window size")
@@ -523,10 +571,9 @@ def register_core_params() -> None:
 
 
 #: knobs of the JAX package's subsystems that this package leaves out
-#: (the comm engine's mesh-local by-reference path, tuning, serving,
-#: stage compilation, chip meshes)
-TRIMMED_KNOBS = ("comm_mesh_local", "tune_auto", "serve",
-                 "stage_compile", "device_mesh_shape")
+#: (tuning, serving, stage compilation, chip meshes)
+TRIMMED_KNOBS = ("tune_auto", "serve", "stage_compile",
+                 "device_mesh_shape")
 
 
 register_core_params()

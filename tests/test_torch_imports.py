@@ -420,6 +420,18 @@ def test_trimmed_knobs_raise(knob, value):
             parsec_tpu_torch.init(nb_cores=1, device="cpu")
 
 
+def test_comm_mesh_local_knob_is_carried():
+    """comm_mesh_local is no longer a trimmed knob: init accepts it on
+    and off, and the comm layer reads it."""
+    from parsec_tpu_torch.comm import LocalFabric, RemoteDepEngine
+    for value, on in (("1", True), ("0", False)):
+        with params.cmdline_override("comm_mesh_local", value):
+            ctx = parsec_tpu_torch.init(nb_cores=1, device="cpu")
+            ctx.fini()
+            rde = RemoteDepEngine(LocalFabric(2).engine(0))
+            assert rde.mesh_local_to(1) is on
+
+
 def test_ft_elastic_knob_is_carried():
     """ft_elastic is no longer a trimmed knob: init accepts every mode
     (a one-rank context attaches no coordinator), and an unknown mode

@@ -357,10 +357,10 @@ def test_wave_cyclic_war():
 
 
 def test_wave_sharding_raises():
-    """Sharded pools come with the mesh port: build_pools(sharding=)
-    raises NotImplementedError naming it."""
+    """Sharded pools come with the chip mesh: build_pools(sharding=)
+    raises NotImplementedError naming its part of the roadmap."""
     w = wave(dpotrf_taskpool(_coll(make_spd(256), 128)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="part D2"):
         w.build_pools(device="cpu", sharding=object())
 
 
@@ -379,11 +379,15 @@ def test_wave_run_without_card_raises(monkeypatch):
 
 
 def test_wave_multirank_raises():
+    """A multi-rank pool goes to the distributed runner, which raises
+    without a comm engine; the single-rank runner refuses it."""
     M = make_spd(256)
     A = TwoDimBlockCyclic(256, 256, 128, 128, P=2,
                           dtype=np.float32).from_numpy(M)
-    with pytest.raises(NotImplementedError, match="one rank"):
+    with pytest.raises(WaveError, match="comm engine"):
         wave(dpotrf_taskpool(A, rank=0, nb_ranks=2))
+    with pytest.raises(WaveError, match="single-rank wave"):
+        WaveRunner(dpotrf_taskpool(A, rank=0, nb_ranks=2))
 
 
 def test_wave_reshape_properties_masked_writeback():
