@@ -67,6 +67,25 @@ Phases, each reporting on its own lines:
             factor bit-identical to main's, the Prometheus exposition
             parsing; under --profile the same run under torch.profiler,
             its busy share printed beside the events' share;
+5a'. mesh  one rank's chip mesh on the card: device_mesh_shape=2x2 over
+            device_cuda_virtual_chips logical chips of cuda:0, each an
+            index and a CUDA stream of its own, phase main's input.
+            (a) dpotrf through init() -> ops.dpotrf with 4 chips: the
+            factor bit-identical to phase main's, sharded flush groups
+            (mesh_dispatches > 0, mesh_tasks >= 4 a dispatch), all 816
+            tasks CUDA-body tasks on the mesh device, the GEMM kernel
+            launched on each of the 4 chip streams (counted per chip,
+            summing to the kernel's counter); the wall, hops and their
+            bytes, the resident bytes per chip and the memory budget;
+            (b) 16 DTD tasks C <- C - A B^T on 1024 x 1024 tiles, chore
+            ops.linalg.gemm_nt, on the mesh and on one chip: bit-identical,
+            the mesh's burst sharded; (c) 2 rank threads on a LocalFabric,
+            8 chips, each rank a 2 x 2 mesh of its own (ids 0-3 and 4-7),
+            dpotrf with A on 2 x 1: the assembled factor bit-identical to
+            phase main's, mesh-local sends, GEMM launches on every rank;
+            under --profile (a) once more under torch.profiler (path
+            mesh_dpotrf, and the share of the GEMM kernel's time during
+            which two chip streams ran it at once);
 5b. dplasma the rest of the family at the same size, one line each with
             the wall seconds, GFLOP/s by DPLASMA's flop counts, the tasks
             on cuda:0 against their count, the GEMM kernel's launches and
@@ -96,7 +115,7 @@ Phases, each reporting on its own lines:
             each building phase main's input on 2 x 2 (its own tiles
             filled) and calling wave(tp, comm=ce).run(): broadcast trees
             (wave_dist_collective=off), the in-process lane (on), the
-            lane at wave_reduce_dtype=bf16, and trees again warm.  Per
+            lane at wave_reduce_dtype=bf16.  Per
             rank: the wall (a barrier to torch.cuda.synchronize()),
             waves, body calls, its tasks against its CUDA-body tasks,
             its GEMM launches (counted on its thread), the static
@@ -163,8 +182,8 @@ Phases, each reporting on its own lines:
             the input);
 5e'. obs_2  telemetry on two ranks: ONE spawn of two rank processes
             (dposv_2: phase dposv's input, A and B on 2 x 1, TCP, with
-            heartbeats every 0.5 s in every run), each alternating four
-            dposv runs with telemetry off, on, off, on (init and fini
+            heartbeats every 0.5 s in every run), each running dposv
+            with telemetry off, then on (init and fini
             between them; "on" = profile, metrics, obs_flow, obs_live,
             and sde_push to an aggregator the parent serves).  Each rank
             returns per run its wall, GEMM launches, device tasks against
@@ -184,8 +203,8 @@ Phases, each reporting on its own lines:
             both halves; the clock offset under 1 ms; each exposition
             parses and names device, comm, ft and health series; the
             aggregator's fleet /health merge reports both ranks;
-5f. ft      the same dposv (A and B on 2 x 1, the TCP engine, phase
-            dposv's input, N = 16384) through ft.run_with_restart over
+5f. ft      dposv (A and B on 2 x 1, the TCP engine, phase dposv's
+            generators at N = FT_N = 8192) through ft.run_with_restart over
             its three pools, a snapshot of A and B after every stage
             (pulled from the card) under a temporary directory the phase
             removes: ft_kill_2 (ft_inject kills rank 1 inside stage 1,
@@ -202,8 +221,8 @@ Phases, each reporting on its own lines:
             .npz seconds), restores, retries, GEMM launches and device
             tasks against its CUDA-body tasks per attempt; each run its
             detector and detection latency, the disk its snapshots took,
-            and the factor and X, bit-identical to phase dposv's with
-            residuals under 1e-4;
+            and the factor and X, bit-identical to one rank's dposv at
+            that N, with residuals under 1e-4;
 5f'. elastic_3 the same dposv on 3 rank processes (A and B on 3 x 1)
             through run_with_restart with an ElasticPolicy under
             ft_elastic=shrink, a snapshot every stage; ft_inject kills
@@ -218,7 +237,7 @@ Phases, each reporting on its own lines:
             (0, 1), one resize, reshard bytes > 0, device tasks equal
             CUDA-body tasks in every finished attempt, GEMM launches on
             both survivors after the resize, factor and X bit-identical
-            to phase dposv's, residuals under 1e-4;
+            to one rank's dposv at FT_N, residuals under 1e-4;
 5g. template a CUDA-body task, a BODY [type=template] task on an
             attached TemplateDevice and a CUDA-body task on one 1024 x
             1024 tile: exact against the plain chain, the template's
@@ -310,6 +329,9 @@ Phases, each reporting on its own lines:
             share of the wall time; then the GEMM, stats and backward
             kernels and their library yardsticks once each, with the
             device kernels each call runs.
+
+Each phase's seconds (host clock) is a ``[phase_seconds]`` line of its
+own, printed when the phase ends.
 
 Any failure raises and exits non-zero; so does a machine where PyTorch
 sees no CUDA device.  The line before the last is the kernels' record
@@ -881,6 +903,12 @@ def drive(submit, colls, device=None, around=contextlib.nullcontext):
             seconds = time.perf_counter() - t0
         st = dict(dev.stats, executed_tasks=dev.executed_tasks,
                   device=dev.name)
+        if hasattr(dev, "chips"):   # a chip mesh (phase mesh)
+            st.update(chip_gemm_launches=list(dev.chip_gemm_launches),
+                      resident_per_chip=dev.resident_bytes_per_chip(),
+                      mem_budget=dev.mem_budget,
+                      chip_ids=[c.id for c in dev.chips],
+                      chip_streams=len({c.stream for c in dev.chips}))
         t1 = time.perf_counter()
         for C in colls:
             for (m, n) in C.tiles():
@@ -1233,10 +1261,7 @@ WAVE_DIST_RANKS, WAVE_DIST_GRID = 4, (2, 2)
 WAVE_DIST_RUNS = (("trees", {"wave_dist_collective": "off"}),
                   ("lane", {"wave_dist_collective": "on"}),
                   ("lane_bf16", {"wave_dist_collective": "on",
-                                 "wave_reduce_dtype": "bf16"}),
-                  # the first run pays the rank pools' first allocations
-                  # and first kernel loads: trees again, warm
-                  ("trees_warm", {"wave_dist_collective": "off"}))
+                                 "wave_reduce_dtype": "bf16"}))
 #: the bf16 lane's bound on max |L - L_exact| / max |L_exact|, L_exact
 #: phase main's factor (the JAX package's tests/test_quantize.py:255-295)
 WAVE_BF16_TOL = 1e-2
@@ -1741,6 +1766,284 @@ def phase_mesh_chain(seed: int, nb: int = NB_MAIN) -> None:
         seconds=f"{time.perf_counter() - t0:.1f}")
 
 
+# ---------------------------------------------------------------------- #
+# mesh: one rank's chip mesh over logical chips of the card              #
+# ---------------------------------------------------------------------- #
+#: phase mesh: device_mesh_shape over device_cuda_virtual_chips logical
+#: chips of the one card, each a stream of its own
+MESH_SHAPE = "2x2"
+MESH_CHIPS = 4           # (a), (b): one rank's 2 x 2 mesh
+MESH_RANK_CHIPS = 8      # (c): 2 rank threads, each owning 4 of them
+MESH_RANKS = 2
+MESH_BURST = 16          # (b): same-class DTD tasks C <- C - A B^T
+
+
+def mesh_knobs(chips: int):
+    return knobs({"device_mesh_shape": MESH_SHAPE,
+                  "device_cuda_virtual_chips": chips})
+
+
+def mesh_line(phase: str, st: dict, **extra) -> None:
+    log(phase, device=st["device"], tasks=st["tasks"],
+        executed_tasks=st["executed_tasks"], batches=st["batches"],
+        batched_tasks=st["batched_tasks"],
+        mesh_dispatches=st.get("mesh_dispatches", 0),
+        mesh_tasks=st.get("mesh_tasks", 0),
+        mesh_moves=st.get("mesh_moves", 0),
+        collective_bytes=st.get("collective_bytes", 0),
+        chip_gemm_launches="/".join(map(str, st.get("chip_gemm_launches",
+                                                    []))),
+        stage_in_bytes=st["stage_in_bytes"], **extra)
+
+
+def mesh_dpotrf(M: np.ndarray, nb: int, around=contextlib.nullcontext):
+    """dpotrf through init() -> ops.dpotrf on a 2 x 2 mesh of the card's
+    logical chips; returns (L, stats, seconds)."""
+    import parsec_tpu_torch as ptt
+    A = tiled(M, nb)
+    with mesh_knobs(MESH_CHIPS):
+        st, seconds, (L,) = drive(lambda ctx: ptt.ops.dpotrf(ctx, A), [A],
+                                  around=around)
+    return np.tril(L), st, seconds
+
+
+def mesh_burst(seed: int, nb: int, mesh: bool) -> tuple:
+    """(b): MESH_BURST DTD tasks C <- C - A B^T on nb x nb fp32 tiles,
+    chore ops.linalg.gemm_nt (stacked), on the 2 x 2 mesh or on one
+    chip; returns (the C tiles, stats, the GEMM kernel's launches)."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch import dtd
+    from parsec_tpu_torch.dsl.dtd import INOUT, INPUT
+    from parsec_tpu_torch.ops import kernels
+    from parsec_tpu_torch.ops.linalg import gemm_nt
+    rng = np.random.RandomState(seed + 40)
+    host = [[rng.rand(nb, nb).astype(np.float32) for _ in range(3)]
+            for _ in range(MESH_BURST)]
+    with (mesh_knobs(MESH_CHIPS) if mesh else contextlib.nullcontext()):
+        ctx = ptt.init(nb_cores=1)
+    try:
+        dev = ctx.device_by_type("cuda")
+        tp = dtd.taskpool_new("mesh_burst")
+        ctx.add_taskpool(tp)
+
+        def body(es, task):   # the boot task's (insertion index 0) only
+            if task.locals[0] >= 1:
+                raise RuntimeError(f"{task.snprintf()} ran its host body")
+
+        boot = tp.tile_of_array(np.zeros((nb, nb), np.float32))
+        tp.insert_task(body, (boot, INOUT), (boot, INPUT), (boot, INPUT))
+        tp.add_chore(body, "cuda", gemm_nt, stacked=True)
+        tiles = [[tp.tile_of_array(a) for a in row] for row in host]
+        reset_counts()
+        t0 = time.perf_counter()
+        for c, a, b in tiles:
+            tp.insert_task(body, (c, INOUT), (a, INPUT), (b, INPUT))
+        tp.wait()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        st = dict(dev.stats, executed_tasks=dev.executed_tasks,
+                  device=dev.name, seconds=seconds,
+                  chip_gemm_launches=list(getattr(dev, "chip_gemm_launches",
+                                                  [])))
+        outs = [np.array(c.data.sync_to_host(ctx.devices).payload)
+                for c, _a, _b in tiles]
+        return outs, st, kernels.matmul_launches
+    finally:
+        ctx.fini()
+
+
+def mesh_rank(M: np.ndarray, n: int, nb: int, rank: int, fabric) -> dict:
+    """(c): one of MESH_RANKS rank threads, its own context owning a
+    2 x 2 mesh of the card's logical chips, dpotrf of ``M`` with A on
+    MESH_RANKS x 1 (its own tiles filled), interpreted runtime, from a
+    barrier to torch.cuda.synchronize(); its owned lower tiles pulled
+    to the host under ``tiles``."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.collections import TwoDimBlockCyclic
+    from parsec_tpu_torch.comm import RemoteDepEngine
+    eng = RemoteDepEngine(fabric.engine(rank))
+    ctx = ptt.Context(nb_cores=2, comm=eng)
+    try:
+        dev = ctx.device_by_type("cuda")
+        A = TwoDimBlockCyclic(n, n, nb, nb, P=MESH_RANKS, Q=1,
+                              nodes=MESH_RANKS, rank=rank, dtype=np.float32)
+        A.name = "descMesh"
+        for (i, j) in A.local_tiles():
+            np.copyto(A.tile(i, j),
+                      M[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb])
+        tp = ptt.ops.dpotrf_taskpool(A, rank=rank, nb_ranks=MESH_RANKS)
+        expected = local_cuda_tasks([tp], rank)
+        eng.ce.sync()
+        t0 = time.perf_counter()
+        ctx.add_taskpool(tp)
+        ctx.wait()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = dict(dev.stats, rank=rank, wall=wall, device=dev.name,
+                   executed_tasks=dev.executed_tasks,
+                   local_cuda_tasks=expected,
+                   chip_ids=[c.id for c in dev.chips],
+                   chip_gemm_launches=list(dev.chip_gemm_launches),
+                   mesh_local_sends=eng.stats["mesh_local_sends"],
+                   host_staged_bytes=eng.stats["host_staged_bytes"])
+        rec["tiles"] = {(i, j): np.array(A.data_of(i, j).sync_to_host(
+            ctx.devices).payload) for (i, j) in A.local_tiles() if i >= j}
+        return rec
+    finally:
+        ctx.fini()
+
+
+def phase_mesh(seed: int, L_main: np.ndarray, n: int = N_MAIN,
+               nb: int = NB_MAIN, profile: bool = False) -> dict:
+    """One rank's chip mesh on the card (device_mesh_shape=2x2 over
+    device_cuda_virtual_chips logical chips, a stream each), phase main's
+    input: (a) dpotrf through ops.dpotrf, the factor bit-identical to
+    phase main's, sharded flush groups, every device task a CUDA-body
+    task, the GEMM kernel launched on each of the 4 chip streams; (b) a
+    DTD burst at full tile width, bit-identical to one chip; (c) 2 rank
+    threads on a LocalFabric, each owning a 2 x 2 mesh of 8 chips, the
+    assembled factor bit-identical to phase main's, mesh-local sends,
+    disjoint chips, GEMM launches on every rank.  Under --profile (a)
+    runs once more under torch.profiler (path mesh_dpotrf, with the
+    share of GEMM-kernel time two chip streams overlapped).  Returns the
+    GEMM launches by run, and by chip or rank."""
+    from parsec_tpu_torch.comm import LocalFabric
+    from parsec_tpu_torch.ops import kernels
+    from parsec_tpu_torch.utils.spmd import spmd_threads
+    M = synth_spd(n, seed)
+    nt = n // nb
+    tasks = nt * (nt + 1) * (nt + 2) // 6
+    launches, per = {}, {}
+    # (a) dpotrf on a 2 x 2 mesh
+    reset_counts()
+    L, st, seconds = mesh_dpotrf(M, nb)
+    total = kernels.matmul_launches
+    same = bool(np.array_equal(L, L_main))
+    del L
+    mesh_line("mesh.dpotrf", st, shape=MESH_SHAPE, chips=MESH_CHIPS, n=n,
+              nb=nb, seconds=f"{seconds:.4f}",
+              gflops=f"{n ** 3 / 3 / seconds / 1e9:.2f}",
+              expected_tasks=tasks, matmul_launches=total,
+              chip_ids="/".join(map(str, st["chip_ids"])),
+              chip_streams=st["chip_streams"],
+              resident_bytes_per_chip="/".join(
+                  map(str, st["resident_per_chip"])),
+              mem_budget=st["mem_budget"], identical=same)
+    check(st["device"] == "cuda:mesh2x2",
+          f"mesh.dpotrf: ran on {st['device']}")
+    check(st["tasks"] == tasks and st["executed_tasks"] == tasks,
+          f"mesh.dpotrf: {st['tasks']} of {tasks} CUDA-body tasks ran on "
+          f"the device")
+    check(st["mesh_dispatches"] > 0
+          and st["mesh_tasks"] >= MESH_CHIPS * st["mesh_dispatches"],
+          f"mesh.dpotrf: {st['mesh_dispatches']} sharded dispatches of "
+          f"{st['mesh_tasks']} tasks")
+    check(st["chip_streams"] == MESH_CHIPS,
+          f"mesh.dpotrf: {st['chip_streams']} streams for {MESH_CHIPS} "
+          f"chips")
+    check(all(k > 0 for k in st["chip_gemm_launches"])
+          and sum(st["chip_gemm_launches"]) == total,
+          f"mesh.dpotrf: GEMM launches by chip "
+          f"{st['chip_gemm_launches']} (total {total})")
+    check(same, "mesh.dpotrf: the factor is not bit-identical to phase "
+                "main's")
+    launches["mesh_dpotrf"] = total
+    per["mesh_dpotrf_by_chip"] = st["chip_gemm_launches"]
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprof
+        prof = tprof(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA])
+        _L, _st, seconds = mesh_dpotrf(M, nb, around=lambda: prof)
+        profile_report("mesh_dpotrf", prof, seconds)
+        stream_overlap("mesh_dpotrf", prof)
+    # (b) a DTD burst on the mesh and on one chip
+    outs_m, st_m, l_m = mesh_burst(seed, nb, mesh=True)
+    outs_s, st_s, l_s = mesh_burst(seed, nb, mesh=False)
+    same = all(np.array_equal(a, b) for a, b in zip(outs_m, outs_s))
+    for label, stx, lx in (("mesh", st_m, l_m), ("one_chip", st_s, l_s)):
+        mesh_line("mesh.dtd_burst", stx, run=label, burst=MESH_BURST,
+                  nb=nb, seconds=f"{stx['seconds']:.4f}",
+                  matmul_launches=lx, identical=same)
+        check(0 <= stx["tasks"] - MESH_BURST <= 1,
+              f"mesh.dtd_burst.{label}: {stx['tasks']} device tasks for "
+              f"{MESH_BURST}")
+        check(lx > 0, f"mesh.dtd_burst.{label}: no GEMM launch")
+    check(st_m["mesh_dispatches"] >= 1,
+          "mesh.dtd_burst: the burst never sharded over the chips")
+    check(same, "mesh.dtd_burst: the mesh's tiles differ from one chip's")
+    launches["mesh_dtd_burst"], launches["mesh_dtd_burst_one_chip"] = \
+        l_m, l_s
+    del outs_m, outs_s
+    # (c) 2 rank threads, each owning a 2 x 2 mesh of 8 chips
+    fabric = LocalFabric(MESH_RANKS)
+    reset_counts()
+    with mesh_knobs(MESH_RANK_CHIPS):
+        recs, _ = spmd_threads(
+            MESH_RANKS, lambda r, f: mesh_rank(M, n, nb, r, f),
+            timeout=RANK_DEADLINE, fabric=fabric)
+    for r in recs:
+        mesh_line("mesh.ranks_2", r, rank=r["rank"], wall=f"{r['wall']:.4f}",
+                  local_cuda_tasks=r["local_cuda_tasks"],
+                  chip_ids="/".join(map(str, r["chip_ids"])),
+                  mesh_local_sends=r["mesh_local_sends"],
+                  host_staged_bytes=r["host_staged_bytes"])
+        check(r["device"] == "cuda:mesh2x2"
+              and r["tasks"] == r["executed_tasks"] == r["local_cuda_tasks"],
+              f"mesh.ranks_2: rank {r['rank']} ran {r['tasks']} tasks on "
+              f"{r['device']} of its {r['local_cuda_tasks']}")
+        check(sum(r["chip_gemm_launches"]) > 0,
+              f"mesh.ranks_2: rank {r['rank']} launched the GEMM kernel "
+              f"no time")
+    ids = [set(r["chip_ids"]) for r in recs]
+    check(ids[0] == {0, 1, 2, 3} and ids[1] == {4, 5, 6, 7},
+          f"mesh.ranks_2: the ranks' chips {ids} are not 0-3 and 4-7")
+    check(sum(r["mesh_local_sends"] for r in recs) > 0,
+          "mesh.ranks_2: no tile took the mesh-local path")
+    L = assemble_tiles(recs, n, nb)
+    same = bool(np.array_equal(L, L_main))
+    del L
+    log("mesh.ranks_2", ranks=MESH_RANKS, chips=MESH_RANK_CHIPS,
+        wall=f"{max(r['wall'] for r in recs):.4f}",
+        matmul_launches=kernels.matmul_launches, identical=same)
+    check(same, "mesh.ranks_2: the factor is not bit-identical to phase "
+                "main's")
+    launches["mesh_ranks_2"] = kernels.matmul_launches
+    per["mesh_ranks_2_by_rank"] = [sum(r["chip_gemm_launches"])
+                                   for r in recs]
+    return launches, per
+
+
+def stream_overlap(label: str, prof) -> None:
+    """The share of the GEMM kernel's device time (the union of its
+    intervals) during which GEMM kernels of two or more streams ran at
+    once, from the profiler's device events (their stream in
+    ``device_resource_id``)."""
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and "gemm_f32_kernel" in e.name]
+    check(bool(evs), f"{label}: the profiler recorded no GEMM kernel")
+    marks = sorted([(e.time_range.start, 1, e.device_resource_id)
+                    for e in evs]
+                   + [(e.time_range.end, -1, e.device_resource_id)
+                      for e in evs])
+    active: dict = {}
+    union = both = 0.0
+    last = marks[0][0]
+    for t, d, sid in marks:
+        live = sum(1 for v in active.values() if v > 0)
+        if live >= 1:
+            union += t - last
+        if live >= 2:
+            both += t - last
+        last = t
+        active[sid] = active.get(sid, 0) + d
+    log("profile", path=label, gemm_streams=len({e.device_resource_id
+                                                 for e in evs}),
+        gemm_kernels=len(evs), gemm_union_ms=f"{union / 1e3:.3f}",
+        gemm_overlap_ms=f"{both / 1e3:.3f}",
+        gemm_overlap_share=f"{both / union:.4f}" if union else "0")
+
+
 def rank_worker(args) -> int:
     """One rank process of the multirank phase: init() wires the TCP
     comm engine from the comm knobs in the environment."""
@@ -2048,7 +2351,7 @@ def phase_multirank(seed: int, factor: np.ndarray, X1: np.ndarray,
 # ---------------------------------------------------------------------- #
 #: the runs of each rank, in order, in ONE spawn; --profile appends
 #: two runs that split "on" in its halves
-OBS_MODES = ("off", "on", "off", "on")
+OBS_MODES = ("off", "on")
 OBS_PROFILE_MODES = ("trace", "counters")
 #: mode -> (the trace: profile=True, the telemetry knobs)
 OBS_MODE_KNOBS = {
@@ -2319,6 +2622,10 @@ def phase_obs_ranks(seed: int, factor: np.ndarray, X1: np.ndarray,
 #: card-resident collections and retried; ft_clean_2: no fault
 FT_RUNS = {"ft_kill_2": 2, "ft_taskfail_2": 2, "ft_taskfail_1": 1,
            "ft_clean_2": 2}
+#: ft's and elastic_3's N: their rank processes' start-up and recovery,
+#: not the size, are what they exercise, and 16384 made the script run
+#: past 1100 s of its 1200 s on a slow machine
+FT_N = 8192
 FT_HEARTBEAT = {"PARSEC_MCA_ft_heartbeat_interval": "0.05",
                 "PARSEC_MCA_ft_heartbeat_timeout": "2"}
 FT_RETRIES = 1
@@ -2328,6 +2635,18 @@ FT_DARK_S = 120.0        # a killed rank stays dark at most this long
 #: the survivors shrink in-world to 2 x 1
 ELASTIC_RUNS = ("elastic_3",)
 ELASTIC_RANKS, ELASTIC_KILLED = 3, 2
+
+
+def ft_reference(seed: int, n: int = FT_N, nb: int = NB_MAIN,
+                 nrhs: int = NRHS):
+    """One rank's dposv on phase dposv's generators at ``n``: the factor
+    and X the ft and elastic runs are held to."""
+    import parsec_tpu_torch as ptt
+    A = tiled(synth_spd(n, seed), nb)
+    B = tiled(uniform(n, nrhs, seed=seed + 10), nb)
+    _st, _seconds, (L, X) = drive(lambda ctx: ptt.ops.dposv(ctx, A, B),
+                                  [A, B])
+    return np.tril(L), X
 
 
 def ft_stages(A, B, rank: int, nb_ranks: int) -> list:
@@ -4408,6 +4727,14 @@ def profile_yardsticks(dev: torch.device, seed: int) -> None:
             us=f"{e.time_range.elapsed_us():.2f}", kernel=repr(e.name[:140]))
 
 
+@contextlib.contextmanager
+def phase_clock(name: str):
+    """A phase's seconds, host clock, on a line of its own."""
+    t0 = time.perf_counter()
+    yield
+    log("phase_seconds", name=name, seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4442,89 +4769,108 @@ def main(argv=None) -> int:
 
     kind = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
-    gemm_err = phase_kernel(dev, args.seed)
-    attn_err = phase_attention(dev, args.seed)
-    gemm_err = max(gemm_err, phase_bodies(dev, args.seed))
-    t0 = time.perf_counter()
-    phase_batch_semantics(args.seed)
-    log("batch_semantics", seconds=f"{time.perf_counter() - t0:.1f}")
+    with phase_clock("build"):
+        phase_build()
+    with phase_clock("kernel"):
+        gemm_err = phase_kernel(dev, args.seed)
+    with phase_clock("attention"):
+        attn_err = phase_attention(dev, args.seed)
+    with phase_clock("bodies"):
+        gemm_err = max(gemm_err, phase_bodies(dev, args.seed))
+    with phase_clock("batch_semantics"):
+        phase_batch_semantics(args.seed)
     # each path run with the counters set to 0 just before it
     gemm_launches = {}
-    gemm_launches["dpotrf"], L_ptg = phase_main(args.seed)
-    t0 = time.perf_counter()
-    gemm_launches["obs_dpotrf"] = phase_obs(args.seed, L_ptg,
-                                            profile=args.profile)
-    log("obs", seconds=f"{time.perf_counter() - t0:.1f}")
-    gemm_launches["dtd"], L_dtd = phase_dtd(args.seed, L_ptg)
-    gemm_launches["dtd_gemm"] = phase_dtd_gemm(args.seed)
-    gemm_launches["dposv"], factor, X_dposv = phase_dposv(args.seed)
-    gemm_launches["dgetrf_nopiv"], LU = phase_getrf_nopiv(args.seed)
-    gemm_launches["dgeqrf"], QR = phase_geqrf(args.seed)
-    gemm_launches["pdgemm"], C_nn = phase_pdgemm(args.seed)
-    phase_dense(dev, args.seed, factor)
-    t0 = time.perf_counter()
-    wave_dist = phase_wave_dist(args.seed, L_ptg, profile=args.profile)
-    for run, per_rank in wave_dist.items():
-        gemm_launches[f"wave_dist_{run}"] = sum(per_rank)
-    phase_mesh_chain(args.seed)
-    log("wave_dist", seconds=f"{time.perf_counter() - t0:.1f}")
+    with phase_clock("main"):
+        gemm_launches["dpotrf"], L_ptg = phase_main(args.seed)
+    with phase_clock("obs"):
+        gemm_launches["obs_dpotrf"] = phase_obs(args.seed, L_ptg,
+                                                profile=args.profile)
+    with phase_clock("mesh"):
+        mesh_launches, mesh_per = phase_mesh(args.seed, L_ptg,
+                                             profile=args.profile)
+    gemm_launches.update(mesh_launches)
+    with phase_clock("dtd"):
+        gemm_launches["dtd"], L_dtd = phase_dtd(args.seed, L_ptg)
+    with phase_clock("dtd_gemm"):
+        gemm_launches["dtd_gemm"] = phase_dtd_gemm(args.seed)
+    with phase_clock("dplasma"):
+        gemm_launches["dposv"], factor, X_dposv = phase_dposv(args.seed)
+        gemm_launches["dgetrf_nopiv"], LU = phase_getrf_nopiv(args.seed)
+        gemm_launches["dgeqrf"], QR = phase_geqrf(args.seed)
+        gemm_launches["pdgemm"], C_nn = phase_pdgemm(args.seed)
+        phase_dense(dev, args.seed, factor)
+    with phase_clock("wave_dist"):
+        wave_dist = phase_wave_dist(args.seed, L_ptg, profile=args.profile)
+        for run, per_rank in wave_dist.items():
+            gemm_launches[f"wave_dist_{run}"] = sum(per_rank)
+        phase_mesh_chain(args.seed)
     # the rank processes share the card: the parent keeps off it
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    multirank = phase_multirank(args.seed, factor, X_dposv, L_ptg,
-                                profile=args.profile)
-    log("multirank", seconds=f"{time.perf_counter() - t0:.1f}")
+    with phase_clock("multirank"):
+        multirank = phase_multirank(args.seed, factor, X_dposv, L_ptg,
+                                    profile=args.profile)
     for run, per_rank in multirank.items():
         gemm_launches[f"multirank_{run}"] = sum(per_rank)
-    t0 = time.perf_counter()
-    obs_launches = phase_obs_ranks(args.seed, factor, X_dposv,
-                                   profile=args.profile)
+    with phase_clock("obs_2"):
+        obs_launches = phase_obs_ranks(args.seed, factor, X_dposv,
+                                       profile=args.profile)
     gemm_launches["obs_dposv_2"] = sum(obs_launches.values())
-    log("obs_2", seconds=f"{time.perf_counter() - t0:.1f}")
-    ft, recoveries = phase_ft(args.seed, factor, X_dposv)
+    del factor, X_dposv
+    with phase_clock("ft"):
+        factor, X_dposv = ft_reference(args.seed)
+        ft, recoveries = phase_ft(args.seed, factor, X_dposv, n=FT_N)
     for run, incs in ft.items():
         gemm_launches[run] = sum(sum(per_rank) for per_rank in incs)
-    t0 = time.perf_counter()
-    elastic_launches = phase_elastic(args.seed, factor, X_dposv, recoveries)
+    with phase_clock("elastic_3"):
+        elastic_launches = phase_elastic(args.seed, factor, X_dposv,
+                                         recoveries, n=FT_N)
     gemm_launches["elastic_3"] = sum(elastic_launches)
-    log("elastic_3", seconds=f"{time.perf_counter() - t0:.1f}")
     del factor, X_dposv
-    phase_template(args.seed)
-    gemm_launches["collection_ops"] = phase_collection_ops(args.seed, L_ptg)
-    phase_bindings()
-    phase_bitexact(args.seed)
+    with phase_clock("template"):
+        phase_template(args.seed)
+    with phase_clock("collection_ops"):
+        gemm_launches["collection_ops"] = phase_collection_ops(args.seed,
+                                                               L_ptg)
+    with phase_clock("bindings"):
+        phase_bindings()
+    with phase_clock("bitexact"):
+        phase_bitexact(args.seed)
     # the static engines, each factor held against the interpreted one
     refs = {("dpotrf", NB_MAIN): L_ptg, ("dgetrf_nopiv", NB_MAIN): LU,
             ("dgeqrf", NB_MAIN): QR, ("pdgemm", NB_MAIN): C_nn}
     del LU, QR, C_nn
     inputs = {}
-    t0 = time.perf_counter()
-    gemm_launches["static"] = phase_static(args.seed, refs, inputs)
-    for phase in (phase_turbo, phase_wave):
-        for key, n in phase(args.seed, refs, inputs).items():
-            gemm_launches[f"{phase.__name__[6:]}_{key}"] = n
-    log("engines", phases="static,turbo,wave",
-        seconds=f"{time.perf_counter() - t0:.1f}")
+    with phase_clock("engines"):
+        gemm_launches["static"] = phase_static(args.seed, refs, inputs)
+        for phase in (phase_turbo, phase_wave):
+            for key, n in phase(args.seed, refs, inputs).items():
+                gemm_launches[f"{phase.__name__[6:]}_{key}"] = n
     del refs, inputs
     # a captured path's entry counts the warm-up's launches, which ran
     # through the wrapper; its graph's recorded launches and replays are
     # kept apart, under graph_launches
     graph_launches = {}
-    launches, graphs = phase_capture(args.seed, L_ptg)
+    with phase_clock("capture"):
+        launches, graphs = phase_capture(args.seed, L_ptg)
     for routine in launches:
         gemm_launches[f"capture_{routine}"] = launches[routine]
         graph_launches[f"capture_{routine}"] = graphs[routine]
     del L_ptg
-    gemm_launches["dtd_capture"], graph_launches["dtd_capture"] = \
-        phase_dtd_capture(args.seed, L_dtd)
+    with phase_clock("dtd_capture"):
+        gemm_launches["dtd_capture"], graph_launches["dtd_capture"] = \
+            phase_dtd_capture(args.seed, L_dtd)
     del L_dtd
-    attn_launches = phase_forward(dev, args.seed)
-    train_launches = phase_train(dev, args.seed)
-    recs = phase_timing(dev, args.seed)
+    with phase_clock("forward"):
+        attn_launches = phase_forward(dev, args.seed)
+    with phase_clock("train"):
+        train_launches = phase_train(dev, args.seed)
+    with phase_clock("timing"):
+        recs = phase_timing(dev, args.seed)
     if args.profile:
-        phase_profile(dev, args.seed)
+        with phase_clock("profile"):
+            phase_profile(dev, args.seed)
     src = "parsec_tpu_torch/csrc/"
     tpu = "parsec_tpu/ops/pallas_kernels.py:"
     print(json.dumps({"kernels": [
@@ -4535,6 +4881,7 @@ def main(argv=None) -> int:
                                           for run, per_rank
                                           in multirank.items()},
              wave_dist_launches_per_rank=wave_dist,
+             mesh_launches_by_chip_or_rank=mesh_per,
              ft_launches_by_incarnation_and_rank=ft,
              elastic_3_launches_by_survivor=elastic_launches,
              obs_2_launches_by_rank_and_run=obs_launches,

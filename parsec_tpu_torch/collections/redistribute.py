@@ -20,7 +20,7 @@ copy before the body reads it, and the written target tile's host copy
 becomes the newest version, so a later device task stages it in again.
 
 ``reshard_array`` (the JAX package's move between mesh shardings)
-belongs with the mesh (ROADMAP Queue 1, part D2) and raises here.
+belongs with SPMD meshes (ROADMAP Queue 1, part D2b) and raises here.
 """
 from __future__ import annotations
 
@@ -333,8 +333,9 @@ def redistribute_ptg(source: TiledMatrix, target: TiledMatrix,
 
 def reshard_array(arr: Any, mesh: Any, spec: Any) -> Any:
     """The JAX package's move of a mesh-resident array between two
-    shardings. It belongs with the mesh, which this package does not
-    carry yet (ROADMAP Queue 1, part D2): it raises."""
+    shardings. It belongs with SPMD meshes, which this package does not
+    carry yet (ROADMAP Queue 1, part D2b): it raises."""
     raise NotImplementedError(
-        "reshard_array moves an array between mesh shardings; the mesh "
-        "is not carried by this package yet (ROADMAP Queue 1, part D2)")
+        "reshard_array moves an array between mesh shardings; sharded "
+        "arrays are not carried by this package yet (ROADMAP Queue 1, "
+        "part D2b)")

@@ -36,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..data.data import (Coherency, Data, DataCopy, is_device_array,
-                         mark_ready, to_host_array)
+                         mark_ready, stream_of, to_host_array)
 from ..runtime.scheduling import schedule
 from ..utils import logging as plog
 from ..utils.params import params
@@ -270,13 +270,14 @@ class RemoteDepEngine:
         return self._mesh_local and self.ce.mesh_local_with(dst)
 
     def _private_copy(self, t: Any) -> Any:
-        """The mesh-local payload: a private device copy of ``t`` on this
-        rank's device module's stream, behind the kernel that wrote
+        """The mesh-local payload: a private device copy of ``t`` on the
+        stream that wrote it (the chip's, on a chip mesh, else this
+        rank's device module's stream), behind the kernel that wrote
         ``t`` and ahead of any later write to it, marked ready for the
         consumer's stream (``data.mark_ready``)."""
         dev = (self.context.device_by_type("cuda")
                if self.context is not None else None)
-        stream = getattr(dev, "stream", None)
+        stream = stream_of(t, getattr(dev, "stream", None))
         if stream is None:
             return t.detach().clone()
         import torch

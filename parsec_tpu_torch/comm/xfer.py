@@ -85,10 +85,11 @@ class _IPCBackend:
         that wrote ``arr``; the copy is a fresh allocation, so no later
         write to ``arr`` reaches the consumer."""
         import torch
-        from ..data.data import wait_ready
+        from ..data.data import order_after_writer
         # a tile written on another stream of this process (a rank
-        # thread's) is copied only after its producer's event
-        wait_ready(arr, self.stream)
+        # thread's, or a chip's of a mesh) is copied only after its
+        # producer's event or stream
+        order_after_writer(arr, self.stream)
         with torch.cuda.stream(self.stream):
             t = arr.detach().to(self.device).contiguous().clone()
             (dev, handle, size, off, rc, rco, ev,

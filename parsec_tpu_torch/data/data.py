@@ -9,9 +9,10 @@ parsec_data_transfer_ownership_to_copy parsec/data.c:286-370).
 
 In this package a copy's payload is a numpy array on the host device or a
 ``torch.Tensor`` on the accelerator device. The device module
-(devices/cuda.py) moves payloads and orders kernels on one CUDA stream;
-every host read of a device payload goes through ``to_host_array``, which
-copies on that order.
+(devices/cuda.py) moves payloads and orders kernels on its CUDA stream,
+or, on a chip mesh, on the stream of each chip; every host read of a
+device payload goes through ``to_host_array``, which copies on the
+stream that wrote it (:func:`stream_of`).
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ def is_device_array(x: Any) -> bool:
 
 #: torch device -> the stream its device module launches every kernel
 #: and copy on (registered by devices/cuda.py).  A host read of a tensor
-#: must queue behind that stream, not the reading thread's own.
+#: must queue behind that stream, not the reading thread's own; a tensor
+#: a chip mesh wrote carries its chip's stream instead (:func:`stream_of`).
 _device_streams: Dict[Any, Any] = {}
 _device_pulls: Dict[Any, Any] = {}
 
@@ -58,6 +60,34 @@ def register_device_stream(device: Any, stream: Any,
     _device_streams[device] = stream
     if pull is not None:
         _device_pulls[device] = weakref.WeakMethod(pull)
+
+
+def tag_stream(t: Any, stream: Any) -> Any:
+    """Record that ``stream`` wrote the tensor ``t`` (a chip mesh's
+    streams; ``None`` leaves it untagged).  Returns ``t``."""
+    if stream is not None and is_device_array(t):
+        t._ptt_stream = stream
+    return t
+
+
+def stream_of(t: Any, default: Any = None) -> Any:
+    """The stream that wrote ``t`` (:func:`tag_stream`), else
+    ``default``.  A read of ``t`` queued on it waits for the writer."""
+    s = getattr(t, "_ptt_stream", None)
+    return default if s is None else s
+
+
+def order_after_writer(t: Any, stream: Any) -> Any:
+    """Make ``stream`` wait for whatever wrote ``t``: the producer's
+    event of a hand-over (:func:`mark_ready`), and the stream tagged on
+    ``t`` when it is another one; the caching allocator learns that
+    ``stream`` uses ``t``'s memory.  Returns ``t``."""
+    wait_ready(t, stream)
+    s = getattr(t, "_ptt_stream", None)
+    if s is not None and stream is not None and s != stream:
+        stream.wait_stream(s)
+        t.record_stream(stream)
+    return t
 
 
 def mark_ready(t: Any, stream: Any = None) -> Any:
@@ -93,9 +123,10 @@ def wait_ready(t: Any, stream: Any = None) -> Any:
 def to_host_array(x: Any) -> Any:
     """A writable numpy array holding ``x``'s values, never sharing
     memory with a device payload (host bodies mutate in place).  A CUDA
-    tensor is copied on its device module's stream, so the copy waits
-    for the kernel that produced it (and for the producer's event of a
-    tensor handed over from another stream, :func:`mark_ready`)."""
+    tensor is copied on the stream that wrote it (:func:`stream_of`: a
+    chip's, else its device module's), so the copy waits for the kernel
+    that produced it (and for the producer's event of a tensor handed
+    over from another stream, :func:`mark_ready`)."""
     if not is_device_array(x):
         return np.array(x)
     ev = getattr(x, "_ptt_ready", None)
@@ -105,7 +136,7 @@ def to_host_array(x: Any) -> Any:
     pull = ref() if ref is not None else None
     if pull is not None:
         return pull(x)
-    stream = _device_streams.get(x.device)
+    stream = stream_of(x, _device_streams.get(x.device))
     if stream is None:
         return x.detach().to("cpu", copy=True).numpy()
     import torch

@@ -31,12 +31,20 @@ one subgraph per member likewise).
 
 Batch sizes are bucketed to powers of two, as in the JAX package, so a
 burst dispatches as a few large launches.
+
+On a chip mesh (devices/cuda.py ``CudaMeshDevice``) a group whose size
+the chip count divides runs through :func:`cached_sharded_callable`: k
+slot-blocks of n/k tasks, each one :func:`stacked_call` on its chip's
+stream.  Each block does the same per-task arithmetic as the single-chip
+stacked path, so the results are bit-identical to it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["DeviceBatchSpec", "bucket_size", "segment_plan", "stacked_call"]
+__all__ = ["DeviceBatchSpec", "ShardedCallable", "bucket_size",
+           "cached_sharded_callable", "segment_plan", "stacked_call"]
 
 
 class DeviceBatchSpec:
@@ -116,3 +124,62 @@ def stacked_call(spec: DeviceBatchSpec, static: Any,
                              f"leading dimension {o.shape[0]} for {n} "
                              f"tasks")
     return [[o[i] for o in outs] for i in range(n)]
+
+
+class ShardedCallable:
+    """One flush group of ``n`` same-signature tasks spread over the
+    chips of ``mesh``: chip ``c`` (the mesh's flat order) runs slot-block
+    ``c``, rows ``[c*n/k, (c+1)*n/k)``, as one :func:`stacked_call` on its
+    own stream, and records one event there."""
+
+    __slots__ = ("spec", "static", "chips", "per")
+
+    def __init__(self, spec: DeviceBatchSpec, static: Any, n: int,
+                 mesh: Any) -> None:
+        self.chips = list(mesh.devices.flat)
+        k = len(self.chips)
+        if n < k or n % k:
+            raise ValueError(f"a group of {n} does not split into {k} "
+                             f"slot-blocks")
+        self.spec = spec
+        self.static = static
+        self.per = n // k
+
+    def __call__(self, blocks: Sequence[Sequence[Sequence[Any]]],
+                 launching: Callable, record: Callable
+                 ) -> Tuple[List[List[List[Any]]], List[Any]]:
+        """``blocks[c][r][j]``: batch argument ``j`` of row ``r`` of chip
+        ``c``'s block, already on that chip.  ``launching(chip)`` is the
+        context of a dispatch on ``chip`` (its stream entered) and
+        ``record(chip)`` records the event that completes the block.
+        Returns each chip's per-task outputs and its event."""
+        outs, events = [], []
+        for chip, rows in zip(self.chips, blocks):
+            if len(rows) != self.per:
+                raise ValueError(f"slot-block of {len(rows)} rows for "
+                                 f"{self.per}")
+            with launching(chip):
+                outs.append(stacked_call(self.spec, self.static, rows))
+                events.append(record(chip))
+        return outs, events
+
+
+#: mesh -> {(spec, n, nargs, static, shapes): ShardedCallable}.  Keyed by
+#: the mesh OBJECT (meshes hash by identity): another rank's mesh in the
+#: same process gets its own entries, and a finalized device's mesh
+#: drops its entries with it.
+_sharded_cache: "weakref.WeakKeyDictionary[Any, Dict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def cached_sharded_callable(spec: DeviceBatchSpec, n: int, nargs: int,
+                            static: Any, shapes: Tuple,
+                            mesh: Any) -> ShardedCallable:
+    """The sharded callable of this group signature on ``mesh``."""
+    cache = _sharded_cache.setdefault(mesh, {})
+    key = (spec, n, nargs, static, shapes)
+    fn = cache.get(key)
+    if fn is None:
+        fn = ShardedCallable(spec, static, n, mesh)
+        cache[key] = fn
+    return fn

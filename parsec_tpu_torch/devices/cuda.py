@@ -24,6 +24,12 @@ Because one stream orders every kernel, dependency release can happen at
 launch (``cuda_eager_complete``): a successor's launch is queued behind
 its producer's.
 
+The chip mesh (:class:`CudaMeshDevice`, ``device_mesh_shape``) spreads
+one rank's tiles over several chips, each with a stream of its own; the
+seam it overrides (``_stage_target``, ``_placement``, ``_localize``,
+``_tag``) is the identity here, so the single-stream module runs
+exactly as it did.
+
 Telemetry (obs/): while the context's ``DeviceObs`` is installed as
 ``_obs``, every dispatch is bracketed by timed CUDA events on the stream
 (the device-busy intervals), and every host copy (``_put``, ``_pull``,
@@ -54,7 +60,8 @@ import numpy as np
 
 from ..core.lists import Dequeue
 from ..data.data import (Coherency, Data, DataCopy, FlowAccess,
-                         is_device_array, register_device_stream,
+                         is_device_array, mark_ready, order_after_writer,
+                         register_device_stream, stream_of, tag_stream,
                          wait_ready)
 from ..runtime.taskpool import HookReturn, Task
 from ..utils import logging as plog
@@ -127,8 +134,9 @@ class CudaDevice(Device):
                       "dispatch_ns": 0, "dispatch_tasks": 0,
                       "prefetch_issued": 0, "prefetch_hits": 0,
                       "segmented_flushes": 0, "flush_segments": 0}
-        # eager completion (one stream orders the dataflow) with a
-        # bounded in-flight window
+        # eager completion (one stream orders the dataflow; on a chip mesh
+        # a read across chips is a hop its reader's stream waits for) with
+        # a bounded in-flight window
         self.eager_complete = bool(params.get("cuda_eager_complete"))
         self.eager_window = int(params.get("cuda_eager_window"))
         self._window: List[_InFlight] = []
@@ -157,48 +165,86 @@ class CudaDevice(Device):
             return int(total * params.get("cuda_memory_fraction_pct") / 100)
         return 8 << 30  # host tensors: 8 GiB of accounting space
 
-    def on_stream(self):
-        """Context entering the device's stream (no-op on cpu)."""
-        if self.stream is None:
+    def _stream_at(self, target: Any) -> Any:
+        """The stream that launches on ``target`` (a chip of a mesh; None
+        = the device's own stream)."""
+        return self.stream
+
+    def _device_at(self, target: Any) -> Any:
+        """The torch device of ``target``."""
+        return self.torch_device
+
+    def on_stream(self, target: Any = None):
+        """Context entering ``target``'s stream (no-op on cpu)."""
+        stream = self._stream_at(target)
+        if stream is None:
             return contextlib.nullcontext()
         import torch
-        return torch.cuda.stream(self.stream)
+        return torch.cuda.stream(stream)
 
-    def _record_event(self) -> Any:
-        if self.stream is None:
+    def _launching(self, target: Any, name: str, ntasks: int):
+        """Context around one dispatch on ``target``: its stream, and the
+        telemetry's busy interval when ``_obs`` is set."""
+        obs = self._obs
+        if obs is None:
+            return self.on_stream(target)
+        return self._obs_dispatch(obs, target, name, ntasks)
+
+    @contextlib.contextmanager
+    def _obs_dispatch(self, obs, target: Any, name: str, ntasks: int):
+        stream = self._stream_at(target)
+        with self.on_stream(target):
+            m0, ev0 = time.monotonic_ns(), obs.mark(stream)
+            yield
+            obs.dispatch(name, ntasks, ev0, m0, stream)
+
+    def _record_event(self, target: Any = None) -> Any:
+        stream = self._stream_at(target)
+        if stream is None:
             return None
         import torch
         ev = torch.cuda.Event()
-        ev.record(self.stream)
+        ev.record(stream)
         return ev
 
-    def _put(self, payload: Any) -> Any:
+    def _put(self, payload: Any, target: Any = None) -> Any:
         """H2D copy of a host payload (synchronous: pageable memory), or
-        a private device copy of a tensor; caller holds the stream."""
+        a private device copy of a tensor, on ``target``'s stream and
+        device, tagged as written there."""
         import torch
-        if is_device_array(payload):
-            # a tensor handed over from another rank's stream
-            # (comm/mesh.py) is read only after its producer's event
-            wait_ready(payload, self.stream)
-            return payload.to(self.torch_device, copy=True)
-        arr = np.ascontiguousarray(payload)
-        obs = self._obs
-        if obs is None:
-            return torch.from_numpy(arr).to(self.torch_device, copy=True)
-        t0 = time.monotonic_ns()
-        ev0 = obs.mark()
-        out = torch.from_numpy(arr).to(self.torch_device, copy=True)
-        obs.xfer("in", arr.nbytes, t0, ev0)
-        return out
+        dev = self._device_at(target)
+        with self.on_stream(target):
+            if is_device_array(payload):
+                # a tensor handed over from another stream (a rank
+                # thread's, comm/mesh.py, or a chip's) is read only after
+                # its writer
+                if self.is_cuda:
+                    order_after_writer(payload,
+                                       torch.cuda.current_stream(dev))
+                return self._tag(payload.to(dev, copy=True), target)
+            arr = np.ascontiguousarray(payload)
+            obs = self._obs
+            if obs is None:
+                out = torch.from_numpy(arr).to(dev, copy=True)
+            else:
+                t0 = time.monotonic_ns()
+                ev0 = obs.mark(self._stream_at(target))
+                out = torch.from_numpy(arr).to(dev, copy=True)
+                obs.xfer("in", arr.nbytes, t0, ev0)
+        return self._tag(out, target)
 
     def _pull(self, payload: Any) -> np.ndarray:
-        """D2H copy on the device stream (waits for the producer)."""
+        """D2H copy on the stream that wrote ``payload`` (the device
+        stream, or a chip's): it waits for the producer."""
+        import torch
         obs = self._obs
-        with self.on_stream():
+        stream = stream_of(payload, self.stream)
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
             if obs is None:
                 return payload.detach().to("cpu", copy=True).numpy()
             t0 = time.monotonic_ns()
-            ev0 = obs.mark()
+            ev0 = obs.mark(stream)
             out = payload.detach().to("cpu", copy=True).numpy()
             obs.xfer("out", out.nbytes, t0, ev0)
             return out
@@ -276,7 +322,10 @@ class CudaDevice(Device):
     # ------------------------------------------------------------------ #
     def _stage_in(self, task: Task) -> List[Any]:
         """Resolve every input flow to a tensor on this device
-        (ref: parsec_cuda_kernel_push, device_cuda_module.c:2099-2195)."""
+        (ref: parsec_cuda_kernel_push, device_cuda_module.c:2099-2195).
+        A tile's resident copy is staged on its placement; the task sees
+        it localized to its own target."""
+        target = self._stage_target(task)
         arrays: List[Any] = []
         for flow in task.task_class.flows:
             access = task.access_of(flow)
@@ -287,8 +336,7 @@ class CudaDevice(Device):
             data = ref.data_in.data
             if data is None:
                 # detached copy (e.g. NEW tile scratch): move payload directly
-                with self.on_stream():
-                    arrays.append(self._put(ref.data_in.payload))
+                arrays.append(self._put(ref.data_in.payload, target))
                 continue
             with data._lock:   # the prefetcher may attach it meanwhile
                 copy = data.get_copy(self.device_index)
@@ -302,8 +350,8 @@ class CudaDevice(Device):
                 # credit the stale payload being replaced before reserving
                 self._account(-getattr(copy.payload, "nbytes", 0))
                 self._reserve(nbytes)
-                with self.on_stream():
-                    copy.payload = self._put(src.payload)
+                copy.payload = self._put(src.payload,
+                                         self._placement(data, target))
                 self.stats["stage_in_bytes"] += nbytes
                 self._prefetched.pop(id(copy), None)  # staged-over: stale
             elif self._prefetched.pop(id(copy), None) is not None:
@@ -312,8 +360,27 @@ class CudaDevice(Device):
                 self.stats["prefetch_hits"] += 1
             data.complete_transfer_ownership(self.device_index, access)
             self._lru_touch(copy, owned=bool(access & FlowAccess.WRITE))
-            arrays.append(copy.payload)
+            arrays.append(self._localize(copy.payload, target))
         return arrays
+
+    # mesh seam (CudaMeshDevice overrides; the single-stream module is
+    # the identity, so it runs exactly as it did before the mesh)
+    def _stage_target(self, task: Task) -> Any:
+        """Where a task launches (None: the device's own stream)."""
+        return None
+
+    def _placement(self, data: Data, target: Any) -> Any:
+        """Where a tile's resident device copy lives."""
+        return target
+
+    def _localize(self, payload: Any, target: Any) -> Any:
+        """Make a staged payload usable on ``target`` (a chip-to-chip hop
+        on a mesh; the identity on one stream)."""
+        return payload
+
+    def _tag(self, t: Any, target: Any) -> Any:
+        """Mark ``t`` as written on ``target`` (a mesh tags the chip)."""
+        return t
 
     def _note_profile(self, es, cls_name: str, us_per_task: float,
                       n: int) -> None:
@@ -339,16 +406,11 @@ class CudaDevice(Device):
         chore = tc.incarnations[task.selected_chore]
         fn = chore.dyld_fn
         assert fn is not None, f"cuda chore of {tc.name} has no executable"
-        obs = self._obs
+        target = self._stage_target(task)
         t0 = time.perf_counter_ns()
-        with self.on_stream():
-            if obs is None:
-                outputs = fn(task, inputs)
-            else:
-                m0, ev0 = time.monotonic_ns(), obs.mark()
-                outputs = fn(task, inputs)
-                obs.dispatch(tc.name, 1, ev0, m0)
-            event = self._record_event()
+        with self._launching(target, tc.name, 1):
+            outputs = fn(task, inputs)
+            event = self._record_event(target)
         dt = time.perf_counter_ns() - t0
         self.stats["dispatch_ns"] += dt
         self.stats["dispatch_tasks"] += 1
@@ -361,7 +423,9 @@ class CudaDevice(Device):
         if len(outputs) != len(out_flows):
             raise ValueError(f"{tc.name} cuda body returned {len(outputs)} "
                              f"tensors for {len(out_flows)} written flows")
-        self._finish_submit(es, task, est, list(outputs), out_flows, event)
+        self._finish_submit(es, task, est,
+                            [self._tag(o, target) for o in outputs],
+                            out_flows, event)
 
     def _finish_submit(self, es, task: Task, est: float,  # holds: self._manager_lock
                        outputs: List[Any], out_flows: List[int],
@@ -439,37 +503,32 @@ class CudaDevice(Device):
         return n
 
     def _dispatch_batch(self, es, spec, static,  # holds: self._manager_lock
-                        chunk: List[Tuple]) -> None:
-        """Dispatch one flush group — as ONE stacked launch, or (segmented
-        flush) as ``device_flush_segments`` launches whose outputs each
-        retire on their own."""
+                        chunk: List[Tuple], target: Any = None) -> None:
+        """Dispatch one flush group on ``target`` — as ONE stacked launch,
+        or (segmented flush) as ``device_flush_segments`` launches whose
+        outputs each retire on their own."""
         from .batching import segment_plan
         n = len(chunk)
         segs = segment_plan(n, self.flush_segments)
         if segs <= 1:
-            return self._dispatch_stacked(es, spec, static, chunk)
+            return self._dispatch_stacked(es, spec, static, chunk, target)
         self.stats["segmented_flushes"] += 1
         size = n // segs
         for i in range(0, n, size):
             self.stats["flush_segments"] += 1
-            self._dispatch_stacked(es, spec, static, chunk[i:i + size])
+            self._dispatch_stacked(es, spec, static, chunk[i:i + size],
+                                   target)
 
     def _dispatch_stacked(self, es, spec, static,  # holds: self._manager_lock
-                          chunk: List[Tuple]) -> None:
-        """ONE dispatch for ``chunk``: a stacked launch, or the body once
-        per member (batching.stacked_call)."""
+                          chunk: List[Tuple], target: Any = None) -> None:
+        """ONE dispatch for ``chunk`` on ``target``: a stacked launch, or
+        the body once per member (batching.stacked_call)."""
         from .batching import stacked_call
         n = len(chunk)
-        obs = self._obs
         t0 = time.perf_counter_ns()
-        with self.on_stream():
-            if obs is None:
-                per_task = stacked_call(spec, static, [e[3] for e in chunk])
-            else:
-                m0, ev0 = time.monotonic_ns(), obs.mark()
-                per_task = stacked_call(spec, static, [e[3] for e in chunk])
-                obs.dispatch(chunk[0][0].task_class.name, n, ev0, m0)
-            event = self._record_event()
+        with self._launching(target, chunk[0][0].task_class.name, n):
+            per_task = stacked_call(spec, static, [e[3] for e in chunk])
+            event = self._record_event(target)
         dt = time.perf_counter_ns() - t0
         self.stats["dispatch_ns"] += dt
         self.stats["dispatch_tasks"] += n
@@ -486,7 +545,9 @@ class CudaDevice(Device):
                     f"{task.task_class.name} batched body returned "
                     f"{len(outputs)} tensors for {len(out_flows)} written "
                     f"flows")
-            self._finish_submit(es, task, est, outputs, out_flows, event)
+            self._finish_submit(es, task, est,
+                                [self._tag(o, target) for o in outputs],
+                                out_flows, event)
 
     # ------------------------------------------------------------------ #
     # stage-in prefetch: stage queued tasks' inputs ahead of dispatch    #
@@ -495,18 +556,21 @@ class CudaDevice(Device):
         """Early H2D of a queued task's host-resident inputs, on the
         submitting worker.  Every check re-validates under the data lock
         before committing (a racing stage-in must win)."""
+        target = self._stage_target(task)
         for flow in task.task_class.flows:
             if flow.ctl:
                 continue
             ref = task.data[flow.flow_index]
             if ref.data_in is None or ref.data_in.data is None:
                 continue
-            self.prestage_data(ref.data_in.data, dtt=ref.data_in.dtt)
+            self.prestage_data(ref.data_in.data, dtt=ref.data_in.dtt,
+                               target=target)
 
-    def prestage_data(self, data: Data, dtt=None) -> bool:
-        """Stage one Data's newest host payload onto this device early.
-        Returns True when a payload was committed (the later stage-in
-        will be a prefetch HIT)."""
+    def prestage_data(self, data: Data, dtt=None, target: Any = None) -> bool:
+        """Stage one Data's newest host payload onto this device early,
+        on its placement for a task launching on ``target``.  Returns
+        True when a payload was committed (the later stage-in will be a
+        prefetch HIT)."""
         with data._lock:
             copy = data.get_copy(self.device_index)
             newest = data.newest_version()
@@ -522,8 +586,7 @@ class CudaDevice(Device):
             return False   # nothing to pull, or source is device-side
         nbytes = getattr(src.payload, "nbytes", 0)
         self._reserve(nbytes)
-        with self.on_stream():
-            buf = self._put(src.payload)
+        buf = self._put(src.payload, self._placement(data, target))
         committed = False
         old = 0
         with data._lock:
@@ -715,6 +778,302 @@ class CudaDevice(Device):
             self._retire(rec)  # teardown: must finalize every device
         self._window.clear()
         self._prefetched.clear()
+
+
+def parse_mesh_shape(shape: Any) -> Tuple[int, int]:
+    """``device_mesh_shape`` grammar: "PxQ" grid or a bare chip count
+    (a 1 x N row). Empty / "1" / "1x1" means no mesh."""
+    s = str(shape or "").strip().lower()
+    if not s:
+        return (1, 1)
+    if "x" in s:
+        p, q = s.split("x", 1)
+        return (max(1, int(p)), max(1, int(q)))
+    return (1, max(1, int(s)))
+
+
+class CudaMeshDevice(CudaDevice):
+    """One rank owning a MESH of chips (``device_mesh_shape``) instead of
+    one stream.  A chip is a :class:`~parsec_tpu_torch.parallel.mesh.Chip`:
+    an index, a torch device and a CUDA stream of its own, so K logical
+    chips on one card (``device_cuda_virtual_chips``) share its SMs and
+    memory and differ only in the stream they launch on.
+
+    - **Placement**: each collection tile lives on ONE chip, chosen
+      block-cyclically from its coordinates (``mesh_position_of``);
+      keyless data is first-touch (it stays where the first task that
+      stages it runs), and a keyless tile's home is its DTD
+      ``mesh_hint`` (insertion order), else its key's hash.
+    - **Execution**: a task runs on its home chip, the placement of its
+      first written tile; its launches and the events that complete it
+      go to that chip's stream, and its outputs are tagged with the chip
+      (``_ptt_chip``, and ``_ptt_stream`` for host reads and hand-overs:
+      data.stream_of).
+    - **Hops** (``_move``): an input resident on another chip is copied
+      privately on the SOURCE chip's stream (behind its writer, ahead of
+      any later write there), and the target's stream waits for the
+      copy's event.  So a consumer never reads another chip's tile
+      directly: read-after-write and write-after-read across streams are
+      both ordered by the source stream, and the copy's memory is
+      recorded on the target stream for the caching allocator.  Each hop
+      is one event and one wait, counted in ``mesh_moves`` (also on host
+      chips, where there is no event) with its bytes in
+      ``collective_bytes``.  Memoised per drained set.
+    - **Sharded batched dispatch**: a flush group of n tasks, n a multiple
+      of the chip count k, is sorted by home chip and cut into k
+      slot-blocks of n/k, each one ``stacked_call`` on its chip's stream
+      with one event per chip (devices/batching.py
+      ``cached_sharded_callable``).  The per-task arithmetic is the
+      single-chip stacked path's, so results are bit-identical to it.  A
+      group the chip count does not divide runs as one stacked launch on
+      the first task's home chip (``batches`` against
+      ``mesh_dispatches``).  A failing sharded dispatch raises; nothing
+      falls back.
+    - **Memory**: chips that share one card share its memory, so the
+      budget is one card's for each distinct torch device.
+    """
+
+    def __init__(self, device_index: int, chips: List[Any],
+                 grid: Tuple[int, int]) -> None:
+        import torch
+
+        from ..parallel.mesh import Chip, make_mesh
+        gp, gq = grid
+        if gp * gq != len(chips):
+            raise ValueError(f"a {gp}x{gq} mesh needs {gp * gq} chips, "
+                             f"got {len(chips)}")
+        super().__init__(device_index, chips[0].device)
+        self.grid = (gp, gq)
+        own = []
+        for i, c in enumerate(chips):
+            dev = torch.device(c.device)
+            stream = None
+            if dev.type == "cuda":   # chip 0 keeps the module's stream
+                stream = self.stream if i == 0 \
+                    else torch.cuda.Stream(device=dev)
+            own.append(Chip(c.id, dev, stream))
+        self.mesh = make_mesh(sizes={"tp": gp, "sp": gq}, devices=own)
+        # row-major over the (gp, gq) grid: the mesh's flat order, which
+        # is also the sharded batch's slot-block order
+        self.chips = list(self.mesh.devices.flat)
+        self._chip_pos = {c: i for i, c in enumerate(self.chips)}
+        plat = "cuda" if self.is_cuda else "cpu"
+        self.name = f"{plat}:mesh{gp}x{gq}"
+        # chips on one card share its memory: one budget a torch device
+        self.mem_budget *= len({c.device for c in self.chips})
+        self.stats.update({"mesh_dispatches": 0, "mesh_tasks": 0,
+                           "mesh_moves": 0, "collective_bytes": 0})
+        #: the GEMM kernel's launches made on each chip's stream
+        self.chip_gemm_launches = [0] * len(self.chips)
+        # per-progress-cycle memo of hops: (id(src), chip) -> (src, copy)
+        self._move_cache: Dict[Tuple[int, Any], Tuple[Any, Any]] = {}
+
+    @property
+    def mesh_shards(self) -> int:
+        """Chips in this device's mesh (obs gauge MESH_SHARDS)."""
+        return len(self.chips)
+
+    def _stream_at(self, target: Any) -> Any:
+        return self.stream if target is None else target.stream
+
+    def _device_at(self, target: Any) -> Any:
+        return self.torch_device if target is None else target.device
+
+    @contextlib.contextmanager
+    def _launching(self, target: Any, name: str, ntasks: int):
+        """The base's dispatch context, counting the GEMM kernel's
+        launches made inside it against ``target``'s chip."""
+        from ..ops.kernels import thread_matmul_launches
+        chip = self.chips[0] if target is None else target
+        k0 = thread_matmul_launches()
+        with super()._launching(chip, name, ntasks):
+            yield
+        pos = self._chip_pos.get(chip)
+        if pos is not None:
+            self.chip_gemm_launches[pos] += thread_matmul_launches() - k0
+
+    # ------------------------------------------------------------------ #
+    # placement: tile coordinate -> chip                                 #
+    # ------------------------------------------------------------------ #
+    def _chip_of(self, data: Optional[Data]) -> Any:
+        if data is None:
+            return self.chips[0]
+        coll = getattr(data, "collection", None)
+        coords = getattr(data, "mesh_coords", None)
+        gp, gq = self.grid
+        if coll is not None and coords is not None \
+                and hasattr(coll, "mesh_position_of"):
+            pr, pc = coll.mesh_position_of(*coords, self.grid)
+            return self.chips[(int(pr) % gp) * gq + (int(pc) % gq)]
+        hint = getattr(data, "mesh_hint", None)
+        if hint is None:
+            try:
+                hint = hash(data.key)
+            except TypeError:
+                hint = id(data)
+        return self.chips[int(hint) % len(self.chips)]
+
+    def _stage_target(self, task: Task) -> Any:
+        """A task's home chip: where its first written tile is placed
+        (owner-computes one level below the rank grid); a read-only task
+        runs where its first input lives."""
+        first = None
+        for flow in task.task_class.flows:
+            if flow.ctl:
+                continue
+            ref = task.data[flow.flow_index]
+            if ref.data_in is None or ref.data_in.data is None:
+                continue
+            data = ref.data_in.data
+            if first is None:
+                first = data
+            if task.access_of(flow) & FlowAccess.WRITE:
+                return self._chip_of(data)
+        return self._chip_of(first)
+
+    def _placement(self, data: Data, target: Any) -> Any:
+        """Collection tiles pin to their block-cyclic mesh position;
+        keyless data is FIRST-TOUCH (it stays on the chip of the first
+        task that stages it, so a task's private tiles never hop)."""
+        if getattr(data, "collection", None) is not None \
+                and getattr(data, "mesh_coords", None) is not None \
+                and hasattr(data.collection, "mesh_position_of"):
+            return self._chip_of(data)
+        return target if target is not None else self._chip_of(data)
+
+    def _tag(self, t: Any, target: Any) -> Any:
+        if is_device_array(t):
+            chip = self.chips[0] if target is None else target
+            t._ptt_chip = chip
+            tag_stream(t, chip.stream)
+        return t
+
+    def _localize(self, payload: Any, target: Any) -> Any:
+        return self._move(payload, target)
+
+    def _move(self, arr: Any, target: Any) -> Any:
+        """The chip-to-chip hop of a device tensor: a private copy taken
+        on the source chip's stream, which ``target``'s stream waits for
+        (see the class docstring).  The resident copy stays where it is;
+        consumers pull.  Memoised per progress cycle."""
+        if not is_device_array(arr):
+            return arr
+        src = getattr(arr, "_ptt_chip", None)
+        if src is None:
+            src = self.chips[0]   # untagged: written on the device stream
+        if target is None or src is target:
+            return arr
+        key = (id(arr), target)
+        hit = self._move_cache.get(key)
+        if hit is not None:
+            return hit[1]
+        if src.stream is not None:
+            import torch
+            with torch.cuda.stream(src.stream):
+                # a hop of a hop: the first hop's event comes first
+                wait_ready(arr, src.stream)
+                moved = mark_ready(arr.detach().to(target.device, copy=True),
+                                   src.stream)
+            wait_ready(moved, target.stream)
+        else:
+            moved = arr.detach().to(target.device, copy=True)
+        self._tag(moved, target)
+        self._move_cache[key] = (arr, moved)
+        self.stats["mesh_moves"] += 1
+        self.stats["collective_bytes"] += arr.numel() * arr.element_size()
+        return moved
+
+    def _dispatch_ready(self, es, items: List[Tuple[Task, float]]) -> int:  # holds: self._manager_lock
+        try:
+            return super()._dispatch_ready(es, items)
+        finally:
+            # the memo lives for one drained set, whose tasks keep every
+            # source tensor alive (so no id is reused meanwhile)
+            self._move_cache.clear()
+
+    def resident_bytes_per_chip(self) -> List[int]:
+        """Bytes of the resident device copies on each chip."""
+        out = [0] * len(self.chips)
+        with self._mem_lock:
+            copies = list(self._lru_clean.values()) \
+                + list(self._lru_owned.values())
+        for copy in copies:
+            t = copy.payload
+            if is_device_array(t):
+                pos = self._chip_pos.get(getattr(t, "_ptt_chip", None), 0)
+                out[pos] += t.numel() * t.element_size()
+        return out
+
+    # ------------------------------------------------------------------ #
+    # sharded batched dispatch                                           #
+    # ------------------------------------------------------------------ #
+    def _dispatch_batch(self, es, spec, static,  # holds: self._manager_lock
+                        chunk: List[Tuple], target: Any = None) -> None:
+        n, k = len(chunk), len(self.chips)
+        if k > 1 and n >= k and n % k == 0:
+            return self._dispatch_sharded(es, spec, static, chunk)
+        # the shape rule: the group runs on the first task's home chip
+        target = self._stage_target(chunk[0][0])
+        chunk = [(t, e, inp, tuple(self._move(a, target) for a in ba))
+                 for (t, e, inp, ba) in chunk]
+        super()._dispatch_batch(es, spec, static, chunk, target)
+
+    def _dispatch_sharded(self, es, spec, static,  # holds: self._manager_lock
+                          chunk: List[Tuple]) -> None:
+        """``chunk`` spread over the mesh: slot-blocks of n/k tasks, one
+        per chip in the mesh's order, the tasks sorted by home chip so
+        most rows are already resident where their block runs (the rest
+        hop)."""
+        from . import batching
+        n, k = len(chunk), len(self.chips)
+        per = n // k
+        shapes = tuple((tuple(a.shape), str(a.dtype)) for a in chunk[0][3])
+        fn = batching.cached_sharded_callable(spec, n, len(shapes), static,
+                                              shapes, self.mesh)
+        order = sorted(range(n), key=lambda i: self._chip_pos[
+            self._stage_target(chunk[i][0])])
+        t0 = time.perf_counter_ns()
+        blocks = [[tuple(self._move(a, chip)
+                         for a in chunk[order[c * per + r]][3])
+                   for r in range(per)]
+                  for c, chip in enumerate(self.chips)]
+        name = chunk[0][0].task_class.name
+        outs, events = fn(blocks, lambda chip: self._launching(
+            chip, name, per), self._record_event)
+        dt = time.perf_counter_ns() - t0
+        self.stats["dispatch_ns"] += dt
+        self.stats["dispatch_tasks"] += n
+        self.stats["batches"] += 1
+        self.stats["batched_tasks"] += n
+        self.stats["mesh_dispatches"] += 1
+        self.stats["mesh_tasks"] += n
+        if spec.stacked:
+            self.stats["stack_bytes"] += sum(a.nbytes for e in chunk
+                                             for a in e[3])
+        self._note_profile(es, name, dt / 1e3 / n, n)
+        for s in range(n):
+            task, est, _inputs, _ba = chunk[order[s]]
+            c, r = divmod(s, per)
+            outputs = outs[c][r]
+            out_flows = self._out_flows(task)
+            if len(outputs) != len(out_flows):
+                raise ValueError(
+                    f"{task.task_class.name} mesh-batched body returned "
+                    f"{len(outputs)} tensors for {len(out_flows)} written "
+                    f"flows")
+            self._finish_submit(es, task, est,
+                                [self._tag(o, self.chips[c])
+                                 for o in outputs],
+                                out_flows, events[c])
+
+    def drain(self, context=None) -> None:
+        super().drain(context)
+        with self._manager_lock:
+            self._move_cache.clear()
+
+    def fini(self) -> None:  # lock: exempt(teardown: workers joined, managers quiesced)
+        super().fini()
+        self._move_cache.clear()
 
 
 def cuda_chore_hook(device_selector=None):

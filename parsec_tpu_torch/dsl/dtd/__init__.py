@@ -243,6 +243,7 @@ class DTDTaskpool(Taskpool):
         # enqueue time, so DTD pools compose (parsec_compose chains enqueue
         # parts later) and nest (recursive_call) naturally
         self._pending_inserts: List[tuple] = []
+        self._mesh_hint_iter = 0   # insertion-order chip placement hint
         self.on_enqueue = self._on_enqueue
 
     def _on_enqueue(self, tp) -> None:
@@ -283,9 +284,14 @@ class DTDTaskpool(Taskpool):
         return tile
 
     def tile_of_array(self, arr: Any, key: Any = None) -> DTDTile:
-        """Wrap a host array as a tracked tile."""
-        return self.tile_of_data(data_new_with_payload(arr, device_id=0,
-                                                       key=key))
+        """Wrap a host array as a tracked tile.  Keyless tiles get a
+        deterministic insertion-order ``mesh_hint`` so a chip-mesh
+        device (``device_mesh_shape``) round-robins them across its
+        chips in the same order on every run."""
+        data = data_new_with_payload(arr, device_id=0, key=key)
+        data.mesh_hint = self._mesh_hint_iter
+        self._mesh_hint_iter += 1
+        return self.tile_of_data(data)
 
     def tile_new(self, shape: Tuple[int, ...], dtype=np.float32,
                  key: Any = None) -> DTDTile:

@@ -51,8 +51,8 @@ Semantics notes:
 (``cuda:0`` unless ``device_cuda_platform`` names another) and raises
 without a card; ``run(device="cpu")`` runs the same code over host
 tensors with each kernel's plain version (what the tests do).  The pools of ``build_pools``
-may not be sharded over several devices in this package (that waits for
-the chip mesh, ROADMAP Queue 1, part D2).
+may not be split across several chips in this package (that is SPMD,
+ROADMAP Queue 1, part D2b).
 
 A multi-rank taskpool (or any call with an explicit ``comm``) runs
 through ``DistWaveRunner`` (wave_dist.py): every rank walks the same
@@ -1228,8 +1228,8 @@ class WaveRunner:
         ``self.stage_in_bytes`` holds the host bytes moved."""
         if sharding is not None:
             raise NotImplementedError(
-                "build_pools(sharding=...): sharded wave pools come with "
-                "the chip mesh (ROADMAP Queue 1, part D2)")
+                "build_pools(sharding=...): wave pools split across chips "
+                "are SPMD (ROADMAP Queue 1, part D2b)")
         device = resolve_device(device)
         pools = []
         staged = 0

@@ -194,14 +194,39 @@ def _ensure_wave_inbox(ce):
     return ce._wave_inbox, cv
 
 
+def _rank_mesh_geometry() -> Optional[Tuple[int, int]]:
+    """(gp, gq) of the per-rank chip mesh from ``device_mesh_shape``, or
+    None when no mesh is configured.  A pure function of params, so
+    every SPMD rank derives the same geometry."""
+    from ...devices.cuda import parse_mesh_shape
+    try:
+        gp, gq = parse_mesh_shape(params.get("device_mesh_shape") or "")
+    except (ValueError, TypeError):
+        return None
+    return (gp, gq) if gp * gq > 1 else None
+
+
 def lane_device_pool(nb_ranks: int, device: Any = None) -> List[Any]:
-    """rank -> the device the collective lane reduces on: every in-process
-    rank's pools live on the device module's device (``cuda:0`` on one
-    card, raising without one unless ``device`` or
-    ``device_cuda_platform`` names the host), so one device serves every
-    rank.  The chip mesh (ROADMAP Queue 1, part D2) would give each rank
-    its own."""
-    return [resolve_device(device)] * nb_ranks
+    """rank -> the chip (``parallel.mesh.Chip``) the collective lane
+    reduces on, from the chip pool of ``device`` (``devices.chip_pool``:
+    the physical cards, or ``device_cuda_virtual_chips`` logical chips
+    on ``cuda:0``; raising without a card unless ``device`` or
+    ``device_cuda_platform`` names the host).  With ``device_mesh_shape``
+    set, rank r owns the disjoint chip slice the device layer carves at
+    ``r * k``, so its lane chip is chip 0 of that slice; without, or when
+    the pool cannot hold every rank's slice, the ranks share the pool's
+    chips in turn (on one card and no virtual chips, all share chip
+    0)."""
+    from ...devices import chip_pool
+    pool = chip_pool(device)
+    geom = _rank_mesh_geometry()
+    if geom is not None:
+        k = geom[0] * geom[1]
+        # slices must be DISJOINT; a pool the carving wraps keeps the
+        # pre-mesh layout
+        if len(pool) >= nb_ranks * k:
+            return [pool[r * k] for r in range(nb_ranks)]
+    return [pool[r % len(pool)] for r in range(nb_ranks)]
 
 
 def _dist_world() -> int:
@@ -271,7 +296,10 @@ class _CollectiveLane:
         # engine's dplane_stats gauges
         self._two_level = bool(params.get("xfer_collective_redist"))
         gs = int(params.get("xfer_group_size"))
-        self._group_size = max(2, gs if gs > 0 else 2)
+        if gs <= 0:
+            geom = _rank_mesh_geometry()
+            gs = geom[0] * geom[1] if geom is not None else 2
+        self._group_size = max(2, gs)
         self._efb_shared = (shared_feedback if shared_feedback is not None
                             else ErrorFeedback())
         self._stats = stats
@@ -901,13 +929,13 @@ class DistWaveRunner(WaveRunner):
         """Stage only this rank's slice of every pool (see
         ``_build_local_maps``) on ``device`` (None: cuda:0, raising
         without a card); ``self.stage_in_bytes`` holds the host bytes
-        moved.  ``sharding`` (each rank's pools over its own chips)
-        waits for the chip mesh and raises."""
+        moved.  ``sharding`` (each rank's pools split across its own
+        chips) is SPMD and raises."""
         if sharding is not None:
             raise NotImplementedError(
-                "build_pools(sharding=...): a rank's sliced pools spread "
-                "over its own chips come with the chip mesh (ROADMAP "
-                "Queue 1, part D2)")
+                "build_pools(sharding=...): a rank's sliced pools split "
+                "across its own chips are SPMD (ROADMAP Queue 1, part "
+                "D2b)")
         device = resolve_device(device)
         pools: List[Any] = []
         staged = 0

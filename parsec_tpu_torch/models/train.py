@@ -14,7 +14,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.mesh import Mesh, check_model_mesh, make_mesh
 from ..parallel.pipeline import last_stage_value
 from .transformer import (Transformer, TransformerConfig, loss_shard,
                           params_to)
@@ -96,6 +96,7 @@ def _resolve_mesh(cfg: TransformerConfig, mesh: Optional[Mesh],
         mesh = make_mesh(devices=None if device is None else [device])
     elif device is not None and torch.device(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    check_model_mesh(mesh)
     _check_attention_mesh(cfg, mesh)
     Transformer(cfg)           # the config's own checks
     return mesh

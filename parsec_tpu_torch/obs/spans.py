@@ -598,6 +598,12 @@ def register_device_gauges(sde: Any, device: Any) -> None:
     if hasattr(device, "mem_highwater"):
         sde.register_poll(f"{prefix}::MEM_HIGHWATER",
                           lambda d=device: d.mem_highwater)
+    if hasattr(device, "mesh_shards"):
+        # chips in the device's mesh (device_mesh_shape) —
+        # COLLECTIVE_BYTES / MESH_DISPATCHES / MESH_MOVES ride the
+        # stats loop below
+        sde.register_poll(f"{prefix}::MESH_SHARDS",
+                          lambda d=device: d.mesh_shards)
     stats = getattr(device, "stats", None)
     if isinstance(stats, dict):
         for key in stats:
@@ -686,22 +692,25 @@ class DeviceObs:
             self._anchor = (ev, (ta + tb) // 2)
 
     # -- called by the device module (its stream entered) --------------------
-    def mark(self) -> Any:
-        """A timed event on the device stream (None on host tensors)."""
+    def mark(self, stream: Any = None) -> Any:
+        """A timed event on ``stream`` (default: the device stream; a
+        chip mesh passes a chip's), None on host tensors."""
         if not self._cuda:
             return None
         import torch
         ev = torch.cuda.Event(enable_timing=True)
-        ev.record(self._dstream)
+        ev.record(self._dstream if stream is None else stream)
         return ev
 
-    def dispatch(self, name: str, ntasks: int, ev0: Any, t0_ns: int) -> None:
-        """One dispatch (a body call, or a batch) was launched between
-        ``ev0`` (or ``t0_ns`` on host tensors) and now."""
+    def dispatch(self, name: str, ntasks: int, ev0: Any, t0_ns: int,
+                 stream: Any = None) -> None:
+        """One dispatch (a body call, or a batch) was launched on
+        ``stream`` (default: the device stream) between ``ev0`` (or
+        ``t0_ns`` on host tensors) and now."""
         if not self._cuda:
             self._busy(t0_ns, time.monotonic_ns(), name, ntasks)
             return
-        ev1 = self.mark()
+        ev1 = self.mark(stream)
         with self._lock:
             self._pending.append(("busy", (name, ntasks), ev0, ev1, 0, 0))
 
@@ -726,13 +735,14 @@ class DeviceObs:
 
     def flush(self) -> None:
         """Resolve every recorded event into spans (synchronizes with
-        the newest one first)."""
+        each first)."""
         with self._lock:
             pending, self._pending = self._pending, []
         if not pending:
             return
-        last = pending[-1]
-        (last[3] if last[3] is not None else last[2]).synchronize()
+        # a chip mesh records on several streams: wait for each entry
+        for entry in pending:
+            (entry[3] if entry[3] is not None else entry[2]).synchronize()
         for kind, args, ev0, ev1, h0, h1 in pending:
             if kind == "busy":
                 self._busy(self._at(ev0), self._at(ev1), *args)

@@ -2,9 +2,13 @@
 (pipeline stages), tp (tensor/heads), sp (sequence), ep (experts), and
 the reduced-precision collectives.
 
-A mesh here spans one device, so every axis has size 1; a mesh over
-more devices raises until the chip mesh is ported (ROADMAP Queue 1,
-part D2).
+A model's mesh spans one device, so every axis it reads has size 1: a
+model over several chips (SPMD, ROADMAP Queue 1, part D2b) raises.  A
+mesh over several CHIPS (:class:`Chip`) is what the device module's
+chip mesh (devices/cuda.py ``CudaMeshDevice``, ``device_mesh_shape``)
+lays out over its ("tp", "sp") grid: chips are told apart by their
+index, not their torch device, so four logical chips on ``cuda:0`` are
+four chips.
 
 Reduced-precision collectives (the EQuARX recipe, arxiv 2506.17615):
 :class:`ErrorFeedback` with :func:`reduced_precision_sum` /
@@ -37,10 +41,26 @@ _GUARDED_BY = {
 }
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(eq=False)
+class Chip:
+    """One chip of a mesh: its index in the chip pool, the torch device
+    it launches on, and (on a card) the CUDA stream it owns.  Several
+    chips may share one torch device (``device_cuda_virtual_chips``);
+    equality is identity."""
+    id: int
+    device: torch.device
+    stream: Any = None
+
+    def __repr__(self) -> str:
+        return f"Chip({self.id}, {self.device})"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """The devices of a mesh, laid out over ``axis_names``."""
-    devices: np.ndarray           # of torch.device, one dimension per axis
+    """The devices (torch devices, or :class:`Chip` s) of a mesh, laid
+    out over ``axis_names``.  Hashes by identity, so a cache keyed by a
+    mesh never confuses two meshes over the same devices."""
+    devices: np.ndarray           # one dimension per axis
     axis_names: tuple = AXES
 
     @property
@@ -48,22 +68,51 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
     @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
     def device(self) -> torch.device:
-        """The mesh's one device."""
-        return self.devices.flat[0]
+        """The torch device of the mesh's first chip."""
+        d = self.devices.flat[0]
+        return d.device if isinstance(d, Chip) else d
 
 
 def make_mesh(n_devices: Optional[int] = None,
-              devices: Optional[Sequence] = None) -> Mesh:
-    """A mesh over one device: ``devices[0]`` when given, else ``cuda:0``
-    (which raises without a card).  More than one device raises."""
+              devices: Optional[Sequence] = None,
+              sizes: Optional[Dict[str, int]] = None) -> Mesh:
+    """A mesh over ``devices``.  With ``sizes`` (axis -> size, missing
+    axes 1; the product must be the device count) the devices, chips
+    included, are laid out row-major over the axes: the chip mesh's
+    ``sizes={"tp": P, "sp": Q}``.  Without ``sizes`` the mesh is a
+    model's, over one device: ``devices[0]`` when given, else ``cuda:0``
+    (which raises without a card), and more than one device raises
+    (part D2b)."""
+    if sizes is not None:
+        if devices is None:
+            raise ValueError("make_mesh(sizes=...) needs its devices")
+        devs = [d if isinstance(d, Chip) else torch.device(d)
+                for d in devices]
+        unknown = set(sizes) - set(AXES)
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)}; axes "
+                             f"are {AXES}")
+        full = {a: int(sizes.get(a, 1)) for a in AXES}
+        if int(np.prod(list(full.values()))) != len(devs) \
+                or (n_devices is not None and n_devices != len(devs)):
+            raise ValueError(f"mesh sizes {sizes} do not cover "
+                             f"{len(devs)} devices")
+        arr = np.empty(len(devs), dtype=object)
+        for i, d in enumerate(devs):
+            arr[i] = d
+        return Mesh(arr.reshape([full[a] for a in AXES]))
     n = n_devices if n_devices is not None else (
         len(devices) if devices is not None else 1)
     if n != 1 or (devices is not None and len(devices) != 1):
         raise NotImplementedError(
-            f"a mesh over {n} devices comes with the chip mesh over "
-            f"torch.distributed (ROADMAP Queue 1, part D2); this package "
-            f"runs on one device")
+            f"a model mesh over {n} devices is SPMD over torch.distributed "
+            f"or rank threads (ROADMAP Queue 1, part D2b); this package "
+            f"runs a model on one device")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -75,12 +124,28 @@ def make_mesh(n_devices: Optional[int] = None,
     return Mesh(arr)
 
 
-def axis_size(axis_name: str) -> int:
+def check_model_mesh(mesh: Mesh) -> None:
+    """A model runs on a mesh of one device: a mesh over several chips
+    raises, naming part D2b."""
+    if mesh.size != 1:
+        raise NotImplementedError(
+            f"a model over a mesh of {mesh.size} chips ({mesh.shape}) is "
+            f"SPMD (ROADMAP Queue 1, part D2b); this package runs a model "
+            f"on a mesh of one device")
+
+
+def axis_size(axis_name: str, mesh: Optional[Mesh] = None) -> int:
     """The size of a mesh axis: 1 for every axis, on one device.  The
     sp = 1 and pp = 1 forms of ring_attention, sequence and pipeline
-    rest on it."""
+    rest on it; given a ``mesh`` whose axis spans several chips it
+    raises (part D2b)."""
     if axis_name not in AXES:
         raise ValueError(f"unknown mesh axis {axis_name!r}; axes are {AXES}")
+    if mesh is not None and mesh.shape.get(axis_name, 1) != 1:
+        raise NotImplementedError(
+            f"mesh axis {axis_name!r} of size {mesh.shape[axis_name]}: "
+            f"model axes above size 1 are SPMD (ROADMAP Queue 1, part "
+            f"D2b)")
     return 1
 
 

@@ -94,9 +94,9 @@ def _comm_from_params():
 
 
 def _check_trimmed_knobs() -> None:
-    """Refuse knobs of subsystems this package does not carry yet (the
-    mesh-local by-reference path, tuning, serving, stage compilation,
-    chip meshes): a request for one raises instead of being ignored."""
+    """Refuse knobs of subsystems this package does not carry yet
+    (tuning, serving, stage compilation): a request for one raises
+    instead of being ignored."""
     for name in TRIMMED_KNOBS:
         v = str(params.get(name)).strip().lower()
         if v not in ("", "0", "false", "off", "no"):
@@ -233,6 +233,12 @@ class Context:
         # None; "cpu" runs the same module over host tensors)
         from ..devices import build_devices
         self.devices = build_devices(self, device=device)
+        # mesh ownership: when this rank's accelerator is a chip MESH
+        # (device_mesh_shape), expose it so mesh-aware layers reuse the
+        # rank's mesh instead of building their own
+        self.device_mesh = next(
+            (d.mesh for d in self.devices
+             if getattr(d, "mesh", None) is not None), None)
 
         # online critical-path class profile: duration-
         # weighted per-class EWMAs + upward-rank boosts the priority

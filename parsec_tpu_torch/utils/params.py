@@ -493,10 +493,30 @@ def register_core_params() -> None:
     params.reg_string("device_cuda_platform", "",
                       "torch device the accelerator module drives "
                       "(\"cuda\" or \"cpu\"); empty = cuda:0")
+    params.reg_int("device_cuda_virtual_chips", 0,
+                   "declare this many logical chips on the accelerator "
+                   "module's one device (each an index and a CUDA stream "
+                   "of its own, sharing the card's SMs and memory) as the "
+                   "chip pool device_mesh_shape carves; 0 = the pool is "
+                   "the physical cards cuda:0 .. device_count()-1 (one "
+                   "host chip under device=\"cpu\")")
+    params.reg_string("device_mesh_shape", "",
+                      "attach this rank's chips as ONE mesh device "
+                      "(\"PxQ\" grid or a chip count, e.g. \"2x2\" or "
+                      "\"4\"): tiles are placed block-cyclically across "
+                      "the chips, each chip launches on its own stream, "
+                      "and a batched flush group whose size the chip "
+                      "count divides is spread over the chips in "
+                      "slot-blocks; intra-mesh dependencies hop chip to "
+                      "chip as private device copies instead of riding "
+                      "the wire. Empty = one device (the pre-mesh "
+                      "behavior); too few chips in the pool raises (see "
+                      "device_cuda_virtual_chips)")
     params.reg_bool("cuda_eager_complete", True,
                     "release deps at kernel launch (one device stream "
-                    "orders the dataflow); off = wait for the launch's "
-                    "completion event")
+                    "orders the dataflow; on a chip mesh a read across "
+                    "chips waits for the hop's event); off = wait for the "
+                    "launch's completion event")
     params.reg_int("cuda_eager_window", 32,
                    "max in-flight eager submissions before blocking")
     params.reg_sizet("cuda_memory_fraction_pct", 85,
@@ -571,9 +591,8 @@ def register_core_params() -> None:
 
 
 #: knobs of the JAX package's subsystems that this package leaves out
-#: (tuning, serving, stage compilation, chip meshes)
-TRIMMED_KNOBS = ("tune_auto", "serve", "stage_compile",
-                 "device_mesh_shape")
+#: (tuning, serving, stage compilation)
+TRIMMED_KNOBS = ("tune_auto", "serve", "stage_compile")
 
 
 register_core_params()

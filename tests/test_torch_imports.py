@@ -414,9 +414,13 @@ def test_init_without_card_raises(monkeypatch):
     ("device_mesh_shape", "2x2"), ("device_donate", "1"),
     ("device_batch_mode", "vmap")])
 def test_trimmed_knobs_raise(knob, value):
-    """A knob asking for what this package does not carry raises."""
+    """A knob asking for what this package does not carry raises; a chip
+    mesh larger than the chip pool (one host chip, with no
+    device_cuda_virtual_chips) raises instead of falling back."""
+    exc = RuntimeError if knob == "device_mesh_shape" \
+        else NotImplementedError
     with params.cmdline_override(knob, value):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(exc):
             parsec_tpu_torch.init(nb_cores=1, device="cpu")
 
 
