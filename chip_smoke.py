@@ -307,6 +307,25 @@ Phases, each reporting on its own lines:
             on the card's input and cotangent, beside the CPU's
             fp32-vs-fp64 drift; the whole-depth loss against the CPU's,
             reported;
+7c. spmd    the same model over meshes of the card's 4 logical chips
+            (device_cuda_virtual_chips, a stream each; one thread a
+            shard, every collective one autograd node over its group),
+            phase forward's seeded parameters: make_forward on dp 2 x tp 2
+            (flash), sp 4 (ring), sp 4 (ulysses) and pp 2 (2 stages of 6
+            layers, 4 microbatches, flash), one warm-up and 3 batches
+            each, seconds, tokens/s, peak memory, launches exact (48 of
+            the flash forward, 120 of the stats kernel for the ring: shard
+            i runs i + 1 blocks a layer; GPipe skips its bubble ticks),
+            the logits within 2e-4 of one chip's with the same attention
+            (else each layer and the head on the mesh from one chip's
+            input, within 2e-4); make_train_step on dp 2 x tp 2 (flash)
+            and sp 4 (ring), a warm-up and 3 steps, the loss falling,
+            launches exact per step (48 stats and 48 backward; 120 stats
+            and none), the first step's gradients twice (bit-identical)
+            and within 1e-3 of one chip's value_and_grad (else each
+            layer's VJP on the mesh from one chip's input and cotangent);
+            one step of tp 2 x ep 2 with 4 experts, top 2, its loss and
+            gradients within 1e-3 of one chip's;
 8. timing   each kernel at its path's shape, by CUDA events: the GEMM
             at nb = 1024 against torch.addmm, batched at z = 1, 4 and 16
             against torch.baddbmm, and at tsmqr's shape (2048 x 1024 x
@@ -2013,15 +2032,16 @@ def phase_mesh(seed: int, L_main: np.ndarray, n: int = N_MAIN,
     return launches, per
 
 
-def stream_overlap(label: str, prof) -> None:
-    """The share of the GEMM kernel's device time (the union of its
-    intervals) during which GEMM kernels of two or more streams ran at
-    once, from the profiler's device events (their stream in
-    ``device_resource_id``)."""
+def stream_overlap(label: str, prof, kernel: str = "gemm_f32_kernel",
+                   prefix: str = "gemm") -> None:
+    """The share of a kernel's device time (the union of its intervals;
+    ``kernel`` a substring of its name) during which launches of it on
+    two or more streams ran at once, from the profiler's device events
+    (their stream in ``device_resource_id``)."""
     from torch.autograd import DeviceType
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and "gemm_f32_kernel" in e.name]
-    check(bool(evs), f"{label}: the profiler recorded no GEMM kernel")
+           and kernel in e.name]
+    check(bool(evs), f"{label}: the profiler recorded no {kernel}")
     marks = sorted([(e.time_range.start, 1, e.device_resource_id)
                     for e in evs]
                    + [(e.time_range.end, -1, e.device_resource_id)
@@ -2037,11 +2057,12 @@ def stream_overlap(label: str, prof) -> None:
             both += t - last
         last = t
         active[sid] = active.get(sid, 0) + d
-    log("profile", path=label, gemm_streams=len({e.device_resource_id
-                                                 for e in evs}),
-        gemm_kernels=len(evs), gemm_union_ms=f"{union / 1e3:.3f}",
-        gemm_overlap_ms=f"{both / 1e3:.3f}",
-        gemm_overlap_share=f"{both / union:.4f}" if union else "0")
+    log("profile", path=label, **{
+        f"{prefix}_streams": len({e.device_resource_id for e in evs}),
+        f"{prefix}_kernels": len(evs),
+        f"{prefix}_union_ms": f"{union / 1e3:.3f}",
+        f"{prefix}_overlap_ms": f"{both / 1e3:.3f}",
+        f"{prefix}_overlap_share": f"{both / union:.4f}" if union else "0"})
 
 
 def rank_worker(args) -> int:
@@ -4162,9 +4183,10 @@ def check_against_cpu(cfg, params, host_params, seq0, card_logits) -> None:
                                f"error {worst} >= {LOGITS_RTOL}")
 
 
-def phase_forward(dev: torch.device, seed: int) -> dict:
+def phase_forward(dev: torch.device, seed: int):
     """The transformer path through make_forward with attention="ring"
-    and "flash"; returns each flash kernel's launches on its path."""
+    and "flash"; returns each flash kernel's launches on its path and the
+    seeded host parameters."""
     from parsec_tpu_torch import models
     cfg = gpt2_small("ring")
     t0 = time.perf_counter()
@@ -4218,7 +4240,7 @@ def phase_forward(dev: torch.device, seed: int) -> dict:
     check(rel < LOGITS_RTOL, f"ring vs flash logits: {rel} >= "
                              f"{LOGITS_RTOL}")
     check_against_cpu(cfg, params, host_params, batches[1][:1], first)
-    return launches
+    return launches, host_params
 
 
 #: each train path's config changes and its kernels' launches per step:
@@ -4233,15 +4255,15 @@ TRAIN_PATHS = {
     "ring": (dict(attention="ring"), {"flash_stats_launches": 12})}
 
 
-def phase_train(dev: torch.device, seed: int) -> dict:
+def phase_train(dev: torch.device, seed: int, host_params: dict) -> dict:
     """Adam steps at GPT-2-small widths through models.make_train_step
-    for each train path; then determinism, remat against no remat, each
-    layer's gradients against the CPU port, and the whole-depth loss.
-    Returns each path's launches by counter."""
+    for each train path, from phase forward's seeded host parameters;
+    then determinism, remat against no remat, each layer's gradients
+    against the CPU port, and the whole-depth loss.  Returns each path's
+    launches by counter."""
     from parsec_tpu_torch import models
     from parsec_tpu_torch.models import train
     cfg = gpt2_small("flash")
-    host_params = models.init_params(cfg, seed)
     params = models.params_to(host_params, dev)
     rng = np.random.RandomState(seed + 7)
     tokens = rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
@@ -4391,6 +4413,385 @@ def check_grads_against_cpu(cfg, params, host_params, tokens0,
         cpu_fp32=repr(cpu_loss), cpu_fp64=repr(cpu64_loss),
         rel_err=abs(card_loss - cpu_loss) / abs(cpu_loss),
         cpu_fp32_vs_fp64=abs(cpu_loss - cpu64_loss) / abs(cpu64_loss))
+
+
+# ---------------------------------------------------------------------- #
+# spmd: the transformer over meshes of the card's logical chips          #
+# ---------------------------------------------------------------------- #
+SPMD_CHIPS = 4           # logical chips of the card, a stream each
+#: each mesh forward: its axes, its config changes, the kernel counter it
+#: launches and its launches per forward (the ring: shard i runs i + 1
+#: blocks a layer, 1 + 2 + 3 + 4 = 10; GPipe skips its bubble ticks)
+SPMD_FORWARDS = {
+    "dp2_tp2_flash": ({"dp": 2, "tp": 2}, dict(attention="flash"),
+                      "flash_launches", 48),
+    "sp4_ring": ({"sp": 4}, dict(attention="ring"),
+                 "flash_stats_launches", 120),
+    "sp4_ulysses": ({"sp": 4}, dict(attention="ulysses"),
+                    "flash_launches", 48),
+    "pp2_flash": ({"pp": 2}, dict(attention="flash", n_stages=2,
+                                  layers_per_stage=6, n_micro=4),
+                  "flash_launches", 48)}
+#: each mesh train path and its launches per step (the training forward
+#: runs the stats instance; the ring's backward recomputes the plain ring)
+SPMD_TRAIN = {
+    "dp2_tp2_flash": ({"dp": 2, "tp": 2}, dict(attention="flash"),
+                      {"flash_stats_launches": 48,
+                       "flash_bwd_launches": 48}),
+    "sp4_ring": ({"sp": 4}, dict(attention="ring"),
+                 {"flash_stats_launches": 120})}
+#: expert parallelism: the JAX package's dense-dispatch MoE, 4 experts,
+#: top 2; dp and sp stay 1 (the sharded Switch aux loss is estimated per
+#: (dp, sp) token block, so there it differs from one chip's by design)
+SPMD_MOE = ({"tp": 2, "ep": 2}, dict(attention="flash", n_experts=4,
+                                     moe_top_k=2),
+            {"flash_stats_launches": 48, "flash_bwd_launches": 48})
+
+
+def restage(params: dict, cfg) -> dict:
+    """The tree with its stages as ``cfg``'s [n_stages, layers_per_stage]:
+    init_params draws the same numbers in the same order for any split."""
+    return {**params, "stages": {
+        n: a.reshape(cfg.n_stages, cfg.layers_per_stage, *a.shape[2:])
+        for n, a in params["stages"].items()}}
+
+
+def moe_params(params: dict, cfg, seed: int, dev: torch.device) -> dict:
+    """The dense tree's embeddings, norms and attention, with a seeded
+    gate and expert FFNs drawn on the card at init_params' scales."""
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    S, L = cfg.n_stages, cfg.layers_per_stage
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def w(*shape, scale):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    stages = {n: params["stages"][n] for n in ("ln1", "ln2", "wqkv", "wo")}
+    stages.update(gate=w(S, L, D, E, scale=0.02),
+                  w1e=w(S, L, E, D, F, scale=D ** -0.5),
+                  w2e=w(S, L, E, F, D, scale=F ** -0.5))
+    return {**params, "stages": stages}
+
+
+def nudged(params: dict) -> dict:
+    """Every parameter one ulp up: the one-chip baseline of how far the
+    seeded model's whole depth carries a rounding difference."""
+    return tree_map(lambda a: torch.nextafter(a, torch.full_like(
+        a, float("inf"))), params)
+
+
+def layer_params(params: dict, i: int) -> dict:
+    return {n: a.reshape(-1, *a.shape[2:])[i]
+            for n, a in params["stages"].items()}
+
+
+def spmd_pieces(cfg, mesh):
+    """The embedding, one layer and the head over ``mesh`` (activations
+    split over dp and sp), and one chip's layer: the per-layer comparison
+    when a whole-depth one misses its gate.  A MoE layer returns its
+    load-balance loss beside its output."""
+    from parsec_tpu_torch import models, parallel
+    model = models.Transformer(cfg)
+    data = parallel.spec("dp", "sp")
+    lspec = {n: parallel.spec(*s[2:])
+             for n, s in models.param_specs(cfg)["stages"].items()}
+    moe = bool(cfg.n_experts)
+
+    def one_layer(lp, x):
+        y, aux = model._layer(lp, x, 0.0)
+        return (y, aux) if moe else y
+
+    embed = parallel.shard_map_compat(
+        lambda ep, t: model._embed(ep, t), mesh,
+        in_specs=(parallel.spec(), data), out_specs=data)
+    layer = parallel.shard_map_compat(
+        one_layer, mesh, in_specs=(lspec, data),
+        out_specs=(data, parallel.spec()) if moe else data)
+    head = parallel.shard_map_compat(
+        lambda hp, x: model._head(hp, x), mesh,
+        in_specs=(parallel.spec(), data), out_specs=data)
+    return model, embed, layer, head, one_layer
+
+
+def _parts(out) -> list:
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def spmd_forward_by_layer(name: str, cfg, mesh, params, tokens) -> float:
+    """The embedding, each layer (with a MoE layer's load-balance loss)
+    and the head on the mesh against one chip's, from one chip's input to
+    each; returns the worst relative error."""
+    model, embed, layer, head, one_layer = spmd_pieces(cfg, mesh)
+    with torch.inference_mode():
+        tok = torch.as_tensor(tokens).to(params["embed"].device)
+        ep = {"embed": params["embed"], "pos": params["pos"]}
+        x = model._embed(ep, tok)
+        worst, absd = rel_err(embed(ep, tok), x)
+        log("spmd.forward", mesh=name, case="embed_vs_one_chip",
+            rel_err=worst, max_abs_err=absd)
+        for i in range(cfg.n_layers):
+            lp = layer_params(params, i)
+            want = _parts(one_layer(lp, x))
+            for part, got, ref in zip(("x", "aux"), _parts(layer(lp, x)),
+                                      want):
+                rel, absd = rel_err(got, ref)
+                log("spmd.forward", mesh=name, case="layer_vs_one_chip",
+                    layer=i, part=part, rel_err=rel, max_abs_err=absd)
+                worst = max(worst, rel)
+            x = want[0]
+        hp = {"ln_f": params["ln_f"], "embed": params["embed"]}
+        rel, absd = rel_err(head(hp, x), model._head(hp, x))
+    log("spmd.forward", mesh=name, case="head_vs_one_chip", rel_err=rel,
+        max_abs_err=absd)
+    return max(worst, rel)
+
+
+def spmd_grads_by_layer(name: str, cfg, mesh, params, tokens,
+                        labels) -> float:
+    """The VJPs of the head with the loss, of each layer (every parameter
+    and dx; a MoE layer's load-balance loss with its weight in the loss)
+    and of the embedding on the mesh against one chip's, from one chip's
+    inputs and cotangents; returns the worst relative error."""
+    import torch.nn.functional as F
+    model, embed, layer, head, one_layer = spmd_pieces(cfg, mesh)
+    # d loss / d (a layer's load-balance loss), as loss_shard weighs it
+    aux_cot = torch.tensor(cfg.aux_loss_weight
+                           / (cfg.n_layers * cfg.n_micro),
+                           device=tokens.device)
+
+    def leaf(x):
+        return x.detach().clone().requires_grad_(True)
+
+    def vjp(fn, tree, x, cot=None, labels=None, wrt_x=True):
+        tree = {n: leaf(a) for n, a in tree.items()}
+        if wrt_x:
+            x = leaf(x)
+        out = _parts(fn(tree, x))
+        if labels is not None:
+            out = [F.cross_entropy(out[0].reshape(-1, out[0].shape[-1]),
+                                   labels.reshape(-1))]
+        cots = None if cot is None else [cot, aux_cot][:len(out)]
+        names = sorted(tree)
+        wrt = ([x] if wrt_x else []) + [tree[n] for n in names]
+        grads = torch.autograd.grad(out, wrt, cots)
+        return dict(zip((["x"] if wrt_x else []) + names, grads))
+
+    def compare(part, got, ref):
+        worst = 0.0
+        for g in ref:
+            rel, absd = rel_err(got[g], ref[g])
+            log("spmd.train", mesh=name, case="grad_vs_one_chip_by_layer",
+                part=part, grad=g, rel_err=rel, max_abs_err=absd)
+            worst = max(worst, rel)
+        return worst
+
+    ep = {"embed": params["embed"], "pos": params["pos"]}
+    with torch.no_grad():
+        xs = [model._embed(ep, tokens)]
+        for i in range(cfg.n_layers):
+            xs.append(_parts(one_layer(layer_params(params, i), xs[-1]))[0])
+    hp = {"ln_f": params["ln_f"], "embed": params["embed"]}
+    with torch.enable_grad():
+        ref = vjp(model._head, hp, xs[-1], labels=labels)
+        worst = compare("head", vjp(head, hp, xs[-1], labels=labels), ref)
+        dy = ref["x"]
+        for i in reversed(range(cfg.n_layers)):
+            lp = layer_params(params, i)
+            ref = vjp(one_layer, lp, xs[i], dy)
+            worst = max(worst, compare(f"layer{i}",
+                                       vjp(layer, lp, xs[i], dy), ref))
+            dy = ref["x"]
+        ref = vjp(model._embed, ep, tokens, dy, wrt_x=False)
+        worst = max(worst, compare("embed", vjp(embed, ep, tokens, dy,
+                                                wrt_x=False), ref))
+    return worst
+
+
+def spmd_mesh(sizes: dict):
+    """A mesh of the card's logical chips, checked: every chip on cuda:0
+    with a stream of its own."""
+    from parsec_tpu_torch import parallel
+    mesh = parallel.make_mesh(sizes=sizes)
+    chips = list(mesh.devices.flat)
+    check(all(c.device == torch.device("cuda", 0) for c in chips)
+          and len({id(c.stream) for c in chips}) == len(chips),
+          f"mesh {sizes}: chips {chips} are not logical chips of cuda:0 "
+          f"with a stream each")
+    return mesh
+
+
+def spmd_grads(name: str, cfg, mesh, params, tokens, labels) -> None:
+    """The first step's loss and gradients on the mesh, twice (bit-equal),
+    against one chip's value_and_grad within GRAD_RTOL: the loss at whole
+    depth, the gradients per layer when a whole-depth one misses it."""
+    from parsec_tpu_torch.models import train
+    t = torch.as_tensor(tokens, dtype=torch.int64, device=params[
+        "embed"].device)
+    y = torch.as_tensor(labels, dtype=torch.int64, device=t.device)
+    a = train.value_and_grad(cfg, params, t, y, mesh=mesh)
+    b = train.value_and_grad(cfg, params, t, y, mesh=mesh)
+    same = bool(torch.equal(a[0], b[0])) and all(
+        map(torch.equal, train.tree_leaves(a[1]), train.tree_leaves(b[1])))
+    log("spmd.train", mesh=name, case="repeat_grads", bit_identical=same)
+    check(same, f"{name}: two gradients from the same state differ")
+    del b
+    r = train.value_and_grad(cfg, params, t, y)
+    loss_rel = rel_err(a[0], r[0])[0]
+    log("spmd.train", mesh=name, case="loss_vs_one_chip",
+        loss=repr(a[0].item()), one_chip=repr(r[0].item()), rel_err=loss_rel)
+    check(loss_rel < GRAD_RTOL, f"{name}: loss vs one chip {loss_rel} >= "
+                                f"{GRAD_RTOL}")
+    worst = 0.0
+    flat = zip(_leaf_names(a[1]), train.tree_leaves(a[1]),
+               train.tree_leaves(r[1]))
+    for leaf_name, g, ref in flat:
+        rel, absd = rel_err(g, ref)
+        log("spmd.train", mesh=name, case="grad_vs_one_chip", grad=leaf_name,
+            rel_err=rel, max_abs_err=absd)
+        worst = max(worst, rel)
+    del a, r
+    torch.cuda.empty_cache()
+    if worst < GRAD_RTOL:
+        return
+    by_layer = spmd_grads_by_layer(name, cfg, mesh, params, t, y)
+    r = train.value_and_grad(cfg, params, t, y)
+    n = train.value_and_grad(cfg, nudged(params), t, y)
+    drift = max(rel_err(g, ref)[0] for g, ref in zip(
+        train.tree_leaves(n[1]), train.tree_leaves(r[1])))
+    del r, n
+    log("spmd.train", mesh=name, case="whole_depth_missed_gate",
+        whole_depth_worst_rel=worst, by_layer_worst_rel=by_layer,
+        one_chip_one_ulp_nudge_worst_rel=drift)
+    check(by_layer < GRAD_RTOL, f"{name}: gradients by layer vs one chip "
+                                f"{by_layer} >= {GRAD_RTOL}")
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k, a in tree.items()
+                for n in _leaf_names(a, f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def spmd_counts(launches: dict, counter: str) -> dict:
+    """One kernel's launches on each spmd path that launched it."""
+    return {path: n[counter] for path, n in launches.items()
+            if counter in n}
+
+
+def phase_spmd(dev: torch.device, seed: int, host_params: dict) -> dict:
+    """The transformer over meshes of the card's logical chips
+    (``device_cuda_virtual_chips``): each mesh forward against one chip's
+    logits, each mesh train path's steps, determinism and gradients
+    against one chip's, and expert parallelism's step.  Returns each
+    path's launches by counter."""
+    from parsec_tpu_torch import models
+    cfg = gpt2_small("flash")
+    params = models.params_to(host_params, dev)
+    rng = np.random.RandomState(seed + 9)
+    batches = [rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
+               for _ in range(1 + N_BATCHES)]
+    tokens = np.random.RandomState(seed + 7).randint(
+        0, cfg.vocab, (cfg.batch, cfg.seq_len))
+    labels = np.roll(tokens, -1, axis=1)
+    launches = {}
+    with knobs({"device_cuda_virtual_chips": SPMD_CHIPS}):
+        for name, (sizes, changes, counter, per_fwd) in \
+                SPMD_FORWARDS.items():
+            c = dataclasses.replace(cfg, **changes)
+            p = restage(params, c)
+            ref = models.make_forward(c)(p, batches[1])   # one chip
+            mesh = spmd_mesh(sizes)
+            fwd = models.make_forward(c, mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            fwd(p, batches[0])                         # warm-up
+            torch.cuda.synchronize()
+            seconds = []
+            for i, toks in enumerate(batches[1:]):
+                t0 = time.perf_counter()
+                logits = fwd(p, toks)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                check(tuple(logits.shape) == (cfg.batch, cfg.seq_len,
+                                              cfg.vocab)
+                      and bool(torch.isfinite(logits).all()),
+                      f"spmd {name}: logits {tuple(logits.shape)} or not "
+                      f"finite")
+                if i == 0:
+                    first = logits
+            got = counts()
+            n_fwd = 1 + N_BATCHES
+            want = {k: per_fwd * n_fwd if k == counter else 0
+                    for k in COUNTERS}
+            rel, absd = rel_err(first, ref)
+            mean = sum(seconds) / len(seconds)
+            log("spmd.forward", mesh=name, chips=mesh.size, forwards=n_fwd,
+                seconds=",".join(f"{x:.6f}" for x in seconds),
+                mean_seconds=f"{mean:.6f}",
+                tokens_per_s=f"{cfg.batch * cfg.seq_len / mean:.1f}",
+                peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+                rel_err_vs_one_chip=rel, max_abs_err=absd, **got)
+            check(got == want, f"spmd {name}: launches {got}, expected "
+                               f"{want}")
+            launches[f"spmd_forward_{name}"] = {counter: got[counter]}
+            del first, logits, ref, fwd
+            if rel >= LOGITS_RTOL:
+                worst = spmd_forward_by_layer(name, c, mesh, p, batches[1])
+                one = models.make_forward(c)
+                drift = rel_err(one(nudged(p), batches[1]),
+                                one(p, batches[1]))[0]
+                log("spmd.forward", mesh=name,
+                    case="whole_depth_missed_gate", whole_depth_rel=rel,
+                    by_layer_worst_rel=worst,
+                    one_chip_one_ulp_nudge_rel=drift)
+                check(worst < LOGITS_RTOL, f"spmd {name}: by layer vs one "
+                                           f"chip {worst} >= {LOGITS_RTOL}")
+            torch.cuda.empty_cache()
+        train_paths = dict(SPMD_TRAIN, moe_tp2_ep2=SPMD_MOE)
+        for name, (sizes, changes, per_step) in train_paths.items():
+            c = dataclasses.replace(cfg, **changes)
+            p0 = moe_params(params, c, seed, dev) if c.n_experts else params
+            mesh = spmd_mesh(sizes)
+            step = models.make_train_step(c, mesh, lr=TRAIN_LR)
+            p, state = p0, models.adam_init(p0)
+            want = {k: per_step.get(k, 0) for k in COUNTERS}
+            n_steps = 1 if c.n_experts else 1 + TRAIN_STEPS
+            losses, seconds = [], []
+            ran = dict.fromkeys(per_step, 0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(n_steps):               # a warm-up, then timed
+                reset_counts()
+                t0 = time.perf_counter()
+                p, state, loss = step(p, state, tokens, labels)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                got = counts()
+                check(got == want, f"spmd train {name} step {i}: launches "
+                                   f"{got}, expected {want}")
+                for k in ran:
+                    ran[k] += got[k]
+                losses.append(loss.item())
+            timed = seconds[1:] or seconds
+            mean = sum(timed) / len(timed)
+            log("spmd.train", mesh=name, chips=mesh.size, steps=n_steps,
+                seconds=",".join(f"{x:.6f}" for x in seconds),
+                mean_seconds=f"{mean:.6f}",
+                tokens_per_s=f"{cfg.batch * cfg.seq_len / mean:.1f}",
+                peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+                losses=",".join(repr(x) for x in losses), **got)
+            check(all(np.isfinite(losses)), f"spmd {name}: losses {losses}")
+            check(n_steps == 1 or losses[-1] < losses[0],
+                  f"spmd {name}: the loss did not fall: {losses}")
+            launches[f"spmd_train_{name}"] = ran
+            del p, state, step
+            torch.cuda.empty_cache()
+            spmd_grads(name, c, mesh, p0, tokens, labels)
+            del p0
+            torch.cuda.empty_cache()
+    return launches
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -4668,6 +5069,21 @@ def phase_profile(dev: torch.device, seed: int, n: int = N_MAIN,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     profile_report("train_flash", prof, seconds, top=16)
+    del p, state, step
+    torch.cuda.empty_cache()
+    # one dp 2 x tp 2 flash step over 4 logical chips, after a warm-up
+    with knobs({"device_cuda_virtual_chips": SPMD_CHIPS}):
+        step = models.make_train_step(cfg, spmd_mesh({"dp": 2, "tp": 2}),
+                                      lr=TRAIN_LR)
+        p, state, _ = step(params, models.adam_init(params), tokens, labels)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            p, state, _ = step(p, state, tokens, labels)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    profile_report("spmd_train", prof, seconds, top=16)
+    stream_overlap("spmd_train", prof, kernel="flash_", prefix="flash")
     del p, state, params, step
     torch.cuda.empty_cache()
     profile_yardsticks(dev, seed)
@@ -4863,9 +5279,12 @@ def main(argv=None) -> int:
             phase_dtd_capture(args.seed, L_dtd)
     del L_dtd
     with phase_clock("forward"):
-        attn_launches = phase_forward(dev, args.seed)
+        attn_launches, host_params = phase_forward(dev, args.seed)
     with phase_clock("train"):
-        train_launches = phase_train(dev, args.seed)
+        train_launches = phase_train(dev, args.seed, host_params)
+    with phase_clock("spmd"):
+        spmd_launches = phase_spmd(dev, args.seed, host_params)
+    del host_params
     with phase_clock("timing"):
         recs = phase_timing(dev, args.seed)
     if args.profile:
@@ -4889,20 +5308,24 @@ def main(argv=None) -> int:
              **recs["gemm"]),
         dict(name="flash_fwd_f32", route="cuda",
              source=src + "flash_attention.cu", replaces=tpu + "68",
-             launches={"forward_flash": attn_launches["flash"]},
+             launches={"forward_flash": attn_launches["flash"],
+                       **spmd_counts(spmd_launches, "flash_launches")},
              max_abs_err=attn_err["flash"], **recs["flash"]),
         # the training forward of flash_attention runs this instance too
         dict(name="flash_fwd_stats_f32", route="cuda",
              source=src + "flash_attention.cu", replaces=tpu + "115",
              launches={"forward_ring": attn_launches["ring"],
                        **{f"train_{path}": n["flash_stats_launches"]
-                          for path, n in train_launches.items()}},
+                          for path, n in train_launches.items()},
+                       **spmd_counts(spmd_launches,
+                                     "flash_stats_launches")},
              max_abs_err=attn_err["flash_stats"], **recs["flash_stats"]),
         dict(name="flash_bwd_f32", route="cuda",
              source=src + "flash_attention_bwd.cu", replaces=tpu + "287",
-             launches={f"train_{path}": n["flash_bwd_launches"]
-                       for path, n in train_launches.items()
-                       if "flash_bwd_launches" in n},
+             launches={**{f"train_{path}": n["flash_bwd_launches"]
+                          for path, n in train_launches.items()
+                          if "flash_bwd_launches" in n},
+                       **spmd_counts(spmd_launches, "flash_bwd_launches")},
              max_abs_err=attn_err["flash_bwd"], **recs["flash_bwd"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,8 @@ copy before the body reads it, and the written target tile's host copy
 becomes the newest version, so a later device task stages it in again.
 
 ``reshard_array`` (the JAX package's move between mesh shardings)
-belongs with SPMD meshes (ROADMAP Queue 1, part D2b) and raises here.
+belongs with tiles split across chips (ROADMAP Queue 1, part D2c) and
+raises here.
 """
 from __future__ import annotations
 
@@ -333,9 +334,9 @@ def redistribute_ptg(source: TiledMatrix, target: TiledMatrix,
 
 def reshard_array(arr: Any, mesh: Any, spec: Any) -> Any:
     """The JAX package's move of a mesh-resident array between two
-    shardings. It belongs with SPMD meshes, which this package does not
-    carry yet (ROADMAP Queue 1, part D2b): it raises."""
+    shardings. It belongs with tiles split across chips, which this
+    package does not carry yet (ROADMAP Queue 1, part D2c): it raises."""
     raise NotImplementedError(
         "reshard_array moves an array between mesh shardings; sharded "
         "arrays are not carried by this package yet (ROADMAP Queue 1, "
-        "part D2b)")
+        "part D2c)")

@@ -51,8 +51,8 @@ Semantics notes:
 (``cuda:0`` unless ``device_cuda_platform`` names another) and raises
 without a card; ``run(device="cpu")`` runs the same code over host
 tensors with each kernel's plain version (what the tests do).  The pools of ``build_pools``
-may not be split across several chips in this package (that is SPMD,
-ROADMAP Queue 1, part D2b).
+may not be split across several chips in this package yet (one tile's
+kernel over several chips: ROADMAP Queue 1, part D2c).
 
 A multi-rank taskpool (or any call with an explicit ``comm``) runs
 through ``DistWaveRunner`` (wave_dist.py): every rank walks the same
@@ -1229,7 +1229,8 @@ class WaveRunner:
         if sharding is not None:
             raise NotImplementedError(
                 "build_pools(sharding=...): wave pools split across chips "
-                "are SPMD (ROADMAP Queue 1, part D2b)")
+                "need a tile split across chips (ROADMAP Queue 1, part "
+                "D2c)")
         device = resolve_device(device)
         pools = []
         staged = 0

@@ -930,12 +930,12 @@ class DistWaveRunner(WaveRunner):
         ``_build_local_maps``) on ``device`` (None: cuda:0, raising
         without a card); ``self.stage_in_bytes`` holds the host bytes
         moved.  ``sharding`` (each rank's pools split across its own
-        chips) is SPMD and raises."""
+        chips) needs a tile split across chips (part D2c) and raises."""
         if sharding is not None:
             raise NotImplementedError(
                 "build_pools(sharding=...): a rank's sliced pools split "
-                "across its own chips are SPMD (ROADMAP Queue 1, part "
-                "D2b)")
+                "across its own chips need a tile split across chips "
+                "(ROADMAP Queue 1, part D2c)")
         device = resolve_device(device)
         pools: List[Any] = []
         staged = 0

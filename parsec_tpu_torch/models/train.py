@@ -1,12 +1,17 @@
 """The transformer's entry points: the training step (forward, backward,
 Adam) and the forward for inference.
 
-The port of the JAX package's ``models/train.py`` on one device, where
-every mesh axis has size 1: a gradient needs no reduction over any axis,
-the optimizer state mirrors the parameter tree, and ``shard_params``
-places the tree on the mesh's one device.  The step is functional like
-the JAX one: it returns new parameters and a new optimizer state and
-leaves its arguments as they were.
+The port of the JAX package's ``models/train.py``.  Over a mesh of
+several chips the loss runs in ``shard_map_compat`` (one thread a shard,
+parallel/shard_map.py) on each shard's slices of the GLOBAL parameter
+tree; the gradient is one ``torch.autograd.grad`` of the replicated loss
+over the global leaves, taken after every shard has returned, so a leaf
+replicated over some axes gets its shards' contributions summed (the
+JAX package's ``sync_axes``) by the graph itself; Adam then updates the
+global tree.  A mesh of one device runs the same entry on the calling
+thread, where every axis has size 1 and ``loss_shard`` keeps its
+one-device arithmetic.  The step is functional like the JAX one: it returns new parameters and a new
+optimizer state and leaves its arguments as they were.
 """
 from __future__ import annotations
 
@@ -14,10 +19,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..parallel.mesh import Mesh, check_model_mesh, make_mesh
+from ..parallel.mesh import Mesh, make_mesh, shard_map_compat, spec
 from ..parallel.pipeline import last_stage_value
-from .transformer import (Transformer, TransformerConfig, loss_shard,
-                          params_to)
+from .transformer import (Transformer, TransformerConfig, forward_shard,
+                          loss_shard, param_specs, params_to)
+
+#: the token ids' and labels' split: batch over dp, sequence over sp
+DATA_SPEC = spec("dp", "sp")
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -72,9 +80,9 @@ def opt_state_specs(pspecs: Any) -> Dict[str, Any]:
 
 
 def shard_params(params: Any, mesh: Mesh, pspecs: Any) -> Any:
-    """The tree placed on the mesh.  On one device every axis has size 1,
-    so each leaf goes whole to the mesh's device and ``pspecs`` splits
-    nothing."""
+    """The tree placed on the mesh: each leaf whole on the mesh's device
+    (its first chip's), where each call's executor hands every shard its
+    slice by ``pspecs`` (a view on the same card, a copy on another)."""
     return params_to(params, mesh.device)
 
 
@@ -90,14 +98,28 @@ def _check_attention_mesh(cfg: TransformerConfig, mesh: Mesh) -> None:
             "sequence-parallel meshes")
 
 
+def _check_remat_mesh(cfg: TransformerConfig, mesh: Mesh) -> None:
+    """remat recomputes a layer inside the backward, on autograd's thread
+    and outside its shard: a layer holding collectives (tp, sp or ep
+    above 1) could not rejoin its group there, so that raises."""
+    inner = {a: n for a, n in mesh.shape.items()
+             if a in ("tp", "sp", "ep") and n > 1}
+    if cfg.remat and inner:
+        raise ValueError(f"remat recomputes each layer in the backward, "
+                         f"outside its shard; the mesh's {inner} put "
+                         f"collectives inside the layers: use remat=False "
+                         f"on this mesh")
+
+
 def _resolve_mesh(cfg: TransformerConfig, mesh: Optional[Mesh],
                   device) -> Mesh:
     if mesh is None:
-        mesh = make_mesh(devices=None if device is None else [device])
+        mesh = make_mesh(1) if device is None else \
+            make_mesh(devices=[device])
     elif device is not None and torch.device(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
-    check_model_mesh(mesh)
     _check_attention_mesh(cfg, mesh)
+    _check_remat_mesh(cfg, mesh)
     Transformer(cfg)           # the config's own checks
     return mesh
 
@@ -113,19 +135,29 @@ def _token_ids(cfg: TransformerConfig, ids: Any, what: str,
 
 
 def value_and_grad(cfg: TransformerConfig, params: Any, tokens: torch.Tensor,
-                   labels: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+                   labels: torch.Tensor,
+                   mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, Any]:
     """``loss_shard`` and its gradient with respect to every leaf of
-    ``params`` (a tree on one device; tokens and labels int64 there).
-    The leaves are detached copies of the tree's tensors, so the caller's
-    tree takes no gradient."""
+    ``params`` (the global tree on one device; tokens and labels int64
+    there).  The loss is the shards' joint loss over ``mesh``
+    (``shard_map_compat``, split by ``param_specs`` and ``DATA_SPEC``; by
+    default a mesh of the parameters' one device) and the gradient one
+    backward of it, after every shard has returned.  The leaves are
+    detached copies of the tree's tensors, so the caller's tree takes no
+    gradient."""
     if torch.is_inference_mode_enabled():
         raise RuntimeError("a training step cannot run under "
                            "torch.inference_mode()")
     leaves = tree_map(lambda t: (t.clone() if t.is_inference()
                                  else t.detach()).requires_grad_(True),
                       params)
+    if mesh is None:
+        mesh = make_mesh(devices=[tree_leaves(params)[0].device])
     with torch.enable_grad():
-        loss = loss_shard(cfg, leaves, tokens, labels)
+        loss = shard_map_compat(
+            lambda p, t, y: loss_shard(cfg, p, t, y), mesh,
+            in_specs=(param_specs(cfg), DATA_SPEC, DATA_SPEC),
+            out_specs=spec())(leaves, tokens, labels)
         grads = torch.autograd.grad(loss, tree_leaves(leaves))
     return loss.detach(), tree_unflatten(params, grads)
 
@@ -136,9 +168,11 @@ def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
     opt_state, loss)``: the loss of ``loss_shard``, its gradients by
     autograd (the flash kernel's backward on the card), one Adam update.
     It runs on ``cuda:0`` (raising without a card) unless the caller
-    passes ``device="cpu"`` or a mesh over the CPU; it moves the
-    parameters and the optimizer state to the device unless they are
-    there, and takes token ids and labels of any integer type."""
+    passes ``device="cpu"`` or a mesh; over a mesh of several chips
+    ``value_and_grad`` takes the shards' joint loss and Adam updates the
+    global tree on the mesh's device.  It moves the parameters and the
+    optimizer state to the device unless they are there, and takes token
+    ids and labels of any integer type."""
     mesh = _resolve_mesh(cfg, mesh, device)
     dev = mesh.device
 
@@ -147,7 +181,7 @@ def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
         tokens = _token_ids(cfg, tokens, "token ids", dev)
         labels = _token_ids(cfg, labels, "labels", dev)
         params = params_to(params, dev)
-        loss, grads = value_and_grad(cfg, params, tokens, labels)
+        loss, grads = value_and_grad(cfg, params, tokens, labels, mesh)
         new_params, new_state = adam_update(
             params, grads, params_to(opt_state, dev), lr=lr)
         return new_params, new_state, loss
@@ -160,18 +194,21 @@ def make_forward(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
                                           torch.Tensor]:
     """The forward ``(params, tokens) -> logits [B, T, vocab]`` (fp32),
     for inference.  It runs on ``cuda:0`` (raising without a card) unless
-    the caller passes ``device="cpu"`` or a mesh over the CPU.  Each call
+    the caller passes ``device="cpu"`` or a mesh; over a mesh of several
+    chips each shard runs ``forward_shard`` on its slices and the logits
+    are assembled over dp and sp from the last pp stage's.  Each call
     runs under ``torch.inference_mode()``, moves the parameters to the
     device unless they are there, and takes token ids of any integer
     type, as a tensor or an array."""
     mesh = _resolve_mesh(cfg, mesh, device)
-    model = Transformer(cfg)
     dev = mesh.device
+    run = shard_map_compat(
+        lambda p, t: last_stage_value(forward_shard(cfg, p, t)[0], "pp"),
+        mesh, in_specs=(param_specs(cfg), DATA_SPEC), out_specs=DATA_SPEC)
 
     def forward(params: Dict[str, Any], tokens: Any) -> torch.Tensor:
         tokens = _token_ids(cfg, tokens, "token ids", dev)
         with torch.inference_mode():
-            logits = model(params_to(params, dev), tokens)
-            return last_stage_value(logits, "pp")
+            return run(params_to(params, dev), tokens)
 
     return forward

@@ -1,13 +1,18 @@
 """Flagship model: the decoder-only transformer, its forward and loss.
 
-The port of the JAX package's ``models/transformer.py`` on one device,
-where every mesh axis (dp, pp, tp, sp, ep) has size 1: the psums over tp
-and ep are the identity, the GPipe schedule runs the microbatches in
-order, and attention runs through parallel/ (ring, Ulysses) or straight
-through the flash kernel.  The parameters are the same tree as the JAX
-package's (``init_params`` makes the same draws; ``params_from_numpy``
-carries a JAX tree, or a JAX Adam state, across), passed to each call
-like JAX's functional forward.  The plain products (QKV, output
+The port of the JAX package's ``models/transformer.py``.  The forward
+and the loss of ONE shard run inside ``shard_map_compat`` over the
+(dp, pp, tp, sp, ep) mesh (models/train.py) with its collectives
+(parallel/shard_map.py): dp splits the batch; pp stacks the layers per
+stage under the GPipe schedule; tp splits the heads and the FFN hidden,
+with a psum after each output projection; sp splits the sequence, with
+ring or Ulysses attention and positions offset by the shard's place; ep
+splits the experts, with a psum in the MoE combine.  On one device, or
+outside a shard, every axis has size 1: each psum is the identity and
+the GPipe schedule runs the microbatches in order.  The parameters are
+the same tree as the JAX package's (``init_params`` makes the same
+draws; ``params_from_numpy`` carries a JAX tree, or a JAX Adam state,
+across), passed to each call like JAX's functional forward.  The plain products (QKV, output
 projection, FFN, experts, tied logits) are ``torch.matmul`` in the config
 dtype, as the JAX package leaves them to XLA; the attention is the
 hand-written flash kernel on the card, forward and backward.
@@ -30,10 +35,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
+from ..parallel.mesh import AXES
 from ..parallel.moe import load_balance_loss, moe_ffn
-from ..parallel.pipeline import gpipe
+from ..parallel.pipeline import gpipe, last_stage_value
 from ..parallel.ring_attention import local_attention, ring_attention
 from ..parallel.sequence import ulysses_attention
+from ..parallel.shard_map import axis_index, axis_size, pmean, psum
 
 ATTENTIONS = ("ring", "ulysses", "flash", "local")
 
@@ -103,8 +110,7 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
     """Each leaf's partitioning as a tuple of mesh axis names (None =
     not split), the JAX package's ``PartitionSpec``s as tuples: stages
     stack over pp, heads and the FFN hidden over tp, experts over ep,
-    everything else replicated (``()``).  On one device every axis has
-    size 1, so the specs describe the tree and move nothing."""
+    everything else replicated (``()``)."""
     specs: Dict[str, Any] = {
         "embed": (),
         "pos": (),
@@ -181,11 +187,12 @@ class Transformer(nn.Module):
 
     def _layer(self, lp: Dict[str, torch.Tensor], x: torch.Tensor,
                aux) -> Tuple[torch.Tensor, Any]:
-        """One transformer block on a local shard. x: [mb, T, D].
-        Returns the new residual stream and ``aux`` plus this layer's
-        load-balance loss (``aux`` unchanged for a dense FFN)."""
+        """One transformer block on a local shard. x: [mb, T, D]; the
+        shard's heads and FFN hidden are its tp slice.  Returns the new
+        residual stream and ``aux`` plus this layer's load-balance loss
+        (``aux`` unchanged for a dense FFN)."""
         mb, T, D = x.shape
-        H, Dh = self.cfg.n_heads, self.cfg.d_head
+        H, Dh = lp["wqkv"].shape[2], self.cfg.d_head
         h = self._rmsnorm(x, lp["ln1"])
         qkv = torch.matmul(h, lp["wqkv"].reshape(D, 3 * H * Dh)).to(x.dtype)
         # [mb, T, 3, H, Dh] -> three contiguous [mb, H, T, Dh]
@@ -194,7 +201,7 @@ class Transformer(nn.Module):
         a = self._attention(q, k, v)
         o = torch.matmul(a.transpose(1, 2).reshape(mb, T, H * Dh),
                          lp["wo"].reshape(H * Dh, D)).to(x.dtype)
-        x = x + o                  # the psum over tp is the identity
+        x = x + psum(o, "tp")      # heads are tp-sharded
         h2 = self._rmsnorm(x, lp["ln2"])
         if "w1e" in lp:
             gate_logits = torch.einsum("btd,de->bte", h2, lp["gate"])
@@ -205,13 +212,15 @@ class Transformer(nn.Module):
             u = F.gelu(torch.matmul(h2, lp["w1"]),
                        approximate="tanh").to(x.dtype)
             f = torch.matmul(u, lp["w2"]).to(x.dtype)
-        return x + f, aux
+        return x + psum(f, "tp"), aux     # the FFN hidden is tp-sharded
 
     def _embed(self, params: Dict[str, Any],
                tokens: torch.Tensor) -> torch.Tensor:
         """Token and position embeddings, [B, T_local, D] in the config
-        dtype; at sp = 1 this shard's positions start at 0."""
+        dtype; shard i of sp holds positions from i * T_local."""
         pos = torch.arange(tokens.shape[1], device=tokens.device)
+        if axis_index("sp"):
+            pos = pos + axis_index("sp") * tokens.shape[1]
         return (params["embed"][tokens]
                 + params["pos"][pos][None]).to(self.cfg.dtype)
 
@@ -224,9 +233,10 @@ class Transformer(nn.Module):
                       tokens: torch.Tensor) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
         """tokens: [B_local, T_local] int64, on the parameters' device.
-        Returns (logits [B_local, T_local, V] in fp32, aux): ``aux`` is
-        the load-balance loss summed over the layers and microbatches (0
-        for a dense FFN)."""
+        Returns (logits [B_local, T_local, V] in fp32, valid on the LAST
+        pp stage, zeros on the others; aux): ``aux`` is this stage's
+        load-balance loss summed over its layers and microbatches (0 for
+        a dense FFN)."""
         x = self._embed(params, tokens)
         B, Tl, _ = x.shape
         M = self.cfg.n_micro
@@ -252,19 +262,48 @@ class Transformer(nn.Module):
 
         y, aux = gpipe(stage_fn, stage, x.reshape(M, B // M, Tl, -1), "pp",
                        with_aux=True)
+        if axis_index("pp") != axis_size("pp") - 1:
+            # a stage before the last holds no output (gpipe's zeros); the
+            # JAX package's head runs on its garbage, then masks it out
+            return torch.zeros((B, Tl, params["embed"].shape[0]),
+                               dtype=torch.float32, device=x.device), aux
         return self._head(params, y.reshape(B, Tl, -1)), aux
+
+
+def forward_shard(cfg: TransformerConfig, params: Dict[str, Any],
+                  tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of one shard (inside ``shard_map_compat`` over the five
+    axes, or on one device): ``Transformer(cfg).forward_shard``."""
+    return Transformer(cfg).forward_shard(params, tokens)
 
 
 def loss_shard(cfg: TransformerConfig, params: Dict[str, Any],
                tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """The mean cross-entropy of the fp32 logits over every token, plus
-    ``aux_loss_weight`` times the load-balance loss's mean over layers and
-    microbatches when MoE is on.  ``tokens`` and ``labels``: [B, T]
-    int64 on the parameters' device."""
-    logits, aux = Transformer(cfg).forward_shard(params, tokens)
-    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           labels.reshape(-1))
+    """The mean cross-entropy of the fp32 logits over every token of the
+    global batch, plus ``aux_loss_weight`` times the load-balance loss's
+    mean over layers and microbatches (then over the dp and sp token
+    blocks) when MoE is on: a scalar replicated on every shard.
+    ``tokens`` and ``labels``: this shard's [B_local, T_local] int64 on
+    the parameters' device."""
+    logits, aux = forward_shard(cfg, params, tokens)
+    if axis_size(AXES) == 1:       # one shard: the one-device arithmetic
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1))
+        if cfg.n_experts:
+            loss = loss + cfg.aux_loss_weight * (aux / (cfg.n_layers
+                                                         * cfg.n_micro))
+        return loss
+    if axis_index("pp") == axis_size("pp") - 1:
+        local_sum = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                    labels.reshape(-1), reduction="sum")
+    else:                          # only the last pp stage holds logits
+        local_sum = torch.zeros((), dtype=torch.float32,
+                                device=logits.device)
+    total = psum(last_stage_value(local_sum, "pp"), ("dp", "sp"))
+    loss = total / (labels.numel() * axis_size(("dp", "sp")))
     if cfg.n_experts:
-        loss = loss + cfg.aux_loss_weight * (aux / (cfg.n_layers
-                                                     * cfg.n_micro))
+        # each pp stage summed its own layers' aux; the mean over layers
+        # and microbatches, averaged over the (dp, sp) token blocks
+        aux_mean = psum(aux, "pp") / (cfg.n_layers * cfg.n_micro)
+        loss = loss + cfg.aux_loss_weight * pmean(aux_mean, ("dp", "sp"))
     return loss

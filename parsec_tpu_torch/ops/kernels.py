@@ -77,6 +77,8 @@ flash_bwd_launches = 0
 #: the GEMM kernel's launches by the calling thread, counted at the same
 #: place: in-process rank threads share the module's totals
 _per_thread = threading.local()
+#: the totals' increments: shard and rank threads launch concurrently
+_count_lock = threading.Lock()
 
 
 def thread_matmul_launches() -> int:
@@ -280,7 +282,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
             K, b.shape[-1], N, N,
             int(trans_b), float(alpha), float(beta), stream)
     _raise_launch("gemm", lib, rc)
-    matmul_launches += 1
+    with _count_lock:
+        matmul_launches += 1
     _per_thread.matmul = getattr(_per_thread, "matmul", 0) + 1
     return out
 
@@ -411,10 +414,11 @@ def _flash_launch(op: str, q, k, v, causal: bool, scale: Optional[float],
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 B * H, T, Tk, D, int(causal), float(scale), stream)
     _raise_launch(op, lib, rc)
-    if stats:
-        flash_stats_launches += 1
-    else:
-        flash_launches += 1
+    with _count_lock:
+        if stats:
+            flash_stats_launches += 1
+        else:
+            flash_launches += 1
     return (o, m, l) if stats else o
 
 
@@ -608,5 +612,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             counters.data_ptr(), counters.numel(), B * H, T, Tk, D,
             int(causal), float(scale), stream)
     _raise_launch(op, lib, rc)
-    flash_bwd_launches += 1
+    with _count_lock:
+        flash_bwd_launches += 1
     return dq, dk, dv

@@ -1,14 +1,19 @@
 """Device mesh over the five canonical parallel axes: dp (data), pp
-(pipeline stages), tp (tensor/heads), sp (sequence), ep (experts), and
-the reduced-precision collectives.
+(pipeline stages), tp (tensor/heads), sp (sequence), ep (experts), the
+shard_map entry points, and the reduced-precision collectives.
 
-A model's mesh spans one device, so every axis it reads has size 1: a
-model over several chips (SPMD, ROADMAP Queue 1, part D2b) raises.  A
-mesh over several CHIPS (:class:`Chip`) is what the device module's
-chip mesh (devices/cuda.py ``CudaMeshDevice``, ``device_mesh_shape``)
-lays out over its ("tp", "sp") grid: chips are told apart by their
-index, not their torch device, so four logical chips on ``cuda:0`` are
-four chips.
+A mesh lays chips (:class:`Chip`) out over the axes.  Chips are told
+apart by their index, not their torch device: ``device_cuda_virtual_chips``
+logical chips on ``cuda:0`` (each with a CUDA stream of its own) are that
+many chips, and without it the chip pool is the physical cards
+(``devices.chip_pool``).  The device module's chip mesh (devices/cuda.py
+``CudaMeshDevice``, ``device_mesh_shape``) lays its chips over a ("tp",
+"sp") grid; a model's mesh (``make_mesh``) uses every axis.
+:func:`shard_map_compat` runs a function over a mesh, one thread a shard
+(parallel/shard_map.py, the executor and the collectives).  The JAX
+package's varying-manual-axes helpers (:func:`vary_on`,
+:func:`match_vma`) are identities here: the executor builds one autograd
+graph for the whole mesh, so there is no per-shard type to promote.
 
 Reduced-precision collectives (the EQuARX recipe, arxiv 2506.17615):
 :class:`ErrorFeedback` with :func:`reduced_precision_sum` /
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,75 +83,153 @@ class Mesh:
         return d.device if isinstance(d, Chip) else d
 
 
+class PartitionSpec(tuple):
+    """How a tensor splits over a mesh, one entry per leading dimension:
+    an axis name, a tuple of names (major first), or None (not split);
+    missing trailing entries are None.  A tuple, so the plain tuples of
+    ``models.param_specs`` are specs too; its own type marks a spec
+    where a tuple of specs could be meant (``in_specs``, ``out_specs``)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+def spec(*axes) -> PartitionSpec:
+    """PartitionSpec shorthand."""
+    return PartitionSpec(*axes)
+
+
+def _factor(n: int, order: Sequence[str]) -> Dict[str, int]:
+    """Greedy power-of-small-primes factoring of n over the axes in
+    ``order`` (round-robin halving keeps the mesh balanced)."""
+    sizes = {a: 1 for a in AXES}
+    remaining = n
+    i = 0
+    while remaining > 1:
+        p = _smallest_prime(remaining)
+        sizes[order[i % len(order)]] *= p
+        remaining //= p
+        i += 1
+    return sizes
+
+
+def _smallest_prime(n: int) -> int:
+    for p in (2, 3, 5, 7, 11, 13):
+        if n % p == 0:
+            return p
+    return n
+
+
+def _chips(devs: Sequence[Any]) -> List[Chip]:
+    """Each entry as a chip: a torch device becomes chip ``i``; a chip on
+    a card without a stream gets one of its own, so that several chips
+    of one card run side by side."""
+    out = []
+    for i, d in enumerate(devs):
+        c = d if isinstance(d, Chip) else Chip(i, torch.device(d))
+        if c.device.type == "cuda" and c.stream is None:
+            c = Chip(c.id, c.device, torch.cuda.Stream(device=c.device))
+        out.append(c)
+    return out
+
+
 def make_mesh(n_devices: Optional[int] = None,
+              sizes: Optional[Dict[str, int]] = None,
               devices: Optional[Sequence] = None,
-              sizes: Optional[Dict[str, int]] = None) -> Mesh:
-    """A mesh over ``devices``.  With ``sizes`` (axis -> size, missing
-    axes 1; the product must be the device count) the devices, chips
-    included, are laid out row-major over the axes: the chip mesh's
-    ``sizes={"tp": P, "sp": Q}``.  Without ``sizes`` the mesh is a
-    model's, over one device: ``devices[0]`` when given, else ``cuda:0``
-    (which raises without a card), and more than one device raises
-    (part D2b)."""
+              order: Sequence[str] = ("dp", "tp", "sp", "pp", "ep")) -> Mesh:
+    """A mesh over ``devices`` (torch devices or chips), or over the first
+    ``n_devices`` chips of ``devices.chip_pool()`` (the physical cards, or
+    ``device_cuda_virtual_chips`` logical chips; it raises without a card
+    and when the pool holds too few chips).  With ``sizes`` (axis ->
+    size, missing axes 1) the product must be the device count; without,
+    the count is factored over ``order`` (the JAX package's rule).  A
+    mesh of several chips holds :class:`Chip` s, each on a card with a
+    stream of its own; a mesh of one keeps its device as given."""
     if sizes is not None:
-        if devices is None:
-            raise ValueError("make_mesh(sizes=...) needs its devices")
-        devs = [d if isinstance(d, Chip) else torch.device(d)
-                for d in devices]
         unknown = set(sizes) - set(AXES)
         if unknown:
             raise ValueError(f"unknown mesh axes {sorted(unknown)}; axes "
                              f"are {AXES}")
-        full = {a: int(sizes.get(a, 1)) for a in AXES}
-        if int(np.prod(list(full.values()))) != len(devs) \
-                or (n_devices is not None and n_devices != len(devs)):
-            raise ValueError(f"mesh sizes {sizes} do not cover "
-                             f"{len(devs)} devices")
-        arr = np.empty(len(devs), dtype=object)
-        for i, d in enumerate(devs):
-            arr[i] = d
-        return Mesh(arr.reshape([full[a] for a in AXES]))
-    n = n_devices if n_devices is not None else (
-        len(devices) if devices is not None else 1)
-    if n != 1 or (devices is not None and len(devices) != 1):
-        raise NotImplementedError(
-            f"a model mesh over {n} devices is SPMD over torch.distributed "
-            f"or rank threads (ROADMAP Queue 1, part D2b); this package "
-            f"runs a model on one device")
     if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the mesh defaults to cuda:0; pass "
-                "devices=[torch.device('cpu')] to run on the CPU")
-        devices = [torch.device("cuda", 0)]
-    arr = np.empty((1,) * len(AXES), dtype=object)
-    arr.flat[0] = torch.device(devices[0])
-    return Mesh(arr)
+        from ..devices import chip_pool, resolve_device
+        want = n_devices if n_devices is not None else (
+            int(np.prod([int(v) for v in sizes.values()])) if sizes
+            else None)
+        if want == 1:
+            devs = [resolve_device()]
+        else:
+            pool = chip_pool()
+            if want is not None and len(pool) < want:
+                raise RuntimeError(
+                    f"a mesh of {want} chips and the chip pool holds "
+                    f"{len(pool)}; set device_cuda_virtual_chips={want} "
+                    f"(or more) to declare logical chips on "
+                    f"{pool[0].device}")
+            devs = pool[:want]
+    else:
+        devs = list(devices)
+        if n_devices is not None and n_devices != len(devs):
+            raise ValueError(f"n_devices={n_devices} but {len(devs)} "
+                             f"devices given")
+    n = len(devs)
+    full = _factor(n, order) if sizes is None else \
+        {a: int(sizes.get(a, 1)) for a in AXES}
+    if int(np.prod(list(full.values()))) != n:
+        raise ValueError(f"mesh sizes {sizes} do not cover {n} devices")
+    if n > 1:
+        devs = _chips(devs)
+    arr = np.empty(n, dtype=object)
+    for i, d in enumerate(devs):
+        arr[i] = d if isinstance(d, Chip) else torch.device(d)
+    return Mesh(arr.reshape([full[a] for a in AXES]))
 
 
-def check_model_mesh(mesh: Mesh) -> None:
-    """A model runs on a mesh of one device: a mesh over several chips
-    raises, naming part D2b."""
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"a model over a mesh of {mesh.size} chips ({mesh.shape}) is "
-            f"SPMD (ROADMAP Queue 1, part D2b); this package runs a model "
-            f"on a mesh of one device")
+def sync_axes(leaf_spec, mesh_axes: Sequence[str] = AXES) -> Tuple[str, ...]:
+    """Mesh axes a parameter is REPLICATED over (the axes over which its
+    gradient sums the shards' contributions)."""
+    used = set()
+    for entry in tuple(leaf_spec):
+        if entry is None:
+            continue
+        if isinstance(entry, (tuple, list)):
+            used.update(entry)
+        else:
+            used.add(entry)
+    return tuple(a for a in mesh_axes if a not in used)
 
 
-def axis_size(axis_name: str, mesh: Optional[Mesh] = None) -> int:
-    """The size of a mesh axis: 1 for every axis, on one device.  The
-    sp = 1 and pp = 1 forms of ring_attention, sequence and pipeline
-    rest on it; given a ``mesh`` whose axis spans several chips it
-    raises (part D2b)."""
-    if axis_name not in AXES:
-        raise ValueError(f"unknown mesh axis {axis_name!r}; axes are {AXES}")
-    if mesh is not None and mesh.shape.get(axis_name, 1) != 1:
-        raise NotImplementedError(
-            f"mesh axis {axis_name!r} of size {mesh.shape[axis_name]}: "
-            f"model axes above size 1 are SPMD (ROADMAP Queue 1, part "
-            f"D2b)")
-    return 1
+def vary_on(x, axes, like=None):
+    """The identity: one graph for the whole mesh has no varying axes."""
+    return x
+
+
+def match_vma(x, ref):
+    """The identity, as :func:`vary_on`."""
+    return x
+
+
+def has_shard_map() -> bool:
+    """Always: the executor (parallel/shard_map.py) is this package's."""
+    return True
+
+
+def shard_map_compat(f, mesh: Mesh, in_specs, out_specs):
+    """``f`` over ``mesh``: one thread a shard, each on its chip, its
+    arguments split by ``in_specs`` and its outputs assembled by
+    ``out_specs`` (parallel/shard_map.py).  Differentiable: every
+    collective is one autograd node over its group, and the gradient of
+    a replicated input sums its shards' contributions."""
+    from .shard_map import shard_map
+    return shard_map(f, mesh, in_specs, out_specs)
+
+
+def shard_map_fwd(f, mesh: Mesh, in_specs, out_specs):
+    """The forward-only seam of the JAX package: the same executor, as
+    its autograd costs nothing where nothing needs a gradient."""
+    return shard_map_compat(f, mesh, in_specs, out_specs)
 
 
 # -- reduced-precision collectives with error feedback ------------------
@@ -329,3 +412,6 @@ def two_level_allreduce(shards: Sequence[Any], group_size: int,
     return reduced_precision_sum(partials, reduce_dtype,
                                  feedback=feedback, keys=keys,
                                  native=native)
+
+
+from .shard_map import axis_index, axis_size  # noqa: E402

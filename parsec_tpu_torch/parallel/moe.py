@@ -1,10 +1,12 @@
 """Expert parallelism: the MoE feed-forward with experts over the ep axis.
 
 The dense-dispatch formulation of the JAX package's ``parallel/moe.py``:
-every token is evaluated against every local expert and the gate-weighted
-contributions are summed (a psum over ep, the identity at ep = 1); no
-capacity dropping.  Top-k gating keeps the probabilities at or above the
-k-th largest and renormalises them.  Differentiable end to end: the
+each ep shard owns E/ep experts, every token is evaluated against every
+local expert with the gate probabilities of those experts (this shard's
+slice, by ``axis_index("ep")``), and the gate-weighted contributions are
+summed over ep by a psum (the identity at ep = 1); no capacity
+dropping.  Top-k gating keeps the probabilities at or above the k-th
+largest and renormalises them.  Differentiable end to end: the
 top-k mask carries no gradient, the kept probabilities do.
 """
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .mesh import axis_size
+from .shard_map import axis_index, axis_size, psum
 
 
 def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,
@@ -23,7 +25,9 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,
     """x: [..., D]; gate_w: [D, E_total]; w1: [E_local, D, F]; w2:
     [E_local, F, D].  Returns [..., D].  Pass precomputed ``gate_logits``
     to share the gating product with the load-balance loss."""
-    E_total = w1.shape[0] * axis_size(axis_name)
+    E_local = w1.shape[0]
+    ep = axis_size(axis_name)
+    E_total = E_local * ep
     if top_k < 1:
         raise ValueError(f"moe_ffn: top_k must be at least 1, got {top_k}")
     logits = (gate_logits if gate_logits is not None
@@ -33,12 +37,14 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,
         thresh = torch.topk(probs, top_k, dim=-1).values[..., -1:]
         probs = probs * (probs >= thresh)
         probs = probs / (probs.sum(dim=-1, keepdim=True) + 1e-9)
-    # at ep = 1 this shard holds every expert and weighs them by all of probs
+    if ep > 1:          # this shard's experts' probabilities
+        i = axis_index(axis_name)
+        probs = probs[..., i * E_local:(i + 1) * E_local]
     h = torch.einsum("...d,edf->...ef", x.float(), w1.float())
     h = F.gelu(h, approximate="tanh")
     y = torch.einsum("...ef,efd->...ed", h, w2.float())
     out = torch.einsum("...ed,...e->...d", y, probs.to(y.dtype))
-    return out.to(x.dtype)     # the psum over ep is the identity
+    return psum(out, axis_name).to(x.dtype)
 
 
 def load_balance_loss(gate_logits: torch.Tensor,

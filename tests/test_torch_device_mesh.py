@@ -333,7 +333,7 @@ def test_rank_mesh_carves_disjoint_chips():
     """The lane's chip pool gives each rank the SAME chip slice the
     device layer carves (rank * k), and each rank's mesh device owns
     disjoint chips; a pool the carving wraps keeps the pre-mesh
-    layout.  (Pools split across chips are SPMD, part D2b.)"""
+    layout.  (Pools split across chips are part D2c.)"""
     from parsec_tpu_torch.comm import LocalFabric, RemoteDepEngine
     from parsec_tpu_torch.dsl.ptg.wave_dist import lane_device_pool
     from parsec_tpu_torch.utils.spmd import spmd_threads
@@ -510,8 +510,17 @@ def test_mesh_shards_gauge():
 
 
 def test_model_code_keeps_size_one_on_a_chip_mesh():
-    """make_mesh lays chips out over axes; a model given a mesh over
-    several chips, or asked an axis size above 1, raises (part D2b)."""
+    """make_mesh lays chips out over axes, and the model runs on a mesh of
+    chips: on a (tp 2, sp 2) mesh of 4 host chips the port's forward
+    gives the JAX package's logits on its (tp 2, sp 2) mesh of 4 virtual
+    CPU devices, and a train step runs.  Outside a shard every axis has
+    size 1."""
+    import dataclasses
+
+    import jax
+
+    from parsec_tpu import models as jmodels
+    from parsec_tpu import parallel as jpar
     from parsec_tpu_torch import models, parallel
     from parsec_tpu_torch.parallel.mesh import Chip
     chips = [Chip(i, torch.device("cpu")) for i in range(4)]
@@ -521,15 +530,23 @@ def test_model_code_keeps_size_one_on_a_chip_mesh():
     assert mesh.device == torch.device("cpu")
     with pytest.raises(ValueError, match="do not cover"):
         parallel.make_mesh(sizes={"tp": 3}, devices=chips)
-    with pytest.raises(NotImplementedError, match="part D2b"):
-        parallel.axis_size("tp", mesh)
-    assert parallel.axis_size("dp", mesh) == 1
+    assert parallel.axis_size("tp") == 1 and parallel.axis_index("sp") == 0
     cfg = models.TransformerConfig(vocab=16, d_model=16, n_heads=2,
                                    d_head=8, seq_len=8, batch=2)
-    with pytest.raises(NotImplementedError, match="part D2b"):
-        models.make_forward(cfg, mesh)
-    with pytest.raises(NotImplementedError, match="part D2b"):
-        models.make_train_step(cfg, mesh)
+    jcfg = jmodels.TransformerConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+        if f.name != "dtype"})
+    tokens = np.random.RandomState(5).randint(0, 16, (2, 8)).astype(np.int32)
+    jmesh = jpar.make_mesh(sizes={"tp": 2, "sp": 2},
+                           devices=jax.devices("cpu")[:4])
+    ref = np.asarray(jax.jit(jmodels.make_forward(jcfg, jmesh))(
+        jmodels.init_params(jcfg, 0), tokens))
+    params = models.init_params(cfg, 0)
+    got = models.make_forward(cfg, mesh)(params, tokens)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4)
+    _, _, loss = models.make_train_step(cfg, mesh)(
+        params, models.adam_init(params), tokens, np.roll(tokens, -1, 1))
+    assert np.isfinite(loss.item())
 
 
 # ---------------------------------------------------------------------- #

@@ -181,8 +181,24 @@ def test_moe_raises():
                                 dict(devices=["cpu", "cpu"]),
                                 dict(n_devices=4, devices=["cpu"])])
 def test_multi_device_mesh_raises(kw):
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        parallel.make_mesh(**kw)
+    """A mesh over two CPU devices builds (its two chips factor onto dp);
+    two chips from a pool of one raise, naming the knob that declares
+    logical chips; a device count that does not match the devices
+    raises."""
+    if kw == dict(devices=["cpu", "cpu"]):
+        mesh = parallel.make_mesh(**kw)
+        assert mesh.size == 2 and mesh.shape["dp"] == 2
+        assert all(c.device == torch.device("cpu")
+                   for c in mesh.devices.flat)
+        return
+    from parsec_tpu_torch.utils.params import params
+    with params.cmdline_override("device_cuda_platform", "cpu"), \
+            params.cmdline_override("device_cuda_virtual_chips", "0"):
+        err = RuntimeError if "devices" not in kw else ValueError
+        match = ("device_cuda_virtual_chips" if err is RuntimeError
+                 else "n_devices=4")
+        with pytest.raises(err, match=match):
+            parallel.make_mesh(**kw)
 
 
 def test_bad_inputs_raise():
