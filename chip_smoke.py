@@ -67,6 +67,20 @@ Phases, each reporting on its own lines:
             factor bit-identical to main's, the Prometheus exposition
             parsing; under --profile the same run under torch.profiler,
             its busy share printed beside the events' share;
+5a". serve two tenants on one context (serve=1, serve_admission=queue,
+            init() on cuda:0, a SessionServer): "latency" (weight 2)
+            submits 2 dpotrf taskpools and "bulk" (weight 1, opened with
+            max_pools=2) 3, each on phase main's input at its size, in
+            the order latency, bulk, latency, bulk, bulk; bulk's third
+            submission (the fifth) is queued and drained when one of its
+            pools retires.  Each tenant's p50 and p99 latency from the
+            live monitor (LiveHealth), the wall and the order in which
+            the pools finished (printed, not checked: it depends on
+            timing).  Checks: every factor bit-identical to phase main's
+            (the same input factored alone); 5 admitted, 1 queued, 0
+            rejected, and the PARSEC::SERVE::* gauges (2 tenants, nothing
+            in flight at the end, a p99 latency for each); the GEMM
+            kernel launched;
 5a'. mesh  one rank's chip mesh on the card: device_mesh_shape=2x2 over
             device_cuda_virtual_chips logical chips of cuda:0, each an
             index and a CUDA stream of its own, phase main's input.
@@ -195,6 +209,13 @@ Phases, each reporting on its own lines:
             prints rank 0's wall split into device compute (events), H2D
             and D2H, comm sends and deliveries, the exposed wait on each
             link and the rest, and the walls with telemetry on and off.
+            A third run, "tune", sets tune_auto (the self-tuning
+            controller on the live monitor's window tick) with
+            tune_residual_budget=0, so the codec ladder stays lossless:
+            each rank prints its controller's decisions, reverts,
+            objective (us a task of host dispatch) and final batch_max,
+            prefetch_depth and flush_segments, and the wall against
+            "off"; its PARSEC::TUNE::* gauges must be registered.
             Under --profile two more runs split "on": "trace" (profile
             alone) and "counters" (the knobs, no trace).  Checks: factor
             and X bit-identical to phase dposv's in every run; every
@@ -325,7 +346,12 @@ Phases, each reporting on its own lines:
             and within 1e-3 of one chip's value_and_grad (else each
             layer's VJP on the mesh from one chip's input and cotangent);
             one step of tp 2 x ep 2 with 4 experts, top 2, its loss and
-            gradients within 1e-3 of one chip's;
+            gradients within 1e-3 of one chip's; then remat on dp 2 x tp 2
+            (flash) and sp 4 (ring): one step from the same state with
+            remat off and on, the loss, new parameters and Adam moments
+            bit-identical, the remat step's launches (the recompute runs
+            each layer's forward kernels once more), and the peak memory
+            (torch.cuda.max_memory_allocated) of each;
 8. timing   each kernel at its path's shape, by CUDA events: the GEMM
             at nb = 1024 against torch.addmm, batched at z = 1, 4 and 16
             against torch.baddbmm, and at tsmqr's shape (2048 x 1024 x
@@ -1786,6 +1812,112 @@ def phase_mesh_chain(seed: int, nb: int = NB_MAIN) -> None:
 
 
 # ---------------------------------------------------------------------- #
+# serve: two tenants sharing one context through a SessionServer        #
+# ---------------------------------------------------------------------- #
+#: tenant -> (weight, max in-flight pools; 0 = no cap)
+SERVE_TENANTS = {"latency": (2, 0), "bulk": (1, 2)}
+#: the submissions in order: bulk's third (the fifth) is queued
+SERVE_ORDER = ("latency", "bulk", "latency", "bulk", "bulk")
+SERVE_DEADLINE = 600.0   # seconds a submission may take to finish
+
+
+def phase_serve(seed: int, L_ref: np.ndarray, n: int = N_MAIN,
+                nb: int = NB_MAIN) -> int:
+    """serve (module docstring, 5a"); returns the GEMM launches."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.obs.spans import (SERVE_ADMITTED,
+                                            SERVE_INFLIGHT_PREFIX,
+                                            SERVE_P99_LATENCY_PREFIX,
+                                            SERVE_QUEUED, SERVE_REJECTED,
+                                            SERVE_TENANTS as TENANTS_GAUGE)
+    from parsec_tpu_torch.ops import kernels
+    from parsec_tpu_torch.serve import SessionServer
+    M = synth_spd(n, seed)
+    colls = [tiled(M, nb) for _ in SERVE_ORDER]
+    del M
+    nt = colls[0].nt
+    tasks = nt * (nt + 1) * (nt + 2) // 6
+    with knobs({"serve": "1", "serve_admission": "queue"}):
+        ctx = ptt.init(nb_cores=4)
+        try:
+            dev = ctx.device_by_type("cuda")
+            srv = SessionServer(ctx)
+            for name, (weight, max_pools) in SERVE_TENANTS.items():
+                srv.open_tenant(name, weight=weight, max_pools=max_pools)
+            reset_counts()
+            t0 = time.perf_counter()
+            subs, queued_at_submit = [], []
+            for k, (tenant, A) in enumerate(zip(SERVE_ORDER, colls)):
+                subs.append(srv.submit(
+                    tenant, lambda A=A: ptt.ops.dpotrf_taskpool(A),
+                    nbytes=n * n * 4, ntasks=tasks, name=f"{tenant}_{k}"))
+                queued_at_submit.append(subs[-1].taskpool is None)
+            done = [s.wait(SERVE_DEADLINE) for s in subs]
+            if dev.is_cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.matmul_launches
+            stats = srv.stats()["tenants"]
+            snap = ctx.sde.snapshot()
+            health = ctx.obs.live.snapshot().get("per_tenant", {})
+            finished = sorted(range(len(subs)), key=lambda k: (
+                subs[k].t_submit_ns + subs[k].lat_us * 1e3))
+            for A in colls:
+                for (m, j) in A.tiles():
+                    A.data_of(m, j).sync_to_host(ctx.devices)
+            st = dict(dev.stats)
+            srv.close()
+        finally:
+            ctx.fini()
+    same = [bool(np.array_equal(np.tril(A.to_numpy()), L_ref))
+            for A in colls]
+    del colls
+    for k, sub in enumerate(subs):
+        log("serve", submission=k, tenant=sub.tenant, name=sub.name,
+            queued_at_submit=queued_at_submit[k], done=done[k],
+            error=sub.error, latency_s=f"{sub.lat_us / 1e6:.4f}",
+            factor_identical=same[k])
+    for name in SERVE_TENANTS:
+        h, t = health.get(name, {}), stats[name]
+        log("serve", tenant=name, weight=t["weight"],
+            pools_done=t["pools_done"],
+            live_p50_lat_s=f"{h.get('p50_lat_us', 0.0) / 1e6:.4f}",
+            live_p99_lat_s=f"{h.get('p99_lat_us', 0.0) / 1e6:.4f}",
+            server_p50_lat_s=f"{t['p50_lat_us'] / 1e6:.4f}",
+            server_p99_lat_s=f"{t['p99_lat_us'] / 1e6:.4f}")
+    # a counter that was never bumped is not in the snapshot
+    gauges = {g: snap.get(g, 0) for g in (TENANTS_GAUGE, SERVE_ADMITTED,
+                                          SERVE_QUEUED, SERVE_REJECTED)}
+    log("serve", n=n, nb=nb, submissions=len(subs), wall=f"{wall:.4f}",
+        matmul_launches=launches, device_tasks=st["tasks"],
+        expected_device_tasks=tasks * len(subs),
+        finish_order=",".join(subs[k].name for k in finished),
+        **{g.split("::")[-1].lower(): v for g, v in gauges.items()})
+    check(all(done) and all(s.error is None for s in subs),
+          f"serve: submissions done {done}, errors "
+          f"{[s.error for s in subs]}")
+    check(all(same), f"serve: factors identical to main's: {same}")
+    check(queued_at_submit == [False] * 4 + [True],
+          f"serve: queued at submission {queued_at_submit}")
+    check(gauges == {TENANTS_GAUGE: 2, SERVE_ADMITTED: 5, SERVE_QUEUED: 1,
+                     SERVE_REJECTED: 0},
+          f"serve: admission gauges {gauges}")
+    for name in SERVE_TENANTS:
+        inflight = snap.get(f"{SERVE_INFLIGHT_PREFIX}::{name}")
+        p99 = snap.get(f"{SERVE_P99_LATENCY_PREFIX}::{name}")
+        check(inflight == 0 and p99 is not None and p99 > 0
+              and stats[name]["pools_done"] == SERVE_ORDER.count(name)
+              and health.get(name, {}).get("pools_done")
+              == SERVE_ORDER.count(name),
+              f"serve: tenant {name}: in flight {inflight}, p99 {p99}, "
+              f"{stats[name]}, live {health.get(name)}")
+    check(st["tasks"] == tasks * len(subs),
+          f"serve: {st['tasks']} device tasks of {tasks * len(subs)}")
+    check(launches > 0, "serve: the path launched the GEMM kernel no time")
+    return launches
+
+
+# ---------------------------------------------------------------------- #
 # mesh: one rank's chip mesh over logical chips of the card              #
 # ---------------------------------------------------------------------- #
 #: phase mesh: device_mesh_shape over device_cuda_virtual_chips logical
@@ -2372,15 +2504,25 @@ def phase_multirank(seed: int, factor: np.ndarray, X1: np.ndarray,
 # ---------------------------------------------------------------------- #
 #: the runs of each rank, in order, in ONE spawn; --profile appends
 #: two runs that split "on" in its halves
-OBS_MODES = ("off", "on")
+OBS_MODES = ("off", "on", "tune")
 OBS_PROFILE_MODES = ("trace", "counters")
 #: mode -> (the trace: profile=True, the telemetry knobs)
 OBS_MODE_KNOBS = {
     "off": (False, ()),
     "on": (True, ("metrics", "obs_flow", "obs_live", "sde_push")),
+    "tune": (False, ("tune_auto", "tune_residual_budget")),
     "trace": (True, ()),
     "counters": (False, ("metrics", "obs_flow", "obs_live", "sde_push")),
 }
+#: a telemetry knob's value where it is not "1" (sde_push: the
+#: aggregator's address); a zero residual budget keeps every link of the
+#: tune run lossless
+OBS_KNOB_VALUES = {"tune_residual_budget": "0"}
+#: the knobs that arm the flow allocator on the TCP engine
+OBS_FLOW_KNOBS = ("obs_flow", "obs_live", "tune_auto")
+#: the tune run's gauges
+TUNE_GAUGES = ("PARSEC::TUNE::DECISIONS", "PARSEC::TUNE::REVERTS",
+               "PARSEC::TUNE::OBJECTIVE_US")
 #: heartbeats in every run (the ft series of the exposition need a
 #: detector, and "off" must differ from "on" by telemetry alone)
 OBS_HEARTBEAT_S = "0.5"
@@ -2419,14 +2561,15 @@ def rank_obs(args, cores: int) -> dict:
                      f"127.0.0.1:{p}" for p in ports[2 * k:2 * k + 2]),
                  "ft_heartbeat_interval": OBS_HEARTBEAT_S}
         trace, names = OBS_MODE_KNOBS[mode]
-        knobs.update({name: args.push if name == "sde_push" else "1"
+        knobs.update({name: args.push if name == "sde_push"
+                      else OBS_KNOB_VALUES.get(name, "1")
                       for name in names})
         with contextlib.ExitStack() as st:
             for key, v in knobs.items():
                 st.enter_context(params.cmdline_override(key, v))
             ctx = ptt.init(nb_cores=cores, profile=trace)
             try:
-                rec = rank_obs_run(ctx, args, mode == "on", k)
+                rec = rank_obs_run(ctx, args, mode, k)
             finally:
                 ctx.fini()
         rec["mode"] = mode
@@ -2434,7 +2577,7 @@ def rank_obs(args, cores: int) -> dict:
     return {"runs": runs, "device": runs[0]["device"]}
 
 
-def rank_obs_run(ctx, args, on: bool, k: int) -> dict:
+def rank_obs_run(ctx, args, mode: str, k: int) -> dict:
     import parsec_tpu_torch as ptt
     from parsec_tpu_torch import obs
     from parsec_tpu_torch.obs.critpath import load_trace_intervals
@@ -2461,7 +2604,21 @@ def rank_obs_run(ctx, args, on: bool, k: int) -> dict:
                local_cuda_tasks=expected,
                hashes=tile_hashes(ctx, A, B),
                obs_sink=dev._obs is not None, flow=ce._flow is not None)
-    if not on:
+    if mode == "tune":
+        tn = ctx.obs.tuner
+        snap = ctx.sde.snapshot()
+        rec.update(tune=dict(
+            decisions=tn.counts["decisions"], reverts=tn.counts["reverts"],
+            device_moves=tn.counts["device_moves"],
+            codec_moves=tn.counts["codec_moves"],
+            objective_us=tn.objective_us(), batch_max=dev.batch_max,
+            prefetch_depth=dev.prefetch_depth,
+            flush_segments=dev.flush_segments,
+            live_windows=ctx.obs.live.counts["windows"],
+            codecs=[tn.codec_index(p) for p in range(ctx.nb_ranks)
+                    if p != rank],
+            gauges={g: g in snap for g in TUNE_GAUGES}))
+    if mode != "on":
         return rec
     dev._obs.flush()   # the pulls' events
     # the clock sampler pings every 0.25 s: let a few samples land while
@@ -2561,7 +2718,10 @@ def phase_obs_ranks(seed: int, factor: np.ndarray, X1: np.ndarray,
                     clock_offset_us=run["clock_offset_us"],
                     series=run["series"], live_windows=run["live_windows"],
                     **{f"has_{p.strip('_')}": v for p, v in
-                       run["series_found"].items()})))
+                       run["series_found"].items()})),
+                **({} if run["mode"] != "tune" else {
+                    k2: (json.dumps(v) if isinstance(v, (dict, list))
+                         else v) for k2, v in run["tune"].items()}))
             check(run["device"] == "cuda:0",
                   f"obs_2: rank {r['rank']} ran on {run['device']}")
             check(same and len(run["hashes"]) > 0,
@@ -2575,9 +2735,18 @@ def phase_obs_ranks(seed: int, factor: np.ndarray, X1: np.ndarray,
                   f"obs_2: rank {r['rank']} launched the GEMM kernel no time")
             trace, names = OBS_MODE_KNOBS[run["mode"]]
             check(run["obs_sink"] == (trace or bool(names))
-                  and run["flow"] == ("obs_flow" in names),
+                  and run["flow"] == any(f in names
+                                         for f in OBS_FLOW_KNOBS),
                   f"obs_2: rank {r['rank']} run {k} ({run['mode']}): sink "
                   f"{run['obs_sink']}, flow {run['flow']}")
+            if run["mode"] == "tune":
+                tn = run["tune"]
+                check(all(tn["gauges"].values()),
+                      f"obs_2: rank {r['rank']} tune run gauges "
+                      f"{tn['gauges']}")
+                check(tn["codec_moves"] == 0 and not any(tn["codecs"]),
+                      f"obs_2: rank {r['rank']} tune run left the lossless "
+                      f"rung at a zero budget: {tn}")
             if run["mode"] == "on":
                 off = run["clock_offset_us"]
                 check(off is not None and abs(off) < CLOCK_OFFSET_MAX_US,
@@ -2620,6 +2789,7 @@ def phase_obs_ranks(seed: int, factor: np.ndarray, X1: np.ndarray,
            for m, ws in walls.items()},
         **{f"mean_wall_{m}": f"{w:.4f}" for m, w in mean.items()},
         on_over_off=f"{mean['on'] / mean['off']:.4f}",
+        tune_over_off=f"{mean['tune'] / mean['off']:.4f}",
         fleet_health_ranks=health["nb_ranks"],
         fleet_health_status=health["status"],
         spawn_to_exit_s=f"{spawn_s:.1f}")
@@ -4446,6 +4616,9 @@ SPMD_TRAIN = {
 SPMD_MOE = ({"tp": 2, "ep": 2}, dict(attention="flash", n_experts=4,
                                      moe_top_k=2),
             {"flash_stats_launches": 48, "flash_bwd_launches": 48})
+#: the SPMD_TRAIN paths stepped once more with remat on: each layer one
+#: node over its (tp, sp) group, recomputed in its shards in the backward
+SPMD_REMAT = ("dp2_tp2_flash", "sp4_ring")
 
 
 def restage(params: dict, cfg) -> dict:
@@ -4791,7 +4964,58 @@ def phase_spmd(dev: torch.device, seed: int, host_params: dict) -> dict:
             spmd_grads(name, c, mesh, p0, tokens, labels)
             del p0
             torch.cuda.empty_cache()
+        for name in SPMD_REMAT:
+            launches[f"spmd_remat_{name}"] = spmd_remat(
+                name, cfg, params, tokens, labels)
     return launches
+
+
+def spmd_remat(name: str, cfg, params: dict, tokens, labels) -> dict:
+    """One train step of an SPMD_TRAIN path from the same state with
+    remat off, then on: the loss, the new parameters and the Adam moments
+    bit-identical, the remat step's launches (each layer's forward kernels
+    once more, in the recompute; the same backward), each step's peak
+    memory.  Returns the remat step's launches."""
+    from parsec_tpu_torch import models
+    from parsec_tpu_torch.models import train
+    sizes, changes, per_step = SPMD_TRAIN[name]
+    mesh = spmd_mesh(sizes)
+    got = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat, **changes)
+        step = models.make_train_step(c, mesh, lr=TRAIN_LR)
+        state = models.adam_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        p, state, loss = step(params, state, tokens, labels)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        # to the host, so the other step's peak does not count them
+        got[remat] = ([a.cpu() for a in train.tree_leaves(p)]
+                      + [a.cpu() for a in train.tree_leaves(state)],
+                      loss.item(), counts(), peak, seconds)
+        del p, state, loss, step
+    (a, la, na, pa, sa), (b, lb, nb, pb, sb) = got[False], got[True]
+    same = la == lb and len(a) == len(b) and all(map(torch.equal, a, b))
+    want = {k: 0 for k in COUNTERS}
+    want.update({k: v * (2 if k == "flash_stats_launches" else 1)
+                 for k, v in per_step.items()})
+    log("spmd.remat", mesh=name, chips=mesh.size, loss=repr(lb),
+        loss_no_remat=repr(la), bit_identical=same,
+        seconds=f"{sb:.6f}", seconds_no_remat=f"{sa:.6f}",
+        peak_mem_gb=f"{pb / 1e9:.2f}", peak_mem_gb_no_remat=f"{pa / 1e9:.2f}",
+        **nb)
+    check(same, f"spmd remat {name}: the step differs from the step "
+                f"without remat")
+    check(na == {k: per_step.get(k, 0) for k in COUNTERS} and nb == want,
+          f"spmd remat {name}: launches {nb} (without remat {na}), "
+          f"expected {want}")
+    torch.cuda.empty_cache()
+    return {k: nb[k] for k in per_step}
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -5202,6 +5426,8 @@ def main(argv=None) -> int:
     with phase_clock("obs"):
         gemm_launches["obs_dpotrf"] = phase_obs(args.seed, L_ptg,
                                                 profile=args.profile)
+    with phase_clock("serve"):
+        gemm_launches["serve"] = phase_serve(args.seed, L_ptg)
     with phase_clock("mesh"):
         mesh_launches, mesh_per = phase_mesh(args.seed, L_ptg,
                                              profile=args.profile)

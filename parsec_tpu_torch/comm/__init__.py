@@ -2,7 +2,8 @@
 and the device data plane (SURVEY.md §2.4)."""
 from .engine import (CommEngine, MemHandle, RankFailedError, TAG_ACTIVATE,
                      TAG_DTD_DATA, TAG_ELASTIC, TAG_GET_DATA, TAG_GET_REQ,
-                     TAG_HEARTBEAT, TAG_TERMDET, TAG_USER_BASE)
+                     TAG_HEARTBEAT, TAG_SERVE, TAG_SERVE_REPLY, TAG_TERMDET,
+                     TAG_USER_BASE)
 from .local import LocalCommEngine, LocalFabric
 from .mesh import MeshCommEngine, MeshFabric
 from .tcp import TCPCommEngine, free_ports
@@ -14,4 +15,5 @@ __all__ = ["CommEngine", "MemHandle", "RankFailedError", "LocalFabric",
            "TCPCommEngine", "free_ports",
            "RemoteDepEngine", "bcast_children", "DeviceDataPlane",
            "TAG_ACTIVATE", "TAG_DTD_DATA", "TAG_GET_DATA", "TAG_GET_REQ",
-           "TAG_ELASTIC", "TAG_HEARTBEAT", "TAG_TERMDET", "TAG_USER_BASE"]
+           "TAG_ELASTIC", "TAG_HEARTBEAT", "TAG_SERVE", "TAG_SERVE_REPLY",
+           "TAG_TERMDET", "TAG_USER_BASE"]

@@ -37,15 +37,24 @@ class FlowIds:
     attribution and the sender's monotonic send instant for live
     flow-lag — but ONLY toward peers whose ``live_to`` capability
     negotiated it, so a plain obs_flow receiver keeps seeing the 2-tuple
-    its ``origin, span = ctx`` unpacking expects."""
+    its ``origin, span = ctx`` unpacking expects.
 
-    __slots__ = ("rank", "_next", "_lock", "live")
+    ``tenants`` (serve/) widens the live context once more to
+    ``(origin, span, pool, t_send_ns, tenant)``: a SessionServer
+    installs its taskpool-id -> tenant-name mapping here so data-plane
+    traffic of a served pool carries the tenant that submitted it — but
+    ONLY toward peers whose ``serve_to`` capability negotiated it, so a
+    live-only receiver keeps the 4-tuple it expects.  None (no server)
+    keeps the live behavior byte-identical."""
+
+    __slots__ = ("rank", "_next", "_lock", "live", "tenants")
 
     def __init__(self, rank: int) -> None:
         self.rank = rank
         self._next = 0
         self._lock = threading.Lock()
         self.live = False
+        self.tenants: Optional[Dict[Any, str]] = None
 
     def next_ctx(self) -> Tuple[int, int]:
         with self._lock:
@@ -254,6 +263,14 @@ class CommEngine:
     def tag_unregister(self, tag: int) -> None:
         self._tag_cbs.pop(tag, None)
 
+    def tag_registered(self, tag: int) -> bool:
+        """True if ``tag`` already has a handler installed — consumers
+        that must own a tag exclusively (ServeClient on
+        TAG_SERVE_REPLY) check before registering, since
+        ``tag_register`` silently replaces."""
+        with self._deferred_lock:
+            return tag in self._tag_cbs
+
     def send_am(self, dst: int, tag: int, payload: Any) -> None:
         raise NotImplementedError
 
@@ -270,6 +287,13 @@ class CommEngine:
         travel toward ``dst``?  In-process fabrics: yes; the TCP engine
         gates on the peer's HELLO ``"lv"`` capability so an
         obs_flow-only receiver never sees a 4-tuple."""
+        return True
+
+    def serve_to(self, dst: int) -> bool:
+        """May the serve-extended context (tenant name) and serve
+        control AMs travel toward ``dst``?  In-process fabrics: yes; the
+        TCP engine gates on the peer's HELLO ``"sv"`` capability so a
+        live-only receiver never sees a 5-tuple."""
         return True
 
     def _flow_stamp(self, dst: int, tag: int,
@@ -304,6 +328,13 @@ class CommEngine:
             # sender's monotonic send instant (flow lag)
             ctx = (ctx[0], ctx[1], payload.get("tp_id"),
                    time.monotonic_ns())
+            tn = fl.tenants
+            if tn and self.serve_to(dst):
+                # serve extension: the tenant that submitted the pool
+                # this message belongs to — None for pools the server
+                # does not own (and for pool-less GET traffic), so
+                # foreign workloads stay unattributed, not mislabeled
+                ctx = ctx + (tn.get(ctx[2]),)
         payload = dict(payload)
         payload["_tr"] = ctx
         return payload, ctx
@@ -524,6 +555,8 @@ TAG_DTD_DATA = 6
 TAG_MEM_PUT = 7
 TAG_HEARTBEAT = 8   # liveness probes (tcp rides wire-level K_PING frames)
 TAG_ELASTIC = 9     # elastic membership (grid resize / join; K_ELASTIC)
+TAG_SERVE = 10      # serve/ session control: open/submit/wait requests
+TAG_SERVE_REPLY = 11  # serve/ replies (admission verdicts, completions)
 TAG_USER_BASE = 16
 
 # the flow-traced data-plane tag set is spelled with literals above

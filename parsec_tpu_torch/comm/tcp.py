@@ -70,7 +70,11 @@ advertised it carry a wire trace context, and pings toward them grow a
 clock word whose pong feeds a per-peer clock-offset EWMA (a sampler
 thread keeps it fresh).  Unset on either end, the bytes that end sends
 are the knob-unset ones.  Spans and flow halves land in the engine's
-``_obs`` sink.
+``_obs`` sink.  ``tune_auto`` advertises ``"tn"``: between two such ends
+the controller (tune/) renegotiates a link's quantized codec at run time
+by K_TUNE frames.  ``serve`` advertises ``"sv"``: between two such ends
+the live context carries the submitting tenant and serve control AMs
+are accepted.  Both imply the ``obs_live`` wire behavior.
 
 Connection setup: rank r listens on ``endpoints[r]``; r dials every rank
 s < r and accepts from every s > r (one connection per unordered pair),
@@ -148,6 +152,10 @@ _GUARDED_BY = {
     # (quantize) and the writer thread (compress), read by the obs
     # poll, all under the peer's condition
     "_Peer.qz_codec": "cond",
+    # closed-loop tuning: received quantized-buffer accounting, written
+    # by the receiver thread and read by the controller's window tick
+    "_Peer.qrx_pre": "cond",
+    "_Peer.qrx_post": "cond",
     "_Peer.q_pre": "cond",
     "_Peer.q_post": "cond",
     "_Peer.comp_pre": "cond",
@@ -234,7 +242,8 @@ class _Peer:
                  "rs_rx_unacked_frames", "rs_rx_unacked_bytes",
                  "rs_rx_partial", "rx_xfers", "recv_thread",
                  "rs_resuming", "qz_codec", "q_pre", "q_post",
-                 "comp_pre", "comp_post", "rs_dup_next")
+                 "comp_pre", "comp_post", "rs_dup_next", "tn_ok", "sv_ok",
+                 "qrx_pre", "qrx_post")
 
     def __init__(self, rank: int, sock: socket.socket) -> None:
         self.rank = rank
@@ -261,6 +270,11 @@ class _Peer:
         self.el_ok = False         # HELLO advertised elastic membership
         self.tr_ok = False         # HELLO advertised flow tracing ("tr")
         self.lv_ok = False         # HELLO advertised obs_live ("lv")
+        self.tn_ok = False         # HELLO advertised runtime tuning ("tn")
+        self.sv_ok = False         # HELLO advertised serving ("sv")
+        # -- closed-loop tuning ----------------------------------
+        self.qrx_pre = 0           # raw bytes of RECEIVED quantized bufs
+        self.qrx_post = 0          # encoded bytes that landed for them
         # -- reliable session --------------------------------
         self.rs_ok = False         # both ends advertised "rs"
         self.hello_seen = False    # the peer's HELLO was processed
@@ -309,7 +323,9 @@ class TCPCommEngine(LocalCommEngine):
                  quantize: Optional[str] = None,
                  quantize_threshold_mbps: Optional[float] = None,
                  obs_flow: Optional[bool] = None,
-                 obs_live: Optional[bool] = None) -> None:
+                 obs_live: Optional[bool] = None,
+                 tune_auto: Optional[bool] = None,
+                 serve: Optional[bool] = None) -> None:
         from ..utils.params import params
         self._inbox: Fifo = Fifo()
         # GET tokens whose reply has ARRIVED (pushed to the inbox by a
@@ -399,7 +415,27 @@ class TCPCommEngine(LocalCommEngine):
         # obs_flow wire behavior (contexts + clock words)
         if obs_live is None:
             obs_live = bool(params.get_or("obs_live", "bool", False))
-        self._live_enabled = bool(obs_live)
+        # closed-loop tuning: the controller renegotiates a link's
+        # quantized codec at RUNTIME via K_TUNE frames — only ever
+        # toward peers whose HELLO advertised the symmetric "tn"
+        # capability (a peer without it keeps the codec its HELLO
+        # negotiated, forever).  The knob implies the obs_live wire
+        # behavior: the controller's heartbeat is the live monitor's
+        # window tick.
+        if tune_auto is None:
+            tune_auto = bool(params.get_or("tune_auto", "bool", False))
+        # multi-tenant serving: SessionServer endpoints ride a symmetric
+        # "sv" capability — toward sv-peers the live flow context widens
+        # once more with the owning tenant's name, and serve control AMs
+        # (TAG_SERVE/_REPLY) are accepted.  The knob implies the obs_live
+        # wire behavior; unset on EITHER end keeps that end's wire bytes
+        # exactly what the unset build would produce.
+        if serve is None:
+            serve = bool(params.get_or("serve", "bool", False))
+        self._serve_enabled = bool(serve)
+        self._tune_enabled = bool(tune_auto)
+        self._live_enabled = (bool(obs_live) or self._tune_enabled
+                              or self._serve_enabled)
         self._flow_enabled = bool(obs_flow) or self._live_enabled
         self._clock: Dict[int, float] = {}      # peer -> offset EWMA us
         self._clock_n: Dict[int, int] = {}      # peer -> sample count
@@ -542,6 +578,18 @@ class TCPCommEngine(LocalCommEngine):
             # gated like "tr", so an unset knob's HELLO is bit-identical
             # and obs_flow-only peers keep 2-tuples
             info["lv"] = True
+        if self._tune_enabled:
+            # runtime tuning: this end accepts K_TUNE codec renegotiation
+            # frames — gated like "tr"/"lv" so an unset knob's HELLO stays
+            # bit-identical and a peer without it is never renegotiated
+            info["tn"] = True
+        if self._serve_enabled:
+            # multi-tenant serving: this end hosts/uses SessionServer
+            # endpoints and accepts tenant-extended flow contexts — gated
+            # like "tr"/"lv"/"tn" so an unset knob's HELLO stays
+            # bit-identical and a peer without it never sees a 5-tuple or
+            # a serve control frame
+            info["sv"] = True
         if self._quantize is not None:
             # quantized codecs are advertised ONLY when the local knob
             # is set — symmetric like "rs", so a knob-unset build keeps
@@ -670,6 +718,14 @@ class TCPCommEngine(LocalCommEngine):
         with self._conn_cond:
             p = self._peers.get(dst)
         return p is not None and p.lv_ok
+
+    def serve_to(self, dst: int) -> bool:
+        """Tenant-extended serve contexts (and serve control AMs) travel
+        only toward peers whose HELLO advertised ``"sv"`` — a live-only
+        peer keeps receiving the 4-tuple its unpacking expects."""
+        with self._conn_cond:
+            p = self._peers.get(dst)
+        return p is not None and p.sv_ok
 
     def compress_ratio(self) -> Optional[float]:
         """Cumulative post/pre compression byte ratio (None: nothing
@@ -1117,6 +1173,105 @@ class TCPCommEngine(LocalCommEngine):
             p.queued_bytes += len(frame)
             p.cond.notify()
         return True
+
+    # -- closed-loop tuning ----------------------------------------------
+    def tune_to(self, dst: int) -> bool:
+        """K_TUNE renegotiation frames travel only toward peers whose
+        HELLO advertised ``"tn"`` — a peer without it (or with the knob
+        unset) keeps the codec its HELLO negotiated, forever."""
+        with self._conn_cond:
+            p = self._peers.get(dst)
+        return p is not None and p.tn_ok
+
+    def tune_send(self, peer: int, payload) -> bool:
+        """Wire-level runtime-tuning frame (K_TUNE): like
+        ``ft_elastic_send``, enqueued on the ctrl lane and applied by
+        the peer's receiver thread — a codec renegotiation lands even
+        while the peer's workers are inside a long kernel.  Gated on
+        the HELLO ``tn`` capability.  Exempt from the chaos layer
+        (control plane); the controller re-decides every window, so a
+        lost frame is re-issued by the next tick."""
+        if self._ft_silenced or peer in self.dead_peers \
+                or peer in self.finished_peers:
+            return False
+        with self._conn_cond:
+            p = self._peers.get(peer)
+        if p is None or not p.tn_ok or p.done:
+            return False
+        frame = wire.pack_tune(dict(payload))
+        with p.cond:
+            p.ctrl.append(("frame", frame))
+            p.queued_bytes += len(frame)
+            p.cond.notify()
+        return True
+
+    def set_quant_codec(self, peer: int, codec: Optional[str]) -> bool:
+        """Local half of a codec renegotiation: install ``codec`` (a
+        registered quantized codec name, or None for lossless) as THIS
+        rank's active encoding toward ``peer``, exactly as if the HELLO
+        had negotiated it.  Quantization applies at enqueue, so frames
+        already queued (and the replay window) keep the bytes encoded
+        under the codec active when they were accepted — a replay stays
+        bit-identical across the switch.  Resets the per-codec byte
+        accounting so the COMPRESS_RATIO gauge reflects the NEW codec.
+        Returns False (no change) toward an unknown peer or a codec
+        name that is not registered."""
+        if codec is not None and codec not in wire.available_quant_codecs():
+            return False
+        with self._conn_cond:
+            p = self._peers.get(peer)
+        if p is None:
+            return False
+        with p.cond:
+            if p.qz_codec != codec:
+                p.qz_codec = codec
+                p.q_pre = 0
+                p.q_post = 0
+        return True
+
+    def active_quant_codec(self, peer: int) -> Optional[str]:
+        """The quantized codec THIS rank currently encodes with toward
+        ``peer`` (HELLO-negotiated or runtime-renegotiated)."""
+        with self._conn_cond:
+            p = self._peers.get(peer)
+        if p is None:
+            return None
+        with p.cond:
+            return p.qz_codec
+
+    def rx_quant_ratio(self, peer: int) -> Tuple[int, int]:
+        """Receive-side quantized-buffer accounting for the inbound
+        link from ``peer``: (raw bytes, encoded bytes) of quantized
+        buffers that LANDED here.  The controller on the receiving rank
+        reads the deltas: an escalated link whose encoded count stops
+        moving carries no eligible traffic — the codec shows no win and
+        the ladder steps back down."""
+        with self._conn_cond:
+            p = self._peers.get(peer)
+        if p is None:
+            return (0, 0)
+        with p.cond:
+            return (p.qrx_pre, p.qrx_post)
+
+    def _on_tune(self, p: _Peer, msg: Dict[str, Any]) -> None:
+        """Apply one runtime-tuning directive from the controller on the
+        RECEIVING end of this link (it watches its inbound exposed-wait;
+        we hold the actuator — the send-side codec).  Only honored
+        between ends that both advertised "tn"; an unknown op or codec
+        name is dropped, never fatal."""
+        if not (self._tune_enabled and p.tn_ok):
+            return
+        if msg.get("op") != "codec":
+            plog.debug.verbose(
+                1, "tcp rank %d: ignoring unknown tune op %r from "
+                "peer %d", self.rank, msg.get("op"), p.rank)
+            return
+        codec = msg.get("codec")
+        if not self.set_quant_codec(p.rank, codec):
+            plog.warning(
+                "tcp rank %d: peer %d requested unknown quantized "
+                "codec %r — keeping %r", self.rank, p.rank, codec,
+                self.active_quant_codec(p.rank))
 
     def ft_link_fault(self, dst: int) -> None:
         """Chaos hook (ft/inject.py ``flap:``/``disconnect:``): tear
@@ -1820,6 +1975,18 @@ class TCPCommEngine(LocalCommEngine):
                 del xfers[xid]
                 with self._stat_lock:
                     self._rx_pending[peer] = len(xfers)
+                if any(rx.quant):
+                    # controller evidence: how many raw bytes this
+                    # link's quantized buffers stood for vs the encoded
+                    # bytes that actually landed
+                    pre = post = 0
+                    for b, q in zip(rx.bufs, rx.quant):
+                        if q:
+                            pre += wire.quant_raw_len(b)
+                            post += len(b)
+                    with p.cond:
+                        p.qrx_pre += pre
+                        p.qrx_post += post
                 src, tag, payload = rx.message()
                 self._note_get_reply(tag, payload)
                 self._inbox.push((src, tag, payload))
@@ -1835,6 +2002,13 @@ class TCPCommEngine(LocalCommEngine):
             p.tr_ok = bool(info.get("tr")) and self._flow_enabled
             # obs_live's extended contexts are symmetric the same way
             p.lv_ok = bool(info.get("lv")) and self._live_enabled
+            # runtime tuning is symmetric too: only a link whose BOTH
+            # ends run with tune_auto ever renegotiates its codec
+            p.tn_ok = bool(info.get("tn")) and self._tune_enabled
+            # serving is symmetric the same way: tenant-extended flow
+            # contexts (and serve control AMs) travel only on links
+            # whose BOTH ends run with the serve knob set
+            p.sv_ok = bool(info.get("sv")) and self._serve_enabled
             with p.cond:
                 # quantize capability is symmetric like "rs": only a
                 # peer that advertised the requested codec under "qz"
@@ -1964,6 +2138,12 @@ class TCPCommEngine(LocalCommEngine):
             # coordinator even while every worker is inside a long
             # kernel; the coordinator's deliver only notifies
             self._on_elastic(peer, wire.parse_elastic(body))
+        elif kind == wire.K_TUNE:
+            # applied HERE, on the receiver thread (like K_ELASTIC): a
+            # codec renegotiation takes effect at the next enqueue, not
+            # at the next progress pump — the controller's window
+            # cadence stays decoupled from the workers'
+            self._on_tune(p, wire.parse_tune(body))
         else:
             raise ValueError(f"unknown frame kind {kind}")
 

@@ -129,7 +129,7 @@ K_SEQ = 8
 K_ACK = 9
 K_RESUME = 10
 K_FRAG = 11
-K_TUNE = 12       # the JAX package's runtime tuning; not carried
+K_TUNE = 12       # runtime tuning (tune/controller.py)
 
 WIRE_VERSION = 2
 
@@ -445,6 +445,64 @@ def pack_elastic(payload: Dict[str, Any]) -> bytes:
 
 def parse_elastic(body: memoryview) -> Dict[str, Any]:
     return pickle.loads(body[1:])
+
+
+# -- runtime tuning (tune/controller.py; the "tn" HELLO capability) -----
+def pack_tune(payload: Dict[str, Any]) -> bytes:
+    """One runtime-tuning control frame (e.g. a per-link quantized
+    codec renegotiation, ``{"op": "codec", "codec": name-or-None}``).
+    Session-less like K_ELASTIC: handled on the receiver THREAD, never
+    wrapped in K_SEQ (a renegotiation is regenerated, not replayed —
+    and quantization happens at enqueue, so the replay window already
+    holds bytes encoded under the codec active at enqueue time)."""
+    return bytes([K_TUNE]) + pickle.dumps(payload, protocol=4)
+
+
+def parse_tune(body: memoryview) -> Dict[str, Any]:
+    return pickle.loads(body[1:])
+
+
+# -- multi-tenant serving (serve/; the "sv" HELLO capability) -----------
+#: serve control protocol version — bumped when the envelope grows
+#: fields an old server cannot ignore
+SERVE_PROTO_VERSION = 1
+
+
+def serve_request(op: str, req: int, tenant: Optional[str] = None,
+                  **kw: Any) -> Dict[str, Any]:
+    """Envelope of one serve control request (open/submit/wait/stats).
+    Serve control rides TAG_SERVE active messages — the AM layer
+    already frames and pickles dict payloads, so no new frame kind is
+    needed; the envelope just pins the field names and a version so
+    ServeClient and SessionServer agree across builds."""
+    msg: Dict[str, Any] = {"sv": SERVE_PROTO_VERSION, "op": str(op),
+                           "req": int(req)}
+    if tenant is not None:
+        msg["tenant"] = str(tenant)
+    msg.update(kw)
+    return msg
+
+
+def serve_reply(req: int, ok: bool, **kw: Any) -> Dict[str, Any]:
+    """Envelope of one serve control reply, correlated by ``req``."""
+    msg: Dict[str, Any] = {"sv": SERVE_PROTO_VERSION, "req": int(req),
+                           "ok": bool(ok)}
+    msg.update(kw)
+    return msg
+
+
+def parse_serve(payload: Any) -> Dict[str, Any]:
+    """Validate one serve envelope (either direction); raises
+    ValueError on a malformed dict or an unsupported version so the
+    endpoint can reply with a loud error instead of misbehaving."""
+    if not isinstance(payload, dict) or "sv" not in payload:
+        raise ValueError("not a serve envelope")
+    v = int(payload.get("sv") or 0)
+    if v < 1 or v > SERVE_PROTO_VERSION:
+        raise ValueError(f"unsupported serve protocol version {v}")
+    if "req" not in payload:
+        raise ValueError("serve envelope missing req id")
+    return payload
 
 
 # -- reliable session (comm/tcp.py "rs" capability) ---------------------

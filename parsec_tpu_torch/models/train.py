@@ -98,19 +98,6 @@ def _check_attention_mesh(cfg: TransformerConfig, mesh: Mesh) -> None:
             "sequence-parallel meshes")
 
 
-def _check_remat_mesh(cfg: TransformerConfig, mesh: Mesh) -> None:
-    """remat recomputes a layer inside the backward, on autograd's thread
-    and outside its shard: a layer holding collectives (tp, sp or ep
-    above 1) could not rejoin its group there, so that raises."""
-    inner = {a: n for a, n in mesh.shape.items()
-             if a in ("tp", "sp", "ep") and n > 1}
-    if cfg.remat and inner:
-        raise ValueError(f"remat recomputes each layer in the backward, "
-                         f"outside its shard; the mesh's {inner} put "
-                         f"collectives inside the layers: use remat=False "
-                         f"on this mesh")
-
-
 def _resolve_mesh(cfg: TransformerConfig, mesh: Optional[Mesh],
                   device) -> Mesh:
     if mesh is None:
@@ -119,7 +106,6 @@ def _resolve_mesh(cfg: TransformerConfig, mesh: Optional[Mesh],
     elif device is not None and torch.device(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
     _check_attention_mesh(cfg, mesh)
-    _check_remat_mesh(cfg, mesh)
     Transformer(cfg)           # the config's own checks
     return mesh
 

@@ -20,8 +20,11 @@ hand-written flash kernel on the card, forward and backward.
 Pre-norm RMSNorm, no biases, tanh-GELU, learned positions and a tied
 embedding, as in the JAX model; ``n_experts > 0`` swaps the FFN for the
 top-k MoE (parallel/moe.py) and adds its load-balance loss to
-``loss_shard``; ``remat`` recomputes each layer in the backward
-(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
+``loss_shard``; ``remat`` recomputes each layer in the backward, the
+counterpart of ``jax.checkpoint``: ``torch.utils.checkpoint`` where the
+layer holds no collective, else one node over the layer's tp, sp and ep
+group (``parallel.shard_map.remat``) that recomputes each member in its
+shard.
 """
 from __future__ import annotations
 
@@ -41,8 +44,12 @@ from ..parallel.pipeline import gpipe, last_stage_value
 from ..parallel.ring_attention import local_attention, ring_attention
 from ..parallel.sequence import ulysses_attention
 from ..parallel.shard_map import axis_index, axis_size, pmean, psum
+from ..parallel.shard_map import remat as shard_remat
 
 ATTENTIONS = ("ring", "ulysses", "flash", "local")
+#: the axes whose collectives run inside a layer (the tp psums, the sp
+#: ring or all-to-all, the ep combine)
+LAYER_AXES = ("tp", "sp", "ep")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,12 +255,17 @@ class Transformer(nn.Module):
                  for name, a in params["stages"].items()}
         # a recomputed layer keeps nothing for the backward but its inputs
         remat = self.cfg.remat and torch.is_grad_enabled()
+        # a layer with collectives recomputes over its group (tp, sp, ep)
+        grouped = remat and axis_size(LAYER_AXES) > 1
 
         def stage_fn(sparams, xm):
             aux = torch.zeros((), dtype=torch.float32, device=xm.device)
             for i in range(sparams["wqkv"].shape[0]):
                 lp = {name: a[i] for name, a in sparams.items()}
-                if remat:
+                if grouped:
+                    xm, aux = shard_remat(self._layer, LAYER_AXES, lp, xm,
+                                          aux)
+                elif remat:
                     xm, aux = checkpoint(self._layer, lp, xm, aux,
                                          use_reentrant=False)
                 else:

@@ -22,9 +22,10 @@ Enable per run with ``Context(profile=True)`` (spans + counters), the
 ``metrics`` MCA param (histograms + counters without trace collection),
 ``obs_flow`` (cross-rank flow contexts on the wire) and ``obs_live``
 (the monitor thread).  ``ContextObs`` is the per-context wiring object;
-the runtime creates one in ``Context.__init__``.  Self-tuning
-(``tune_auto``), serving and stage compilation are not carried by this
-package: their knobs still raise at init.
+the runtime creates one in ``Context.__init__``.  ``tune_auto`` and
+``serve`` imply ``obs_live``: the self-tuning controller (tune/) rides
+the monitor's window tick, and a SessionServer (serve/) charges each
+tenant's latency into it.
 """
 from __future__ import annotations
 
@@ -110,7 +111,12 @@ class ContextObs:
 
     def __init__(self, ctx: Any) -> None:
         self.metrics = MetricsRegistry(ctx.sde)
-        live_on = _live_param()
+        tune_on = _tune_param()
+        # tune_auto implies obs_live: the controller's only input is the
+        # monitor's window digest, so the knob pulls the whole monitor up
+        # with it; serve implies it the same way (per-tenant SLO
+        # attribution lives in the monitor's window digests)
+        live_on = _live_param() or tune_on or _serve_param()
         # obs_live implies the span sinks: the streaming monitor's feeds
         # ARE the comm/device/exec hooks, so the knob alone turns
         # telemetry on even without profile= or metrics
@@ -209,6 +215,30 @@ class ContextObs:
                                                       tracker=self.overlap,
                                                       live=self.live)
                 self._task_module.enable()
+        # closed-loop self-tuning (tune/controller.py): the controller
+        # rides the monitor's window-tick subscriber seam — constructed
+        # ONLY under tune_auto, after every actuation target (transport,
+        # devices, overlap tracker) exists, before the monitor thread
+        # starts ticking
+        self.tuner = None
+        if tune_on and self.live is not None:
+            from ..tune import Controller, register_tune_gauges
+            from ..utils.params import params
+            raw = str(params.get_or("tune_residual_budget", "string",
+                                    "1e-2") or "").strip()
+            self.tuner = Controller(
+                ctx.rank, self.live,
+                engine=ce,
+                devices=tuple(ctx.devices),
+                residual_budget=float(raw) if raw else 0.0,
+                hysteresis=params.get_or("tune_hysteresis_windows",
+                                         "int", 2),
+                z_thresh=self.live.z_thresh,
+                overlap_fn=(self.overlap.fraction
+                            if self.overlap is not None else None),
+                stage_classes_fn=_compiled_stage_classes)
+            register_tune_gauges(ctx.sde, self.tuner)
+            self.live.subscribe(self.tuner.on_window)
         if self.live is not None:
             # the rolling-window monitor thread (detectors + window
             # folds) — the last thing started, so every feed is wired
@@ -252,6 +282,23 @@ def _metrics_param() -> bool:
 def _flow_param() -> bool:
     from ..utils.params import params
     return bool(params.get_or("obs_flow", "bool", False))
+
+
+def _tune_param() -> bool:
+    from ..utils.params import params
+    return bool(params.get_or("tune_auto", "bool", False))
+
+
+def _serve_param() -> bool:
+    from ..utils.params import params
+    return bool(params.get_or("serve", "bool", False))
+
+
+def _compiled_stage_classes() -> List[str]:
+    """The classes with a live compiled stage, the stage-compile
+    family's attribution source: none, since this package compiles no
+    stages (``stage_compile`` is a trimmed knob)."""
+    return []
 
 
 def _live_param() -> bool:

@@ -190,11 +190,7 @@ class _RingFlashGroup(torch.autograd.Function):
     def backward(ctx, *gs):
         chips, sp, causal = ctx.chips, len(ctx.chips), ctx.causal
         qkv = ctx.saved_tensors
-        # the streams autograd runs this node on, one a device: the
-        # cotangents are ready there, and the gradients must be
-        entry = [Chip(-1, d, torch.cuda.current_stream(d))
-                 for d in dict.fromkeys(c.device for c in chips)
-                 if d.type == "cuda"]
+        entry = sm._autograd_streams(chips)
         dq, parts = [], {}           # parts[i, j]: shard i's (dk_j, dv_j)
         for i, chip in enumerate(chips):
             seen = [j for j in range(sp) if not (causal and j > i)]

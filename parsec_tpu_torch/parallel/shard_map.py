@@ -44,6 +44,12 @@ every peer leave its wait and the call raise.
 
 A mesh of one chip runs the body on the calling thread, and every
 collective over a group of one is the identity.
+
+**Remat.**  :func:`remat` recomputes a function whose collectives span a
+group (a transformer layer over tp, sp and ep) in the backward: one node
+over the group keeps each member's arguments, and its backward runs the
+members again, each on a thread bound to its chip in a run of the group
+alone, then backpropagates through them in one call.
 """
 from __future__ import annotations
 
@@ -150,6 +156,15 @@ def _wait(waiter, on) -> None:
         a.wait_stream(b)
 
 
+def _autograd_streams(chips) -> List[Chip]:
+    """The streams autograd runs a group node's backward on, one a CUDA
+    device of ``chips``: the cotangents are ready there, and the
+    gradients must be."""
+    return [Chip(-1, d, torch.cuda.current_stream(d))
+            for d in dict.fromkeys(c.device for c in chips)
+            if d.type == "cuda"]
+
+
 def _move(t: torch.Tensor, src, dst) -> torch.Tensor:
     """``t`` (written on chip ``src``) as a tensor ``dst`` may read: the
     same tensor on the same device, else a copy queued on ``src``'s
@@ -185,21 +200,29 @@ class _Run:
     rendezvous slots, the time of the last progress, the shards that
     returned, and the first error a shard raised."""
 
-    def __init__(self, mesh: Mesh) -> None:
-        self.shape = mesh.shape
+    def __init__(self, shape: Dict[str, int], coords: List[Dict[str, int]],
+                 chips: List[Chip]) -> None:
+        self.shape = shape
         self.timeout = RENDEZVOUS_TIMEOUT
-        dims = [self.shape[a] for a in AXES]
-        self.coords = [{a: int(c) for a, c in
-                        zip(AXES, np.unravel_index(k, dims))}
-                       for k in range(mesh.size)]
-        self.chips = [d if isinstance(d, Chip) else Chip(k, torch.device(d))
-                      for k, d in enumerate(mesh.devices.flat)]
+        self.coords = coords
+        self.chips = chips
         self.cond = threading.Condition()
         self.slots: Dict[Any, _Slot] = {}
         self.error: Optional[Tuple[int, BaseException]] = None
         self.progress = time.monotonic()
         self.returned: set = set()
         self._groups: Dict[Any, Tuple[int, ...]] = {}
+
+    @classmethod
+    def of_mesh(cls, mesh: Mesh) -> "_Run":
+        """A run over every shard of ``mesh``."""
+        dims = [mesh.shape[a] for a in AXES]
+        coords = [{a: int(c) for a, c in
+                   zip(AXES, np.unravel_index(k, dims))}
+                  for k in range(mesh.size)]
+        chips = [d if isinstance(d, Chip) else Chip(k, torch.device(d))
+                 for k, d in enumerate(mesh.devices.flat)]
+        return cls(mesh.shape, coords, chips)
 
     def group(self, index: int, axes: Tuple[str, ...]) -> Tuple[int, ...]:
         """The flat indices of ``index``'s group over ``axes`` (the shards
@@ -283,6 +306,10 @@ class _Run:
         calls ``issue(operands, chips)``, which returns one output per
         member in coordinate order, and each member gets its own."""
         members = self.group(sh.index, axes)
+        if len(members) != int(np.prod([self.shape[a] for a in axes])):
+            # a run of one group (a recompute) holds no shard off it
+            raise RuntimeError(f"{op} over {axes} reaches shards outside "
+                               f"this run's {len(self.coords)}")
         pos = members.index(sh.index)
         count = sh.calls.get((axes, members), 0)
         sh.calls[(axes, members)] = count + 1
@@ -659,7 +686,7 @@ def shard_map(f: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
 def _run_one(f, mesh, args):
     """A mesh of one chip: the body on the calling thread, as is."""
     prev = current_shard()
-    _tls.shard = _Shard(_Run(mesh), 0)
+    _tls.shard = _Shard(_Run.of_mesh(mesh), 0)
     try:
         return f(*args)
     finally:
@@ -679,7 +706,7 @@ def _arg_specs(in_specs, args) -> List[Any]:
 def _run_threads(f, mesh, in_specs, out_specs, args):
     if current_shard() is not None:
         raise RuntimeError("shard_map: a shard cannot start another mesh")
-    run = _Run(mesh)
+    run = _Run.of_mesh(mesh)
     home = run.chips[0]
     pairs = [p for i, (s, a) in enumerate(zip(_arg_specs(in_specs, args),
                                                args))
@@ -701,7 +728,6 @@ def _run_threads(f, mesh, in_specs, out_specs, args):
             cs = _stream(c)
             if cs is not None and cs != s and cs.device == s.device:
                 cs.wait_stream(s)
-    results: List[Any] = [None] * mesh.size
 
     def shard_args(sh: _Shard) -> List[Any]:
         k = sh.index
@@ -725,36 +751,8 @@ def _run_threads(f, mesh, in_specs, out_specs, args):
             out.append(_rebuild(a, [next(it) for _ in range(n)]))
         return out
 
-    def main(k: int) -> None:
-        sh = _tls.shard = _Shard(run, k)
-        try:
-            with _on_chip(sh.chip), torch.inference_mode(infer), \
-                    torch.set_grad_enabled(grad):
-                results[k] = f(*shard_args(sh))
-        except _Aborted:
-            pass
-        except BaseException as err:   # handed to the caller below
-            run.fail(k, err)
-        finally:
-            _tls.shard = None
-            with run.cond:
-                run.returned.add(k)
-                run._progressed()
-
-    threads = [threading.Thread(target=main, args=(k,), daemon=True,
-                                name=f"ptt-shard-{k}")
-               for k in range(mesh.size)]
-    for t in threads:
-        t.start()
-    run.watch(threads)
-    for t in threads:
-        t.join()
-    if run.error is not None:
-        k, err = run.error
-        if k >= 0:
-            err.add_note(f"raised in shard {k} {run.coords[k]} of a mesh "
-                         f"{mesh.shape}")
-        raise err
+    results = _run_bodies(run, lambda sh: f(*shard_args(sh)), grad, infer,
+                          f"a mesh {mesh.shape}")
     # the caller's streams wait for every chip's
     for c in run.chips:
         s, cs = caller.get(c.device), _stream(c)
@@ -772,6 +770,185 @@ def _run_threads(f, mesh, in_specs, out_specs, args):
         assembled.append(_assemble(run, parts, spec, f"out_specs[{i}]",
                                    home))
     return _rebuild(out_like, assembled)
+
+
+def _run_bodies(run: _Run, body: Callable[[_Shard], Any], grad: bool,
+                infer: bool, what: str) -> List[Any]:
+    """``body(shard)`` once per shard of ``run``, each on a thread of its
+    own bound to its chip, watched by the calling thread (see
+    ``_Run.watch``); returns their results in shard order.  The first
+    error a shard raised is raised here, noting the shard and ``what``
+    ran."""
+    results: List[Any] = [None] * len(run.coords)
+
+    def main(k: int) -> None:
+        sh = _tls.shard = _Shard(run, k)
+        try:
+            with _on_chip(sh.chip), torch.inference_mode(infer), \
+                    torch.set_grad_enabled(grad):
+                results[k] = body(sh)
+        except _Aborted:
+            pass
+        except BaseException as err:   # handed to the caller below
+            run.fail(k, err)
+        finally:
+            _tls.shard = None
+            with run.cond:
+                run.returned.add(k)
+                run._progressed()
+
+    threads = [threading.Thread(target=main, args=(k,), daemon=True,
+                                name=f"ptt-shard-{k}")
+               for k in range(len(run.coords))]
+    for t in threads:
+        t.start()
+    run.watch(threads)
+    for t in threads:
+        t.join()
+    if run.error is not None:
+        k, err = run.error
+        if k >= 0:
+            err.add_note(f"raised in shard {k} {run.coords[k]} of {what}")
+        raise err
+    return results
+
+
+# ---------------------------------------------------------------------- #
+# recomputation: remat of a function whose collectives span a group      #
+# ---------------------------------------------------------------------- #
+def _detached(x: Any) -> Any:
+    """A leaf of ``x``'s values with its requires_grad (non-tensors as
+    they are)."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    return x.detach().requires_grad_(x.requires_grad)
+
+
+class _RematPlan:
+    """What a group's remat node needs to run its members again: the
+    function, the arguments' tree shape, each member's non-tensor leaves
+    (its tensors are the node's saved inputs), and the group's
+    coordinates and chips (a run of the group alone)."""
+
+    def __init__(self, fn, args_like, deposits, run: _Run,
+                 members: Tuple[int, ...], chips) -> None:
+        self.fn, self.args_like = fn, args_like
+        self.tensor_pos = [i for i, x in enumerate(deposits[0][0])
+                           if isinstance(x, torch.Tensor)]
+        self.leaves = [[None if i in self.tensor_pos else x
+                        for i, x in enumerate(d[0])] for d in deposits]
+        self.outs: Optional[List[Any]] = [(d[1], d[2]) for d in deposits]
+        self.n_out = len(deposits[0][1])
+        self.shape = run.shape
+        self.coords = [run.coords[m] for m in members]
+        self.chips = list(chips)
+
+
+class _RematGroup(torch.autograd.Function):
+    """One node over a group of shards that ran ``fn`` (see :func:`remat`):
+    its inputs are every member's tensor arguments in coordinate order,
+    its outputs every member's results, computed before the node was
+    made; it keeps only the inputs."""
+
+    @staticmethod
+    def forward(ctx, plan, *ins):
+        ctx.plan = plan
+        ctx.save_for_backward(*ins)
+        outs, diff = [], []
+        for member, flags in plan.outs:
+            outs += member
+            diff += flags
+        plan.outs = None       # the node holds its inputs only
+        ctx.mark_non_differentiable(*[o for o, d in zip(outs, diff)
+                                      if not d])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        plan = ctx.plan
+        saved = ctx.saved_tensors
+        n_in, n_out = len(plan.tensor_pos), plan.n_out
+        chips = plan.chips
+        entry = _autograd_streams(chips)
+        members = []
+        for k, chip in enumerate(chips):
+            leaves = list(plan.leaves[k])
+            for j, pos in enumerate(plan.tensor_pos):
+                leaves[pos] = saved[k * n_in + j]
+            with _on_chip(chip):
+                for e in entry:
+                    _wait(chip, e)
+                for t in list(gs[k * n_out:(k + 1) * n_out]) + leaves:
+                    _read_on(t, chip)
+            members.append(leaves)
+
+        def again(sh: _Shard):
+            leaves = [_detached(x) for x in members[sh.index]]
+            out = plan.fn(*_rebuild(plan.args_like, leaves))
+            return leaves, _flatten(out)
+
+        redone = _run_bodies(_Run(plan.shape, plan.coords, chips), again,
+                             True, False, "a remat recompute")
+        outs, cots, wrt = [], [], []
+        for k, (leaves, out) in enumerate(redone):
+            for o, g in zip(out, gs[k * n_out:(k + 1) * n_out]):
+                if o.requires_grad and g is not None:
+                    outs.append(o)
+                    cots.append(g)
+            wrt += [leaves[pos] for pos in plan.tensor_pos]
+        need = [i for i, x in enumerate(wrt) if x.requires_grad]
+        grads: List[Any] = [None] * len(wrt)
+        if outs and need:
+            got = torch.autograd.grad(outs, [wrt[i] for i in need], cots,
+                                      allow_unused=True)
+            for i, g in zip(need, got):
+                grads[i] = g
+        for chip in chips:
+            for e in entry:
+                _wait(e, chip)
+        for g in grads:
+            for e in entry:
+                _read_on(g, e)
+        return (None,) + tuple(grads)
+
+
+def remat(fn: Callable, axis_name, *args) -> Any:
+    """``fn(*args)`` in a shard, recomputed in the backward, where ``fn``
+    holds collectives over ``axis_name``'s group (one axis or several; a
+    collective over another axis raises in the recompute).  ``fn``
+    returns a tensor or a tree of tensors.
+
+    The forward runs ``fn`` as a plain call would (grad mode on, the
+    same kernels), keeps its results and drops its graph; the group's
+    members then make ONE autograd node that keeps only their arguments.
+    Its backward runs every member's ``fn`` again, each on a thread of
+    its own bound to its chip, in a run of the group alone at the
+    forward's coordinates (so its collectives rejoin their group, in the
+    same order on the same shapes), and backpropagates through all of
+    them in one call.  ``torch.utils.checkpoint`` cannot: it recomputes
+    on autograd's thread, outside every shard."""
+    sh = current_shard()
+    axes = _axes_of(axis_name)
+    leaves = _flatten(args)
+    with torch.enable_grad():
+        out = fn(*_rebuild(args, [_detached(x) for x in leaves]))
+    flat = _flatten(out)
+    deposit = (leaves, [o.detach() for o in flat],
+               [o.requires_grad for o in flat])
+    out_like = _rebuild(out, [None] * len(flat))
+    args_like = _rebuild(args, [None] * len(leaves))
+    del out, flat              # the forward's graph goes here
+
+    def issue(deposits, chips):
+        members = sh.run.group(sh.index, axes)
+        plan = _RematPlan(fn, args_like, deposits, sh.run, members, chips)
+        ins = [d[0][i] for d in deposits for i in plan.tensor_pos]
+        n = plan.n_out
+        got = _RematGroup.apply(plan, *ins)
+        return [list(got[k * n:(k + 1) * n]) for k in range(len(chips))]
+
+    got = sh.run.exchange(sh, "remat", axes, deposit, issue)
+    return _rebuild(out_like, got)
 
 
 def _split(outs: Tuple[torch.Tensor, ...], n: int) -> List[List[Any]]:

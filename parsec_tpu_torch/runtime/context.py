@@ -248,6 +248,12 @@ class Context:
         if params.get("sched_dynamic_priority"):
             from .profile import ClassProfile
             self.class_profile = ClassProfile()
+        # multi-tenant fair-share hook (serve/): a SessionServer attaches
+        # its TenantFairness here so stamp_dynamic_priority folds
+        # per-tenant deficit boosts above the class-profile band; None
+        # (the default — no server) keeps the class-profile-only path
+        # byte-identical
+        self.serve_fairness = None
 
         # scheduler (ref: parsec_set_scheduler scheduling.c:246-272)
         from ..sched import sched_new

@@ -20,6 +20,7 @@ from ..utils.params import params
 from ..profiling.grapher import grapher
 from ..profiling.pins import PINS, PinsEvent
 from ..profiling.sde import TASKS_ENABLED, TASKS_RETIRED
+from .profile import TENANT_PRIO_SCALE
 from .taskpool import HookReturn, Task, TaskStatus, ACTION_RELEASE_ALL
 
 _sched_log = plog.sched_stream
@@ -73,12 +74,27 @@ def stamp_dynamic_priority(ctx, tasks: List[Task]) -> None:
     (``runtime/profile.py``).  Idempotent — recomputed from the task's
     immutable ``base_priority`` — so a rescheduled (AGAIN) task is not
     boosted twice, and a no-op when ``sched_dynamic_priority`` is off
-    or the class is unknown to the profile."""
+    or the class is unknown to the profile.
+
+    Multi-tenant fairness (serve/) folds on TOP through the same seam:
+    when a SessionServer attached a ``TenantFairness`` to the context,
+    each task additionally gains its tenant's deficit boost packed above
+    the class-profile band (TENANT_PRIO_SCALE), so starved tenants rise
+    and saturating tenants yield while the critical-path boost stays the
+    within-tenant order.  Both hooks None (no profile, no server) keeps
+    the fast path: one early return."""
     prof = ctx.class_profile
-    if prof is None:
+    fair = ctx.serve_fairness
+    if prof is None and fair is None:
         return
     for t in tasks:
-        t.priority = prof.effective(t.task_class.name, t.base_priority)
+        p = (prof.effective(t.task_class.name, t.base_priority)
+             if prof is not None else t.base_priority)
+        if fair is not None:
+            b = fair.boost_of_task(t)
+            if b:
+                p += b * TENANT_PRIO_SCALE
+        t.priority = p
 
 
 def schedule(es: ExecutionStream, tasks: List[Task], distance: int = 0) -> None:

@@ -582,6 +582,57 @@ def register_core_params() -> None:
                    "rolling-window tick of the obs_live monitor: "
                    "detector baselines fold one sample per window "
                    "(smaller = faster detection, noisier baselines)")
+    params.reg_bool("tune_auto", False,
+                    "closed-loop self-tuning (tune/): a controller rides "
+                    "the obs_live window tick and adapts the per-link "
+                    "quantized codec (runtime K_TUNE renegotiation "
+                    "toward peers that advertised the HELLO \"tn\" "
+                    "capability), the device pipeline shape "
+                    "(device_batch_max / device_prefetch_depth / "
+                    "device_flush_segments, hill-climbed with "
+                    "revert-on-regress), and stage-compile exclusions "
+                    "(inert until stage compilation is carried). Every "
+                    "move emits a tune:* annotation on the health stream "
+                    "plus PARSEC::TUNE::* gauges. Implies obs_live; off "
+                    "(default) constructs nothing and is bit-for-bit "
+                    "inert on the wire")
+    params.reg_string("tune_residual_budget", "1e-2",
+                      "max relative residual the codec ladder may "
+                      "spend: qbf16 (~1e-2) needs budget >= 1e-2, "
+                      "qint8 (~1e-1) needs budget >= 1e-1; 0 pins "
+                      "every link lossless (the controller still "
+                      "tunes the device pipeline)")
+    params.reg_int("tune_hysteresis_windows", 2,
+                   "consecutive agreeing health windows required "
+                   "before the controller moves a knob (and the "
+                   "cool-down after any move/revert) — larger = "
+                   "steadier under oscillating signal, slower to "
+                   "react")
+    # multi-tenant persistent serving (serve/)
+    params.reg_bool("serve", False,
+                    "multi-tenant persistent serving (serve/): advertise "
+                    "the \"sv\" HELLO capability so SessionServer "
+                    "submission endpoints accept remote tenants, and pull "
+                    "the obs_live monitor up for per-tenant SLO "
+                    "attribution; off (default) constructs nothing and "
+                    "keeps the wire bit-for-bit")
+    params.reg_string("serve_admission", "reject",
+                      "over-quota submission policy: \"reject\" (the "
+                      "submission fails with AdmissionError / an error "
+                      "reply) or \"queue\" (it parks on the tenant's "
+                      "queue and launches when capacity frees)")
+    params.reg_int("serve_max_tenants", 64,
+                   "max named tenant sessions one SessionServer accepts")
+    params.reg_int("serve_default_weight", 1,
+                   "fair-share weight a tenant gets when open_tenant "
+                   "declares none (>= 1; the deficit fairness boost "
+                   "normalizes completed work by this weight)")
+    params.reg_sizet("serve_default_quota_bytes", 0,
+                     "Mempool byte quota a tenant gets when open_tenant "
+                     "declares none (0 = unlimited)")
+    params.reg_int("serve_latency_window", 512,
+                   "per-tenant taskpool-latency samples kept for the "
+                   "P99_LATENCY_US gauge and health snapshots")
     # knobs of subsystems this package does not carry yet: registered
     # so that a caller who sets one gets NotImplementedError at init
     # (runtime/context.py) instead of a silently ignored request
@@ -591,8 +642,8 @@ def register_core_params() -> None:
 
 
 #: knobs of the JAX package's subsystems that this package leaves out
-#: (tuning, serving, stage compilation)
-TRIMMED_KNOBS = ("tune_auto", "serve", "stage_compile")
+#: (stage compilation)
+TRIMMED_KNOBS = ("stage_compile",)
 
 
 register_core_params()

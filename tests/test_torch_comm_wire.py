@@ -972,10 +972,17 @@ def _messages():
         (1, 1, {"tp_id": 3, "root": 1, "ranks": [0], "edges": {0: []},
                 "dtt": None, "data": rng.rand(8, 8).astype(np.float32),
                 "_tr": (1, 42, 3, 987654321)}),
+        # a serve control request (TAG_SERVE), built by the port's
+        # envelope, and the serve-extended context (the tenant, 5th)
+        (1, 10, wire.serve_request("submit", 3, tenant="acme", nbytes=64,
+                                   ntasks=2)),
+        (0, 1, {"tp_id": 3, "root": 0, "ranks": [1], "edges": {1: []},
+                "dtt": None, "data": rng.rand(8, 8).astype(np.float32),
+                "_tr": (0, 43, 3, 987654322, "acme")}),
     ]
 
 
-@pytest.mark.parametrize("idx", range(6))
+@pytest.mark.parametrize("idx", range(8))
 def test_frames_byte_identical_to_jax_package(idx):
     """A frame carrying only numpy and Python values, encoded by the JAX
     package's wire and by the port's, is the same bytes (the segment,
@@ -992,6 +999,12 @@ def test_frames_byte_identical_to_jax_package(idx):
         jax_wire.pack_ping(5, 123, pong=True)
     assert wire.pack_seq(1, 2) == jax_wire.pack_seq(1, 2)
     assert wire.pack_ack(1, 2) == jax_wire.pack_ack(1, 2)
+    tune = {"op": "codec", "codec": "qint8"}
+    assert wire.pack_tune(tune) == jax_wire.pack_tune(tune)
+    assert wire.serve_request("wait", 4, ticket=2) == \
+        jax_wire.serve_request("wait", 4, ticket=2)
+    assert wire.serve_reply(4, False, error="x") == \
+        jax_wire.serve_reply(4, False, error="x")
 
 
 def _decode_batch(wire_mod, body):
@@ -1067,11 +1080,14 @@ def test_extended_ping_pong_byte_identical_and_cross_decodes():
     assert wire.pack_ping(1, 2) == wire.pack_ping(1, 2, clock_ns=None)
 
 
-def _capture_leg(flow_r0=False, live_r0=False, flow_r1=False):
+def _capture_leg(flow_r0=False, live_r0=False, flow_r1=False,
+                 tune_r0=False, serve_r0=False):
     """Two fresh TCP engines, every outbound frame captured at the
     ``_sendall_vec`` seam; rank 0 sends a scripted sequence of data
-    messages (one frame each, drained in between).  Returns (rank 0's
-    HELLO frame, its data frames, the messages rank 1 received)."""
+    messages (one frame each, drained in between).  ``serve_r0`` also
+    arms rank 0's flow allocator with a session server's tenant map.
+    Returns (rank 0's HELLO frame, its data frames, the messages rank 1
+    received)."""
     import contextlib
     from parsec_tpu_torch.comm import tcp as tcpmod
     from parsec_tpu_torch.comm.engine import (TAG_ACTIVATE, TAG_DTD_DATA,
@@ -1097,13 +1113,17 @@ def _capture_leg(flow_r0=False, live_r0=False, flow_r1=False):
         st.enter_context(params.cmdline_override("comm_chunk_bytes", "4096"))
         tcpmod._sendall_vec = capturing
         st.callback(setattr, tcpmod, "_sendall_vec", orig)
-        knobs = [dict(obs_flow=flow_r0, obs_live=live_r0),
+        knobs = [dict(obs_flow=flow_r0, obs_live=live_r0, tune_auto=tune_r0,
+                      serve=serve_r0),
                  dict(obs_flow=flow_r1)]
         e0, e1 = _engines_with(knobs)
         try:
-            if flow_r0 or live_r0:
+            if flow_r0 or live_r0 or serve_r0:
                 e0._flow = FlowIds(0)
-                e0._flow.live = live_r0
+                e0._flow.live = live_r0 or serve_r0
+                if serve_r0:
+                    # what SessionServer installs: a pool the server owns
+                    e0._flow.tenants = {0: "acme"}
                 e0._obs = _NullObs()
             assert _wait(lambda: _peer_obj(e0, 1) is not None
                          and _peer_obj(e0, 1).hello_seen

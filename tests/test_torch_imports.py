@@ -50,7 +50,9 @@ def test_sources_import_no_jax():
                 "bindings/__init__.py", "bindings/build.py",
                 "bindings/chelper.py", "obs/__init__.py", "obs/metrics.py",
                 "obs/prometheus.py", "obs/spans.py", "obs/critpath.py",
-                "obs/live.py"):
+                "obs/live.py", "tune/__init__.py", "tune/controller.py",
+                "serve/__init__.py", "serve/fairness.py",
+                "serve/server.py", "serve/client.py"):
         assert os.path.join("parsec_tpu_torch", mod) in seen, mod
     for path in _port_sources():
         with open(path) as fh:
@@ -77,6 +79,7 @@ def test_cpu_dpotrf_loads_no_jax():
         from parsec_tpu_torch.collections import TwoDimBlockCyclic
         import parsec_tpu_torch.comm, parsec_tpu_torch.xfer
         import parsec_tpu_torch.utils.spmd
+        import parsec_tpu_torch.tune, parsec_tpu_torch.serve
         ctx = ptt.init(nb_cores=2, device="cpu")
         M = ptt.ops.make_spd(96)
         A = TwoDimBlockCyclic(96, 96, 32, 32).from_numpy(M)
@@ -410,7 +413,7 @@ def test_init_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("stage_compile", "1"), ("tune_auto", "1"),
+    ("stage_compile", "1"),
     ("device_mesh_shape", "2x2"), ("device_donate", "1"),
     ("device_batch_mode", "vmap")])
 def test_trimmed_knobs_raise(knob, value):
@@ -422,6 +425,37 @@ def test_trimmed_knobs_raise(knob, value):
     with params.cmdline_override(knob, value):
         with pytest.raises(exc):
             parsec_tpu_torch.init(nb_cores=1, device="cpu")
+
+
+def test_tune_auto_knob_is_carried():
+    """tune_auto is no longer a trimmed knob: init builds the self-tuning
+    controller (and the live monitor it rides), subscribed to the
+    monitor's window tick and acting on the device module."""
+    from parsec_tpu_torch.tune import Controller
+    with params.cmdline_override("tune_auto", "1"):
+        ctx = parsec_tpu_torch.init(nb_cores=1, device="cpu")
+        try:
+            assert isinstance(ctx.obs.tuner, Controller)
+            assert ctx.obs.live is not None
+            assert ctx.obs.tuner.on_window in ctx.obs.live._subscribers
+            assert ctx.obs.tuner.devices == list(ctx.devices)
+        finally:
+            ctx.fini()
+
+
+def test_serve_knob_is_carried():
+    """serve is no longer a trimmed knob: init builds the live monitor a
+    SessionServer charges each tenant's latency into, and a server opens
+    on the context."""
+    from parsec_tpu_torch.serve import SessionServer
+    with params.cmdline_override("serve", "1"):
+        ctx = parsec_tpu_torch.init(nb_cores=1, device="cpu")
+        try:
+            assert ctx.obs.live is not None and ctx.obs.tuner is None
+            with SessionServer(ctx) as srv:
+                assert ctx.serve_fairness is srv.fairness
+        finally:
+            ctx.fini()
 
 
 def test_comm_mesh_local_knob_is_carried():

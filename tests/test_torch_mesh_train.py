@@ -117,3 +117,110 @@ def _check_step(where: str, sizes: dict, attention: str, stats: int,
         np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=TOL,
                                    atol=TOL)
     assert all(torch.isfinite(a).all() for a in train.tree_leaves(new))
+
+
+#: remat over meshes whose layers hold collectives: the tp psums with
+#: flash attention, the sp ring
+REMAT_MESHES = {"dp2_tp2_flash": ({"dp": 2, "tp": 2}, "flash"),
+                "sp4_ring": ({"sp": 4}, "ring")}
+
+
+@pytest.mark.parametrize("where", WHERE)
+@pytest.mark.parametrize("case", list(REMAT_MESHES))
+def test_remat_step_is_bit_identical_to_no_remat(case, where):
+    """remat on a mesh with collectives inside the layers: each layer is
+    one node over its (tp, sp, ep) group whose backward recomputes every
+    member in its shard.  The loss, every gradient, and the train step's
+    new parameters and Adam state are bit-identical to the same mesh's
+    step without remat.  On the card the recompute launches each layer's
+    forward kernels once more; the backward launches the same kernels."""
+    import dataclasses
+    sizes, attention = REMAT_MESHES[case]
+    cfg = models.TransformerConfig(vocab=96, d_model=64, n_heads=4,
+                                   d_head=16, layers_per_stage=2, d_ff=128,
+                                   seq_len=64, batch=4, attention=attention)
+    host = models.init_params(cfg, 1)
+    rng = np.random.RandomState(2)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 64)))
+    labels = torch.roll(tokens, -1, 1)
+    got = {}
+    with ExitStack() as stack:
+        mesh = _mesh(where, sizes, stack)
+        dev = mesh.device
+        p = models.params_to(host, dev)
+        t, y = tokens.to(dev), labels.to(dev)
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, remat=remat)
+            before = (kernels.flash_stats_launches,
+                      kernels.flash_bwd_launches)
+            lg = _within(STEP_S, lambda: train.value_and_grad(
+                c, p, t, y, mesh=mesh))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = (kernels.flash_stats_launches - before[0],
+                        kernels.flash_bwd_launches - before[1])
+            step = _within(STEP_S, lambda: models.make_train_step(
+                c, mesh, lr=1e-3)(p, models.adam_init(p), tokens, labels))
+            got[remat] = (lg, step, launches)
+    (la, ga), (pa, sa, sla), na = got[False]
+    (lb, gb), (pb, sb, slb), nb = got[True]
+    assert torch.equal(la, lb) and torch.equal(sla, slb)
+    leaves = [[x for tree in trees for x in train.tree_leaves(tree)]
+              for trees in ((ga, pa, sa), (gb, pb, sb))]
+    assert len(leaves[0]) == len(leaves[1])
+    for a, b in zip(*leaves):
+        assert torch.equal(a, b)
+    if where != "cpu":
+        assert nb == (2 * na[0], na[1]) and na[0] > 0
+
+
+@pytest.mark.parametrize("case", list(REMAT_MESHES))
+def test_remat_step_matches_reference(case):
+    """The remat step on the same mesh against the JAX package's
+    ``remat=True`` step (``jax.checkpoint`` in each layer, inside
+    ``shard_map_compat``) on conftest's CPU devices: the loss to 2e-4,
+    every gradient to 1e-3 (rtol and atol), the mesh tests' tolerances.
+    JAX is imported here only, so the card's cases above run without
+    it."""
+    import dataclasses
+
+    import jax
+    from jax.sharding import PartitionSpec as JP
+
+    from parsec_tpu import models as jmodels
+    from parsec_tpu import parallel as jpar
+    from parsec_tpu.models.transformer import loss_shard as jloss_shard
+    sizes, attention = REMAT_MESHES[case]
+    cfg = models.TransformerConfig(vocab=64, d_model=32, n_heads=4,
+                                   d_head=8, layers_per_stage=2, d_ff=64,
+                                   seq_len=32, batch=4, attention=attention,
+                                   remat=True)
+    jcfg = jmodels.TransformerConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+        if f.name != "dtype"})
+    jparams = jmodels.init_params(jcfg, seed=3)
+    rng = np.random.RandomState(7)
+    tokens = rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len)).astype(
+        np.int32)
+    labels = np.roll(tokens, -1, axis=1).astype(np.int32)
+    jmesh = jpar.make_mesh(sizes=sizes, devices=jax.devices("cpu")[:4])
+    pspecs = jmodels.param_specs(jcfg)
+    fn = jpar.shard_map_compat(
+        lambda p, t, y: jax.value_and_grad(
+            lambda pp: jloss_shard(jcfg, pp, t, y))(p),
+        jmesh, in_specs=(pspecs, JP("dp", "sp"), JP("dp", "sp")),
+        out_specs=(JP(), pspecs))
+    ref_loss, ref_grads = jax.jit(fn)(jparams, tokens, labels)
+    params = models.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    mesh = parallel.make_mesh(sizes=sizes, devices=[torch.device("cpu")] * 4)
+    loss, grads = _within(STEP_S, lambda: train.value_and_grad(
+        cfg, params, torch.from_numpy(tokens.astype(np.int64)),
+        torch.from_numpy(labels.astype(np.int64)), mesh=mesh))
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=2e-4)
+    ref = jax.tree.map(np.asarray, ref_grads)
+    got = train.tree_leaves(grads)
+    want = train.tree_leaves(models.params_from_numpy(ref))
+    assert len(got) == len(want)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-3,
+                                   atol=1e-3)
