@@ -112,6 +112,33 @@ Phases, each reporting on its own lines:
             the Q/Q2 scratch bytes); pdgemm, alpha 1.5, beta 0.5, with
             op(A) = A and A^T (4096 device tasks each); then the
             whole-matrix dgetrf, dgesv and dpotri (of dposv's factor);
+5b'. stagec whole-stage compilation (stage_compile=1: each verified
+            stage one recorded CUDA graph, replayed as one chore; every
+            GEMM and SYRK body the GEMM kernel): (1) dpotrf at main's
+            size and input, the factor bit-identical to main's; stages,
+            staged tasks, residue, records, fallbacks (0), the GEMM
+            kernel's launches (the records' warm-ups and captures, the
+            device module's dispatches, which sum to the wrapper's
+            count; the graphs' recorded launches and their replays),
+            record seconds, the last replay's device time, the wall and
+            the peak device memory; (2) a second dpotrf pool on the
+            same context: the cache hits (no new record), the factor
+            identical again; the context's fini then frees the graphs;
+            (3) dposv at dposv's size with the chain on: X
+            bit-identical to phase dposv's, chain links > 0, no chain
+            fallback; (4) and (5) at N = 8192 (cut from 16384 to save
+            time), each factor bit-identical to one chip's interpreted
+            run at that N: (4) dpotrf with stage_compile_exclude=SYRK,
+            residue groups dispatching as bursts between the recorded
+            stages; (5) a 2 x 2 mesh of 4 logical chips, wave-front
+            stages sharded over the chips, the GEMM kernel's recorded
+            launches per chip; under --profile, (2) once more under
+            torch.profiler (path stagec_dpotrf).  The sixth leg runs
+            inside multirank's dposv_2 spawn (stagec.ranks_2): dposv
+            again with the knob, stages on both ranks, X bit-identical
+            to the same spawn's run without it.  After phase capture,
+            [stagec.walls] puts the interpreted, stage-compiled and
+            captured walls of this call side by side;
 5c. dtd     the same tile Cholesky through the DTD front end on phase
             main's input: tile_of(A, (m, n)), POTRF/TRSM/SYRK/GEMM
             inserted in the k loop's order with the tile bodies as CUDA
@@ -394,6 +421,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -840,13 +868,63 @@ def attention_backward(dev: torch.device, cases, g) -> float:
     return worst
 
 
-def synth_spd(n: int, seed: int) -> np.ndarray:
-    """A = (B + B^T)/2 + n I with B uniform in [-0.5, 0.5), in O(n^2)."""
+#: the SPD inputs made (or read) in this process, by (n, seed), newest
+#: last: the phases ask for phase main's again and again, and making one
+#: at N = 16384 takes seconds of host time
+_SPD: dict = {}
+SPD_KEEP = 3
+#: the environment variable naming the directory where the parent
+#: leaves each input its rank processes need (spd_N_SEED.npy)
+SPD_DIR_ENV = "CHIP_SMOKE_SPD_DIR"
+_spd_dir: list = []
+
+
+def synth_spd(n: int, seed: int, copy: bool = True) -> np.ndarray:
+    """A = (B + B^T)/2 + n I with B uniform in [-0.5, 0.5), in O(n^2):
+    a private copy of the one this process keeps (``copy=False``: the
+    kept one, read only), made once, or in a rank process read from
+    the parent's file."""
+    key = (n, seed)
+    a = _SPD.pop(key, None)
+    if a is None:
+        path = os.path.join(os.environ.get(SPD_DIR_ENV, ""),
+                            f"spd_{n}_{seed}.npy")
+        a = np.load(path) if os.environ.get(SPD_DIR_ENV) \
+            and os.path.exists(path) else make_spd(n, seed)
+    _SPD[key] = a
+    while len(_SPD) > SPD_KEEP:
+        _SPD.pop(next(iter(_SPD)))
+    return a.copy() if copy else a
+
+
+def make_spd(n: int, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     b = rng.random((n, n), dtype=np.float32) - np.float32(0.5)
-    a = (b + b.T) * np.float32(0.5)
+    # (b + b^T) / 2 block by block: the same values as the whole-matrix
+    # sum, without its cache-hostile transposed pass
+    a = np.empty_like(b)
+    t = 512
+    for i in range(0, n, t):
+        for j in range(0, n, t):
+            np.add(b[i:i + t, j:j + t], b[j:j + t, i:i + t].T,
+                   out=a[i:i + t, j:j + t])
+    a *= np.float32(0.5)
     a[np.diag_indices(n)] += np.float32(n)
     return a
+
+
+def share_spd(n: int, seed: int) -> dict:
+    """Leave synth_spd(n, seed) in a file for rank processes; returns
+    the environment that points them at it."""
+    import atexit
+    if not _spd_dir:
+        _spd_dir.append(tempfile.mkdtemp(prefix="chip_smoke_spd_"))
+        atexit.register(shutil.rmtree, _spd_dir[0], True)
+    path = os.path.join(_spd_dir[0], f"spd_{n}_{seed}.npy")
+    if not os.path.exists(path):
+        np.save(path + ".part.npy", synth_spd(n, seed, copy=False))
+        os.replace(path + ".part.npy", path)
+    return {SPD_DIR_ENV: _spd_dir[0]}
 
 
 def synth_dominant(n: int, seed: int) -> np.ndarray:
@@ -1004,6 +1082,11 @@ def report(phase: str, st: dict, seconds: float, flops: float, tasks: int,
     check(resid < tol, f"{phase}: residual {resid} >= {tol}")
 
 
+#: walls of this call, host clock: the interpreted, stage-compiled and
+#: captured dpotrf and dposv ([stagec.walls], after phase capture)
+WALLS: dict = {}
+
+
 def phase_main(seed: int, n: int = N_MAIN, nb: int = NB_MAIN):
     """Drive dpotrf at full size; returns the kernel's launches and the
     factor."""
@@ -1011,6 +1094,7 @@ def phase_main(seed: int, n: int = N_MAIN, nb: int = NB_MAIN):
     M = synth_spd(n, seed)
     reset_counts()
     L, st, seconds = run_dpotrf(M, nb)
+    WALLS["dpotrf_interpreted"] = seconds
     launches = kernels.matmul_launches
     nt = st["nt"]
     # GEMM and SYRK tasks, each one z-slice of a GEMM launch
@@ -1032,6 +1116,7 @@ def phase_dposv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
     A, B = tiled(M, nb), tiled(Bm, nb)
     reset_counts()
     st, seconds, (L, X) = drive(lambda ctx: ptt.ops.dposv(ctx, A, B), [A, B])
+    WALLS["dposv_interpreted"] = seconds
     launches = kernels.matmul_launches
     mt, nt = A.mt, B.nt
     solve = mt * nt + mt * (mt - 1) // 2 * nt
@@ -1041,6 +1126,347 @@ def phase_dposv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
            + mt * (mt - 1) * nt, launches,
            solve_residual(M, X, Bm, seed), RESID_TOL, n=n, nb=nb, nrhs=nrhs)
     return launches, np.tril(L), X
+
+
+# ---------------------------------------------------------------------- #
+# stagec: whole-stage compilation, each stage one recorded CUDA graph    #
+# ---------------------------------------------------------------------- #
+STAGEC_EXCLUDE = "SYRK"   # (4): the device class left to the residue
+STAGEC_CUT_N = 8192       # (4) and (5): their N, cut from N_MAIN
+#: the multirank spawns whose ranks run dposv once more with the knob on
+STAGEC_IN_SPAWNS = ("dposv_2",)
+
+
+def stagec_programs(pools) -> list:
+    """Every stage of ``pools``' compilers, with its program's facts."""
+    return [row for tp in pools if getattr(tp, "_stagec", None) is not None
+            for row in tp._stagec.program_report()]
+
+
+def stagec_launches(rows, prev=None) -> dict:
+    """The GEMM kernel's launches of the stages' programs in this run:
+    ``warmup`` and ``captured``, those of the records made in it (each
+    counted once through the wrapper: a warm-up ran them, a capture only
+    recorded them), ``recorded`` (what the graphs hold), their
+    ``replays`` and the launches those replays ran (recorded x replays,
+    per program; a replay counts nothing).  ``prev``: the rows of an
+    earlier run of the same programs (a cache hit), whose records and
+    replays are not this run's."""
+    before = {r["stage"]: r for r in (prev or ()) if "replays" in r}
+    warm, cap, rec, reps, ran = 0, 0, 0, 0, 0
+    for r in rows:
+        if "captured_gemm_launches" not in r:
+            continue
+        p = before.get(r["stage"], {})
+        k = r["replays"] - p.get("replays", 0)
+        warm += r["warmup_gemm_launches"] - p.get("warmup_gemm_launches", 0)
+        cap += (r["captured_gemm_launches"]
+                - p.get("captured_gemm_launches", 0))
+        rec += r["captured_gemm_launches"]
+        reps += k
+        ran += r["captured_gemm_launches"] * k
+    return dict(warmup=warm, captured=cap, recorded=rec, replays=reps,
+                replayed_launches=ran)
+
+
+def stagec_account(name: str, lc: dict, counter: int,
+                   dispatched: int) -> int:
+    """Checks that the wrapper's count in one leg is the records'
+    warm-ups and captures plus the launches of the device module's
+    dispatches (residue bursts; a stage's replay adds none), and returns
+    the launches that ran through the wrapper: warm-ups and dispatches."""
+    check(counter == lc["warmup"] + lc["captured"] + dispatched,
+          f"{name}: the wrapper counted {counter} GEMM launches, not the "
+          f"records' {lc['warmup']} warm-up + {lc['captured']} captured "
+          f"+ {dispatched} dispatched")
+    return lc["warmup"] + dispatched
+
+
+def stagec_line(phase: str, st: dict, rows: list, seconds: float,
+                peak: int, lc: dict, dispatched: int, **extra) -> None:
+    facts = [r for r in rows if "record_seconds" in r]
+    last = [r["replay_ms"] for r in facts if r["replay_ms"] is not None]
+    log(phase, stages=len(rows), stage_tasks=st["stage_tasks"],
+        stage_compiles=st["stage_compiles"],
+        stage_fallbacks=st["stage_fallbacks"],
+        stage_dispatches=st["stage_dispatches"],
+        stage_sharded=st["stage_sharded"],
+        chain_links=st["chain_links"],
+        chain_fallbacks=st["chain_fallbacks"],
+        residue_batches=st["residue_batches"],
+        residue_batch_tasks=st["residue_batch_tasks"],
+        prestage_issued=st["prestage_issued"],
+        prestage_hits=st["prestage_hits"],
+        warmup_launches=lc["warmup"], captured_launches=lc["captured"],
+        dispatched_launches=dispatched, recorded=lc["recorded"],
+        replays=lc["replays"], replayed_launches=lc["replayed_launches"],
+        record_seconds=f"{sum(r['record_seconds'] for r in facts):.4f}",
+        replay_device_ms=f"{sum(last):.3f}",
+        seconds=f"{seconds:.4f}", peak_mem_gb=f"{peak / 1e9:.3f}", **extra)
+    check(st["stage_fallbacks"] == 0 and st["chain_fallbacks"] == 0,
+          f"{phase}: {st['stage_fallbacks']} stage and "
+          f"{st['chain_fallbacks']} chain fallbacks")
+
+
+def stagec_pools(ctx, pools, **kn):
+    """Add and wait for ``pools`` on ``ctx`` (the stages' knobs set),
+    timed from submission to torch.cuda.synchronize(); returns the
+    seconds and the peak device memory of the run."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for tp in pools:
+        ctx.add_taskpool(tp)
+        ctx.wait()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def phase_stagec(seed: int, L_main: np.ndarray, X_dposv: np.ndarray,
+                 n: int = N_MAIN, nb: int = NB_MAIN, nrhs: int = NRHS,
+                 profile: bool = False) -> tuple:
+    """Legs (1) to (5) of whole-stage compilation (see the module's
+    docstring); returns the GEMM kernel's launches through its wrapper
+    by leg (the records' warm-ups and the residue's dispatches), and by
+    leg the graphs' recorded launches, replays and the launches those
+    replays ran."""
+    import gc
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.devices.batching import live_stage_entries
+    from parsec_tpu_torch.ops import kernels
+    launches, graphs = {}, {}
+    nt = n // nb
+    tasks = nt * (nt + 1) * (nt + 2) // 6
+    M = synth_spd(n, seed)
+    # (1) and (2): two dpotrf pools on one context, the second a cache hit
+    with knobs({"stage_compile": "1"}):
+        ctx = ptt.init(nb_cores=4)
+        try:
+            dev = ctx.device_by_type("cuda")
+            prev = None
+            for leg in (1, 2):
+                A = tiled(M, nb)
+                tp = ptt.ops.dpotrf_taskpool(A)
+                before = dict(ctx.stage_stats)
+                entries = live_stage_entries()
+                reset_counts()
+                d0 = dev.gemm_launches
+                if leg == 2 and profile:
+                    from torch.profiler import ProfilerActivity
+                    from torch.profiler import profile as tprof
+                    with tprof(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                        seconds, peak = stagec_pools(ctx, [tp])
+                    profile_report("stagec_dpotrf", prof, seconds)
+                else:
+                    seconds, peak = stagec_pools(ctx, [tp])
+                counter, dispatched = (kernels.matmul_launches,
+                                       dev.gemm_launches - d0)
+                st = {k: v - before[k] for k, v in ctx.stage_stats.items()}
+                rows = stagec_programs([tp])
+                plan = tp._stagec.plan
+                L = np.tril(A.to_numpy())
+                same = bool(np.array_equal(L, L_main))
+                del A, L
+                name = "stagec.dpotrf" if leg == 1 else "stagec.dpotrf_again"
+                WALLS[f"dpotrf_stagec_{leg}"] = seconds
+                lc = stagec_launches(rows, prev)
+                stagec_line(name, st, rows, seconds, peak, lc, dispatched,
+                            n=n, nb=nb, tasks=tasks, staged=plan.n_staged,
+                            residue=plan.n_residue,
+                            new_cache_entries=live_stage_entries() - entries,
+                            identical=same)
+                check(same, f"{name}: the factor is not bit-identical to "
+                            f"phase main's")
+                check(st["stage_tasks"] == tasks,
+                      f"{name}: {st['stage_tasks']} of {tasks} tasks staged")
+                check(lc["recorded"] > 0 and lc["replays"] > 0,
+                      f"{name}: graphs recorded {lc['recorded']} GEMM "
+                      f"launches, replayed {lc['replays']} times")
+                if leg == 1:
+                    check(st["stage_compiles"] > 0 and lc["warmup"] > 0,
+                          f"{name}: {st['stage_compiles']} records, the "
+                          f"warm-ups launched the GEMM kernel "
+                          f"{lc['warmup']} times")
+                else:
+                    check(st["stage_compiles"] == 0
+                          and live_stage_entries() == entries,
+                          f"{name}: the second pool recorded "
+                          f"{st['stage_compiles']} stages (a cache miss)")
+                launches[f"stagec_dpotrf_{leg}"] = stagec_account(
+                    name, lc, counter, dispatched)
+                graphs[f"stagec_dpotrf_{leg}"] = lc
+                prev = rows
+                del tp, plan
+            # the context's fini drops the programs and plans it used:
+            # the graphs' memory pools and static slots go with them
+            gc.collect()
+            held, entries = torch.cuda.memory_allocated(), live_stage_entries()
+        finally:
+            ctx.fini()
+    del dev, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = held - torch.cuda.memory_allocated()
+    log("stagec.cache", entries=entries, left=live_stage_entries(),
+        held_gb=f"{held / 1e9:.3f}", freed_gb=f"{freed / 1e9:.3f}")
+    check(entries > 0 and live_stage_entries() == 0 and freed > 0,
+          f"stagec.cache: fini left {live_stage_entries()} of {entries} "
+          f"entries, freed {freed} of {held} bytes")
+    # (3) dposv with the chain on, through ops.dposv
+    Bm = uniform(n, nrhs, seed=seed + 10)
+    A, B = tiled(M, nb), tiled(Bm, nb)
+    with knobs({"stage_compile": "1", "stage_compile_chain": "1"}):
+        ctx = ptt.init(nb_cores=4)
+        try:
+            dev = ctx.device_by_type("cuda")
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ptt.ops.dposv(ctx, A, B)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counter, dispatched = kernels.matmul_launches, dev.gemm_launches
+            st = dict(ctx.stage_stats)
+            chain = ctx._stage_chain
+            rows = stagec_programs(chain._keep if chain is not None else [])
+            rejects = list(chain.rejects) if chain is not None else []
+            X = B.to_numpy()
+        finally:
+            ctx.fini()
+    same = bool(np.array_equal(X, X_dposv))
+    WALLS["dposv_stagec"] = seconds
+    lc = stagec_launches(rows)
+    stagec_line("stagec.dposv", st, rows, seconds, peak, lc, dispatched,
+                n=n, nb=nb, nrhs=nrhs, rejects=len(rejects), identical=same)
+    check(same, "stagec.dposv: X is not bit-identical to phase dposv's")
+    check(st["chain_links"] > 0, f"stagec.dposv: the chain did not engage "
+                                 f"({rejects})")
+    check(lc["recorded"] > 0 and lc["replays"] > 0 and lc["warmup"] > 0,
+          f"stagec.dposv: {lc}")
+    launches["stagec_dposv"] = stagec_account("stagec.dposv", lc, counter,
+                                              dispatched)
+    graphs["stagec_dposv"] = lc
+    del A, B, X, rows, M
+    # (4) and (5) at N cut to STAGEC_CUT_N, held against one chip's
+    # interpreted factor of the same matrix
+    nm = STAGEC_CUT_N
+    ntm = nm // nb
+    tasks_m = ntm * (ntm + 1) * (ntm + 2) // 6
+    Mm = synth_spd(nm, seed + 30)
+    reset_counts()
+    L1, _st1, one_chip_s = run_dpotrf(Mm, nb)
+    # (4) residue-heavy: SYRK left to the residue, as bursts
+    A = tiled(Mm, nb)
+    with knobs({"stage_compile": "1",
+                "stage_compile_exclude": STAGEC_EXCLUDE}):
+        ctx = ptt.init(nb_cores=4)
+        try:
+            dev = ctx.device_by_type("cuda")
+            tp = ptt.ops.dpotrf_taskpool(A)
+            reset_counts()
+            seconds, peak = stagec_pools(ctx, [tp])
+            counter, dispatched = kernels.matmul_launches, dev.gemm_launches
+            st = dict(ctx.stage_stats)
+            rows = stagec_programs([tp])
+            plan = tp._stagec.plan
+            dev_tasks = dev.stats["tasks"]
+            L = np.tril(A.to_numpy())
+        finally:
+            ctx.fini()
+    same = bool(np.array_equal(L, L1))
+    lc = stagec_launches(rows)
+    stagec_line("stagec.residue", st, rows, seconds, peak, lc, dispatched,
+                n=nm, nb=nb, exclude=STAGEC_EXCLUDE, staged=plan.n_staged,
+                residue=plan.n_residue,
+                residue_groups=len(plan.residue_groups),
+                device_tasks=dev_tasks, identical_to_one_chip=same)
+    check(same, "stagec.residue: the factor is not bit-identical to the "
+                "interpreted one")
+    check(st["residue_batches"] > 0 and plan.n_residue > 0
+          and st["stage_tasks"] + plan.n_residue == tasks_m
+          and dev_tasks == tasks_m,
+          f"stagec.residue: {st['residue_batches']} bursts, "
+          f"{plan.n_residue} residue, {dev_tasks} device tasks of "
+          f"{tasks_m}")
+    check(lc["recorded"] > 0 and lc["replays"] > 0 and dispatched > 0,
+          f"stagec.residue: {lc} and {dispatched} dispatched launches")
+    launches["stagec_residue"] = stagec_account("stagec.residue", lc,
+                                                counter, dispatched)
+    graphs["stagec_residue"] = lc
+    del A, L, rows, plan, tp
+    # (5) a 2 x 2 mesh of logical chips
+    A = tiled(Mm, nb)
+    with knobs({"stage_compile": "1", "device_mesh_shape": MESH_SHAPE,
+                "device_cuda_virtual_chips": MESH_CHIPS}):
+        ctx = ptt.init(nb_cores=4)
+        try:
+            dev = ctx.device_by_type("cuda")
+            tp = ptt.ops.dpotrf_taskpool(A)
+            reset_counts()
+            seconds, peak = stagec_pools(ctx, [tp])
+            counter, dispatched = kernels.matmul_launches, dev.gemm_launches
+            st = dict(ctx.stage_stats)
+            rows = stagec_programs([tp])
+            device_name = dev.name
+            moves = dev.stats["mesh_moves"]
+            L = np.tril(A.to_numpy())
+        finally:
+            ctx.fini()
+    same = bool(np.array_equal(L, L1))
+    per_chip = [0] * MESH_CHIPS
+    for r in rows:
+        for c, k in enumerate(r.get("captured_per_chip") or ()):
+            per_chip[c] += k * r["replays"]
+    lc = stagec_launches(rows)
+    stagec_line("stagec.mesh", st, rows, seconds, peak, lc, dispatched,
+                n=nm, nb=nb, shape=MESH_SHAPE, chips=MESH_CHIPS,
+                device=device_name,
+                sharded_stages=sum(1 for r in rows if r.get("sharded")),
+                sharded_gemm_launches_by_chip="/".join(map(str, per_chip)),
+                mesh_moves=moves, one_chip_seconds=f"{one_chip_s:.4f}",
+                identical_to_one_chip=same)
+    check(device_name == "cuda:mesh2x2", f"stagec.mesh: ran on {device_name}")
+    check(st["stage_sharded"] > 0 and all(k > 0 for k in per_chip),
+          f"stagec.mesh: {st['stage_sharded']} sharded dispatches, GEMM "
+          f"launches by chip {per_chip}")
+    check(st["stage_tasks"] == tasks_m,
+          f"stagec.mesh: {st['stage_tasks']} tasks staged")
+    check(same, "stagec.mesh: the factor is not bit-identical to one "
+                "chip's")
+    launches["stagec_mesh"] = stagec_account("stagec.mesh", lc, counter,
+                                             dispatched)
+    graphs["stagec_mesh"] = dict(lc, sharded_by_chip=per_chip)
+    return launches, graphs
+
+
+def rank_stagec(ctx, args, B_ref) -> dict:
+    """Leg (6) of phase stagec, inside a multirank spawn: this rank's
+    share of dposv once more on fresh inputs with stage_compile on; X
+    (its B tiles) against the same spawn's run without it."""
+    import parsec_tpu_torch as ptt
+    nb_ranks, (P, Q), PB, _ = MULTIRANK_RUNS[args.run]
+    rank = ctx.rank
+    A, B = rank_inputs(args, rank, nb_ranks, (P, Q), PB)
+    before = dict(ctx.stage_stats)
+    ctx.comm.ce.sync()
+    with knobs({"stage_compile": "1"}):
+        t0 = time.perf_counter()
+        ptt.ops.dposv(ctx, A, B, rank=rank, nb_ranks=nb_ranks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    st = {k: v - before[k] for k, v in ctx.stage_stats.items()}
+    same = all(np.array_equal(
+        np.asarray(B.data_of(*c).sync_to_host(ctx.devices).payload),
+        np.asarray(B_ref.data_of(*c).sync_to_host(ctx.devices).payload))
+        for c in B.tiles() if B.rank_of(*c) == rank)
+    rejects = (len(ctx._stage_chain.rejects)
+               if ctx._stage_chain is not None else 0)
+    return dict(wall=wall, identical=bool(same), chain_rejects=rejects,
+                **{k: st[k] for k in ("stage_tasks", "stage_compiles",
+                                      "stage_fallbacks", "chain_links",
+                                      "chain_fallbacks", "stage_dispatches",
+                                      "residue_batches")})
 
 
 # ---------------------------------------------------------------------- #
@@ -1328,15 +1754,9 @@ def local_cuda_tasks(pools, rank: int, cuda_only: bool = True) -> int:
 
 #: the input matrix inside a rank process, synthesised once: its dposv
 #: and its distributed wave read the same one
-_rank_matrix: dict = {}
-
-
 def rank_matrix(n: int, seed: int) -> np.ndarray:
-    M = _rank_matrix.get((n, seed))
-    if M is None:
-        _rank_matrix.clear()
-        M = _rank_matrix[(n, seed)] = synth_spd(n, seed)
-    return M
+    """synth_spd(n, seed) as this rank process keeps it (read only)."""
+    return synth_spd(n, seed, copy=False)
 
 
 def rank_inputs(args, rank: int, nb_ranks: int, grid, PB: int):
@@ -1494,6 +1914,8 @@ def rank_dposv(ctx, args, plane: bool) -> dict:
                    plane_bytes=dp.stats["bytes_pulled"],
                    leaked_parks=dp.leaked_parks,
                    plane_backend=dp.backend_name)
+    if args.run in STAGEC_IN_SPAWNS:
+        out["stagec"] = rank_stagec(ctx, args, B)
     if args.run in REDIST_RUNS:
         out["redist"] = rank_redist(ctx, args, A, dp)
         if dp is not None:
@@ -2239,6 +2661,7 @@ def spawn_ranks(run: str, nb_ranks: int, seed: int, out_dir: str,
     a comm engine.  Returns each rank's JSON record."""
     from parsec_tpu_torch.comm import free_ports
     ports = free_ports(nb_ranks + 1)
+    shared = share_spd(n, seed)
     procs = []
     for r in range(nb_ranks):
         env = {k: v for k, v in os.environ.items()
@@ -2253,6 +2676,7 @@ def spawn_ranks(run: str, nb_ranks: int, seed: int, out_dir: str,
             env.update(PARSEC_MCA_dist_coordinator=f"127.0.0.1:{ports[-1]}",
                        PARSEC_MCA_dist_num_processes=str(nb_ranks),
                        PARSEC_MCA_dist_process_id=str(r))
+        env.update(shared)
         env.update(extra_env or {})
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
@@ -2479,6 +2903,16 @@ def phase_multirank(seed: int, factor: np.ndarray, X1: np.ndarray,
         check(same_L and same_X, f"{run}: factor identical {same_L}, X "
                                  f"identical {same_X} to one rank's")
         launches[run] = [r["matmul_launches"] for r in recs]
+        if run in STAGEC_IN_SPAWNS:
+            for r in recs:
+                sc = r["stagec"]
+                log(f"stagec.ranks_{nb_ranks}", run=run, rank=r["rank"],
+                    wall=f"{sc['wall']:.4f}", **{k: v for k, v in sc.items()
+                                                 if k != "wall"})
+                check(sc["stage_tasks"] > 0 and sc["identical"]
+                      and sc["stage_fallbacks"] == 0
+                      and sc["chain_fallbacks"] == 0,
+                      f"stagec.ranks_{nb_ranks}: rank {r['rank']}: {sc}")
     recs = spawn_ranks("dtd_chain_2", 2, seed, tempfile.gettempdir(), n, nb,
                        nrhs)
     for r in recs:
@@ -4154,6 +4588,7 @@ def phase_capture(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
     cg = ptg.capture(ptt.ops.dpotrf_taskpool(A))
     cg.record()
     runs = [run_graph(cg)]
+    WALLS["dpotrf_captured"] = runs[0][0]
     L0 = np.tril(A.to_numpy())
     same = bool(np.array_equal(L0, L_ptg))
     M2 = synth_spd(n, seed + 20)
@@ -4179,6 +4614,7 @@ def phase_capture(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
                                dtrsm_lower_trans_taskpool(A, B)])
     cg.record()
     runs = [run_graph(cg)]
+    WALLS["dposv_captured"] = runs[0][0]
     mt, rt = A.mt, B.nt
     # each substitution: its TRSM and GEMM tasks, and a host task reading
     # each tile of the factor
@@ -5409,8 +5845,14 @@ def main(argv=None) -> int:
 
     kind = phase_device()
     dev = torch.device("cuda", 0)
+    # phase main's input, made while nvcc builds the kernels in processes
+    # of its own; the phases take copies of it
+    prep = threading.Thread(target=synth_spd,
+                            args=(N_MAIN, args.seed, False))
+    prep.start()
     with phase_clock("build"):
         phase_build()
+    prep.join()
     with phase_clock("kernel"):
         gemm_err = phase_kernel(dev, args.seed)
     with phase_clock("attention"):
@@ -5442,6 +5884,13 @@ def main(argv=None) -> int:
         gemm_launches["dgeqrf"], QR = phase_geqrf(args.seed)
         gemm_launches["pdgemm"], C_nn = phase_pdgemm(args.seed)
         phase_dense(dev, args.seed, factor)
+    # recorded stage graphs' launches and replays, apart (as capture's)
+    graph_launches = {}
+    with phase_clock("stagec"):
+        launches, graphs = phase_stagec(args.seed, L_ptg, X_dposv,
+                                        profile=args.profile)
+    gemm_launches.update(launches)
+    graph_launches.update(graphs)
     with phase_clock("wave_dist"):
         wave_dist = phase_wave_dist(args.seed, L_ptg, profile=args.profile)
         for run, per_rank in wave_dist.items():
@@ -5493,12 +5942,12 @@ def main(argv=None) -> int:
     # a captured path's entry counts the warm-up's launches, which ran
     # through the wrapper; its graph's recorded launches and replays are
     # kept apart, under graph_launches
-    graph_launches = {}
     with phase_clock("capture"):
         launches, graphs = phase_capture(args.seed, L_ptg)
     for routine in launches:
         gemm_launches[f"capture_{routine}"] = launches[routine]
         graph_launches[f"capture_{routine}"] = graphs[routine]
+    log("stagec.walls", **{k: f"{v:.4f}" for k, v in WALLS.items()})
     del L_ptg
     with phase_clock("dtd_capture"):
         gemm_launches["dtd_capture"], graph_launches["dtd_capture"] = \

@@ -25,10 +25,10 @@ Finding codes (BDY2xx, the JAX package's numbering):
   unseeded random stream — grouped dispatches lose the bit-exact
   batched-vs-per-task guarantee.
 - ``BDY204`` aliased-args (note): two flows of one class read the same
-  memory tile, so one device buffer sits at two argument slots. Buffer
-  donation, which the JAX package suppresses for such a dispatch, is
-  refused outright by this package (``device_donate`` raises), so the
-  finding is informational.
+  memory tile, so one device buffer sits at two argument slots. The
+  stage compiler (stagec/runtime.py) keeps donation off for every stage
+  holding such a class (``stage_compile_donate``); per-task donation is
+  refused outright by this package (``device_donate`` raises).
 - ``BDY205`` missing-write (warn): a device body never assigns one of
   its written (RW/WRITE) flow names — the staged-out "result" is the
   unmodified input.
@@ -208,8 +208,8 @@ def check_jdf_bodies(jdf: JDFFile, name: Optional[str] = None
                 "BDY204",
                 f"{tc.name}: flows {fa!r} and {fb!r} read the same tile "
                 f"{tile} — one device buffer sits at two argument slots "
-                f"(buffer donation, which the JAX package suppresses "
-                f"here, is refused by this package: device_donate "
+                f"(compiled stages holding this class do not donate; "
+                f"per-task donation is refused: device_donate "
                 f"raises)", f"{name} {tc.name}", severity="note"))
         for b in tc.bodies:
             if b.device_type != DEVICE_TYPE:

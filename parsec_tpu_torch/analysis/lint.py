@@ -11,10 +11,13 @@
 Default targets: the specs of ``parsec_tpu_torch/ops`` and
 ``parsec_tpu_torch/collections``, and the whole ``parsec_tpu_torch/``
 tree for the concurrency pass. ``--strict`` exits non-zero on any
-error/warn finding::
+error/warn finding; ``--lower-report`` prints the stage compiler's
+verdicts instead (stagec/: per class, per stage, per chain boundary)
+and exits 0::
 
     python -m parsec_tpu_torch.analysis --strict
     python -m parsec_tpu_torch.analysis path/to/specs.py --no-cycles
+    python -m parsec_tpu_torch.analysis --lower-report
 """
 from __future__ import annotations
 
@@ -137,6 +140,126 @@ def run(paths: List[str], cycles: bool = True,
     return findings
 
 
+def _toy_taskpool(text: str, name: str, shared_colls: Dict[str, Any]):
+    """A small concrete instantiation of one spec for per-stage
+    planning (the cycle pass's enumeration env): int globals bind to the
+    tile count, collection globals bind to dummy 4x4 holders SHARED by
+    name across the file's specs — the chain planner proves dataflow
+    by collection IDENTITY, exactly as sequential pools share real
+    collections (dpotrf's descA is dtrsm's descL)."""
+    from ..dsl import ptg
+    from .dagenum import _DummyCollection
+    factory = ptg.compile_jdf(text, name=name)
+    env = ptg_check.default_enum_env(factory.jdf)
+    for g in factory.jdf.globals:
+        if g.properties.get("type") == "collection":
+            env[g.name] = shared_colls.setdefault(
+                g.name, _DummyCollection(4, 4))
+    return factory.new(**env)
+
+
+def _prepared_toy_plan(tp):
+    """plan_stages + layouts for the chain verdicts (the runtime's
+    prepared_plan without its cache: toy pools are throwaway)."""
+    from ..stagec.lower import build_layout
+    from ..stagec.plan import plan_stages
+    plan = plan_stages(tp)
+    for stage in plan.stages:
+        plan.prepared.append((stage, build_layout(tp, plan, stage), 0))
+    return plan
+
+
+def lower_report_main(paths: List[str], quiet: bool = False) -> int:
+    """``--lower-report``: the stage compiler's verdicts (stagec/plan —
+    the SAME passes the runtime partitions with, so what this prints is
+    what ``stage_compile`` will and won't fuse) over every ``*_JDF``
+    spec in the targets:
+
+    - per-CLASS lowerability (compilable / fallback + the reason);
+    - per-STAGE partition of a small concrete instantiation (stage
+      sizes, level spans, class mix, residue split + pre-planned
+      residue groups);
+    - for files holding several specs, the CHAIN verdict of each
+      consecutive pair — fusable, or the reason two pools fail to fuse
+      (stagec/chain.boundary_verdict).
+
+    Exit 0 always: the report is informational — residue classes run
+    interpreted, unchained pools hand tiles over between pools; neither
+    is an error."""
+    from ..dsl.ptg.parser import JDFParseError, parse_jdf
+    from ..stagec.chain import _stage_verdict, boundary_verdict
+    from ..stagec.plan import lower_report, stage_report
+
+    files, _lock_targets = collect_targets(paths)
+    n_specs = 0
+    for path in files:
+        rel = os.path.relpath(path, _ROOT) if path.startswith(_ROOT) \
+            else path
+        shared_colls: Dict[str, Any] = {}
+        planned = []   # [(spec_name, tp, StagePlan)] for chain verdicts
+        for spec_name, _lineno, text in find_jdf_specs(path):
+            n_specs += 1
+            text = _rendered(text)
+            try:
+                jdf = parse_jdf(text, name=f"{rel}:{spec_name}")
+            except (JDFParseError, SyntaxError) as exc:
+                print(f"{rel}:{spec_name}: unparseable ({exc})")
+                continue
+            for line in lower_report(jdf):
+                print(line)
+            try:
+                tp = _toy_taskpool(text, spec_name, shared_colls)
+                plan = _prepared_toy_plan(tp)
+                for line in stage_report(tp, plan=plan):
+                    print(line)
+                planned.append((spec_name, tp, plan))
+            except Exception as exc:  # noqa: BLE001 - informational
+                print(f"  (stage partition not enumerable: "
+                      f"{type(exc).__name__}: {exc})")
+        # chain verdicts over consecutive specs of the same file (the
+        # declared-sequence analog: dtrsm.py's FWD ; BWD), walking the
+        # SAME cumulative segments declare_chain builds — a boundary is
+        # proven against every pool already fused into the segment, so
+        # the report cannot claim a cascade the runtime would reject
+        seg = []   # [(tp, plan, fused member-key set)], host first
+        for (na, tpa, pa), (nb_, tpb, pb) in zip(planned, planned[1:]):
+            if not seg:
+                if pa is None or not pa.stages:
+                    print(f"  chain {na} -> {nb_}: rejected — no "
+                          f"compilable final stage in the earlier pool")
+                    continue
+                seg = [(tpa, pa, set(pa.stages[-1].member_keys))]
+            reason = boundary_verdict(seg, tpb, pb)
+            if reason is not None:
+                print(f"  chain {na} -> {nb_}: rejected — {reason}")
+                seg = []
+                continue
+            # walk the fusable stage PREFIX exactly like declare_chain:
+            # stage 0 memory-fed, later stages bound to already-fused
+            # producers
+            fused_b, eavail_b = set(), set()
+            n_fused = 0
+            for (stage_k, layout_k, _prio) in pb.prepared:
+                if n_fused:
+                    v = _stage_verdict(seg, tpb, pb, stage_k, layout_k,
+                                       fused_b, eavail_b)
+                    if isinstance(v, str):
+                        break
+                n_fused += 1
+                fused_b |= stage_k.member_keys
+                eavail_b.update(layout_k.edge_outs)
+            print(f"  chain {na} -> {nb_}: fusable ({n_fused}/"
+                  f"{len(pb.stages)} stage(s) in-program)")
+            if n_fused == len(pb.stages):
+                seg.append((tpb, pb, fused_b))
+            else:
+                seg = []   # segment ends; the next pool hosts anew
+    if not quiet:
+        print(f"parsec_tpu_torch.analysis --lower-report: {n_specs} "
+              f"spec(s)")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m parsec_tpu_torch.analysis",
@@ -152,9 +275,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="skip the (slower) cycle-enumeration pass")
     ap.add_argument("--no-locks", action="store_true",
                     help="skip the concurrency lint")
+    ap.add_argument("--lower-report", action="store_true",
+                    help="stage-compile lowerability report (stagec/): "
+                         "per class compilable / fallback + the "
+                         "BDY2xx/PTG1xx/STG3xx reason, the per-stage "
+                         "partition of a toy instance, and the chain "
+                         "verdict of consecutive specs; exits 0")
     ap.add_argument("-q", "--quiet", action="store_true",
                     help="findings only, no summary")
     args = ap.parse_args(argv)
+    if args.lower_report:
+        return lower_report_main(args.paths, quiet=args.quiet)
     findings = run(args.paths, cycles=not args.no_cycles,
                    locks=not args.no_locks)
     for f in findings:

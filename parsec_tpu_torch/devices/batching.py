@@ -40,11 +40,14 @@ stacked path, so the results are bit-identical to it.
 """
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["DeviceBatchSpec", "ShardedCallable", "bucket_size",
-           "cached_sharded_callable", "segment_plan", "stacked_call"]
+__all__ = ["DeviceBatchSpec", "ShardedCallable", "STAGE_FAILED",
+           "bucket_size", "cached_sharded_callable", "cached_stage_callable",
+           "clear_stage_cache", "live_stage_entries",
+           "release_stage_entries", "segment_plan", "stacked_call"]
 
 
 class DeviceBatchSpec:
@@ -183,3 +186,133 @@ def cached_sharded_callable(spec: DeviceBatchSpec, n: int, nargs: int,
         fn = ShardedCallable(spec, static, n, mesh)
         cache[key] = fn
     return fn
+
+
+#: the stage compiler's failure sentinel: a stage signature whose record
+#: already failed — the next taskpool over the same spec downgrades that
+#: stage at once instead of recording the known failure again
+STAGE_FAILED = object()
+
+
+class _SpecStageCache:
+    """The stage cache of ONE parsed spec: token -> key -> entry (a
+    stage's recorded program, its plan, or :data:`STAGE_FAILED`).  It
+    lives ON the spec object (``jdf._ptt_stage_cache``), so it goes
+    when the spec goes: the plan it caches references the spec back, a
+    cycle the collector frees once nothing else holds the spec.  An
+    entry fetched with an ``owner`` (a recorded program: a CUDA graph,
+    its static buffers and its private memory pool; a plan, which keeps
+    its first pool's classes and collections) also goes when the last
+    context that fetched it finishes (``release_stage_entries``): the
+    specs of the ops live as long as the process, and the memory their
+    entries hold must not."""
+
+    __slots__ = ("entries", "owners", "building", "__weakref__")
+
+    def __init__(self) -> None:
+        self.entries: Dict[Any, Dict[Any, Any]] = {}
+        #: (token, key) -> ids of the live contexts holding the entry
+        self.owners: Dict[Tuple, set] = {}
+        #: (token, key) -> the event its builder sets when done
+        self.building: Dict[Tuple, threading.Event] = {}
+
+
+_stage_cache_lock = threading.Lock()
+
+#: every live per-spec stage cache (introspection: live_stage_entries)
+_live_stage_caches: "weakref.WeakSet[_SpecStageCache]" = weakref.WeakSet()
+
+#: id(context) -> the (cache, token, key) entries that context holds
+_owned_entries: Dict[int, List[Tuple[Any, Any, Any]]] = {}
+
+_MISSING = object()
+
+
+def _own(cache: _SpecStageCache, tok: Any, key: Any, owner: Any) -> None:
+    """Note ``owner``'s hold on an entry (under ``_stage_cache_lock``)."""
+    ids = cache.owners.setdefault((tok, key), set())
+    if id(owner) not in ids:
+        ids.add(id(owner))
+        _owned_entries.setdefault(id(owner), []).append(
+            (weakref.ref(cache), tok, key))
+
+
+def cached_stage_callable(token: Any, key: Any, build: Callable,
+                          owner: Any = None) -> Any:
+    """Fetch-or-build one stage's program (or plan) under ``token``, the
+    spec token of stagec/lower.spec_token: its first element wraps the
+    parsed spec (``.obj``), on which the cache lives.  ``build`` runs
+    once per (token, key), also when several threads ask at once (the
+    others wait for it); whatever it returns (the failure sentinel
+    included) is returned to every later caller.  With ``owner`` (a
+    context) the entry is held for that context until
+    :func:`release_stage_entries` is called with it."""
+    spec = token[0].obj
+    tok = token[1:]
+    while True:
+        with _stage_cache_lock:   # rank threads may share one spec
+            cache = getattr(spec, "_ptt_stage_cache", None)
+            if cache is None:
+                cache = _SpecStageCache()
+                spec._ptt_stage_cache = cache
+                _live_stage_caches.add(cache)
+            fn = cache.entries.setdefault(tok, {}).get(key, _MISSING)
+            if fn is not _MISSING:
+                if owner is not None:
+                    _own(cache, tok, key, owner)
+                return fn
+            done = cache.building.get((tok, key))
+            if done is None:
+                done = cache.building[(tok, key)] = threading.Event()
+                break
+        done.wait()   # another thread builds it; then fetch again
+    try:
+        fn = build()
+    finally:
+        with _stage_cache_lock:
+            del cache.building[(tok, key)]
+        done.set()
+    with _stage_cache_lock:
+        cache.entries.setdefault(tok, {})[key] = fn
+        if owner is not None:
+            _own(cache, tok, key, owner)
+    return fn
+
+
+def release_stage_entries(owner: Any) -> None:
+    """Drop ``owner``'s hold on the stage entries it fetched (a context
+    calls this at ``fini``): an entry no live context holds goes, and
+    with it its graph's memory pool and static buffers (once no
+    taskpool still references the program)."""
+    with _stage_cache_lock:
+        for ref, tok, key in _owned_entries.pop(id(owner), ()):
+            cache = ref()
+            if cache is None:
+                continue
+            ids = cache.owners.get((tok, key))
+            if ids is None:
+                continue
+            ids.discard(id(owner))
+            if not ids:
+                del cache.owners[(tok, key)]
+                cache.entries.get(tok, {}).pop(key, None)
+
+
+def live_stage_entries() -> int:
+    """Entries held by the stage caches of every live spec."""
+    with _stage_cache_lock:
+        return sum(len(per) for c in list(_live_stage_caches)
+                   for per in c.entries.values())
+
+
+def clear_stage_cache() -> None:
+    """Drop every live spec's stage entries: their recorded programs'
+    device memory returns to the allocator once no taskpool references
+    them.  Entries a context holds go at its ``fini`` anyway; this is
+    for a long-lived context that ran many sizes, dtypes or knob
+    settings."""
+    with _stage_cache_lock:
+        for c in list(_live_stage_caches):
+            c.entries.clear()
+            c.owners.clear()
+        _owned_entries.clear()

@@ -124,6 +124,10 @@ class CudaDevice(Device):
         self._lru_clean: "OrderedDict[int, DataCopy]" = OrderedDict()
         self._lru_owned: "OrderedDict[int, DataCopy]" = OrderedDict()
         self._mem_lock = threading.Lock()
+        #: the GEMM kernel's launches made inside this module's
+        #: dispatches (the tasks' bodies; a recorded graph's replay
+        #: launches uncounted)
+        self.gemm_launches = 0
         self.stats = {"stage_in_bytes": 0, "stage_out_bytes": 0,
                       "evictions": 0, "tasks": 0,
                       "batches": 0, "batched_tasks": 0,
@@ -182,13 +186,18 @@ class CudaDevice(Device):
         import torch
         return torch.cuda.stream(stream)
 
+    @contextlib.contextmanager
     def _launching(self, target: Any, name: str, ntasks: int):
-        """Context around one dispatch on ``target``: its stream, and the
-        telemetry's busy interval when ``_obs`` is set."""
+        """Context around one dispatch on ``target``: its stream, the
+        telemetry's busy interval when ``_obs`` is set, and the GEMM
+        kernel's launches made inside it (``gemm_launches``)."""
+        from ..ops.kernels import thread_matmul_launches
         obs = self._obs
-        if obs is None:
-            return self.on_stream(target)
-        return self._obs_dispatch(obs, target, name, ntasks)
+        k0 = thread_matmul_launches()
+        with (self.on_stream(target) if obs is None
+              else self._obs_dispatch(obs, target, name, ntasks)):
+            yield
+        self.gemm_launches += thread_matmul_launches() - k0
 
     @contextlib.contextmanager
     def _obs_dispatch(self, obs, target: Any, name: str, ntasks: int):
@@ -616,6 +625,41 @@ class CudaDevice(Device):
             self._account(-nbytes)   # lost the race: undo the hold
         return committed
 
+    def prestaged_current(self, data: Data) -> bool:
+        """Is this Data's device copy one the prefetcher staged and still
+        the newest version?  The stage compiler's ``prestage_hits``
+        accounting (a hit = the stage's stage-in will find the tile
+        already resident instead of paying a serial host-to-device
+        copy)."""
+        with data._lock:
+            copy = data.get_copy(self.device_index)
+            return (copy is not None
+                    and id(copy) in self._prefetched
+                    and copy.coherency != Coherency.INVALID
+                    and copy.version >= data.newest_version())
+
+    def adopt_output(self, data: Data, arr: Any) -> None:
+        """Adopt a device tensor as ``data``'s newest DEVICE copy — the
+        epilog's writeback half without a task (the chain-consume path,
+        stagec/chain.py: a rider stage's outputs computed inside an
+        earlier pool's chained program land here, staying on the card
+        instead of going through the host).  The lookup-attach-commit
+        runs under the data lock (a prestage of the same tile must not
+        interleave), and the adopted copy leaves the prestage set — it
+        was never a prefetch, so it must not read as one."""
+        with data._lock:
+            copy = data.get_copy(self.device_index)
+            if copy is None:
+                copy = DataCopy(data, self.device_index, payload=None)
+                data.attach_copy(copy)
+            old = getattr(copy.payload, "nbytes", 0)
+            copy.payload = arr
+            data.version_bump(self.device_index)
+            self._prefetched.pop(id(copy), None)
+        self._account(-old)
+        self._reserve(getattr(arr, "nbytes", 0))
+        self._lru_touch(copy, owned=True)
+
     def drain(self, context=None) -> None:
         """Retire every remaining window entry (called at wait()-exit),
         recording async kernel failures on the context; DISCARD
@@ -916,7 +960,12 @@ class CudaMeshDevice(CudaDevice):
     def _stage_target(self, task: Task) -> Any:
         """A task's home chip: where its first written tile is placed
         (owner-computes one level below the rank grid); a read-only task
-        runs where its first input lives."""
+        runs where its first input lives.  A task whose class spreads
+        over the whole mesh (``mesh_wide``: a wave-front stage,
+        stagec/sharded.py) has none: its tiles stage on their own chips
+        and its completion event goes to the module's stream."""
+        if getattr(task.task_class, "mesh_wide", False):
+            return None
         first = None
         for flow in task.task_class.flows:
             if flow.ctl:
@@ -943,7 +992,10 @@ class CudaMeshDevice(CudaDevice):
 
     def _tag(self, t: Any, target: Any) -> Any:
         if is_device_array(t):
-            chip = self.chips[0] if target is None else target
+            # no target (a mesh-wide task's output): keep the chip that
+            # wrote it
+            chip = target if target is not None else \
+                (getattr(t, "_ptt_chip", None) or self.chips[0])
             t._ptt_chip = chip
             tag_stream(t, chip.stream)
         return t

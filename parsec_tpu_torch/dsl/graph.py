@@ -69,7 +69,8 @@ class GraphRunner:
     place.  Recording facts for the caller: ``capture_seconds`` (warm-
     up plus record), ``warmup_gemm_launches`` (the GEMM kernel's launches
     the warm-up ran), ``captured_gemm_launches`` (those recorded in the
-    graph; a replay re-runs them without counting), ``replays``, and
+    graph; a replay re-runs them without counting), both counted on the
+    recording thread alone, ``replays``, and
     ``replay_ms`` (the last replay's device time, between two CUDA
     events)."""
 
@@ -157,18 +158,19 @@ class GraphRunner:
                      for k, v in inputs.items()}
         side = torch.cuda.Stream(device=device)
         side.wait_stream(torch.cuda.current_stream(device))
-        launches = kernels.matmul_launches
+        # this thread's launches only: other threads may launch meanwhile
+        launches = kernels.thread_matmul_launches()
         with torch.cuda.stream(side):
             self._execute(static_in, device, _no_note)
         torch.cuda.current_stream(device).wait_stream(side)
-        warmup_launches = kernels.matmul_launches - launches
+        warmup_launches = kernels.thread_matmul_launches() - launches
         label = ["(before the first task)"]
 
         def note(task: str) -> None:
             label[0] = task
 
         graph = torch.cuda.CUDAGraph()
-        launches = kernels.matmul_launches
+        launches = kernels.thread_matmul_launches()
         failure: Optional[BaseException] = None
         # the capture stream reads static_in after every earlier writer;
         # torch.cuda.graph's context manager is not used: when ending an
@@ -191,7 +193,8 @@ class GraphRunner:
                                f"recorded into a CUDA graph: {failure}") \
                 from failure
         self.warmup_gemm_launches = warmup_launches
-        self.captured_gemm_launches = kernels.matmul_launches - launches
+        self.captured_gemm_launches = \
+            kernels.thread_matmul_launches() - launches
         self._static_out = self._written(static_out)
         self._static_in = static_in
         self._graph = graph

@@ -27,8 +27,10 @@ flat arrays (lower.py) and released by the native ``NativeDAG``.  A static pool 
 per-task path (``ptg_dispatch=classic``) or, when its data binding
 resolves statically and the context has a CUDA device module, on the
 turbo native loop (turbo.py; ``auto`` picks it when eligible, ``turbo``
-demands it).  Wave execution (wave.py) is a separate entry point; stage
-compilation is not carried.
+demands it).  Wave execution (wave.py) is a separate entry point.  With
+``stage_compile`` on, whole-stage compilation (stagec/) takes precedence
+over the static and turbo engines: compilable stages run as single
+recorded CUDA graphs, the residue on the dynamic path here.
 """
 from __future__ import annotations
 
@@ -467,6 +469,17 @@ class PTGTaskClass(TaskClass):
     def activate(self, locals_: Tuple, flow_name: str, copy) -> Optional[Task]:
         """One input of instance ``locals_`` became available; spawn the task
         when the dynamic dep counter reaches its goal."""
+        sc = self.tp._stagec
+        if sc is not None:
+            # stage-compile seam (stagec/): activations for instances
+            # fused into a compiled stage count toward the STAGE's
+            # external goal instead; local residue, other stages, and
+            # remote ranks all arrive through this one funnel, so no
+            # wire/protocol change is needed.  Downgraded stages pass
+            # through to the dynamic table below.
+            handled, task = sc.on_activate(self, locals_, flow_name, copy)
+            if handled:
+                return task
         key = locals_
         task = None
         self.dep_table.lock_bucket(key)
@@ -486,6 +499,12 @@ class PTGTaskClass(TaskClass):
                 task = self.make_task(locals_, entry)
         finally:
             self.dep_table.unlock_bucket(key)
+        if task is not None and sc is not None:
+            # compiled residue schedule (stagec/): a ready task of a
+            # pre-planned residue group buffers with the compiler and
+            # dispatches with its whole group as one device burst —
+            # None here (routed, not lost)
+            task = sc.on_residue_ready(task)
         return task
 
     # ------------------------------------------------------------------ #
@@ -733,6 +752,7 @@ class PTGTaskpool(Taskpool):
         self._dag = None      # LoweredDAG when static dep management is on
         self._turbo = None    # TurboRunner when the native loop took it
         self._engine = None   # NativeDAG ready-tracking engine
+        self._stagec = None   # StageCompiler when stage_compile is on
 
     def class_by_name(self, name: str) -> PTGTaskClass:
         return self._classes[name]
@@ -745,7 +765,15 @@ class PTGTaskpool(Taskpool):
         if mode not in ("hash", "static"):
             raise ValueError(f"ptg_dep_management={mode!r}: expected "
                              f"'hash' or 'static'")
-        if mode == "static" and self.nb_ranks != 1:
+        if params.get("stage_compile") and not grapher.enabled:
+            # whole-stage compilation (stagec/): compilable stages
+            # execute as single recorded chores, the residue stays on
+            # the dynamic path below.  Takes precedence over the
+            # static/turbo engines — the compiled stage IS the static
+            # fast path here.
+            from ...stagec.runtime import try_install
+            self._stagec = try_install(self, context)
+        if mode == "static" and self.nb_ranks != 1 and self._stagec is None:
             # the static engines lower one rank's task space and keep no
             # foreign-edge bookkeeping; the JAX package quietly runs the
             # hash path here, this package refuses instead
@@ -753,7 +781,8 @@ class PTGTaskpool(Taskpool):
                 f"{self.name}: ptg_dep_management=static on "
                 f"nb_ranks={self.nb_ranks}; use the hash mode on several "
                 f"ranks")
-        if (mode == "static" and not grapher.enabled
+        if (self._stagec is None and mode == "static"
+                and not grapher.enabled
                 and not self._has_out_edge_types()):
             turbo = self._startup_turbo(context)
             if turbo is not None:
@@ -761,22 +790,42 @@ class PTGTaskpool(Taskpool):
             return self._startup_static()
         total = 0
         startup: List[Task] = []
+        sc = self._stagec
         count_foreign = self.nb_ranks > 1 and self.comm is not None
         expected_mem_puts = 0
-        for tc in self._classes.values():
-            for locals_ in tc.iter_space():
-                env = tc.env_of(locals_)
-                if tc.rank_of_instance(env) != self.rank:
-                    if count_foreign:
-                        # a foreign task whose out-dep targets MY
-                        # memory will ship a writeback: hold
-                        # termination for it
-                        expected_mem_puts += \
-                            self._count_mem_puts_to_me(tc, env)
-                    continue
-                total += 1
-                if tc.goal_of(locals_, env) == 0:
-                    startup.append(tc.make_task(locals_, None))
+        if sc is not None:
+            # plan-cached startup enumeration: the stage plan already
+            # walked the full instance space — local totals, goal-0
+            # residue, and the foreign mem-put expectation are pure
+            # functions of its identity, so a repeat pool skips the
+            # per-instance iteration-space walk
+            total = sc.plan.n_local
+            if count_foreign:
+                expected_mem_puts = sc.plan.startup_mem_puts
+            for (name, locals_) in sc.plan.startup_goal0:
+                t = self.class_by_name(name).make_task(locals_, None)
+                t = sc.on_residue_ready(t)
+                if t is not None:
+                    startup.append(t)
+            # stages with no external task inputs start the DAG (their
+            # members are counted in n_local; a stage completion
+            # retires every member's count)
+            startup.extend(sc.startup_tasks())
+        else:
+            for tc in self._classes.values():
+                for locals_ in tc.iter_space():
+                    env = tc.env_of(locals_)
+                    if tc.rank_of_instance(env) != self.rank:
+                        if count_foreign:
+                            # a foreign task whose out-dep targets MY
+                            # memory will ship a writeback: hold
+                            # termination for it
+                            expected_mem_puts += \
+                                self._count_mem_puts_to_me(tc, env)
+                        continue
+                    total += 1
+                    if tc.goal_of(locals_, env) == 0:
+                        startup.append(tc.make_task(locals_, None))
         # counts FIRST, delivery second: activations/puts released by
         # counts_ready may schedule tasks that complete on a worker
         # thread immediately — nb_tasks must already hold the total or
@@ -788,6 +837,13 @@ class PTGTaskpool(Taskpool):
         if count_foreign:
             # expectations credited: buffered early arrivals may deliver
             self.comm.counts_ready(self)
+        if sc is not None:
+            # cross-pool chaining (stagec/chain.py): when an earlier
+            # pool's chained program pre-computed this pool's first
+            # stages, adopt their stashed outputs now — AFTER the counts
+            # above, so the members' completions cannot go negative.
+            # Successors they release join the startup set.
+            startup.extend(sc.consume_chain(context.execution_streams[0]))
         plog.debug.verbose(4, "ptg %s: %d local tasks, %d startup",
                            self.name, total, len(startup))
         return startup

@@ -148,6 +148,22 @@ class ContextObs:
             self.overlap = OverlapTracker()
             ctx.sde.register_poll(OBS_OVERLAP_FRACTION, self.overlap.fraction)
             ctx.sde.register_poll(OBS_EXPOSED_COMM_US, self.overlap.exposed_us)
+        # stage-compile gauges (stagec/): poll-only over the context's
+        # stage counters; the XSTAGE_* series (cross-rank SPMD stages,
+        # not carried yet) stay 0 under their names
+        ss = getattr(ctx, "stage_stats", None)
+        if isinstance(ss, dict):
+            for key in ("stage_compiles", "stage_tasks", "stage_fallbacks",
+                        "prestage_issued", "prestage_hits", "chain_links",
+                        "chain_fallbacks", "residue_batches",
+                        "residue_batch_tasks", "xstage_compiles",
+                        "xstage_tasks", "xstage_collective_bytes",
+                        "xstage_fallbacks"):
+                ctx.sde.register_poll(f"PARSEC::STAGEC::{key.upper()}",
+                                      lambda s=ss, k=key: s[k])
+            ctx.sde.register_poll(
+                "PARSEC::STAGEC::STAGE_COMPILE_US",
+                lambda s=ss: round(s["stage_compile_ns"] / 1e3, 1))
         # device pull gauges always (poll-only, no hot-path cost); the
         # span/histogram sink only when telemetry is on
         for dev in ctx.devices:
@@ -236,7 +252,7 @@ class ContextObs:
                 z_thresh=self.live.z_thresh,
                 overlap_fn=(self.overlap.fraction
                             if self.overlap is not None else None),
-                stage_classes_fn=_compiled_stage_classes)
+                stage_classes_fn=lambda c=ctx: _compiled_stage_classes(c))
             register_tune_gauges(ctx.sde, self.tuner)
             self.live.subscribe(self.tuner.on_window)
         if self.live is not None:
@@ -294,11 +310,22 @@ def _serve_param() -> bool:
     return bool(params.get_or("serve", "bool", False))
 
 
-def _compiled_stage_classes() -> List[str]:
-    """The classes with a live compiled stage, the stage-compile
-    family's attribution source: none, since this package compiles no
-    stages (``stage_compile`` is a trimmed knob)."""
-    return []
+def _compiled_stage_classes(ctx: Any) -> List[str]:
+    """Class names with a live compiled stage on this context (the stage
+    compilers of its taskpools, stagec/runtime.py), in plan order — the
+    stage-compile family's attribution source; an interpreted-only
+    context returns []."""
+    names: List[str] = []
+    for tp in list(getattr(ctx, "taskpools", {}).values()):
+        sc = getattr(tp, "_stagec", None)
+        if sc is None:
+            continue
+        for stage in getattr(sc.plan, "stages", ()):
+            for m in stage.members:
+                n = m.tc.name
+                if n not in names:
+                    names.append(n)
+    return names
 
 
 def _live_param() -> bool:

@@ -217,12 +217,25 @@ def dposv(context, A: TiledMatrix, B: TiledMatrix,
           rank: int = 0, nb_ranks: int = 1) -> None:
     """Solve A X = B for SPD A: Cholesky factor in place in A, then
     forward + backward substitution in place in B, three pools in turn.
-    Blocking: enqueue + wait for each."""
+    Blocking: enqueue + wait for each.
+
+    With ``stage_compile`` (+ ``stage_compile_chain``) on, the three
+    pools are declared as a chained sequence first (stagec/chain.py):
+    fusable pool boundaries — provably memory-fed first stages whose
+    every input writer is fused — then run inside ONE chained program
+    (one CUDA graph) instead of handing tiles over between pools.
+    Ineligible boundaries (multirank dataflow, residue writers) simply
+    run unchained; the add/wait composition below is unchanged either
+    way."""
+    from ..utils.params import params
     from .dpotrf import dpotrf_taskpool
     pools = [dpotrf_taskpool(A, rank=rank, nb_ranks=nb_ranks),
              dtrsm_lower_taskpool(A, B, rank=rank, nb_ranks=nb_ranks),
              dtrsm_lower_trans_taskpool(A, B, rank=rank,
                                         nb_ranks=nb_ranks)]
+    if params.get("stage_compile") and params.get("stage_compile_chain"):
+        from ..stagec.chain import declare_chain
+        declare_chain(context, pools)
     for tp in pools:
         context.add_taskpool(tp)
         context.wait()

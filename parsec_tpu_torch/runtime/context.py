@@ -95,14 +95,15 @@ def _comm_from_params():
 
 def _check_trimmed_knobs() -> None:
     """Refuse knobs of subsystems this package does not carry yet
-    (tuning, serving, stage compilation): a request for one raises
-    instead of being ignored."""
+    (cross-rank SPMD stages, ``stage_compile_xrank``): a request for one
+    raises instead of being ignored."""
     for name in TRIMMED_KNOBS:
         v = str(params.get(name)).strip().lower()
         if v not in ("", "0", "false", "off", "no"):
             raise NotImplementedError(
                 f"MCA parameter {name}={params.get(name)!r} asks for a "
-                f"subsystem this package does not carry yet")
+                f"subsystem this package does not carry yet (ROADMAP "
+                f"Queue 1, part F2: cross-rank SPMD stages)")
 
 
 class Context:
@@ -239,6 +240,27 @@ class Context:
         self.device_mesh = next(
             (d.mesh for d in self.devices
              if getattr(d, "mesh", None) is not None), None)
+
+        # stage-compile telemetry (stagec/): per-rank counters every
+        # StageCompiler on this context accumulates into; exposed as
+        # PARSEC::STAGEC::* gauges by ContextObs.  The xstage_* keys
+        # (cross-rank SPMD stages, not carried yet) stay 0 so the
+        # gauges keep their names
+        self.stage_stats = {"stage_compiles": 0, "stage_tasks": 0,
+                            "stage_fallbacks": 0, "stage_compile_ns": 0,
+                            "stage_dispatches": 0, "stage_sharded": 0,
+                            "prestage_issued": 0, "prestage_hits": 0,
+                            "chain_links": 0, "chain_fallbacks": 0,
+                            "residue_batches": 0,
+                            "residue_batch_tasks": 0,
+                            "xstage_compiles": 0, "xstage_tasks": 0,
+                            "xstage_collective_bytes": 0,
+                            "xstage_fallbacks": 0}
+        # worker threads, rank threads and the comm path all count
+        self.stage_stats_lock = threading.Lock()
+        # cross-pool stage chain registry (stagec/chain.declare_chain
+        # attaches a ChainState when a pool sequence is declared)
+        self._stage_chain = None
 
         # online critical-path class profile: duration-
         # weighted per-class EWMAs + upward-rank boosts the priority
@@ -671,6 +693,10 @@ class Context:
             self._work_cond.notify_all()
         for t in self._threads:
             t.join(timeout=2.0)
+        # the stage programs this context recorded (stagec/): their CUDA
+        # graphs' memory goes now, unless another live context holds them
+        from ..devices.batching import release_stage_entries
+        release_stage_entries(self)
         for dev in self.devices:
             dev.fini()
         if self._comm_thread is not None:

@@ -12,8 +12,9 @@ window ticks and adapts three knob families at runtime —
   ``flush_segments``), hill-climbed per device from batch occupancy,
   prefetch hit rate and the overlap fraction, with hysteresis and
   revert-on-regress against a us/task dispatch objective;
-- stage-compile exclusion, carried whole but inert: this package
-  compiles no stages yet, so no class is ever excluded.
+- stage-compile exclusion: a rank whose compiled stages keep
+  straggling gets the dominant compiled class (from the context's live
+  stage compilers, stagec/) appended to ``stage_compile_exclude``.
 
 Everything lives behind the ``tune_auto`` MCA param: unset constructs
 no controller, starts no subscription, and is bit-for-bit inert on the

@@ -35,10 +35,10 @@ stagec  A rank whose exec-busy keeps collapsing while compiled stages
         are live (the self-straggler detector firing
         ``straggler_windows`` windows in a row) gets the dominant
         compiled class appended to ``stage_compile_exclude``, so the
-        next taskpool over the same spec replans without it.  This
-        package compiles no stages yet (``stage_compile`` is a trimmed
-        knob): its ``stage_classes_fn`` names no class, and the family
-        stays inert.
+        next taskpool over the same spec replans without it.  The
+        class list comes from the context's live stage compilers
+        (``tp._stagec``, stagec/runtime.py); a context running no
+        compiled stage names no class, and the family stays inert.
 
 Every committed move bumps ``PARSEC::TUNE::DECISIONS`` and emits one
 ``tune:<family>`` instant annotation on the health stream; every

@@ -633,17 +633,65 @@ def register_core_params() -> None:
     params.reg_int("serve_latency_window", 512,
                    "per-tenant taskpool-latency samples kept for the "
                    "P99_LATENCY_US gauge and health snapshots")
+    # whole-stage compilation (stagec/)
+    params.reg_bool("stage_compile", False,
+                    "whole-stage compilation (stagec/): record each "
+                    "verified PTG stage as ONE CUDA graph, replayed as a "
+                    "single chore on the CUDA device module, with the "
+                    "interpreted batched dispatch as the residue/"
+                    "fallback path (device=\"cpu\": the stage runs "
+                    "eagerly over host tensors); off (default) keeps the "
+                    "per-task runtime bit-for-bit")
+    params.reg_int("stage_compile_max_tasks", 1024,
+                   "max task instances fused into one compiled stage "
+                   "(bounds the recorded graph and its private memory "
+                   "pool: one output tile a task; larger stages amortize "
+                   "dispatch further — cross-stage boundaries pay an "
+                   "interpreted release walk per boundary task)")
+    params.reg_bool("stage_compile_shard", True,
+                    "run eligible wave-front stages over the rank's chip "
+                    "mesh (device_mesh_shape): each chip runs its block "
+                    "of the wave front's rows on its own stream; off "
+                    "forces the single-chip CUDA graph")
+    params.reg_bool("stage_compile_chain", True,
+                    "cross-pool stage chaining (stagec/chain.py): when a "
+                    "taskpool sequence is declared (stagec.chain."
+                    "declare_chain / ops.dposv), record the final stage "
+                    "of pool K with the first stages of pool K+1 as one "
+                    "chained CUDA graph when the inter-pool dataflow is "
+                    "provable; off runs each pool's stages separately")
+    params.reg_bool("stage_residue_batch", True,
+                    "compiled residue schedule: dispatch per-(level, "
+                    "class) residue groups pre-planned at stage-plan time "
+                    "straight onto the device batching pipeline as one "
+                    "burst, skipping the per-task scheduler round-trip; "
+                    "off keeps the per-task residue dispatch")
+    params.reg_string("stage_compile_exclude", "",
+                      "comma-separated task-class names excluded from "
+                      "stage compilation (verdict STG306): their "
+                      "instances run as interpreted residue — a "
+                      "debugging / measurement knob (the residue-heavy "
+                      "leg rides it)")
+    params.reg_bool("stage_compile_donate", True,
+                    "donation inside compiled stages: a replay writes the "
+                    "results of WRITE slots into the slot's own device "
+                    "tensor (copy_) instead of a fresh clone, for classes "
+                    "the BDY204 analysis proves free of intra-stage tile "
+                    "aliasing; the copy's version is bumped, so no reader "
+                    "sees a stale payload; off hands back clones")
     # knobs of subsystems this package does not carry yet: registered
     # so that a caller who sets one gets NotImplementedError at init
     # (runtime/context.py) instead of a silently ignored request
     for name in TRIMMED_KNOBS:
-        params.reg_string(name, "", "not supported by this package; "
-                          "setting it raises NotImplementedError")
+        params.reg_string(name, "", "not supported by this package yet "
+                          "(ROADMAP Queue 1, part F2); setting it raises "
+                          "NotImplementedError")
 
 
 #: knobs of the JAX package's subsystems that this package leaves out
-#: (stage compilation)
-TRIMMED_KNOBS = ("stage_compile",)
+#: (cross-rank SPMD stages, stagec/xrank.py, and their rendezvous
+#: timeout: ROADMAP Queue 1, part F2)
+TRIMMED_KNOBS = ("stage_compile_xrank", "stage_xrank_timeout")
 
 
 register_core_params()

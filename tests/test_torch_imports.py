@@ -52,7 +52,10 @@ def test_sources_import_no_jax():
                 "obs/prometheus.py", "obs/spans.py", "obs/critpath.py",
                 "obs/live.py", "tune/__init__.py", "tune/controller.py",
                 "serve/__init__.py", "serve/fairness.py",
-                "serve/server.py", "serve/client.py"):
+                "serve/server.py", "serve/client.py",
+                "stagec/__init__.py", "stagec/plan.py", "stagec/lower.py",
+                "stagec/runtime.py", "stagec/chain.py",
+                "stagec/sharded.py"):
         assert os.path.join("parsec_tpu_torch", mod) in seen, mod
     for path in _port_sources():
         with open(path) as fh:
@@ -327,6 +330,40 @@ FRONT_END_DRIVES = {
         lh.tick()
         assert fleet_health({0: lh.snapshot()})["nb_ranks"] == 1
     """,
+    "stagec.runtime": """
+        from parsec_tpu_torch.utils.params import params
+        A = TwoDimBlockCyclic(128, 128, 32, 32).from_numpy(
+            ptt.ops.make_spd(128))
+        with params.cmdline_override("stage_compile", "1"):
+            tp = ptt.ops.dpotrf_taskpool(A)
+            ctx.add_taskpool(tp)
+            ctx.wait()
+        assert tp._stagec is not None
+        assert ctx.stage_stats["stage_tasks"] == 20
+    """,
+    "stagec.chain": """
+        from parsec_tpu_torch.utils.params import params
+        A = TwoDimBlockCyclic(128, 128, 32, 32).from_numpy(
+            ptt.ops.make_spd(128))
+        B = TwoDimBlockCyclic(128, 8, 32, 8).from_numpy(
+            np.ones((128, 8), np.float32))
+        with params.cmdline_override("stage_compile", "1"):
+            ptt.ops.dposv(ctx, A, B)
+        assert ctx.stage_stats["chain_links"] == 2
+    """,
+    "stagec.sharded": """
+        ctx.fini()
+        from parsec_tpu_torch.utils.params import params
+        A = TwoDimBlockCyclic(160, 160, 32, 32).from_numpy(
+            ptt.ops.make_spd(160))
+        with params.cmdline_override("stage_compile", "1"), \
+                params.cmdline_override("device_mesh_shape", "2x2"), \
+                params.cmdline_override("device_cuda_virtual_chips", "4"):
+            ctx = ptt.init(nb_cores=2, device="cpu")
+            ctx.add_taskpool(ptt.ops.dpotrf_taskpool(A))
+            ctx.wait()
+        assert ctx.stage_stats["stage_sharded"] >= 1
+    """,
     "bindings.chelper": """
         from parsec_tpu_torch.bindings import chelper
         assert chelper.device_names(ctx) == "cpu,cpu"
@@ -413,7 +450,7 @@ def test_init_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("stage_compile", "1"),
+    ("stage_compile_xrank", "1"),
     ("device_mesh_shape", "2x2"), ("device_donate", "1"),
     ("device_batch_mode", "vmap")])
 def test_trimmed_knobs_raise(knob, value):
