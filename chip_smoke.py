@@ -132,11 +132,22 @@ Phases, each reporting on its own lines:
             residue groups dispatching as bursts between the recorded
             stages; (5) a 2 x 2 mesh of 4 logical chips, wave-front
             stages sharded over the chips, the GEMM kernel's recorded
-            launches per chip; under --profile, (2) once more under
-            torch.profiler (path stagec_dpotrf).  The sixth leg runs
-            inside multirank's dposv_2 spawn (stagec.ranks_2): dposv
-            again with the knob, stages on both ranks, X bit-identical
-            to the same spawn's run without it.  After phase capture,
+            launches per chip; (6) cross-rank stages
+            (stage_compile_xrank=1): dpotrf at main's size and input over
+            2 rank threads on loopback TCP (P = 2, Q = 1), one logical
+            lane chip each (device_cuda_virtual_chips=2): every wave
+            front spanning both ranks one program over the two chips,
+            "xs" negotiated both ways, cross-rank stage tasks and block
+            records on both ranks, no fallback, elided activations that
+            carry no payload, the factor bit-identical to main's, the
+            GEMM launches accounted as in (1) over both ranks; the
+            [stagec.xrank] line gives each rank's wall, the cross-rank
+            waves, the records' and the replays' seconds; under
+            --profile, (2) once more under torch.profiler (path
+            stagec_dpotrf).  The seventh leg runs inside multirank's
+            dposv_2 spawn (stagec.ranks_2): dposv again with the knob,
+            stages on both ranks, X bit-identical to the same spawn's
+            run without it.  After phase capture,
             [stagec.walls] puts the interpreted, stage-compiled and
             captured walls of this call side by side;
 5c. dtd     the same tile Cholesky through the DTD front end on phase
@@ -252,7 +263,7 @@ Phases, each reporting on its own lines:
             parses and names device, comm, ft and health series; the
             aggregator's fleet /health merge reports both ranks;
 5f. ft      dposv (A and B on 2 x 1, the TCP engine, phase dposv's
-            generators at N = FT_N = 8192) through ft.run_with_restart over
+            generators at N = FT_N = 4096) through ft.run_with_restart over
             its three pools, a snapshot of A and B after every stage
             (pulled from the card) under a temporary directory the phase
             removes: ft_kill_2 (ft_inject kills rank 1 inside stage 1,
@@ -415,6 +426,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import errno
 import json
 import os
 import shutil
@@ -1135,6 +1147,8 @@ STAGEC_EXCLUDE = "SYRK"   # (4): the device class left to the residue
 STAGEC_CUT_N = 8192       # (4) and (5): their N, cut from N_MAIN
 #: the multirank spawns whose ranks run dposv once more with the knob on
 STAGEC_IN_SPAWNS = ("dposv_2",)
+XRANK_RANKS = 2           # (6): rank threads on loopback TCP, P = 2, Q = 1
+XRANK_CORES = 3           # (6): worker threads of each rank's context
 
 
 def stagec_programs(pools) -> list:
@@ -1224,7 +1238,7 @@ def stagec_pools(ctx, pools, **kn):
 def phase_stagec(seed: int, L_main: np.ndarray, X_dposv: np.ndarray,
                  n: int = N_MAIN, nb: int = NB_MAIN, nrhs: int = NRHS,
                  profile: bool = False) -> tuple:
-    """Legs (1) to (5) of whole-stage compilation (see the module's
+    """Legs (1) to (6) of whole-stage compilation (see the module's
     docstring); returns the GEMM kernel's launches through its wrapper
     by leg (the records' warm-ups and the residue's dispatches), and by
     leg the graphs' recorded launches, replays and the launches those
@@ -1437,11 +1451,195 @@ def phase_stagec(seed: int, L_main: np.ndarray, X_dposv: np.ndarray,
     launches["stagec_mesh"] = stagec_account("stagec.mesh", lc, counter,
                                              dispatched)
     graphs["stagec_mesh"] = dict(lc, sharded_by_chip=per_chip)
+    del A, L, rows, Mm, L1
+    launches["stagec_xrank"], graphs["stagec_xrank"] = stagec_xrank(
+        seed, L_main, n, nb)
     return launches, graphs
 
 
+def xrank_rank(M: np.ndarray, n: int, nb: int, rank: int, engine,
+               barrier) -> dict:
+    """Leg (6)'s rank thread: this rank's tiles of ``M`` on the P = 2,
+    Q = 1 grid, one stage-compiled dpotrf pool on a context over
+    ``engine`` (a TCP engine built with the knobs set), timed from a
+    ``barrier`` to torch.cuda.synchronize(), which waits for the barrier
+    once more: a device-wide synchronize while the other rank records a
+    stage would break its capture.  Every activation this rank
+    sends is looked at: one that names a parked payload ("xs") must
+    carry no data, handle or xfer.  Returns the rank's record, its owned
+    lower tiles pulled to the host under ``tiles``."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.collections import TwoDimBlockCyclic
+    from parsec_tpu_torch.comm import RemoteDepEngine
+    from parsec_tpu_torch.comm.engine import TAG_ACTIVATE
+    seen = {"xs": 0, "xs_with_payload": 0, "with_data": 0}
+    send = engine.send_am
+
+    def watched(dst, tag, msg):
+        if tag == TAG_ACTIVATE and isinstance(msg, dict):
+            payload = any(msg.get(k) is not None
+                          for k in ("data", "handle", "xfer"))
+            seen["xs"] += "xs" in msg
+            seen["xs_with_payload"] += "xs" in msg and payload
+            seen["with_data"] += payload
+        return send(dst, tag, msg)
+
+    engine.send_am = watched
+    comm = RemoteDepEngine(engine)
+    ctx = ptt.Context(nb_cores=XRANK_CORES, comm=comm)
+    try:
+        A = TwoDimBlockCyclic(n, n, nb, nb, P=XRANK_RANKS, Q=1,
+                              nodes=XRANK_RANKS, rank=rank,
+                              dtype=np.float32)
+        A.name = "descA"
+        for (i, j) in A.local_tiles():
+            np.copyto(A.tile(i, j),
+                      M[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb])
+        tp = ptt.ops.dpotrf_taskpool(A, rank=rank, nb_ranks=XRANK_RANKS)
+        dev = ctx.device_by_type("cuda")
+        d0 = dev.gemm_launches
+        barrier.wait()
+        t0 = time.perf_counter()
+        try:
+            ctx.add_taskpool(tp)
+            ctx.wait()
+        except BaseException:
+            barrier.abort()   # the other rank stops waiting for this one
+            raise
+        barrier.wait()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        plan = tp._stagec.plan
+        rec = dict(rank=rank, wall=wall, st=dict(ctx.stage_stats),
+                   dispatched=dev.gemm_launches - d0,
+                   rows=tp._stagec.program_report(),
+                   xwaves=len(plan.xwaves), stages=len(plan.stages),
+                   elisions=comm.stats["xs_elisions"],
+                   activates=comm.stats["activates_sent"], **seen)
+        rec["tiles"] = {(i, j): np.asarray(A.data_of(i, j).sync_to_host()
+                                           .payload).copy()
+                        for (i, j) in A.local_tiles() if i >= j}
+    finally:
+        ctx.fini()
+    return rec
+
+
+def stagec_xrank(seed: int, L_main: np.ndarray, n: int, nb: int) -> tuple:
+    """Leg (6): cross-rank stages over XRANK_RANKS rank threads of this
+    process on loopback TCP, one logical lane chip each, on phase main's
+    input; the factor held to phase main's bit for bit.  Returns the GEMM
+    kernel's launches through its wrapper and the graphs' facts, both
+    ranks together."""
+    import gc
+    from parsec_tpu_torch.comm.tcp import TCPCommEngine, free_ports
+    from parsec_tpu_torch.ops import kernels
+    from parsec_tpu_torch.utils.spmd import spmd_threads
+    M = synth_spd(n, seed, copy=False)
+    held = torch.cuda.memory_allocated()
+    kn = {"stage_compile": "1", "stage_compile_xrank": "1",
+          "device_cuda_virtual_chips": XRANK_RANKS}
+    with knobs(kn):
+        # the "xs" token rides the HELLO: the engines are built with the
+        # knob set, in parallel (each constructor dials its peers)
+        for attempt in range(5):
+            eps = [("127.0.0.1", p) for p in free_ports(XRANK_RANKS)]
+            try:
+                engines, _ = spmd_threads(
+                    XRANK_RANKS, lambda r, _f: TCPCommEngine(r, eps),
+                    timeout=RANK_DEADLINE)
+                break
+            except OSError as exc:
+                if exc.errno != errno.EADDRINUSE or attempt == 4:
+                    raise
+        links = [engines[r].xstage_to(p) for r in range(XRANK_RANKS)
+                 for p in range(XRANK_RANKS) if p != r]
+        barrier = threading.Barrier(XRANK_RANKS, timeout=RANK_DEADLINE)
+        reset_counts()
+        t0 = time.perf_counter()
+        recs, _ = spmd_threads(
+            XRANK_RANKS, lambda r, _f: xrank_rank(M, n, nb, r, engines[r],
+                                                  barrier),
+            timeout=RANK_DEADLINE)
+        seconds = time.perf_counter() - t0
+    counter = kernels.matmul_launches
+    # the ranks' fini dropped their blocks and plans; a block and its
+    # graph runner refer to each other, so the collector frees them
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    L = assemble_tiles(recs, n, nb)
+    same = bool(np.array_equal(L, L_main))
+    del L
+    sts = [r["st"] for r in recs]
+    rows = [row for r in recs for row in r["rows"]]
+    blocks = [row for row in rows if row.get("xrank")]
+    dispatched = sum(r["dispatched"] for r in recs)
+    lc = stagec_launches(rows)
+    per = lambda key: "/".join(str(s[key]) for s in sts)  # noqa: E731
+    nt = n // nb
+    log("stagec.xrank", ranks=XRANK_RANKS, grid=f"{XRANK_RANKS}x1", n=n,
+        nb=nb, xs_links="/".join(map(str, links)),
+        wall="/".join(f"{r['wall']:.4f}" for r in recs),
+        run_seconds=f"{seconds:.1f}", xwaves=recs[0]["xwaves"],
+        stages="/".join(str(r["stages"]) for r in recs),
+        stage_tasks=per("stage_tasks"), xstage_tasks=per("xstage_tasks"),
+        xstage_compiles=per("xstage_compiles"),
+        stage_compiles=per("stage_compiles"),
+        xstage_collective_bytes=per("xstage_collective_bytes"),
+        xstage_fallbacks=per("xstage_fallbacks"),
+        stage_fallbacks=per("stage_fallbacks"),
+        xs_elisions="/".join(str(r["elisions"]) for r in recs),
+        activations_sent="/".join(str(r["activates"]) for r in recs),
+        activations_with_payload="/".join(str(r["with_data"])
+                                          for r in recs),
+        elided_with_payload=sum(r["xs_with_payload"] for r in recs),
+        warmup_launches=lc["warmup"], captured_launches=lc["captured"],
+        dispatched_launches=dispatched, recorded=lc["recorded"],
+        replays=lc["replays"], replayed_launches=lc["replayed_launches"],
+        block_replayed_launches=sum(b["captured_gemm_launches"]
+                                    * b["replays"] for b in blocks),
+        record_seconds=f"{sum(r['record_seconds'] for r in rows):.4f}",
+        block_record_seconds=f"{sum(b['record_seconds'] for b in blocks):.4f}",
+        replay_seconds=f"{sum(r['replay_ms'] or 0 for r in rows) / 1e3:.4f}",
+        block_replay_seconds=(
+            f"{sum(b['replay_ms'] or 0 for b in blocks) / 1e3:.4f}"),
+        left_after_fini_gb=f"{left / 1e9:.3f}", identical=same)
+    check(all(links), f"stagec.xrank: \"xs\" was not negotiated both "
+                      f"ways ({links})")
+    check(all(s["xstage_tasks"] > 0 and s["xstage_compiles"] > 0
+              and s["xstage_collective_bytes"] > 0 for s in sts),
+          f"stagec.xrank: cross-rank stages did not engage on both ranks "
+          f"({per('xstage_tasks')} tasks, {per('xstage_compiles')} "
+          f"records)")
+    check(all(s["xstage_fallbacks"] == 0 and s["stage_fallbacks"] == 0
+              for s in sts),
+          f"stagec.xrank: {per('xstage_fallbacks')} cross-rank and "
+          f"{per('stage_fallbacks')} stage fallbacks")
+    check(sum(s["stage_tasks"] for s in sts)
+          == nt * (nt + 1) * (nt + 2) // 6,
+          f"stagec.xrank: {per('stage_tasks')} tasks staged")
+    check(sum(r["elisions"] for r in recs) > 0
+          and sum(r["xs"] for r in recs) > 0
+          and sum(r["xs_with_payload"] for r in recs) == 0,
+          f"stagec.xrank: {sum(r['elisions'] for r in recs)} elisions, "
+          f"{sum(r['xs_with_payload'] for r in recs)} of them with a "
+          f"payload on the wire")
+    check(same, "stagec.xrank: the factor is not bit-identical to phase "
+                "main's")
+    check(left < 1 << 30, f"stagec.xrank: the ranks' fini left {left} "
+                          f"bytes allocated on the card")
+    check(sum(b["captured_gemm_launches"] for b in blocks) > 0
+          and all(b["replays"] >= 1 for b in blocks),
+          f"stagec.xrank: the blocks recorded "
+          f"{sum(b['captured_gemm_launches'] for b in blocks)} GEMM "
+          f"launches over {len(blocks)} blocks")
+    return stagec_account("stagec.xrank", lc, counter, dispatched), \
+        dict(lc, blocks=len(blocks))
+
+
 def rank_stagec(ctx, args, B_ref) -> dict:
-    """Leg (6) of phase stagec, inside a multirank spawn: this rank's
+    """Leg (7) of phase stagec, inside a multirank spawn: this rank's
     share of dposv once more on fresh inputs with stage_compile on; X
     (its B tiles) against the same spawn's run without it."""
     import parsec_tpu_torch as ptt
@@ -3248,9 +3446,10 @@ def phase_obs_ranks(seed: int, factor: np.ndarray, X1: np.ndarray,
 FT_RUNS = {"ft_kill_2": 2, "ft_taskfail_2": 2, "ft_taskfail_1": 1,
            "ft_clean_2": 2}
 #: ft's and elastic_3's N: their rank processes' start-up and recovery,
-#: not the size, are what they exercise, and 16384 made the script run
-#: past 1100 s of its 1200 s on a slow machine
-FT_N = 8192
+#: not the size, are what they exercise; 16384 made the script run past
+#: 1100 s of its 1200 s on a slow machine, and with 8192 it took 952 s
+#: on one once phase stagec had its cross-rank leg
+FT_N = 4096
 FT_HEARTBEAT = {"PARSEC_MCA_ft_heartbeat_interval": "0.05",
                 "PARSEC_MCA_ft_heartbeat_timeout": "2"}
 FT_RETRIES = 1

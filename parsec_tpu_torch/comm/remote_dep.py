@@ -165,6 +165,10 @@ class RemoteDepEngine:
                       "mem_puts_sent": 0, "mem_puts_recv": 0,
                       "plane_sends": 0, "host_staged_bytes": 0,
                       "rendezvous_host": 0, "mesh_local_sends": 0,
+                      # flows whose payload parked in the in-process
+                      # XStore for a cross-rank stage (stagec/xrank.py):
+                      # the wire carried control only
+                      "xs_elisions": 0,
                       # prefetched-GET outcomes, DISTINCT from plain
                       # GETs so the overlap gauges stay debuggable
                       "prefetch_gets": 0, "prefetch_hits": 0,
@@ -238,6 +242,15 @@ class RemoteDepEngine:
         if plane is not None:
             plane.fini()
         self.ce.fini()
+        # a transport thread may outlive fini (an in-process TCP engine's
+        # accept loop): through the engine's callbacks it must not keep
+        # this rank's context, pools and their device tiles alive
+        self.ce.on_arrival = None
+        self.ce.on_peer_failure = None
+        self.context = None
+        with self._lock:
+            self._taskpools.clear()
+            self._early_activations.clear()
 
     # ------------------------------------------------------------------ #
     # quantized-wire eligibility                              #
@@ -268,6 +281,20 @@ class RemoteDepEngine:
         mesh-local path (``comm_mesh_local`` on, ``dst`` in this
         process)."""
         return self._mesh_local and self.ce.mesh_local_with(dst)
+
+    def _xs_elide(self, tp, ranks: List[int],
+                  dsts: Dict[int, List[Tuple]]) -> bool:
+        """Whether a flow's payload may skip the wire: every receiving
+        rank negotiated ``"xs"`` and every consumer edge is a member of
+        a cross-rank wave (``tp._xs_targets``, set by
+        stagec/xrank.install_xrank)."""
+        targets = getattr(tp, "_xs_targets", None)
+        if not targets:
+            return False
+        from ..stagec.xrank import xs_negotiated
+        return (all((tp.task_classes[e[0]].ast.name, tuple(e[1]))
+                    in targets for r in ranks for e in dsts[r])
+                and all(xs_negotiated(self.ce, r) for r in ranks))
 
     def _private_copy(self, t: Any) -> Any:
         """The mesh-local payload: a private device copy of ``t`` on the
@@ -372,7 +399,28 @@ class RemoteDepEngine:
             # agreeable to all of them — take the most conservative
             limit = min(self.short_limit_for(r) for r in ranks)
             inline = payload_arr is None or payload_arr.nbytes <= limit
-            if (is_device_array(payload_arr)
+            if payload_arr is not None and self._xs_elide(
+                    tp, ranks, dsts):
+                # cross-rank stage elision (stagec/xrank.py): every
+                # consumer edge of this flow lands in a cross-rank wave,
+                # so the payload parks in the process-global XStore and
+                # the wire carries CONTROL ONLY — the wave's program
+                # gathers the tile.  Each consumer rank takes the parked
+                # copy at delivery, so a wave its stage leaves still
+                # holds a real payload.  A torch tile is mutable: what
+                # parks is a private device copy taken on the producer's
+                # stream (a host payload: a read-only copy)
+                from ..stagec.xrank import XSTORE, xstore_key
+                if is_device_array(payload_arr):
+                    arr = self._private_copy(payload_arr)
+                else:
+                    arr = np.array(payload_arr)
+                    arr.setflags(write=False)
+                key = xstore_key(self.rank, tp.comm_tp_id)
+                XSTORE.put(key, arr, len(ranks))
+                msg["xs"] = list(key)
+                self.stats["xs_elisions"] += 1
+            elif (is_device_array(payload_arr)
                     and all(self.mesh_local_to(r) for r in ranks)):
                 # mesh-local: every participant shares this process —
                 # the private device copy rides the activation, any size
@@ -499,6 +547,25 @@ class RemoteDepEngine:
                     return
                 raise
             self.ce.send_am(xf["src"], TAG_XFER_ACK, {"uuid": uuid})
+            self._deliver_activation(tp, my_edges, arr, msg.get("dtt"),
+                                     tr=msg.get("_tr"))
+            return
+        xs = msg.get("xs")
+        if xs is not None:
+            # cross-rank stage elision: the co-resident producer parked
+            # the payload in the process-global XStore — take it at
+            # delivery, so this rank holds a real payload whatever its
+            # stage does.  A missing entry is this rank's task error
+            from ..stagec.xrank import XSTORE
+            arr = XSTORE.take(tuple(xs))
+            if arr is None:
+                exc = RuntimeError(
+                    f"cross-rank stage payload {tuple(xs)} missing "
+                    f"from the in-process XStore")
+                if self.context is not None:
+                    self.context.record_task_error(exc)
+                    return
+                raise exc
             self._deliver_activation(tp, my_edges, arr, msg.get("dtt"),
                                      tr=msg.get("_tr"))
             return

@@ -75,6 +75,10 @@ the controller (tune/) renegotiates a link's quantized codec at run time
 by K_TUNE frames.  ``serve`` advertises ``"sv"``: between two such ends
 the live context carries the submitting tenant and serve control AMs
 are accepted.  Both imply the ``obs_live`` wire behavior.
+``stage_compile_xrank`` advertises ``"xs"`` with a per-process token:
+two ends negotiate it only when the tokens are equal, i.e. both ranks
+live in this process and can share one cross-rank stage program
+(stagec/xrank.py).
 
 Connection setup: rank r listens on ``endpoints[r]``; r dials every rank
 s < r and accepts from every s > r (one connection per unordered pair),
@@ -98,6 +102,24 @@ from . import wire
 from .wire import GOODBYE
 
 TAG_BARRIER = TAG_USER_BASE - 1  # reserved by the transport for sync()
+
+#: per-PROCESS random token advertised under the HELLO "xs" capability:
+#: equality on the receive side proves two ranks share this process —
+#: and therefore its chips and streams, the precondition for running a
+#: wave-front stage as ONE program across them (stagec/xrank.py).
+#: Minted lazily, so an unset knob never generates it.
+_XS_TOKEN: Optional[str] = None
+_XS_TOKEN_LOCK = threading.Lock()  # lock: guards module-global _XS_TOKEN lazy init, not a class field
+
+
+def _xs_proc_token() -> str:
+    global _XS_TOKEN
+    with _XS_TOKEN_LOCK:
+        if _XS_TOKEN is None:
+            import os
+            import uuid
+            _XS_TOKEN = f"xs-{os.getpid()}-{uuid.uuid4().hex}"
+        return _XS_TOKEN
 
 #: bandwidth EWMA smoothing and the minimum send size that counts as a
 #: bandwidth sample (smaller sends measure syscall latency, not the link)
@@ -243,7 +265,7 @@ class _Peer:
                  "rs_rx_partial", "rx_xfers", "recv_thread",
                  "rs_resuming", "qz_codec", "q_pre", "q_post",
                  "comp_pre", "comp_post", "rs_dup_next", "tn_ok", "sv_ok",
-                 "qrx_pre", "qrx_post")
+                 "xs_ok", "qrx_pre", "qrx_post")
 
     def __init__(self, rank: int, sock: socket.socket) -> None:
         self.rank = rank
@@ -272,6 +294,7 @@ class _Peer:
         self.lv_ok = False         # HELLO advertised obs_live ("lv")
         self.tn_ok = False         # HELLO advertised runtime tuning ("tn")
         self.sv_ok = False         # HELLO advertised serving ("sv")
+        self.xs_ok = False         # HELLO proved a co-resident xrank ("xs")
         # -- closed-loop tuning ----------------------------------
         self.qrx_pre = 0           # raw bytes of RECEIVED quantized bufs
         self.qrx_post = 0          # encoded bytes that landed for them
@@ -325,7 +348,8 @@ class TCPCommEngine(LocalCommEngine):
                  obs_flow: Optional[bool] = None,
                  obs_live: Optional[bool] = None,
                  tune_auto: Optional[bool] = None,
-                 serve: Optional[bool] = None) -> None:
+                 serve: Optional[bool] = None,
+                 xstage: Optional[bool] = None) -> None:
         from ..utils.params import params
         self._inbox: Fifo = Fifo()
         # GET tokens whose reply has ARRIVED (pushed to the inbox by a
@@ -433,6 +457,16 @@ class TCPCommEngine(LocalCommEngine):
         if serve is None:
             serve = bool(params.get_or("serve", "bool", False))
         self._serve_enabled = bool(serve)
+        # cross-rank SPMD stages: the "xs" capability rides a per-PROCESS
+        # random token, so it only negotiates between ranks that share
+        # this process (one program over their lane chips); a knob-unset
+        # or mixed-version peer never matches and keeps the activation
+        # path bit-for-bit.  Unset on EITHER end leaves that end's HELLO
+        # bytes exactly what the unset build sends
+        if xstage is None:
+            xstage = bool(params.get_or("stage_compile_xrank", "bool",
+                                        False))
+        self._xs_enabled = bool(xstage)
         self._tune_enabled = bool(tune_auto)
         self._live_enabled = (bool(obs_live) or self._tune_enabled
                               or self._serve_enabled)
@@ -590,6 +624,13 @@ class TCPCommEngine(LocalCommEngine):
             # bit-identical and a peer without it never sees a 5-tuple or
             # a serve control frame
             info["sv"] = True
+        if self._xs_enabled:
+            # cross-rank SPMD stages: the advertised value is a
+            # per-process random token, not a bare True — the receive
+            # side negotiates "xs" only on token EQUALITY, which proves
+            # both ranks live in THIS process.  Gated like "sv" so an
+            # unset knob's HELLO stays bit-identical
+            info["xs"] = _xs_proc_token()
         if self._quantize is not None:
             # quantized codecs are advertised ONLY when the local knob
             # is set — symmetric like "rs", so a knob-unset build keeps
@@ -726,6 +767,34 @@ class TCPCommEngine(LocalCommEngine):
         with self._conn_cond:
             p = self._peers.get(dst)
         return p is not None and p.sv_ok
+
+    def xstage_to(self, dst: int, wait_s: float = 5.0) -> bool:
+        """Cross-rank SPMD stages may span ``dst`` only when the peer's
+        HELLO carried THIS process's "xs" token — both ends run with
+        ``stage_compile_xrank`` set AND share this process.  A
+        mixed-version or knob-unset peer keeps the activation path.  The
+        HELLO is the link's first frame but lands on the receiver
+        thread, and the accepting end may not hold the link yet, so a
+        caller racing the dial waits (at most ``wait_s`` in all) for
+        both: answering from a link or a HELLO not yet seen would
+        negotiate DOWN for no reason and leave the peers on different
+        plans."""
+        deadline = time.time() + wait_s
+        with self._conn_cond:
+            if self._xs_enabled:
+                self._conn_cond.wait_for(lambda: dst in self._peers,
+                                         timeout=wait_s)
+            p = self._peers.get(dst)
+        if p is None:
+            return False
+        if self._xs_enabled and not p.hello_seen:
+            with p.cond:
+                while not p.hello_seen:
+                    left = deadline - time.time()
+                    if left <= 0:
+                        break
+                    p.cond.wait(min(0.1, left))
+        return p.xs_ok
 
     def compress_ratio(self) -> Optional[float]:
         """Cumulative post/pre compression byte ratio (None: nothing
@@ -2009,6 +2078,11 @@ class TCPCommEngine(LocalCommEngine):
             # contexts (and serve control AMs) travel only on links
             # whose BOTH ends run with the serve knob set
             p.sv_ok = bool(info.get("sv")) and self._serve_enabled
+            # "xs" negotiates on token EQUALITY, not truthiness: equal
+            # tokens prove the peer lives in THIS process; a separate-
+            # process, mixed-version or knob-unset peer never matches
+            p.xs_ok = (self._xs_enabled
+                       and info.get("xs") == _xs_proc_token())
             with p.cond:
                 # quantize capability is symmetric like "rs": only a
                 # peer that advertised the requested codec under "qz"

@@ -45,10 +45,16 @@ def is_device_array(x: Any) -> bool:
 
 #: torch device -> the stream its device module launches every kernel
 #: and copy on (registered by devices/cuda.py).  A host read of a tensor
-#: must queue behind that stream, not the reading thread's own; a tensor
-#: a chip mesh wrote carries its chip's stream instead (:func:`stream_of`).
+#: must queue behind the stream that wrote it, not the reading thread's
+#: own.  Several modules may share one card (rank threads of one
+#: process, each with its own context), and the one registered last
+#: holds the device's entry: so a tensor a module wrote carries that
+#: module's stream, or its chip's on a chip mesh (:func:`stream_of`),
+#: and a host read goes through the pull of the module whose stream it
+#: names (``_stream_pulls``).
 _device_streams: Dict[Any, Any] = {}
 _device_pulls: Dict[Any, Any] = {}
+_stream_pulls: Dict[Any, Any] = {}
 
 
 def register_device_stream(device: Any, stream: Any,
@@ -60,6 +66,7 @@ def register_device_stream(device: Any, stream: Any,
     _device_streams[device] = stream
     if pull is not None:
         _device_pulls[device] = weakref.WeakMethod(pull)
+        _stream_pulls[stream] = weakref.WeakMethod(pull)
 
 
 def tag_stream(t: Any, stream: Any) -> Any:
@@ -132,8 +139,12 @@ def to_host_array(x: Any) -> Any:
     ev = getattr(x, "_ptt_ready", None)
     if ev is not None:
         ev.synchronize()
-    ref = _device_pulls.get(x.device)
+    s = getattr(x, "_ptt_stream", None)
+    ref = _stream_pulls.get(s) if s is not None else None
     pull = ref() if ref is not None else None
+    if pull is None:
+        ref = _device_pulls.get(x.device)
+        pull = ref() if ref is not None else None
     if pull is not None:
         return pull(x)
     stream = stream_of(x, _device_streams.get(x.device))

@@ -372,8 +372,8 @@ class CudaDevice(Device):
             arrays.append(self._localize(copy.payload, target))
         return arrays
 
-    # mesh seam (CudaMeshDevice overrides; the single-stream module is
-    # the identity, so it runs exactly as it did before the mesh)
+    # mesh seam (CudaMeshDevice overrides; on the single-stream module
+    # every target is the module's own stream)
     def _stage_target(self, task: Task) -> Any:
         """Where a task launches (None: the device's own stream)."""
         return None
@@ -388,8 +388,10 @@ class CudaDevice(Device):
         return payload
 
     def _tag(self, t: Any, target: Any) -> Any:
-        """Mark ``t`` as written on ``target`` (a mesh tags the chip)."""
-        return t
+        """Mark ``t`` as written on ``target`` (a mesh tags the chip; one
+        stream tags itself: another rank's module on the same card reads
+        the tensor behind this stream, not behind its own)."""
+        return tag_stream(t, self.stream)
 
     def _note_profile(self, es, cls_name: str, us_per_task: float,
                       n: int) -> None:

@@ -21,6 +21,18 @@ keeps the order the bodies were recorded in.
 
 On the CPU, ``execute`` runs eagerly over copies of the inputs.
 
+One record at a time in the process: a record synchronizes the whole
+device, which CUDA refuses while another thread captures (rank threads
+of one process record their stages concurrently), so records take one
+process-wide lock.  Replays and eager launches of other threads go on
+meanwhile.  A record captures on a stream of its own
+(:func:`own_stream`), one for each stream the graph will replay on:
+``torch.cuda.Stream()`` hands out one of a pool of 32 streams a device
+in turn, so a pooled capture stream may be a stream another thread is
+launching on (its work would land in the graph), and graphs that replay
+on different streams must not share the cuBLAS workspace PyTorch keys
+by the capture stream.
+
 A body that cannot be recorded (it synchronises with the host, or calls
 a library routine that does) raises :class:`CaptureError` naming the
 task and the CUDA error.  There is no fallback to the interpreted
@@ -28,6 +40,7 @@ runtime.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Callable, Dict, Hashable, Iterable, Optional
 
@@ -39,6 +52,39 @@ __all__ = ["CaptureError", "GraphRunner"]
 
 class CaptureError(RuntimeError):
     """A task graph that cannot be captured (or recorded as a CUDA graph)."""
+
+
+_record_lock = threading.Lock()  # lock: one GraphRunner.record at a time in the process, not a class field
+
+_own_lock = threading.Lock()  # lock: guards module-global _own_streams, not a class field
+_own_streams: Dict[Any, Any] = {}
+
+
+def own_stream(device: Any, key: Hashable) -> "torch.cuda.Stream":
+    """A CUDA stream of this process's own for (``device``, ``key``),
+    made once with ``cuStreamCreate`` (non-blocking) and kept: no other
+    caller of ``torch.cuda.Stream()`` is ever handed it, as a pooled
+    stream may be."""
+    import ctypes
+    device = torch.device(device)
+    k = (device.index or 0, key)
+    with _own_lock:
+        s = _own_streams.get(k)
+        if s is None:
+            create = ctypes.CDLL("libcuda.so.1").cuStreamCreate
+            create.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                               ctypes.c_uint]
+            create.restype = ctypes.c_int
+            with torch.cuda.device(device):
+                torch.empty(0, device=device)   # the context is current
+                handle = ctypes.c_void_p()
+                rc = create(ctypes.byref(handle), 1)   # non-blocking
+            if rc != 0:
+                raise RuntimeError(f"cuStreamCreate failed with CUresult "
+                                   f"{rc} on {device}")
+            s = _own_streams[k] = torch.cuda.ExternalStream(
+                handle.value, device=device)
+        return s
 
 
 def _host_or_tensor(x: Any) -> torch.Tensor:
@@ -147,8 +193,17 @@ class GraphRunner:
         return {k: state[k] for k in self._written_keys()
                 if state.get(k) is not None}
 
-    def record(self, inputs: Dict[Hashable, Any], device: torch.device) -> None:
-        """Warm up and record the graph over static copies of ``inputs``."""
+    def record(self, inputs: Dict[Hashable, Any], device: torch.device,
+               replay_stream: Any = None) -> None:
+        """Warm up and record the graph over static copies of ``inputs``
+        (under the process-wide record lock), capturing on the own stream
+        of ``replay_stream``, the stream its replays run on (default: the
+        current one)."""
+        with _record_lock:
+            self._record(inputs, device, replay_stream)
+
+    def _record(self, inputs: Dict[Hashable, Any], device: torch.device,
+                replay_stream: Any) -> None:
         from ..ops import kernels
         self.reset()
         device = torch.device(device)
@@ -176,7 +231,10 @@ class GraphRunner:
         # torch.cuda.graph's context manager is not used: when ending an
         # invalidated capture raises, it leaves its capture stream current
         torch.cuda.synchronize(device)
-        with torch.cuda.stream(torch.cuda.Stream(device=device)):
+        if replay_stream is None:
+            replay_stream = torch.cuda.current_stream(device)
+        capture = own_stream(device, ("capture", replay_stream.cuda_stream))
+        with torch.cuda.stream(capture):
             # thread_local: the runtime's idle worker threads may poll
             # their events meanwhile without breaking this capture
             graph.capture_begin(capture_error_mode="thread_local")

@@ -149,8 +149,8 @@ class ContextObs:
             ctx.sde.register_poll(OBS_OVERLAP_FRACTION, self.overlap.fraction)
             ctx.sde.register_poll(OBS_EXPOSED_COMM_US, self.overlap.exposed_us)
         # stage-compile gauges (stagec/): poll-only over the context's
-        # stage counters; the XSTAGE_* series (cross-rank SPMD stages,
-        # not carried yet) stay 0 under their names
+        # stage counters, the XSTAGE_* series those of the cross-rank
+        # SPMD stages (stagec/xrank.py)
         ss = getattr(ctx, "stage_stats", None)
         if isinstance(ss, dict):
             for key in ("stage_compiles", "stage_tasks", "stage_fallbacks",

@@ -130,12 +130,11 @@ TUNE_DECISIONS = "PARSEC::TUNE::DECISIONS"
 TUNE_REVERTS = "PARSEC::TUNE::REVERTS"
 TUNE_ACTIVE_CODEC_PREFIX = "PARSEC::TUNE::ACTIVE_CODEC"
 TUNE_OBJECTIVE_US = "PARSEC::TUNE::OBJECTIVE_US"
-# cross-rank SPMD stages (stagec/xrank.py, guide §6.4/§9.1):
-# wave-front stages compiled as ONE shard_map program over the spanning
-# ranks' lane devices — programs built, member tasks they retired,
-# boundary-tile bytes moved by the in-program all-gather (per rank:
-# payload bytes received from peers inside the program), and planned
-# cross-rank dispatches that downgraded to the rank-local ladder
+# cross-rank SPMD stages (stagec/xrank.py): wave-front stages run as
+# ONE program over the spanning ranks' lane chips — blocks recorded,
+# member tasks they retired, boundary-tile bytes moved by the in-program
+# gather (every participant adds the wave's (R - 1) * B tile bytes), and
+# planned cross-rank waves a rank left for its rank-local stage
 XSTAGE_COMPILES = "PARSEC::STAGEC::XSTAGE_COMPILES"
 XSTAGE_TASKS = "PARSEC::STAGEC::XSTAGE_TASKS"
 XSTAGE_COLLECTIVE_BYTES = "PARSEC::STAGEC::XSTAGE_COLLECTIVE_BYTES"

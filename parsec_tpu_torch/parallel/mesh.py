@@ -187,6 +187,18 @@ def make_mesh(n_devices: Optional[int] = None,
     return Mesh(arr.reshape([full[a] for a in AXES]))
 
 
+def xrank_mesh(chips: Sequence[Any]) -> Mesh:
+    """One-axis (``"xr"``) mesh over the participating ranks' lane chips
+    (``dsl.ptg.wave_dist.lane_device_pool``): the mesh a cross-rank SPMD
+    stage (stagec/xrank.py) runs its program over.  Position p of the
+    axis IS the p-th participating rank, so the boundary gather moves
+    each tile from its producer rank's chip to every other position's."""
+    arr = np.empty(len(chips), dtype=object)
+    for i, c in enumerate(chips):
+        arr[i] = c
+    return Mesh(arr, ("xr",))
+
+
 def sync_axes(leaf_spec, mesh_axes: Sequence[str] = AXES) -> Tuple[str, ...]:
     """Mesh axes a parameter is REPLICATED over (the axes over which its
     gradient sums the shards' contributions)."""

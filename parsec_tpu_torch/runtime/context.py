@@ -33,7 +33,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 
 from ..utils import logging as plog
-from ..utils.params import TRIMMED_KNOBS, params
+from ..utils.params import params
 from ..profiling.grapher import grapher
 from ..profiling.sde import PENDING_TASKS, SDERegistry
 from ..profiling.trace import Profile
@@ -93,19 +93,6 @@ def _comm_from_params():
     return RemoteDepEngine(TCPCommEngine(rank, endpoints))
 
 
-def _check_trimmed_knobs() -> None:
-    """Refuse knobs of subsystems this package does not carry yet
-    (cross-rank SPMD stages, ``stage_compile_xrank``): a request for one
-    raises instead of being ignored."""
-    for name in TRIMMED_KNOBS:
-        v = str(params.get(name)).strip().lower()
-        if v not in ("", "0", "false", "off", "no"):
-            raise NotImplementedError(
-                f"MCA parameter {name}={params.get(name)!r} asks for a "
-                f"subsystem this package does not carry yet (ROADMAP "
-                f"Queue 1, part F2: cross-rank SPMD stages)")
-
-
 class Context:
     """ref: parsec_context_t"""
 
@@ -119,7 +106,6 @@ class Context:
                  profile: bool = False) -> None:
         if argv:
             params.parse_argv(argv)
-        _check_trimmed_knobs()
         # multi-process bootstrap (launcher-provided params): one
         # torch.distributed process group, before the comm engine
         _maybe_init_torch_distributed()
@@ -244,8 +230,7 @@ class Context:
         # stage-compile telemetry (stagec/): per-rank counters every
         # StageCompiler on this context accumulates into; exposed as
         # PARSEC::STAGEC::* gauges by ContextObs.  The xstage_* keys
-        # (cross-rank SPMD stages, not carried yet) stay 0 so the
-        # gauges keep their names
+        # count the cross-rank SPMD stages (stagec/xrank.py)
         self.stage_stats = {"stage_compiles": 0, "stage_tasks": 0,
                             "stage_fallbacks": 0, "stage_compile_ns": 0,
                             "stage_dispatches": 0, "stage_sharded": 0,

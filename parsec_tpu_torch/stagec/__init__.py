@@ -10,8 +10,10 @@ rank's chip mesh; cross-pool chaining (:mod:`.chain`) records
 sequentially composed pools' boundary stages into one program; and the
 runtime integration (:mod:`.runtime`) executes compiled stages as
 single chores interleaved with the interpreted residue behind the
-``stage_compile`` MCA knob.  Cross-rank SPMD stages (the JAX package's
-``stagec/xrank.py``) are not carried yet.
+``stage_compile`` MCA knob.  Cross-rank SPMD stages (:mod:`.xrank`,
+``stage_compile_xrank``) run a wave front that spans the ranks of one
+process as one program over their lane chips, its activations carrying
+control only.
 """
 from .plan import (ClassVerdict, Stage, StagePlan, class_verdicts,
                    lower_report, plan_stages, stage_report)

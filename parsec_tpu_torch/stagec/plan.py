@@ -158,11 +158,11 @@ class StagePlan:
         #: the runtime schedules each complete group as one pre-planned
         #: burst instead of a per-task activate/schedule round-trip
         self.residue_groups_host: List[List[Tuple]] = []
-        #: cross-rank SPMD waves (stagec/xrank.py, not carried yet:
-        #: ROADMAP Queue 1, part F2): always empty in this package
+        #: cross-rank SPMD waves (stagec/xrank.py): filled by
+        #: plan_xwaves when stage_compile_xrank is on and nb_ranks > 1
         self.xwaves: List[Any] = []
         #: [(level, class, text)] — per-(level, class) cross-rank
-        #: eligibility verdicts (the --lower-report column); empty here
+        #: eligibility verdicts (the --lower-report column)
         self.xwave_report: List[Tuple] = []
         #: (collection name, coords) -> ordered instance keys with a
         #: memory out-dep landing on that tile, over the FULL (all-rank)
@@ -556,8 +556,8 @@ def stage_report(tp, rank: int = 0, max_tasks: int = 256,
         lines.append(
             f"  -- {len(plan.residue_groups_host)} host residue "
             f"group(s) pre-planned over {n_host} task(s)")
-    # cross-rank eligibility column (F2; empty here): one line per (level,
-    # class) wave group — spanning ranks + boundary edges + collective
+    # cross-rank eligibility column (stagec/xrank.py): one line per
+    # (level, class) wave group — spanning ranks + boundary edges + collective
     # kind, or the reason it stays rank-local
     for (lv, cls, text) in plan.xwave_report:
         lines.append(f"  xrank level {lv} {cls}: {text}")

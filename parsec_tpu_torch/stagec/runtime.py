@@ -92,8 +92,14 @@ Fallback ladder (semantics are never at risk):
 5. ``stage_compile`` unset: ``tp._stagec`` is None and behavior is
    bit-for-bit the pre-stagec runtime.
 
-Cross-rank SPMD stages (``stage_compile_xrank``, the JAX package's
-stagec/xrank.py) are not carried yet (ROADMAP Queue 1, part F2).
+**Cross-rank SPMD stages** (``stage_compile_xrank``, stagec/xrank.py):
+with several ranks in one process, a planned wave front whose members
+span ranks runs as ONE program over the ranks' lane chips — each rank's
+rows one CUDA graph recorded on its lane chip at spawn, the boundary
+tiles gathered device to device — and the activations of those edges
+carry control only.  A rank whose stage downgrades declines the wave
+(its peers run their rows rank-local, ``xstage_fallbacks``); any other
+failure of the wave raises on every participant.
 """
 from __future__ import annotations
 
@@ -131,6 +137,8 @@ _GUARDED_BY = {
     "StageCompiler._rg_left": "_rg_lock",
     "StageCompiler._rg_buf": "_rg_lock",
     "StageProgram._done": "_lock",
+    "StageCompiler._xorder": "_xlock",
+    "StageCompiler._xheld": "_xlock",
 }
 
 # _StageRec lifecycle
@@ -155,8 +163,12 @@ class StageProgram:
     ``capture_seconds``, ``replay_ms``) and ``record_seconds``."""
 
     def __init__(self, run, name: str, n_slots: int,
-                 out_slots: List[int], n_edges: int) -> None:
+                 out_slots: List[int], n_edges: int,
+                 replay_stream: Any = None) -> None:
         self.run_fn = run
+        #: the stream replays run on (the device module's): records
+        #: capture on its own stream (dsl/graph.own_stream)
+        self.replay_stream = replay_stream
         self.name = name
         self.n_slots = n_slots
         self.out_slots = list(out_slots)
@@ -191,8 +203,9 @@ class StageProgram:
 
     def record(self, shapes: Tuple, device) -> None:
         """Warm up and record on ``device`` over zero-filled slots of
-        ``shapes`` (a CUDA device; nothing to record on the CPU).  A body
-        that cannot be recorded raises :class:`CaptureError`."""
+        ``shapes`` (a CUDA device; nothing to record on the CPU), for
+        replays on the program's ``replay_stream``.  A body that cannot
+        be recorded raises :class:`CaptureError`."""
         import torch
         device = torch.device(device)
         if device.type != "cuda":
@@ -200,7 +213,7 @@ class StageProgram:
         t0 = time.perf_counter()
         zeros = {i: torch.zeros(s, dtype=getattr(torch, d), device=device)
                  for i, (s, d) in enumerate(shapes)}
-        self.graph_on(device).record(zeros, device)
+        self.graph_on(device).record(zeros, device, self.replay_stream)
         self.record_seconds += time.perf_counter() - t0
 
     def replay(self, arrays: List[Any], device,
@@ -312,6 +325,9 @@ class _StageRec:
         self.shapes: Tuple = ()
         self.donate = False
         self.chain = None               # HostChain when this rec hosts
+        self.xwave = None               # XWave when this rec joins one
+        self.xblock = None              # its recorded block (xrank.XBlock)
+        self.xfail = None               # why its block failed to build
         #: Data objects prestaged for this stage and not yet counted
         #: (single-owner by lifecycle: the buffering/spawn path)
         self.prestaged: List[Any] = []
@@ -461,6 +477,29 @@ class StageCompiler:
                                            0))
         self._prestage_recs: set = set()
 
+        # cross-rank SPMD stages (stagec/xrank.py): negotiate "xs" with
+        # every spanning peer, check the lane chips, exchange and assert
+        # the plan digest, wire the planned waves onto their stage recs.
+        # A peer without "xs", a missing digest or an epoch skew keeps
+        # every stage rank-local; a diverging digest or lane chips that
+        # are not distinct raise
+        self._xrank = None
+        self._lanes = None
+        if plan.xwaves:
+            from .xrank import install_xrank
+            install_xrank(self)
+        # the rank's cross-rank waves dispatch in wave-id order, every
+        # rank alike: a wave's rendezvous holds the device manager, so
+        # two ranks that entered different waves first would each wait
+        # for the other.  A stage task whose turn has not come is held
+        # here until the waves before it have dispatched (a later wave
+        # never feeds an earlier one: ids follow levels)
+        self._xlock = threading.Lock()
+        self._xorder: List[_StageRec] = sorted(
+            (r for r in self._recs if r.xwave is not None),
+            key=lambda r: r.xwave.wave_id)
+        self._xheld: Dict[int, Task] = {}
+
     def _count(self, **inc: int) -> None:
         """Add to the context's stage counters: worker threads, rank
         threads and the comm path count concurrently."""
@@ -516,7 +555,7 @@ class StageCompiler:
             # them (the executing stage / the wire)
             self._prestage_activation(rec, copy)
             return True, None
-        tasks = self._spawn(rec)
+        tasks = self._xgate(self._spawn(rec))
         if not tasks:
             return True, None
         if len(tasks) > 1:
@@ -538,7 +577,43 @@ class StageCompiler:
                     continue
                 rec.status = _SPAWNED
             out.extend(self._spawn(rec))
+        return self._xgate(out)
+
+    # ------------------------------------------------------------------ #
+    # cross-rank waves: one dispatch order on every rank                 #
+    # ------------------------------------------------------------------ #
+    def _xgate(self, tasks: List[Task]) -> List[Task]:
+        """``tasks`` less the cross-rank stage tasks whose turn has not
+        come: those wait in ``_xheld`` for :meth:`_xdone`."""
+        out = []
+        with self._xlock:
+            for t in tasks:
+                rec = getattr(t, "user", None)
+                if not isinstance(rec, _StageRec) or rec.xwave is None \
+                        or not self._xorder or self._xorder[0] is rec:
+                    out.append(t)
+                else:
+                    self._xheld[id(rec)] = t
         return out
+
+    def _xdone(self, rec: _StageRec) -> None:
+        """``rec`` dispatched, or left its wave: the next wave's stage
+        task, if it is already waiting, goes to the scheduler."""
+        ready = []
+        with self._xlock:
+            if rec in self._xorder:
+                self._xorder.remove(rec)
+            # a wave the rank left (its stage downgraded) has no turn
+            while self._xorder and self._xorder[0].xwave is None:
+                self._xorder.pop(0)
+            if self._xorder:
+                t = self._xheld.pop(id(self._xorder[0]), None)
+                if t is not None:
+                    ready.append(t)
+        if ready:
+            from ..runtime.scheduling import schedule
+            schedule(self.context.execution_streams[0], ready)
+            self.context.wake_workers(len(ready))
 
     # ------------------------------------------------------------------ #
     # cross-pool chaining: consume a stashed rider stage                 #
@@ -806,7 +881,8 @@ class StageCompiler:
             t0 = time.perf_counter_ns()
             prog = StageProgram(
                 make_run(), f"stage {rec.stage.index} of {self.tp.name} "
-                f"({what})", len(rec.shapes), rec.layout.out_mem, n_edges)
+                f"({what})", len(rec.shapes), rec.layout.out_mem, n_edges,
+                self._dev.stream)
             try:
                 prog.record(rec.shapes, self._device())
             except CaptureError:
@@ -888,11 +964,10 @@ class StageCompiler:
                 rec.chain = None
                 rec.shapes = self._slot_shapes(rec, bindings)
         if rec.chain is None:
-            if self._mesh_dev is not None \
-                    and params.get("stage_compile_shard"):
-                rec.sharded = self._sharded(rec)
-            if rec.sharded is None:
-                rec.fn = self._lowered(rec, rec.donate)
+            if rec.xwave is not None:
+                self._xblock(rec)
+            else:
+                self._rank_local(rec)
         self._count_prestage_hits(rec)
         tc = StageTaskClass(self, rec)
         if self._trace_on:
@@ -927,6 +1002,32 @@ class StageCompiler:
                 task.data[base + j].fulfilled = True
         rec.task = task
         return task
+
+    def _rank_local(self, rec: _StageRec) -> None:
+        """The stage's rank-local program: the wave front over the chip
+        mesh, else the single-chip graph."""
+        if self._mesh_dev is not None \
+                and params.get("stage_compile_shard"):
+            rec.sharded = self._sharded(rec)
+        if rec.sharded is None:
+            rec.fn = self._lowered(rec, rec.donate)
+
+    def _xblock(self, rec: _StageRec) -> None:
+        """This rank's recorded block of the stage's cross-rank wave.  A
+        block that cannot be recorded raises CaptureError (the stage
+        downgrades and declines the wave).  Any other failure errors the
+        wave's rendezvous at once and is raised when the stage task
+        dispatches (``dispatch_xrank``): raised here, in the middle of
+        a release walk, it would keep activations from the peers, who
+        would then never reach the rendezvous to see the error."""
+        from .xrank import build_xblock, error_rec
+        try:
+            rec.xblock = build_xblock(self, rec)
+        except CaptureError:
+            raise
+        except Exception as exc:
+            error_rec(self, rec, exc)
+            rec.xfail = exc
 
     def _sharded(self, rec: _StageRec):
         """A wave-front stage on a mesh rank runs its rows over the
@@ -978,6 +1079,14 @@ class StageCompiler:
         with rec._lock:
             rec.status = _DOWNGRADED
             events, rec.events = rec.events, []
+        if rec.xwave is not None:
+            # peers are (or will be) waiting at this wave's rendezvous:
+            # decline NOW so they run their rows rank-local
+            from .xrank import decline_rec
+            decline_rec(self, rec)
+            rec.xwave = None
+            self._count(xstage_fallbacks=1)
+            self._xdone(rec)
         rec.prestaged = []
         self._prestage_recs.discard(id(rec))
         self._count(stage_fallbacks=1)
@@ -1005,12 +1114,26 @@ class StageCompiler:
                        arrays: List[Any]):
         lay = rec.layout
         dev = task.selected_device
-        if rec.sharded is not None:
+        tile_outs = None
+        if rec.xwave is not None:
+            from .xrank import XDeclined, dispatch_xrank
+            try:
+                tile_outs, edge_outs = dispatch_xrank(self, rec, arrays)
+                self._count(xstage_tasks=rec.stage.n_tasks)
+            except XDeclined as exc:
+                plog.debug.verbose(
+                    2, "stagec xrank: stage %d of %s runs rank-local (%s)",
+                    rec.stage.index, self.tp.name, exc)
+                rec.xwave = None
+                self._count(xstage_fallbacks=1)
+                self._record_in_dispatch(rec)
+            self._xdone(rec)
+        if tile_outs is None and rec.sharded is not None:
             from .sharded import dispatch_sharded
             tile_outs, edge_outs = dispatch_sharded(self._mesh_dev,
                                                     rec.sharded, arrays)
             self._count(stage_sharded=1)
-        else:
+        elif tile_outs is None:
             donate = rec.donate and \
                 len({id(a) for a in arrays}) == len(arrays)
             # the slots' device: the module's, or a mesh chip's card (a
@@ -1048,6 +1171,18 @@ class StageCompiler:
         if dev is not None:
             dev.stats["tasks"] += rec.stage.n_tasks - 1  # +1 from epilog
         return tuple(tile_outs)
+
+    def _record_in_dispatch(self, rec: _StageRec) -> None:
+        """Record the rank-local program of a stage that left its wave at
+        dispatch.  The record's GEMM launches are the program's (as a
+        spawn-time record's are), so they come back out of the device
+        module's dispatch count."""
+        from ..ops.kernels import thread_matmul_launches
+        k0 = thread_matmul_launches()
+        try:
+            self._rank_local(rec)
+        finally:
+            self._dev.gemm_launches -= thread_matmul_launches() - k0
 
     # ------------------------------------------------------------------ #
     # release: each member's untouched _release_deps over the stash      #
@@ -1091,7 +1226,10 @@ class StageCompiler:
                 "status": ("pending", "spawned", "done",
                            "downgraded")[status],
                 "chained": rec.chain is not None}
-            prog = rec.sharded if rec.sharded is not None else rec.fn
+            # the program that ran: a stage that left its cross-rank
+            # wave reports its rank-local program
+            prog = next((p for p in (rec.sharded, rec.fn, rec.xblock)
+                         if p is not None), None)
             if prog is not None:
                 row.update(prog.facts())
             out.append(row)
@@ -1155,7 +1293,12 @@ def prepared_plan(tp, context) -> StagePlan:
     which therefore always agree on stage identity."""
     from ..devices.batching import cached_stage_callable
     from .plan import _excluded_classes
-    wavefront = any(
+    # cross-rank SPMD stages need the wave-front partition even without
+    # a chip mesh: every rank must cut the SAME (level, class) waves for
+    # the one program to line up
+    xrank = bool(params.get("stage_compile_xrank")) \
+        and tp.nb_ranks > 1 and bool(params.get("stage_compile_shard"))
+    wavefront = xrank or any(
         d.device_type == "cuda" and getattr(d, "mesh", None) is not None
         and len(getattr(d, "chips", ())) > 1 for d in context.devices)
     max_tasks = int(params.get("stage_compile_max_tasks"))
@@ -1186,13 +1329,16 @@ def prepared_plan(tp, context) -> StagePlan:
             else:
                 plan.startup_mem_puts += tp._count_mem_puts_to_me(
                     tp.class_by_name(k[0]), inst.env)
+        if xrank:
+            from .xrank import plan_xwaves
+            plan_xwaves(tp, plan, max_tasks)
         return plan
 
     # held for the context: the plan's instances keep the first pool's
     # classes and environment (its collections) alive
     return cached_stage_callable(
         spec_token(tp),
-        ("stageplan", wavefront, max_tasks, _excluded_classes()),
+        ("stageplan", wavefront, xrank, max_tasks, _excluded_classes()),
         build_plan, owner=context)
 
 

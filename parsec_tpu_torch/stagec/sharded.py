@@ -207,7 +207,7 @@ class WavefrontProgram:
                     s, d = self.shapes[si]
                     zeros[(r, j)] = torch.zeros(s, dtype=getattr(torch, d),
                                                 device=device)
-            gr.record(zeros, device)
+            gr.record(zeros, device, chip.stream)
         self.record_seconds += time.perf_counter() - t0
 
     @property

@@ -672,6 +672,23 @@ def register_core_params() -> None:
                       "instances run as interpreted residue — a "
                       "debugging / measurement knob (the residue-heavy "
                       "leg rides it)")
+    params.reg_bool("stage_compile_xrank", False,
+                    "cross-rank SPMD stages (stagec/xrank.py): run a "
+                    "wave-front stage that spans ranks as ONE program "
+                    "over the participating ranks' lane chips (each "
+                    "rank's rows recorded as a CUDA graph on its lane "
+                    "chip), turning inter-rank dependency edges into "
+                    "in-program device-to-device gathers of the boundary "
+                    "tiles with control-only activations on the wire; "
+                    "negotiated per peer via the HELLO \"xs\" capability "
+                    "— mixed-version or knob-unset peers keep the "
+                    "activation path bit-for-bit; off (default) keeps "
+                    "every stage rank-local")
+    params.reg_string("stage_xrank_timeout", "60",
+                      "seconds a rank waits at a cross-rank stage "
+                      "rendezvous for its peers' deposits; past it the "
+                      "rendezvous is errored and every participant "
+                      "raises (termdet never hangs)")
     params.reg_bool("stage_compile_donate", True,
                     "donation inside compiled stages: a replay writes the "
                     "results of WRITE slots into the slot's own device "
@@ -679,19 +696,6 @@ def register_core_params() -> None:
                     "the BDY204 analysis proves free of intra-stage tile "
                     "aliasing; the copy's version is bumped, so no reader "
                     "sees a stale payload; off hands back clones")
-    # knobs of subsystems this package does not carry yet: registered
-    # so that a caller who sets one gets NotImplementedError at init
-    # (runtime/context.py) instead of a silently ignored request
-    for name in TRIMMED_KNOBS:
-        params.reg_string(name, "", "not supported by this package yet "
-                          "(ROADMAP Queue 1, part F2); setting it raises "
-                          "NotImplementedError")
-
-
-#: knobs of the JAX package's subsystems that this package leaves out
-#: (cross-rank SPMD stages, stagec/xrank.py, and their rendezvous
-#: timeout: ROADMAP Queue 1, part F2)
-TRIMMED_KNOBS = ("stage_compile_xrank", "stage_xrank_timeout")
 
 
 register_core_params()

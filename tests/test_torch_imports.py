@@ -456,7 +456,26 @@ def test_init_without_card_raises(monkeypatch):
 def test_trimmed_knobs_raise(knob, value):
     """A knob asking for what this package does not carry raises; a chip
     mesh larger than the chip pool (one host chip, with no
-    device_cuda_virtual_chips) raises instead of falling back."""
+    device_cuda_virtual_chips) raises instead of falling back.
+    stage_compile_xrank left this list: cross-rank SPMD stages are
+    carried, so init accepts it (and a pool of one rank plans no
+    cross-rank wave)."""
+    if knob == "stage_compile_xrank":
+        from parsec_tpu_torch.ops import dpotrf_taskpool, make_spd
+        from parsec_tpu_torch.collections import TwoDimBlockCyclic
+        with params.cmdline_override(knob, value), \
+                params.cmdline_override("stage_compile", "1"):
+            ctx = parsec_tpu_torch.init(nb_cores=1, device="cpu")
+            try:
+                A = TwoDimBlockCyclic(64, 64, 32, 32).from_numpy(
+                    make_spd(64))
+                tp = dpotrf_taskpool(A)
+                ctx.add_taskpool(tp)
+                ctx.wait()
+                assert tp._stagec.plan.xwaves == []
+            finally:
+                ctx.fini()
+        return
     exc = RuntimeError if knob == "device_mesh_shape" \
         else NotImplementedError
     with params.cmdline_override(knob, value):

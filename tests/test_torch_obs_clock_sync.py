@@ -84,7 +84,10 @@ def test_offsets_near_zero_on_shared_clock():
             "clock sampler produced no estimate"
         assert abs(off0) < 10_000, off0
         assert abs(off1) < 10_000, off1
-        assert e0.clock_offsets_us() == {1: off0}
+        # read once: the sampler refines the estimate between two reads
+        offs = e0.clock_offsets_us()
+        assert set(offs) == {1}, offs
+        assert abs(offs[1]) < 10_000, offs
     finally:
         e0.fini()
         e1.fini()

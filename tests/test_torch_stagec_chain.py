@@ -7,8 +7,8 @@ a card it is ONE recorded CUDA graph replayed per dispatch (the
 ``gpu``-marked tests).  Either way every member runs the body it runs
 interpreted, on the same tiles, in an order the dependences fix, so the
 results are identical.  These cases mirror the JAX package's
-tests/test_stagec.py (all but its three cross-rank SPMD cases, part F2
-of ROADMAP Queue 1); where a reference case tests a JAX-only mechanism
+tests/test_stagec.py (its three cross-rank SPMD cases are in
+tests/test_torch_stagec_xrank.py); where a reference case tests a JAX-only mechanism
 the docstring names the port's counterpart.  This file imports no JAX.
 """
 import gc
@@ -1287,16 +1287,28 @@ END
 
 
 @pytest.mark.parametrize("knob,value", [("stage_compile_xrank", "1"),
-                                       ("stage_xrank_timeout", "60")])
+                                       ("stage_xrank_timeout", "60"),
+                                       ("stage_xrank_timeout", "5")])
 def test_stagec_xrank_knob_raises_naming_f2(knob, value):
-    """Cross-rank SPMD stages are not carried yet: stage_compile_xrank=1,
-    or a rendezvous timeout for them, makes init raise, naming part F2
-    of the roadmap; stage_compile alone is accepted."""
-    with _knobs(**{knob: value}):
-        with pytest.raises(NotImplementedError, match="part F2"):
-            ptt.init(nb_cores=1, device="cpu")
-    with _knobs(True):
-        ptt.init(nb_cores=1, device="cpu").fini()
+    """Named for the refusal it replaced: cross-rank SPMD stages are
+    carried now, so stage_compile_xrank=1 and a rendezvous timeout are
+    live knobs — init accepts each beside stage_compile, nothing names
+    the old roadmap part, and a pool of one rank plans no cross-rank
+    wave (the knob needs nb_ranks > 1)."""
+    from parsec_tpu_torch.utils.params import params as p
+    with _knobs(True, **{knob: value}):
+        assert str(p.get(knob)) in (value, "True")
+        ctx = ptt.init(nb_cores=1, device="cpu")
+        try:
+            A = TwoDimBlockCyclic(64, 64, 32, 32,
+                                  dtype=np.float32).from_numpy(make_spd(64))
+            tp = dpotrf_taskpool(A)
+            ctx.add_taskpool(tp)
+            ctx.wait()
+            assert tp._stagec is not None and tp._stagec.plan.xwaves == []
+            assert ctx.stage_stats["xstage_tasks"] == 0
+        finally:
+            ctx.fini()
 
 
 # --------------------------------------------------------------------- #
@@ -1324,6 +1336,112 @@ def test_stagec_graphs_on_card_bit_exact(on_card):
     assert all(r["replays"] >= 1 for r in rows), rows
     assert s1["stage_fallbacks"] == 0 and s2["stage_compiles"] == 0, s2
     assert all(r["replays"] >= 2 for r in sc2.program_report())
+
+
+def _xrank_tcp(M, n, nb, kv, nr=2):
+    """dpotrf over ``nr`` rank threads on loopback TCP, on the card, the
+    knobs ``kv`` set around the engines' construction (the "xs"
+    capability rides the HELLO); returns (L, per-rank stage stats,
+    per-rank program reports, the "xs" links).  The ranks meet at a
+    barrier after their pools: nothing synchronizes the whole device
+    while another rank still records a stage."""
+    import errno
+    import threading
+    from parsec_tpu_torch.comm import RemoteDepEngine
+    from parsec_tpu_torch.comm.tcp import TCPCommEngine, free_ports
+    barrier = threading.Barrier(nr, timeout=120)
+    with _knobs(**kv):
+        for attempt in range(5):
+            eps = [("127.0.0.1", p) for p in free_ports(nr)]
+            try:
+                engines, _f = _spmd(nr, lambda r, _f: TCPCommEngine(r, eps),
+                                    timeout=60)
+                break
+            except OSError as exc:
+                if exc.errno != errno.EADDRINUSE or attempt == 4:
+                    raise
+        links = [engines[r].xstage_to(p) for r in range(nr)
+                 for p in range(nr) if p != r]
+
+        def rank_fn(rank, _f):
+            ctx = ptt.Context(nb_cores=2,
+                              comm=RemoteDepEngine(engines[rank]))
+            try:
+                A = TwoDimBlockCyclic(n, n, nb, nb, P=nr, Q=1, nodes=nr,
+                                      rank=rank, dtype=np.float32
+                                      ).from_numpy(M.copy())
+                A.name = "descA"
+                tp = dpotrf_taskpool(A, rank=rank, nb_ranks=nr)
+                try:
+                    ctx.add_taskpool(tp)
+                    ctx.wait()
+                except BaseException:
+                    barrier.abort()
+                    raise
+                barrier.wait()
+                return ({c: np.asarray(A.data_of(*c).sync_to_host().payload)
+                         for c in A.tiles() if A.rank_of(*c) == rank},
+                        dict(ctx.stage_stats),
+                        tp._stagec.program_report() if tp._stagec else [])
+            finally:
+                ctx.fini()
+
+        res, _f = _spmd(nr, rank_fn, timeout=180)
+    L = np.zeros((n, n), np.float32)
+    for owned, _s, _r in res:
+        for (m, k), t in owned.items():
+            L[m * nb:m * nb + t.shape[0], k * nb:k * nb + t.shape[1]] = t
+    return np.tril(L), [r[1] for r in res], [r[2] for r in res], links
+
+
+@pytest.mark.gpu
+def test_stagec_xrank_on_card_bit_exact(on_card):
+    """Cross-rank stages on the card: two rank threads on loopback TCP,
+    one logical lane chip of cuda:0 each; each rank's rows of a spanning
+    wave are one CUDA graph on its chip.  The factor is the interpreted
+    2-rank factor bit for bit, and the blocks' graphs recorded GEMM
+    launches that their replays ran."""
+    n, nb = 512, 128
+    M = make_spd(n)
+    chips = {"device_cuda_virtual_chips": "2"}
+    L0, _s, _r, _l = _xrank_tcp(M, n, nb, chips)
+    L1, st, rows, links = _xrank_tcp(
+        M, n, nb, dict(chips, stage_compile="1", stage_compile_xrank="1"))
+    assert all(links), links
+    assert all(s["xstage_tasks"] > 0 and s["xstage_fallbacks"] == 0
+               for s in st), st
+    blocks = [r for rr in rows for r in rr if r.get("xrank")]
+    assert sum(r["captured_gemm_launches"] for r in blocks) > 0, blocks
+    assert all(r["replays"] >= 1 for r in blocks), blocks
+    np.testing.assert_array_equal(L1, L0)
+
+
+@pytest.mark.gpu
+def test_record_captures_on_an_own_stream(on_card):
+    """PyTorch hands out its pooled streams in turn (32 a device), so two
+    streams made apart may be one: a record that captured on a pooled
+    stream could take in the launches another thread made on that stream.
+    A record captures on a stream of the process's own, one for each
+    stream its replays run on, which no pooled stream is."""
+    from parsec_tpu_torch.dsl.graph import GraphRunner, own_stream
+    dev = torch.device("cuda", 0)
+    pooled = [torch.cuda.Stream(device=dev).cuda_stream for _ in range(64)]
+    assert len(set(pooled)) < len(pooled), "the pool did not repeat"
+    replay = torch.cuda.Stream(device=dev)
+    seen = []
+
+    def execute(state, device, note):
+        seen.append(torch.cuda.current_stream(device).cuda_stream)
+        return {"y": state["x"] * 2.0}
+
+    gr = GraphRunner(execute, "own stream", lambda: ["y"])
+    with torch.cuda.stream(replay):
+        x = torch.ones(4, device=dev)
+        gr.record({"x": x}, dev)
+        out = gr.run({"x": x}, dev)
+    capture = own_stream(dev, ("capture", replay.cuda_stream)).cuda_stream
+    assert seen[-1] == capture and capture not in pooled
+    assert torch.equal(out["y"], torch.full((4,), 2.0, device=dev))
 
 
 HOSTSYNC_JDF = """
