@@ -6,10 +6,11 @@
 Phases, each reporting on its own lines:
 
 1. device   the card's name, and its name and power limit from nvidia-smi;
-2. build    every CUDA source of this checkout (csrc/*.cu), one nvcc for
-            each, all started together, beside one nvcc -Xptxas -v for
-            each, which then gives each kernel instance's registers and
-            spills;
+2. build    every CUDA library of this checkout: each csrc/*.cu built
+            twice, as is (fp32) and with -DPTT_BF16 (bf16), one nvcc
+            for each, all started together; ptxas's report of each
+            build (-Xptxas -v) gives each kernel instance's registers
+            and spills;
 3. kernel   the GEMM kernel against its plain PyTorch version on the
             card, at the dpotrf path's tile shape (nb = 1024): matmul,
             gemm_nt, syrk_ln, a batched z = 8 launch, ragged 1000^3 and
@@ -18,6 +19,12 @@ Phases, each reporting on its own lines:
             and the gradient; relative max error under 1e-4 (the two sum
             in different orders in fp32); batched launches bit-exact
             against single ones, misaligned against aligned copies;
+3'. kernel.bf16 the GEMM kernel's bf16 instance against its plain
+            version: its path, kernels.matmul at 1024^3 and its gradient
+            (3 launches, counted from 0), ragged 999 x 1001 x 997 in both
+            forms and z = 3, 2-byte-misaligned operands; relative max
+            error under 1e-2 (bf16 out, fp32 sums); batched launches
+            bit-exact against single ones, misaligned against aligned;
 4. attention both flash kernels against their plain versions on the
             card: [8, 12, 1024, 64] causal (the forward's shape) and
             non-causal, ragged T = Tk = 1000 with D = 40, 64 and 128,
@@ -35,6 +42,13 @@ Phases, each reporting on its own lines:
             waited for against a deadline, so a stuck dQ turn fails
             instead of hanging), misaligned operands bit-exact against
             aligned copies;
+4'. attention.bf16 the same cases with the bf16 instances: o, dq, dk
+            and dv within 1e-2 of the plain versions (which round where
+            the Pallas kernel does: p before P.V, the outputs once), m
+            and l (fp32) within 1e-4, repeats and misaligned views
+            bit-exact; then operands of mixed fp32 and bf16 (and bf16
+            row statistics, and a bf16 GEMM with C) raise and launch
+            nothing;
 4b. bodies  the DPLASMA family's product bodies (gemm_nn_sub, gemm_tn_sub,
             unmqr, tsmqr, gemm with alpha 1.5 and beta 0.5, and with B
             transposed) against the GEMM kernel's plain version on the
@@ -366,6 +380,21 @@ Phases, each reporting on its own lines:
             on the card's input and cotangent, beside the CPU's
             fp32-vs-fp64 drift; the whole-depth loss against the CPU's,
             reported;
+7'. forward.bf16 the forward at dtype=bfloat16 (the seeded weights as
+            init_params draws them in bf16): "ring" and "flash", a
+            warm-up and 2 forwards each, 12 launches of the path's bf16
+            instance a forward and none of any other, finite logits,
+            ring vs flash and whole depth vs the CPU reported, each layer
+            and the head within 2e-2 of the CPU port at bf16 on the
+            card's input (four roundings in a row a layer);
+7b'. train.bf16 the bf16 model trained as in 7b: a warm-up and 3 timed
+            steps each of "flash", "flash" with remat and "ring", the
+            loss finite and falling, the bf16 instances' launches in 7b's
+            counts and no fp32 flash launch, the leaf dtypes after steps
+            1 and 2 as the JAX package's (fp32 parameters with bf16
+            moments, then all fp32); each layer's and the head's
+            gradients on sequence 0 within 4e-2 of the CPU port at bf16,
+            and each below the CPU's own bf16-vs-fp64 drift;
 7c. spmd    the same model over meshes of the card's 4 logical chips
             (device_cuda_virtual_chips, a stream each; one thread a
             shard, every collective one autograd node over its group),
@@ -400,7 +429,10 @@ Phases, each reporting on its own lines:
             at the same shape against SDPA's backward (its forward plus
             backward less its forward), and each of its instances'
             registers, local (spill) bytes, shared memory and resident
-            blocks an SM (cudaFuncGetAttributes);
+            blocks an SM (cudaFuncGetAttributes); then the bf16 instances
+            (matmul at nb = 1024 against torch.matmul, the flash kernels
+            against SDPA and its backward, all bf16), their bounds from
+            the bf16 tensor-core peak and 2 bytes an element;
 9. profile  with --profile only (and rank 0 of multirank dposv_2, in its
             timed run, so that run's wall includes the profiler): the
             dpotrf, DTD Cholesky, dgeqrf and
@@ -418,7 +450,8 @@ own, printed when the phase ends.
 
 Any failure raises and exits non-zero; so does a machine where PyTorch
 sees no CUDA device.  The line before the last is the kernels' record
-{"kernels": [...]}; the last line is
+{"kernels": [...]} (gemm_f32, flash_fwd_f32, flash_fwd_stats_f32,
+flash_bwd_f32 and their bf16 instances); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -458,7 +491,32 @@ TRAIN_LR = 1e-3
 GRAD_RTOL = 1e-3
 REMAT_RTOL = 1e-5      # remat vs no remat, every gradient, on the card
 F32_FLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
+BF16_FLOPS = 989e12    # H100 SXM bf16 dense tensor-core peak
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
+#: a bf16 kernel vs its plain version, relative max error compared in
+#: fp32: a few units of bf16's roundoff 2^-8, since both round once to
+#: bf16 but sum in other orders, and the forward rounds p at the running
+#: max of another key tile
+BF16_RTOL = 1e-2
+#: a bf16 layer, card vs the CPU port on the same input: a layer rounds
+#: four times in a row (o, x + o, f, x + o + f), each result up to a
+#: unit of 2^-8 apart, so up to four units at the largest entry
+BF16_LAYER_RTOL = 2e-2
+#: a bf16 layer's VJP, card vs the CPU port on the same input and
+#: cotangent: its backward rounds about ten times in a row (the products'
+#: cotangents, GELU's and RMSNorm's backward, the residual adds, dq, dk,
+#: dv; the card's delta reads the forward's bf16 o), so up to ten units
+#: of 2^-8; and each gradient no further from the CPU's than the CPU's
+#: own bf16 gradient is from its fp64 one
+BF16_GRAD_RTOL = 4e-2
+BF16_FORWARDS = 2      # timed bf16 forwards per attention, after one warm-up
+#: the JAX package's leaf dtypes after each Adam step from a bf16 tree:
+#: ``m / c1`` promotes to fp32, so the parameters are fp32 after step 1
+#: while the moments stay bf16; after step 2 every leaf is fp32
+BF16_STEP_DTYPES = {1: {"params": torch.float32, "mu": torch.bfloat16,
+                        "nu": torch.bfloat16},
+                    2: {"params": torch.float32, "mu": torch.float32,
+                        "nu": torch.float32}}
 
 
 def log(phase: str, **kv) -> None:
@@ -472,10 +530,11 @@ def check(ok: bool, msg: str) -> None:
 
 
 def misaligned(x: torch.Tensor) -> torch.Tensor:
-    """The same values in a contiguous view 4 bytes past a 16-byte
-    boundary: the kernels' 4-byte-copy instances take it."""
-    return torch.empty(x.numel() + 1, device=x.device)[1:].view(
-        x.shape).copy_(x)
+    """The same values in a contiguous view one element past a 16-byte
+    boundary (4 bytes for fp32, 2 for bf16): the kernels' instances that
+    copy one element at a time take it."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
 
 
 def rel_err(out: torch.Tensor, ref: torch.Tensor):
@@ -484,7 +543,9 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor):
 
 
 COUNTERS = ("matmul_launches", "flash_launches", "flash_stats_launches",
-            "flash_bwd_launches")
+            "flash_bwd_launches", "matmul_bf16_launches",
+            "flash_bf16_launches", "flash_stats_bf16_launches",
+            "flash_bwd_bf16_launches")
 
 
 def reset_counts() -> None:
@@ -517,38 +578,22 @@ def phase_device() -> str:
 def phase_build() -> None:
     from parsec_tpu_torch.ops import kernels
     t0 = time.perf_counter()
-    with ptxas_report():
-        libs = kernels.build()
-        for name in libs:
-            kernels.load(name)
-        log("build", seconds=f"{time.perf_counter() - t0:.3f}",
-            libraries=",".join(so.name for so in libs.values()))
+    libs = kernels.build()
+    for name in libs:
+        kernels.load(name)
+    log("build", seconds=f"{time.perf_counter() - t0:.3f}",
+        libraries=",".join(so.name for so in libs.values()))
+    ptxas_report(libs)
 
 
-@contextlib.contextmanager
-def ptxas_report():
-    """Registers and spills of every kernel instance, from ``nvcc -Xptxas
-    -v`` on each source (one nvcc each), started before the body (the
-    build) and reported after it."""
+def ptxas_report(libs: dict) -> None:
+    """Registers and spills of every kernel instance, from the ptxas
+    report (``-Xptxas -v``) that each library's build left beside it."""
     import re
-    import tempfile
-    from parsec_tpu_torch.ops import kernels
-    flags = [f for f in kernels._NVCC_FLAGS if f not in ("-shared",)]
-    kernels._BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=kernels._BUILD_DIR) as tmp:
-        procs = {name: subprocess.Popen(
-            [kernels._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
-             f"{tmp}/{name}.o", str(kernels._CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for name in kernels._SOURCES}
-        try:
-            yield
-        finally:
-            reports = {name: p.communicate()[0]
-                       for name, p in procs.items()}
-    for name, text in reports.items():
-        check(procs[name].returncode == 0,
-              f"nvcc -Xptxas -v {name}:\n{text}")
+    for name, so in libs.items():
+        report = so.with_suffix(".log")
+        check(report.exists(), f"{name}: its build left no report")
+        text = report.read_text()
         fn = None
         for line in text.splitlines():
             if (hit := re.search(r"Compiling entry function '(\w+)'", line)):
@@ -557,7 +602,7 @@ def ptxas_report():
                                    r"spill loads", line)):
                 spills = hit.groups()
             elif (hit := re.search(r"Used (\d+) registers", line)) and fn:
-                log("ptxas", source=f"{name}.cu", kernel=demangle(fn),
+                log("ptxas", library=name, kernel=demangle(fn),
                     registers=hit.group(1), spill_stores=spills[0],
                     spill_loads=spills[1])
                 fn = None
@@ -665,6 +710,74 @@ def phase_kernel(dev: torch.device, seed: int) -> float:
     return worst
 
 
+def phase_kernel_bf16(dev: torch.device, seed: int) -> tuple:
+    """The GEMM kernel's bf16 instance against its plain version on the
+    card.  Its path: ``kernels.matmul`` at 1024^3 and its gradient (one
+    forward, one backward: 3 launches, counted from 0), as a user calls
+    it.  Then ragged 999 x 1001 x 997 products in both forms, a batched
+    z = 3 launch bit-exact against single ones, 2-byte-misaligned
+    operands bit-exact against aligned copies.  Returns the path's max
+    abs error and its launches."""
+    from parsec_tpu_torch.ops import kernels
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(
+            torch.bfloat16)
+
+    nb = NB_MAIN
+    a, b, gout = rnd(nb, nb), rnd(nb, nb), rnd(nb, nb)
+    ak, bk = (x.clone().requires_grad_(True) for x in (a, b))
+    reset_counts()
+    out = kernels.matmul(ak, bk)
+    da, db = torch.autograd.grad(out, (ak, bk), gout)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {c: 3 if c == "matmul_bf16_launches" else 0 for c in COUNTERS}
+    check(launches == want, f"matmul bf16 path: launches {launches}, "
+                            f"expected {want}")
+    ra, rb, rb_t = rnd(999, 997), rnd(997, 1001), rnd(1001, 997)
+    a3, b3 = rnd(3, 999, 997), rnd(3, 1001, 997)
+    ua, ub = misaligned(rnd(nb, nb)), misaligned(rnd(nb, nb))
+    # (case, kernel's result, plain version's, on the path)
+    cases = [("matmul", out.detach(), kernels.gemm_plain(a, b), True),
+             ("grad_a", da, kernels.gemm_plain(gout, b, trans_b=True), True),
+             ("grad_b", db, kernels.gemm_plain(a.mT.contiguous(), gout),
+              True),
+             ("ragged_999x1001x997", kernels.gemm(ra, rb),
+              kernels.gemm_plain(ra, rb), False),
+             ("ragged_999x1001x997_nt", kernels.gemm(ra, rb_t, trans_b=True),
+              kernels.gemm_plain(ra, rb_t, trans_b=True), False),
+             ("ragged_z3_nt", kernels.gemm(a3, b3, trans_b=True),
+              kernels.gemm_plain(a3, b3, trans_b=True), False),
+             ("misaligned_matmul", kernels.gemm(ua, ub),
+              kernels.gemm_plain(ua, ub), False)]
+    worst = 0.0
+    for name, got, ref, on_path in cases:
+        torch.cuda.synchronize()
+        rel, absd = rel_err(got, ref)
+        if on_path:
+            worst = max(worst, absd)
+        log("kernel", case=f"{name}_bf16", shape=tuple(got.shape),
+            dtype=str(got.dtype)[6:], rel_err=rel, max_abs_err=absd)
+        check(got.dtype == torch.bfloat16, f"gemm bf16 {name}: {got.dtype}")
+        check(rel < BF16_RTOL, f"gemm bf16 {name}: relative error {rel} "
+                               f">= {BF16_RTOL}")
+    batched = kernels.gemm(a3, b3, trans_b=True)
+    for i in range(3):
+        check(torch.equal(batched[i], kernels.gemm(a3[i], b3[i],
+                                                   trans_b=True)),
+              f"gemm bf16 z=3: batched slice {i} differs from its single "
+              f"launch")
+    check(torch.equal(kernels.gemm(ua, ub),
+                      kernels.gemm(ua.clone(), ub.clone())),
+          "gemm bf16: misaligned and aligned copies differ")
+    torch.cuda.synchronize()
+    log("kernel", case="bf16_z3_vs_single_and_misaligned_vs_aligned",
+        bit_exact=True, path_launches=launches["matmul_bf16_launches"])
+    return worst, launches["matmul_bf16_launches"]
+
+
 def phase_bodies(dev: torch.device, seed: int) -> float:
     """The DPLASMA family's new product bodies against the GEMM kernel's
     plain version on the operands they must pass, and getrf_nopiv's
@@ -724,15 +837,19 @@ def phase_bodies(dev: torch.device, seed: int) -> float:
     return worst
 
 
-def phase_attention(dev: torch.device, seed: int) -> dict:
-    """Both flash kernels vs their plain versions on the card; returns
-    each kernel's max abs error at the forward's shape."""
+def phase_attention(dev: torch.device, seed: int,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """Both flash kernels vs their plain versions on the card, at fp32 or
+    (the bf16 instances) bf16; returns each kernel's max abs error at the
+    forward's shape."""
     from parsec_tpu_torch.ops import kernels
     g = torch.Generator(device=dev).manual_seed(seed + 4)
+    # o, dq, dk and dv; m and l are fp32 at either type
+    tol = RTOL if dtype == torch.float32 else BF16_RTOL
 
     def qkv(B, H, T, Tk, D):
-        return tuple(torch.randn(B, H, t, D, generator=g, device=dev)
-                     for t in (T, Tk, Tk))
+        return tuple(torch.randn(B, H, t, D, generator=g,
+                                 device=dev).to(dtype) for t in (T, Tk, Tk))
 
     B, H, T, D = ATTN_SHAPE
     # (case, q/k/v, causal, at the forward's shape)
@@ -768,11 +885,14 @@ def phase_attention(dev: torch.device, seed: int) -> dict:
             rel, absd = rel_err(a, b)
             if on_path:
                 worst[kernel] = max(worst[kernel], absd)
+            bar = tol if part == "o" else RTOL
             log("attention", kernel=kernel, case=name, out=part,
-                shape=tuple(a.shape), causal=causal, rel_err=rel,
-                max_abs_err=absd)
-            check(rel < RTOL, f"{kernel} {name} {part}: relative error "
-                              f"{rel} >= {RTOL}")
+                dtype=str(a.dtype)[6:], shape=tuple(a.shape), causal=causal,
+                rel_err=rel, max_abs_err=absd)
+            check(a.dtype == (dtype if part == "o" else torch.float32),
+                  f"{kernel} {name} {part}: dtype {a.dtype}")
+            check(rel < bar, f"{kernel} {name} {part}: relative error "
+                             f"{rel} >= {bar}")
     # the 4-byte-copy variant does the same arithmetic as the 16-byte one
     unaligned = cases[-1][1]
     aligned = tuple(x.clone() for x in unaligned)
@@ -797,10 +917,42 @@ def phase_attention(dev: torch.device, seed: int) -> dict:
     torch.cuda.synchronize()
     rel, absd = rel_err(merged, ref)
     log("attention", kernel="flash_stats", case="merge_384+200",
-        rel_err=rel, max_abs_err=absd)
-    check(rel < RTOL, f"stats merge: relative error {rel} >= {RTOL}")
-    worst["flash_bwd"] = attention_backward(dev, cases, g)
+        dtype=str(dtype)[6:], rel_err=rel, max_abs_err=absd)
+    check(rel < tol, f"stats merge: relative error {rel} >= {tol}")
+    worst["flash_bwd"] = attention_backward(dev, cases, g, dtype, tol)
+    if dtype == torch.bfloat16:
+        refuse_mixed_types(q, k1, v1)
     return worst
+
+
+def refuse_mixed_types(q, k, v) -> None:
+    """A kernel call whose operands mix fp32 and bf16 raises (it neither
+    upcasts to the fp32 instance nor falls back to the plain version);
+    bf16 row statistics raise too."""
+    from parsec_tpu_torch.ops import kernels
+    o, m, l = kernels.flash_attention_stats(q, k, v)
+    calls = {
+        "flash_attention": lambda: kernels.flash_attention(q, k.float(), v),
+        "flash_attention_stats": lambda: kernels.flash_attention_stats(
+            q.float(), k, v),
+        "flash_attention_bwd": lambda: kernels.flash_attention_bwd(
+            q, k, v, o, m.to(torch.bfloat16), l, o),
+        "gemm": lambda: kernels.gemm(q[0, 0], k[0, 0].float(),
+                                     trans_b=True),
+        "gemm_bf16_with_c": lambda: kernels.gemm(
+            q[0, 0], k[0, 0], torch.zeros(q.shape[2], k.shape[2],
+                                          dtype=q.dtype, device=q.device),
+            trans_b=True)}
+    before = counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except (TypeError, ValueError) as exc:
+            log("attention", case=f"mixed_types_{name}", raised=repr(
+                type(exc).__name__))
+        else:
+            check(False, f"{name}: operands of mixed types did not raise")
+    check(counts() == before, f"a refused call launched: {counts()}")
 
 
 #: the backward's oversubscribed case: 256 (b, h) slices of 2048 rows,
@@ -824,7 +976,9 @@ def finish_within(what: str, seconds: float) -> None:
         time.sleep(0.001)
 
 
-def attention_backward(dev: torch.device, cases, g) -> float:
+def attention_backward(dev: torch.device, cases, g,
+                       dtype: torch.dtype = torch.float32,
+                       tol: float = RTOL) -> float:
     """The backward kernel against its plain version on the same q, k, v,
     the stats kernel's o, m, l and a seeded cotangent, at every case of
     the forward's and at BWD_BIG_SHAPE; three launches bit-equal at every
@@ -832,13 +986,13 @@ def attention_backward(dev: torch.device, cases, g) -> float:
     the max abs error at the forward's shape."""
     from parsec_tpu_torch.ops import kernels
     B, H, T, D = BWD_BIG_SHAPE
-    big = tuple(torch.randn(B, H, T, D, generator=g, device=dev)
+    big = tuple(torch.randn(B, H, T, D, generator=g, device=dev).to(dtype)
                 for _ in range(3))
     worst = 0.0
     args = {}
     for name, (q, k, v), causal, on_path in cases + [
             ("big_16x16x2048_d64", big, True, False)]:
-        do = torch.randn(q.shape, generator=g, device=dev)
+        do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
         o, m, l = kernels.flash_attention_stats(q, k, v, causal=causal)
         args[name] = (q, k, v, o, m, l, do, causal)
         t0 = time.perf_counter()
@@ -859,10 +1013,12 @@ def attention_backward(dev: torch.device, cases, g) -> float:
             if on_path:
                 worst = max(worst, absd)
             log("attention", kernel="flash_bwd", case=name, out=part,
-                shape=tuple(a.shape), causal=causal, rel_err=rel,
-                max_abs_err=absd)
-            check(rel < RTOL, f"flash_bwd {name} {part}: relative error "
-                              f"{rel} >= {RTOL}")
+                dtype=str(a.dtype)[6:], shape=tuple(a.shape), causal=causal,
+                rel_err=rel, max_abs_err=absd)
+            check(a.dtype == dtype, f"flash_bwd {name} {part}: dtype "
+                                    f"{a.dtype}")
+            check(rel < tol, f"flash_bwd {name} {part}: relative error "
+                             f"{rel} >= {tol}")
         log("attention", kernel="flash_bwd", case=name, repeat_launches=3,
             bit_exact=True, first_launch_s=f"{seconds:.4f}")
         del got, ref
@@ -4941,24 +5097,27 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def check_against_cpu(cfg, params, host_params, seq0, card_logits) -> None:
+def check_against_cpu(cfg, params, host_params, seq0, card_logits,
+                      phase: str = "forward",
+                      tol: float = LOGITS_RTOL) -> None:
     """Sequence 0 of the first batch against the port on the CPU (plain
-    versions).  The seeded model amplifies rounding from layer to layer
-    (its scores are large: wqkv is drawn at 1/sqrt(H)), so whole-depth
-    fp32 logits that sum in another order drift far apart; they are
-    reported beside the CPU's own fp32-vs-fp64 drift.  The gate holds
-    each layer and the head to the CPU on the same input."""
+    versions) in the config's dtype.  The seeded model amplifies rounding
+    from layer to layer (its scores are large: wqkv is drawn at
+    1/sqrt(H)), so whole-depth logits that sum in another order drift far
+    apart; they are reported beside the CPU's own drift from fp64.  The
+    gate holds each layer and the head to the CPU on the same input."""
     from parsec_tpu_torch import models
+    name = {torch.float32: "fp32", torch.bfloat16: "bf16"}[cfg.dtype]
     t0 = time.perf_counter()
     cpu32 = models.make_forward(cfg, device="cpu")(host_params, seq0)
     cpu_seconds = time.perf_counter() - t0
     cpu64 = models.make_forward(
         dataclasses.replace(cfg, dtype=torch.float64), device="cpu")(
             tree_map(torch.Tensor.double, host_params), seq0)
-    log("forward", case="cpu_fp32_vs_cpu_fp64", layers=cfg.n_layers,
+    log(phase, case=f"cpu_{name}_vs_cpu_fp64", layers=cfg.n_layers,
         rel_err=rel_err(cpu32, cpu64)[0], cpu_seconds=f"{cpu_seconds:.3f}")
     for attention, logits in card_logits.items():
-        log("forward", case=f"{attention}_vs_cpu_whole_depth",
+        log(phase, case=f"{attention}_vs_cpu_whole_depth",
             rel_err=rel_err(logits[:1].cpu(), cpu32)[0],
             rel_err_vs_fp64=rel_err(logits[:1].cpu(), cpu64)[0])
     # each layer and the head on the card vs the CPU, on the card's input
@@ -4974,18 +5133,19 @@ def check_against_cpu(cfg, params, host_params, seq0, card_logits) -> None:
 
         for i in range(cfg.n_layers):
             y = card._layer(layer(params["stages"], i), x, 0.0)[0]
+            check(y.dtype == cfg.dtype, f"layer {i}: output {y.dtype}")
             rel, absd = rel_err(y.cpu(), card._layer(
                 layer(host_params["stages"], i), x.cpu(), 0.0)[0])
-            log("forward", case="layer_vs_cpu", layer=i, rel_err=rel,
+            log(phase, case="layer_vs_cpu", layer=i, rel_err=rel,
                 max_abs_err=absd)
             worst = max(worst, rel)
             x = y
         rel, absd = rel_err(card._head(params, x).cpu(),
                             card._head(host_params, x.cpu()))
-    log("forward", case="head_vs_cpu", rel_err=rel, max_abs_err=absd)
+    log(phase, case="head_vs_cpu", rel_err=rel, max_abs_err=absd)
     worst = max(worst, rel)
-    check(worst < LOGITS_RTOL, f"card vs CPU on the same input: relative "
-                               f"error {worst} >= {LOGITS_RTOL}")
+    check(worst < tol, f"card vs CPU on the same input: relative error "
+                       f"{worst} >= {tol}")
 
 
 def phase_forward(dev: torch.device, seed: int):
@@ -5007,6 +5167,23 @@ def phase_forward(dev: torch.device, seed: int):
     batches = [rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
                for _ in range(1 + N_BATCHES)]
     per_layer = {"ring": "flash_stats_launches", "flash": "flash_launches"}
+    first, launches = forward_legs("forward", cfg, params, batches,
+                                   per_layer)
+    rel, absd = rel_err(first["ring"], first["flash"])
+    log("forward", case="ring_vs_flash", rel_err=rel, max_abs_err=absd)
+    check(rel < LOGITS_RTOL, f"ring vs flash logits: {rel} >= "
+                             f"{LOGITS_RTOL}")
+    check_against_cpu(cfg, params, host_params, batches[1][:1], first)
+    return launches, host_params
+
+
+def forward_legs(phase: str, cfg, params, batches, per_layer: dict):
+    """For each attention, make_forward on one warm-up batch and the
+    timed rest: seconds, tokens/s, finite logits, and launches exact
+    (n_layers a forward of the attention's counter, none of the
+    others).  Returns each attention's first timed logits and its
+    launches."""
+    from parsec_tpu_torch import models
     first = {}
     launches = {}
     for attention, counter in per_layer.items():
@@ -5028,23 +5205,46 @@ def phase_forward(dev: torch.device, seed: int):
             if i == 0:
                 first[attention] = logits
         got = counts()
-        n_fwd = 1 + N_BATCHES
+        n_fwd = len(batches)
         want = {name: cfg.n_layers * n_fwd if name == counter else 0
                 for name in COUNTERS}
         launches[attention] = got[counter]
         mean = sum(seconds) / len(seconds)
-        log("forward", attention=attention, forwards=n_fwd,
-            seconds=",".join(f"{x:.6f}" for x in seconds),
+        log(phase, attention=attention, dtype=str(cfg.dtype)[6:],
+            forwards=n_fwd, seconds=",".join(f"{x:.6f}" for x in seconds),
             mean_seconds=f"{mean:.6f}",
             tokens_per_s=f"{cfg.batch * cfg.seq_len / mean:.1f}",
             peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
             **got)
         check(got == want, f"{attention}: launches {got}, expected {want}")
+    return first, launches
+
+
+def phase_forward_bf16(dev: torch.device, seed: int):
+    """The bf16 legs of the forward: the model at dtype=bfloat16 (its
+    seeded weights drawn as init_params draws them, in bf16) through
+    make_forward with "flash" and "ring", BF16_FORWARDS timed forwards
+    after a warm-up, launching only the bf16 instances (12 a forward);
+    ring vs flash reported; each layer and the head held to the CPU port
+    at bf16 on the card's input.  Returns each path's launches and the
+    seeded bf16 host parameters."""
+    from parsec_tpu_torch import models
+    cfg = dataclasses.replace(gpt2_small("ring"), dtype=torch.bfloat16)
+    host_params = models.init_params(cfg, seed)
+    params = models.params_to(host_params, dev)
+    rng = np.random.RandomState(seed + 15)
+    batches = [rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
+               for _ in range(1 + BF16_FORWARDS)]
+    per_layer = {"ring": "flash_stats_bf16_launches",
+                 "flash": "flash_bf16_launches"}
+    first, launches = forward_legs("forward.bf16", cfg, params, batches,
+                                   per_layer)
     rel, absd = rel_err(first["ring"], first["flash"])
-    log("forward", case="ring_vs_flash", rel_err=rel, max_abs_err=absd)
-    check(rel < LOGITS_RTOL, f"ring vs flash logits: {rel} >= "
-                             f"{LOGITS_RTOL}")
-    check_against_cpu(cfg, params, host_params, batches[1][:1], first)
+    log("forward.bf16", case="ring_vs_flash", rel_err=rel, max_abs_err=absd)
+    check_against_cpu(cfg, params, host_params, batches[1][:1], first,
+                      phase="forward.bf16", tol=BF16_LAYER_RTOL)
+    del params, first
+    torch.cuda.empty_cache()
     return launches, host_params
 
 
@@ -5073,42 +5273,7 @@ def phase_train(dev: torch.device, seed: int, host_params: dict) -> dict:
     rng = np.random.RandomState(seed + 7)
     tokens = rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
     labels = np.roll(tokens, -1, axis=1)
-    launches = {}
-    for name, (changes, per_step) in TRAIN_PATHS.items():
-        step = models.make_train_step(dataclasses.replace(cfg, **changes),
-                                      lr=TRAIN_LR)
-        p, state = params, models.adam_init(params)
-        want = {c: per_step.get(c, 0) for c in COUNTERS}
-        losses, seconds = [], []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()      # held before the path
-        for i in range(1 + TRAIN_STEPS):          # a warm-up, then timed
-            reset_counts()
-            t0 = time.perf_counter()
-            p, state, loss = step(p, state, tokens, labels)
-            torch.cuda.synchronize()
-            if i:
-                seconds.append(time.perf_counter() - t0)
-            got = counts()
-            check(got == want, f"train {name} step {i}: launches {got}, "
-                               f"expected {want}")
-            losses.append(loss.item())
-        launches[name] = {c: n * (1 + TRAIN_STEPS)
-                          for c, n in per_step.items()}
-        mean = sum(seconds) / len(seconds)
-        log("train", path=name, steps=1 + TRAIN_STEPS,
-            seconds=",".join(f"{x:.6f}" for x in seconds),
-            mean_seconds=f"{mean:.6f}",
-            tokens_per_s=f"{cfg.batch * cfg.seq_len / mean:.1f}",
-            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-            held_before_gb=f"{base / 1e9:.2f}",
-            losses=",".join(repr(x) for x in losses), **got)
-        check(all(np.isfinite(losses)), f"train {name}: losses {losses}")
-        check(losses[-1] < losses[0], f"train {name}: the loss did not "
-                                      f"fall: {losses}")
-        del p, state, step
-        torch.cuda.empty_cache()
+    launches = train_legs("train", cfg, params, tokens, labels, TRAIN_PATHS)
     t = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
     y = torch.as_tensor(labels, dtype=torch.int64, device=dev)
     a = train.value_and_grad(cfg, params, t, y)
@@ -5134,8 +5299,103 @@ def phase_train(dev: torch.device, seed: int, host_params: dict) -> dict:
     return launches
 
 
+def train_legs(phase: str, cfg, params, tokens, labels, paths: dict,
+               step_dtypes: dict = None) -> dict:
+    """For each train path, a warm-up and TRAIN_STEPS timed Adam steps
+    through make_train_step from ``params`` and a fresh Adam state: each
+    step's seconds, tokens/s, peak memory, loss (finite, and lower at the
+    last step than at the first) and launches (exact, per step), and
+    after step i each leaf's dtype as ``step_dtypes[i]`` says.  Returns
+    each path's launches by counter."""
+    from parsec_tpu_torch import models
+    from parsec_tpu_torch.models import train
+    launches = {}
+    for name, (changes, per_step) in paths.items():
+        step = models.make_train_step(dataclasses.replace(cfg, **changes),
+                                      lr=TRAIN_LR)
+        p, state = params, models.adam_init(params)
+        want = {c: per_step.get(c, 0) for c in COUNTERS}
+        losses, seconds = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()      # held before the path
+        for i in range(1 + TRAIN_STEPS):          # a warm-up, then timed
+            reset_counts()
+            t0 = time.perf_counter()
+            p, state, loss = step(p, state, tokens, labels)
+            torch.cuda.synchronize()
+            if i:
+                seconds.append(time.perf_counter() - t0)
+            got = counts()
+            check(got == want, f"{phase} {name} step {i}: launches {got}, "
+                               f"expected {want}")
+            losses.append(loss.item())
+            for part, dtype in (step_dtypes or {}).get(i + 1, {}).items():
+                leaves = train.tree_leaves(p if part == "params"
+                                           else state[part])
+                check(all(x.dtype == dtype for x in leaves),
+                      f"{phase} {name} step {i + 1}: {part} dtypes "
+                      f"{sorted({str(x.dtype) for x in leaves})}, "
+                      f"expected {dtype}")
+            if (step_dtypes or {}).get(i + 1):
+                log(phase, path=name, after_step=i + 1, dtypes_as_jax=True,
+                    **{part: str(d)[6:]
+                       for part, d in step_dtypes[i + 1].items()},
+                    count=str(state["count"].dtype)[6:])
+        launches[name] = {c: n * (1 + TRAIN_STEPS)
+                          for c, n in per_step.items()}
+        mean = sum(seconds) / len(seconds)
+        log(phase, path=name, dtype=str(cfg.dtype)[6:],
+            steps=1 + TRAIN_STEPS,
+            seconds=",".join(f"{x:.6f}" for x in seconds),
+            mean_seconds=f"{mean:.6f}",
+            tokens_per_s=f"{cfg.batch * cfg.seq_len / mean:.1f}",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            held_before_gb=f"{base / 1e9:.2f}",
+            losses=",".join(repr(x) for x in losses), **got)
+        check(all(np.isfinite(losses)), f"{phase} {name}: losses {losses}")
+        check(losses[-1] < losses[0], f"{phase} {name}: the loss did not "
+                                      f"fall: {losses}")
+        del p, state, step
+        torch.cuda.empty_cache()
+    return launches
+
+
+#: the bf16 train paths: the fp32 table's, each counter its bf16 instance's
+TRAIN_PATHS_BF16 = {
+    name: (changes, {c.replace("_launches", "_bf16_launches"): n
+                     for c, n in per_step.items()})
+    for name, (changes, per_step) in TRAIN_PATHS.items()}
+
+
+def phase_train_bf16(dev: torch.device, seed: int, host_params: dict) -> dict:
+    """The bf16 legs of training: the model at dtype=bfloat16 from phase
+    forward.bf16's seeded bf16 parameters, 4 Adam steps (a warm-up and 3
+    timed) for each train path, launching only the bf16 instances in the
+    fp32 table's counts, the leaf dtypes after steps 1 and 2 as the JAX
+    package's (BF16_STEP_DTYPES); then each layer's and the head's
+    gradients on sequence 0, card vs the CPU port at bf16 on the card's
+    input and cotangent.  Returns each path's launches by counter."""
+    from parsec_tpu_torch import models
+    cfg = dataclasses.replace(gpt2_small("flash"), dtype=torch.bfloat16)
+    params = models.params_to(host_params, dev)
+    rng = np.random.RandomState(seed + 17)
+    tokens = rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
+    labels = np.roll(tokens, -1, axis=1)
+    launches = train_legs("train.bf16", cfg, params, tokens, labels,
+                          TRAIN_PATHS_BF16, BF16_STEP_DTYPES)
+    check_grads_against_cpu(cfg, params, host_params, tokens[:1],
+                            labels[:1], phase="train.bf16",
+                            tol=BF16_GRAD_RTOL, within_drift=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def check_grads_against_cpu(cfg, params, host_params, tokens0,
-                            labels0) -> None:
+                            labels0, phase: str = "train",
+                            tol: float = GRAD_RTOL,
+                            within_drift: bool = False) -> None:
     """Each layer's VJP and the head's (with the loss) on sequence 0, on
     the card and on the CPU (plain versions), from the card's input and
     the card's upstream cotangent; every parameter gradient and dx
@@ -5174,9 +5434,13 @@ def check_grads_against_cpu(cfg, params, host_params, tokens0,
         worst = 0.0
         for name in card:
             rel, absd = rel_err(card[name].cpu(), cpu32[name])
-            log("train", case="grad_vs_cpu", part=part, grad=name,
-                rel_err=rel, max_abs_err=absd,
-                cpu_fp32_vs_fp64=rel_err(cpu32[name], cpu64[name])[0])
+            drift = rel_err(cpu32[name], cpu64[name])[0]
+            log(phase, case="grad_vs_cpu", part=part, grad=name,
+                dtype=str(card[name].dtype)[6:], rel_err=rel,
+                max_abs_err=absd, cpu_vs_fp64=drift)
+            check(not within_drift or rel < drift,
+                  f"{phase} {part} {name}: card vs CPU {rel} is not below "
+                  f"the CPU's own drift from fp64 {drift}")
             worst = max(worst, rel)
         return worst
 
@@ -5204,20 +5468,20 @@ def check_grads_against_cpu(cfg, params, host_params, tokens0,
                                  xs[i].cpu().double(), dy.cpu().double())
             worst = max(worst, compare(f"layer{i}", card, cpu32, cpu64))
             dy = card["x"]
-    log("train", case="grads_vs_cpu", layers=cfg.n_layers, worst_rel=worst,
+    log(phase, case="grads_vs_cpu", layers=cfg.n_layers, worst_rel=worst,
         cpu_seconds=f"{time.perf_counter() - t0:.3f}")
-    check(worst < GRAD_RTOL, f"card vs CPU gradients on the same input: "
-                             f"relative error {worst} >= {GRAD_RTOL}")
+    check(worst < tol, f"card vs CPU gradients on the same input: "
+                       f"relative error {worst} >= {tol}")
     with torch.no_grad():
         card_loss = models.loss_shard(cfg, params, t_host.to(dev),
                                       y_host.to(dev)).item()
         cpu_loss = models.loss_shard(cfg, host_params, t_host,
                                      y_host).item()
         cpu64_loss = models.loss_shard(cfg64, host64, t_host, y_host).item()
-    log("train", case="whole_depth_loss_vs_cpu", card=repr(card_loss),
-        cpu_fp32=repr(cpu_loss), cpu_fp64=repr(cpu64_loss),
+    log(phase, case="whole_depth_loss_vs_cpu", card=repr(card_loss),
+        cpu=repr(cpu_loss), cpu_fp64=repr(cpu64_loss),
         rel_err=abs(card_loss - cpu_loss) / abs(cpu_loss),
-        cpu_fp32_vs_fp64=abs(cpu_loss - cpu64_loss) / abs(cpu64_loss))
+        cpu_vs_fp64=abs(cpu_loss - cpu64_loss) / abs(cpu64_loss))
 
 
 # ---------------------------------------------------------------------- #
@@ -5667,10 +5931,11 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, peak: float = F32_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations
-    over the fp32 peak and the bytes over the memory rate."""
-    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    over the peak of their type (fp32 outside the tensor cores, or bf16)
+    and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
@@ -5771,13 +6036,21 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
         library_ms=sdpa_fwd_bwd_ms, forward_ms=library_ms)
     backward_instances()
     del leaves, do, o, m, l
+    recs.update(timing_bf16(dev, g))
     cases = {"gemm": (f"gemm_nt nb={nb} fp32", 2.0 * nb ** 3),
              "flash": (f"flash_attention {list(ATTN_SHAPE)} causal fp32",
                        flops),
              "flash_stats": (f"flash_attention_stats {list(ATTN_SHAPE)} "
                              f"causal fp32", flops),
              "flash_bwd": (f"flash_attention_bwd {list(ATTN_SHAPE)} causal "
-                           f"fp32", 2.5 * flops)}
+                           f"fp32", 2.5 * flops),
+             "gemm_bf16": (f"matmul nb={nb} bf16", 2.0 * nb ** 3),
+             "flash_bf16": (f"flash_attention {list(ATTN_SHAPE)} causal "
+                            f"bf16", flops),
+             "flash_stats_bf16": (f"flash_attention_stats "
+                                  f"{list(ATTN_SHAPE)} causal bf16", flops),
+             "flash_bwd_bf16": (f"flash_attention_bwd {list(ATTN_SHAPE)} "
+                                f"causal bf16", 2.5 * flops)}
     for key, (case, work) in cases.items():
         rec = recs[key]
         log("timing", case=case, kernel_ms=rec["ms"],
@@ -5788,14 +6061,71 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
     return recs
 
 
-def backward_instances() -> None:
-    """Each instance of the backward's library (the delta pass first):
+def timing_bf16(dev: torch.device, g) -> dict:
+    """The bf16 instances at their paths' shapes by CUDA events, beside
+    their bounds (the bf16 tensor-core peak, 2 bytes an element), their
+    plain versions and one library call each: ``torch.matmul`` and SDPA
+    (forward, and its backward as forward plus backward less forward) in
+    bf16."""
+    import torch.nn.functional as F
+    from parsec_tpu_torch.ops import kernels
+    nb = NB_MAIN
+    a, b = (torch.randn(nb, nb, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    recs = {"gemm_bf16": dict(
+        ms=time_ms(lambda: kernels.matmul(a, b)),
+        plain_ms=time_ms(lambda: kernels.gemm_plain(a, b)),
+        library_ms=time_ms(lambda: torch.matmul(a, b)),
+        # A, B read once, Out written once
+        **bound(2.0 * nb ** 3, 3 * nb * nb * 2, BF16_FLOPS))}
+    B, H, T, D = ATTN_SHAPE
+    q, k, v, do = (torch.randn(B, H, T, D, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    flops = 4.0 * B * H * D * T * (T + 1) / 2
+    qkvo = 4 * B * H * T * D * 2
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=20)
+    recs["flash_bf16"] = dict(
+        ms=time_ms(lambda: kernels.flash_attention(q, k, v), iters=20),
+        plain_ms=time_ms(lambda: kernels.flash_attention_plain(q, k, v),
+                         iters=20),
+        library_ms=library_ms, **bound(flops, qkvo, BF16_FLOPS))
+    recs["flash_stats_bf16"] = dict(
+        ms=time_ms(lambda: kernels.flash_attention_stats(q, k, v,
+                                                         causal=True),
+                   iters=20),
+        plain_ms=time_ms(lambda: kernels.flash_attention_stats_plain(
+            q, k, v, causal=True), iters=20),
+        library_ms=library_ms,            # o alone: no call returns m, l
+        **bound(flops, qkvo + 2 * B * H * T * 4, BF16_FLOPS))
+    o, m, l = kernels.flash_attention_stats(q, k, v, causal=True)
+    leaves = tuple(x.clone().requires_grad_(True) for x in (q, k, v))
+    sdpa_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, do),
+        iters=20)
+    recs["flash_bwd_bf16"] = dict(
+        ms=time_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, m, l, do),
+                   iters=20),
+        plain_ms=time_ms(lambda: kernels.flash_attention_bwd_plain(
+            q, k, v, o, m, l, do), iters=5),
+        library_ms=sdpa_fwd_bwd_ms - library_ms,
+        # q, k, v, o, do read and dq, dk, dv written, 2 bytes each; m, l
+        **bound(2.5 * flops, 2 * qkvo + 2 * B * H * T * 4, BF16_FLOPS))
+    log("timing", case=f"scaled_dot_product_attention forward+backward "
+                       f"{list(ATTN_SHAPE)} causal bf16",
+        library_ms=sdpa_fwd_bwd_ms, forward_ms=library_ms)
+    backward_instances("flash_attention_bwd_bf16")
+    return recs
+
+
+def backward_instances(library: str = "flash_attention_bwd") -> None:
+    """Each instance of a backward library (the delta pass first):
     registers and local (spill) bytes a thread, static and dynamic shared
     memory (at the instance's widest D) and resident blocks an SM, from
     cudaFuncGetAttributes through ptt_flash_bwd_attributes."""
     import ctypes
     from parsec_tpu_torch.ops import kernels
-    lib = kernels.load("flash_attention_bwd")
+    lib = kernels.load(library)
     out, name = (ctypes.c_int * 5)(), ctypes.c_char_p()
     i = 0
     while (rc := lib.ptt_flash_bwd_attributes(i, out,
@@ -6054,8 +6384,12 @@ def main(argv=None) -> int:
     prep.join()
     with phase_clock("kernel"):
         gemm_err = phase_kernel(dev, args.seed)
+    with phase_clock("kernel.bf16"):
+        gemm16_err, gemm16_launches = phase_kernel_bf16(dev, args.seed)
     with phase_clock("attention"):
         attn_err = phase_attention(dev, args.seed)
+    with phase_clock("attention.bf16"):
+        attn16_err = phase_attention(dev, args.seed, torch.bfloat16)
     with phase_clock("bodies"):
         gemm_err = max(gemm_err, phase_bodies(dev, args.seed))
     with phase_clock("batch_semantics"):
@@ -6156,6 +6490,11 @@ def main(argv=None) -> int:
         attn_launches, host_params = phase_forward(dev, args.seed)
     with phase_clock("train"):
         train_launches = phase_train(dev, args.seed, host_params)
+    with phase_clock("forward.bf16"):
+        attn16_launches, host16 = phase_forward_bf16(dev, args.seed)
+    with phase_clock("train.bf16"):
+        train16_launches = phase_train_bf16(dev, args.seed, host16)
+    del host16
     with phase_clock("spmd"):
         spmd_launches = phase_spmd(dev, args.seed, host_params)
     del host_params
@@ -6201,6 +6540,28 @@ def main(argv=None) -> int:
                           if "flash_bwd_launches" in n},
                        **spmd_counts(spmd_launches, "flash_bwd_launches")},
              max_abs_err=attn_err["flash_bwd"], **recs["flash_bwd"]),
+        # the bf16 instances: bf16 in, fp32 sums, bf16 out
+        dict(name="gemm_bf16", route="cuda", source=src + "matmul.cu",
+             replaces=tpu + "395",
+             launches={"matmul_and_grad_bf16": gemm16_launches},
+             max_abs_err=gemm16_err, **recs["gemm_bf16"]),
+        dict(name="flash_fwd_bf16", route="cuda",
+             source=src + "flash_attention.cu", replaces=tpu + "68",
+             launches={"forward_flash_bf16": attn16_launches["flash"]},
+             max_abs_err=attn16_err["flash"], **recs["flash_bf16"]),
+        dict(name="flash_fwd_stats_bf16", route="cuda",
+             source=src + "flash_attention.cu", replaces=tpu + "115",
+             launches={"forward_ring_bf16": attn16_launches["ring"],
+                       **{f"train_{path}_bf16": n["flash_stats_bf16_launches"]
+                          for path, n in train16_launches.items()}},
+             max_abs_err=attn16_err["flash_stats"],
+             **recs["flash_stats_bf16"]),
+        dict(name="flash_bwd_bf16", route="cuda",
+             source=src + "flash_attention_bwd.cu", replaces=tpu + "287",
+             launches={f"train_{path}_bf16": n["flash_bwd_bf16_launches"]
+                       for path, n in train16_launches.items()
+                       if "flash_bwd_bf16_launches" in n},
+             max_abs_err=attn16_err["flash_bwd"], **recs["flash_bwd_bf16"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), fp32, with optional export
-// of each row's softmax statistics.
+// Flash attention forward for Hopper (sm_90a), fp32 and bf16, with optional
+// export of each row's softmax statistics.
 //
 //   O[bh] = softmax(scale * Q[bh] . K[bh]^T, masked) . V[bh]
 //   M[bh, i] = running max of row i, L[bh, i] = its denominator (raw)
@@ -11,6 +11,17 @@
 // transformer's forward runs it once per layer: attention="flash",
 // "local" and "ulysses" without the statistics, attention="ring" with
 // them (the ring merges blocks by m and l).
+//
+// The source is built twice (parsec_tpu_torch/ops/kernels.py): as it
+// stands into the fp32 library (ptt_flash_fwd_f32, ptt_flash_fwd_stats_f32)
+// and with -DPTT_BF16 into the bf16 one (ptt_flash_fwd_bf16,
+// ptt_flash_fwd_stats_bf16), one nvcc each, side by side.  The bf16
+// instances read bf16 Q, K and V and write bf16 O; m, l, the scores and
+// the accumulator stay fp32.  They round where the Pallas kernel rounds
+// at bf16: p to bf16 (nearest even) before P . V, while l sums the
+// unrounded p, and O once at the end.  p is rounded at the running max of
+// its 64-key tile (the Pallas kernel: of its 512-key block), so the two
+// agree to bf16's unit roundoff, not bit for bit.
 //
 // Arithmetic kept from the Pallas kernel: the score is (q . k) * scale;
 // a causally masked score is -1e30 (not -inf) with the local-index mask
@@ -58,13 +69,25 @@
 // zero-fills the columns up to the next multiple of 4 (the ALIGNED = false
 // instance), with the same arithmetic.
 //
+// At bf16 the same shape moves 50.3 MB and the bound is the 989 TFLOP/s
+// bf16 tensor-core rate's 0.013 ms against 0.015 ms of memory.  The bf16
+// instances are the fp32 design with each Q, K and V element widened to
+// fp32 on its way into shared memory, through registers (cp.async moves
+// bytes as they are, so the next tile's loads are not in flight behind
+// the products), and no tensor cores: a later redesign's work (mma.sync
+// or wgmma on bf16 tiles, TMA).  8-byte loads of four elements need
+// D % 4 == 0 and 8-byte aligned pointers; otherwise 2-byte loads.
+//
 // Measured (chip_smoke.py --ptxas, sm_90a, -O3): the D <= 64 instances
 // take 100 to 128 registers a thread (the forward's, causal with D = 64
 // fixed, 128), the D <= 128 ones 128 to 168, none spills.  At the
 // forward's shape it reaches about 40 % of the fp32 bound, a little
 // faster than the library's fp32 attention; PERF.md says what still holds
 // it back.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -122,14 +145,54 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// rows r0..r0+ROWS-1 of a [R, D] source into a [ROWS][ds] shared tile,
-// columns 0..4*ceil(D/4)-1; rows past R and columns past D are zero
-template <bool ALIGNED, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int R, int D, int ds,
-                                          int tid) {
+template <typename T>
+constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
+
+// four bf16 (8 bytes, the first in the low half) as four floats: a bf16
+// is the high half of the float of the same value
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// four floats as four bf16, each rounded to nearest even
+__device__ __forceinline__ uint2 narrow4(float a, float b, float c,
+                                         float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  return make_uint2(*reinterpret_cast<unsigned*>(&lo),
+                    *reinterpret_cast<unsigned*>(&hi));
+}
+
+// rows r0..r0+ROWS-1 of a [R, D] source into a [ROWS][ds] fp32 shared
+// tile, columns 0..4*ceil(D/4)-1; rows past R and columns past D are zero.
+// fp32 by cp.async (ALIGNED: 16-byte copies); bf16 loaded, widened and
+// stored (ALIGNED: 8-byte loads)
+template <typename T, bool ALIGNED, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
+                                          int R, int D, int ds, int tid) {
   const int dv = (D + 3) / 4;
-  if (ALIGNED) {
+  if constexpr (is_bf16<T>) {
+    for (int idx = tid; idx < ROWS * dv; idx += THREADS) {
+      const int r = idx / dv, c = (idx - r * dv) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r0 + r < R) {
+        const T* row = src + static_cast<long long>(r0 + r) * D + c;
+        if (ALIGNED) {
+          x = widen4(*reinterpret_cast<const uint2*>(row));
+        } else {
+          float e[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            e[j] = c + j < D ? __bfloat162float(row[j]) : 0.f;
+          x = make_float4(e[0], e[1], e[2], e[3]);
+        }
+      }
+      *reinterpret_cast<float4*>(dst + r * ds + c) = x;
+    }
+  } else if (ALIGNED) {
     for (int idx = tid; idx < ROWS * dv; idx += THREADS) {
       const int r = idx / dv, c = (idx - r * dv) * 4;
       const bool in = r0 + r < R;
@@ -153,15 +216,16 @@ __device__ __forceinline__ float part(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-// DC: D fixed at compile time (aligned inputs only), or 0 for any D.  Up
-// to D = 64 (NJ = 4) two blocks share an SM, so 128 registers a thread;
-// the wider instance keeps one block an SM and more registers.
-template <bool CAUSAL, bool STATS, int NJ, bool ALIGNED, int DC>
+// T_: the element type of Q, K, V and O (float or __nv_bfloat16).  DC: D
+// fixed at compile time (aligned inputs only), or 0 for any D.  Up to
+// D = 64 (NJ = 4) two blocks share an SM, so 128 registers a thread; the
+// wider instance keeps one block an SM and more registers.
+template <typename T_, bool CAUSAL, bool STATS, int NJ, bool ALIGNED, int DC>
 __global__ void __launch_bounds__(THREADS, NJ == 4 ? 2 : 1)
-flash_fwd_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                     const float* __restrict__ V, float* __restrict__ O,
-                     float* __restrict__ Mout, float* __restrict__ Lout,
-                     int T, int Tk, int D_, float scale) {
+flash_fwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
+                 const T_* __restrict__ V, T_* __restrict__ O,
+                 float* __restrict__ Mout, float* __restrict__ Lout, int T,
+                 int Tk, int D_, float scale) {
   static_assert(DC == 0 || ALIGNED, "a fixed D takes 16-byte copies");
   constexpr int NG = NJ / 4;         // float4 output columns per lane
   const int D = DC ? DC : D_;
@@ -194,10 +258,10 @@ flash_fwd_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 
   auto load_kv = [&](int stage, int k0) {
     float* kt = KVs + stage * 2 * BK * ds;
-    load_rows<ALIGNED, BK>(kt, K, k0, Tk, D, ds, tid);
-    load_rows<ALIGNED, BK>(kt + BK * ds, V, k0, Tk, D, ds, tid);
+    load_rows<T_, ALIGNED, BK>(kt, K, k0, Tk, D, ds, tid);
+    load_rows<T_, ALIGNED, BK>(kt + BK * ds, V, k0, Tk, D, ds, tid);
   };
-  load_rows<ALIGNED, BQ>(Qs, Q, q0, T, D, ds, tid);
+  load_rows<T_, ALIGNED, BQ>(Qs, Q, q0, T, D, ds, tid);
   load_kv(0, 0);
   cp_async_commit();
 
@@ -272,7 +336,9 @@ flash_fwd_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
       for (int j = 0; j < CN; ++j) {
         // a key past Tk does not exist: it adds nothing, whatever m is
         const float p = (k0 + tx + j * TX < Tk) ? expf(s[i][j] - mx) : 0.f;
-        Ps[(wr + 2 * i) * PS + tx + j * TX] = p;
+        // at bf16, P . V takes p rounded to bf16 and l the unrounded p
+        Ps[(wr + 2 * i) * PS + tx + j * TX] =
+            is_bf16<T_> ? __bfloat162float(__float2bfloat16_rn(p)) : p;
         rs += p;
       }
 #pragma unroll
@@ -327,15 +393,25 @@ flash_fwd_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
     const int r = q0 + wr + 2 * i;
     if (r >= T) continue;
     const float lsafe = l[i] == 0.f ? 1.f : l[i];
-    float* orow = O + static_cast<long long>(r) * D;
+    T_* orow = O + static_cast<long long>(r) * D;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int c = 4 * (tx + g * TX);
       if (c >= D) continue;
-      if (ALIGNED) {
-        *reinterpret_cast<float4*>(orow + c) = make_float4(
-            acc[i][4 * g] / lsafe, acc[i][4 * g + 1] / lsafe,
-            acc[i][4 * g + 2] / lsafe, acc[i][4 * g + 3] / lsafe);
+      const float o0 = acc[i][4 * g] / lsafe, o1 = acc[i][4 * g + 1] / lsafe,
+                  o2 = acc[i][4 * g + 2] / lsafe,
+                  o3 = acc[i][4 * g + 3] / lsafe;
+      if constexpr (is_bf16<T_>) {   // one rounding, to nearest even
+        if (ALIGNED) {
+          *reinterpret_cast<uint2*>(orow + c) = narrow4(o0, o1, o2, o3);
+        } else {
+          const float oe[4] = {o0, o1, o2, o3};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (c + e < D) orow[c + e] = __float2bfloat16_rn(oe[e]);
+        }
+      } else if (ALIGNED) {
+        *reinterpret_cast<float4*>(orow + c) = make_float4(o0, o1, o2, o3);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -349,11 +425,10 @@ flash_fwd_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   }
 }
 
-template <bool CAUSAL, bool STATS, int NJ, bool ALIGNED, int DC>
-int launch(const float* q, const float* k, const float* v, float* o,
-           float* m, float* l, int bh, int T, int Tk, int D, float scale,
-           cudaStream_t stream) {
-  const auto kernel = flash_fwd_f32_kernel<CAUSAL, STATS, NJ, ALIGNED, DC>;
+template <typename T_, bool CAUSAL, bool STATS, int NJ, bool ALIGNED, int DC>
+int launch(const T_* q, const T_* k, const T_* v, T_* o, float* m, float* l,
+           int bh, int T, int Tk, int D, float scale, cudaStream_t stream) {
+  const auto kernel = flash_fwd_kernel<T_, CAUSAL, STATS, NJ, ALIGNED, DC>;
   const size_t smem = smem_bytes(D);
   // above 48 KB a block's dynamic shared memory must be asked for
   cudaError_t err = cudaFuncSetAttribute(
@@ -369,49 +444,70 @@ int launch(const float* q, const float* k, const float* v, float* o,
 
 // the instance for this D and alignment: NJ = 4 columns per lane up to
 // D = 64, 8 up to 128; D fixed at compile time when it is the widest
-template <bool CAUSAL, bool STATS, int NJ>
-int launch_variant(const float* q, const float* k, const float* v, float* o,
-                   float* m, float* l, int bh, int T, int Tk, int D,
-                   bool aligned, float scale, cudaStream_t stream) {
+template <typename T_, bool CAUSAL, bool STATS, int NJ>
+int launch_variant(const T_* q, const T_* k, const T_* v, T_* o, float* m,
+                   float* l, int bh, int T, int Tk, int D, bool aligned,
+                   float scale, cudaStream_t stream) {
   if (aligned && D == TX * NJ)
-    return launch<CAUSAL, STATS, NJ, true, TX * NJ>(
+    return launch<T_, CAUSAL, STATS, NJ, true, TX * NJ>(
         q, k, v, o, m, l, bh, T, Tk, D, scale, stream);
   if (aligned)
-    return launch<CAUSAL, STATS, NJ, true, 0>(q, k, v, o, m, l, bh, T, Tk,
-                                               D, scale, stream);
-  return launch<CAUSAL, STATS, NJ, false, 0>(q, k, v, o, m, l, bh, T, Tk, D,
-                                              scale, stream);
+    return launch<T_, CAUSAL, STATS, NJ, true, 0>(q, k, v, o, m, l, bh, T,
+                                                   Tk, D, scale, stream);
+  return launch<T_, CAUSAL, STATS, NJ, false, 0>(q, k, v, o, m, l, bh, T, Tk,
+                                                  D, scale, stream);
 }
 
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<unsigned long long>(ptr) % 16 == 0;
+bool aligned_to(const void* ptr, int bytes) {
+  return reinterpret_cast<unsigned long long>(ptr) % bytes == 0;
 }
 
-template <bool STATS>
-int dispatch(const float* q, const float* k, const float* v, float* o,
-             float* m, float* l, int bh, int T, int Tk, int D, int causal,
-             float scale, void* stream) {
+template <typename T_, bool STATS>
+int dispatch(const T_* q, const T_* k, const T_* v, T_* o, float* m,
+             float* l, int bh, int T, int Tk, int D, int causal, float scale,
+             void* stream) {
   if (bh < 1 || bh > 65535 || T < 1 || Tk < 1 || D < 1 || D > D_MAX ||
       (T + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = D % 4 == 0 && aligned16(q) && aligned16(k) &&
-                       aligned16(v) && aligned16(o);
+  // four elements a copy: 16 bytes of fp32, 8 of bf16
+  const int w = 4 * static_cast<int>(sizeof(T_));
+  const bool aligned = D % 4 == 0 && aligned_to(q, w) && aligned_to(k, w) &&
+                       aligned_to(v, w) && aligned_to(o, w);
   if (D <= 4 * TX)   // 4 output columns a lane
-    return causal ? launch_variant<true, STATS, 4>(q, k, v, o, m, l, bh, T,
-                                                   Tk, D, aligned, scale, s)
-                  : launch_variant<false, STATS, 4>(q, k, v, o, m, l, bh, T,
-                                                    Tk, D, aligned, scale, s);
-  return causal ? launch_variant<true, STATS, 8>(q, k, v, o, m, l, bh, T, Tk,
-                                                 D, aligned, scale, s)
-                : launch_variant<false, STATS, 8>(q, k, v, o, m, l, bh, T,
-                                                  Tk, D, aligned, scale, s);
+    return causal ? launch_variant<T_, true, STATS, 4>(
+                        q, k, v, o, m, l, bh, T, Tk, D, aligned, scale, s)
+                  : launch_variant<T_, false, STATS, 4>(
+                        q, k, v, o, m, l, bh, T, Tk, D, aligned, scale, s);
+  return causal ? launch_variant<T_, true, STATS, 8>(q, k, v, o, m, l, bh, T,
+                                                     Tk, D, aligned, scale, s)
+                : launch_variant<T_, false, STATS, 8>(
+                      q, k, v, o, m, l, bh, T, Tk, D, aligned, scale, s);
 }
 
 }  // namespace
 
 extern "C" {
 
+#ifdef PTT_BF16
+// As ptt_flash_fwd_f32 over bf16 Q, K, V and O.
+int ptt_flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                       const __nv_bfloat16* v, __nv_bfloat16* o, int bh,
+                       int T, int Tk, int D, int causal, float scale,
+                       void* stream) {
+  return dispatch<__nv_bfloat16, false>(q, k, v, o, nullptr, nullptr, bh, T,
+                                        Tk, D, causal, scale, stream);
+}
+
+// As ptt_flash_fwd_stats_f32 over bf16 Q, K, V and O; M and L are fp32.
+int ptt_flash_fwd_stats_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                             const __nv_bfloat16* v, __nv_bfloat16* o,
+                             float* m, float* l, int bh, int T, int Tk,
+                             int D, int causal, float scale, void* stream) {
+  return dispatch<__nv_bfloat16, true>(q, k, v, o, m, l, bh, T, Tk, D, causal,
+                                       scale, stream);
+}
+#else
 // O = attention(Q, K, V) for bh (batch x head) slices, row-major fp32:
 // Q and O are [bh, T, D], K and V [bh, Tk, D], 1 <= D <= 128,
 // bh <= 65535.  Launches on `stream` and returns cudaGetLastError()
@@ -419,8 +515,8 @@ extern "C" {
 int ptt_flash_fwd_f32(const float* q, const float* k, const float* v,
                       float* o, int bh, int T, int Tk, int D, int causal,
                       float scale, void* stream) {
-  return dispatch<false>(q, k, v, o, nullptr, nullptr, bh, T, Tk, D, causal,
-                         scale, stream);
+  return dispatch<float, false>(q, k, v, o, nullptr, nullptr, bh, T, Tk, D,
+                                causal, scale, stream);
 }
 
 // As ptt_flash_fwd_f32, also writing each row's raw running max to M and
@@ -429,9 +525,10 @@ int ptt_flash_fwd_stats_f32(const float* q, const float* k, const float* v,
                             float* o, float* m, float* l, int bh, int T,
                             int Tk, int D, int causal, float scale,
                             void* stream) {
-  return dispatch<true>(q, k, v, o, m, l, bh, T, Tk, D, causal, scale,
-                        stream);
+  return dispatch<float, true>(q, k, v, o, m, l, bh, T, Tk, D, causal, scale,
+                               stream);
 }
+#endif
 
 const char* ptt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -56,20 +56,41 @@ def adam_init(params: Any) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _weak(c: float, t: torch.Tensor) -> float:
+    """The Python number ``c`` as JAX's weak typing applies it to ``t``:
+    rounded to ``t``'s type (0.9 is 0.8984375 in bf16)."""
+    return torch.tensor(c, dtype=t.dtype).item()
+
+
+def _promoted(t: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """``t`` in its promoted type with ``other``, as JAX promotes an
+    array against a 0-dim array (torch would keep ``t``'s type)."""
+    return t.to(torch.promote_types(t.dtype, other.dtype))
+
+
 def adam_update(params, grads, state, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8):
-    """One Adam step, the JAX package's arithmetic: the count in int32,
-    the bias corrections ``1 - b ** count`` in fp32 on the device.
-    Returns ``(new_params, new_state)``; nothing is updated in place."""
+    """One Adam step, the JAX package's arithmetic and dtypes: the count in
+    int32, the bias corrections ``1 - b ** count`` in fp32 on the device,
+    each Python number rounded to the type of the tensor it meets, and
+    ``m / c1``, ``v / c2`` promoted to fp32.  So bf16 parameters come out
+    fp32 after one step with bf16 moments, and every leaf is fp32 after
+    two; fp32 ones keep fp32.  Returns ``(new_params, new_state)``;
+    nothing is updated in place."""
     with torch.no_grad():
         count = state["count"] + 1
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state["nu"],
-                      grads)
+        mu = tree_map(lambda m, g: _weak(b1, m) * m + _weak(1 - b1, g) * g,
+                      state["mu"], grads)
+        nu = tree_map(lambda v, g: _weak(b2, v) * v
+                      + _weak(1 - b2, g) * g * g, state["nu"], grads)
         c1 = 1 - b1 ** count.to(torch.float32)
         c2 = 1 - b2 ** count.to(torch.float32)
-        new_params = tree_map(
-            lambda p, m, v: p - lr * (m / c1) / (torch.sqrt(v / c2) + eps),
-            params, mu, nu)
+
+        def step(p, m, v):
+            r = _promoted(m, c1) / c1
+            d = torch.sqrt(_promoted(v, c2) / c2) + _weak(eps, r)
+            return p - _weak(lr, r) * r / d
+
+        new_params = tree_map(step, params, mu, nu)
     return new_params, {"mu": mu, "nu": nu, "count": count}
 
 

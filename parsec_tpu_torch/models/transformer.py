@@ -12,10 +12,23 @@ outside a shard, every axis has size 1: each psum is the identity and
 the GPipe schedule runs the microbatches in order.  The parameters are
 the same tree as the JAX package's (``init_params`` makes the same
 draws; ``params_from_numpy`` carries a JAX tree, or a JAX Adam state,
-across), passed to each call like JAX's functional forward.  The plain products (QKV, output
-projection, FFN, experts, tied logits) are ``torch.matmul`` in the config
-dtype, as the JAX package leaves them to XLA; the attention is the
-hand-written flash kernel on the card, forward and backward.
+across), passed to each call like JAX's functional forward.  The plain
+products (QKV, output projection, FFN, experts, tied logits) are
+``torch.matmul``, as the JAX package leaves them to XLA; the attention is
+the hand-written flash kernel on the card, forward and backward.
+
+The dtypes follow the JAX package's, promotions included.  The
+activations between layers are in the config dtype (``x.astype(dtype)``
+after the embedding), so q, k and v are too.  The dense layer's products
+take their operands promoted to one type and at least fp32, as the JAX
+einsums with ``preferred_element_type=float32`` compute them (a bf16
+product is exact in fp32, so the only rounding is the fp32 sum's), and
+are rounded once to the activations' type; GELU runs on the fp32
+product.  So a tree of fp32 weights (Adam promotes bf16 weights to fp32
+at the first step, as JAX's does) with bf16 activations works as in
+JAX.  The head is fp32.  On the card the products are fp32 GEMMs on the
+widened operands (cuBLAS, no TF32 unless the caller allows it), so
+``allow_bf16_reduced_precision_reduction`` does not apply to them.
 
 Pre-norm RMSNorm, no biases, tanh-GELU, learned positions and a tied
 embedding, as in the JAX model; ``n_experts > 0`` swaps the FFN for the
@@ -141,12 +154,18 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 
 def params_from_numpy(tree: Any) -> Any:
     """A tree of numpy arrays as CPU tensors of the same dtypes and
-    values: the JAX package's parameters (dense or with experts) or its
-    Adam state ``{"mu", "nu", "count"}``, through ``np.asarray``, so a
-    JAX step and a port step start from the same state."""
+    values: the JAX package's parameters (dense or with experts, fp32 or
+    bf16) or its Adam state ``{"mu", "nu", "count"}``, through
+    ``np.asarray``, so a JAX step and a port step start from the same
+    state.  A bf16 array (numpy's ``bfloat16`` extension type, which
+    ``torch.from_numpy`` refuses) crosses bit for bit as its 16-bit
+    patterns."""
     if isinstance(tree, dict):
         return {name: params_from_numpy(a) for name, a in tree.items()}
-    return torch.from_numpy(np.array(tree))
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_to(tree: Any, device) -> Any:
@@ -154,6 +173,15 @@ def params_to(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {name: params_to(a, device) for name, a in tree.items()}
     return tree.to(device)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the JAX package's einsums with
+    ``preferred_element_type=float32`` compute it: both operands in their
+    promoted type, at least fp32, and the sums in it."""
+    dt = torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                             torch.float32)
+    return torch.matmul(a.to(dt), b.to(dt))
 
 
 class Transformer(nn.Module):
@@ -201,13 +229,13 @@ class Transformer(nn.Module):
         mb, T, D = x.shape
         H, Dh = lp["wqkv"].shape[2], self.cfg.d_head
         h = self._rmsnorm(x, lp["ln1"])
-        qkv = torch.matmul(h, lp["wqkv"].reshape(D, 3 * H * Dh)).to(x.dtype)
+        qkv = _dot(h, lp["wqkv"].reshape(D, 3 * H * Dh)).to(x.dtype)
         # [mb, T, 3, H, Dh] -> three contiguous [mb, H, T, Dh]
         q, k, v = (qkv.view(mb, T, 3, H, Dh).permute(2, 0, 3, 1, 4)
                    .contiguous())
         a = self._attention(q, k, v)
-        o = torch.matmul(a.transpose(1, 2).reshape(mb, T, H * Dh),
-                         lp["wo"].reshape(H * Dh, D)).to(x.dtype)
+        o = _dot(a.transpose(1, 2).reshape(mb, T, H * Dh),
+                 lp["wo"].reshape(H * Dh, D)).to(x.dtype)
         x = x + psum(o, "tp")      # heads are tp-sharded
         h2 = self._rmsnorm(x, lp["ln2"])
         if "w1e" in lp:
@@ -216,9 +244,9 @@ class Transformer(nn.Module):
                         top_k=self.cfg.moe_top_k, gate_logits=gate_logits)
             aux = aux + load_balance_loss(gate_logits)
         else:
-            u = F.gelu(torch.matmul(h2, lp["w1"]),
-                       approximate="tanh").to(x.dtype)
-            f = torch.matmul(u, lp["w2"]).to(x.dtype)
+            # GELU on the fp32 product, rounded once after it
+            u = F.gelu(_dot(h2, lp["w1"]), approximate="tanh").to(x.dtype)
+            f = _dot(u, lp["w2"]).to(x.dtype)
         return x + psum(f, "tp"), aux     # the FFN hidden is tp-sharded
 
     def _embed(self, params: Dict[str, Any],

@@ -3,14 +3,14 @@
 The port's counterpart of the JAX package's ``ops/pallas_kernels.py``.
 Three CUDA sources live under ``csrc/``:
 
-- ``gemm``: the blocked fp32 GEMM of ``csrc/matmul.cu``,
+- ``gemm``: the blocked GEMM of ``csrc/matmul.cu``,
   ``Out = beta*C + alpha*(A @ op(B))`` over an optional leading batch
   dimension, one launch for the whole batch.  It replaces the Pallas
   ``_matmul_kernel`` and carries the tile Cholesky's GEMM and SYRK
   updates (ops/linalg.py).  ``matmul`` is its differentiable form: the
   backward runs the same kernel on the transposes (dA = g B^T,
   dB = A^T g), as the Pallas version's custom VJP does.
-- ``flash_attention`` and ``flash_attention_stats``: the fp32 flash
+- ``flash_attention`` and ``flash_attention_stats``: the flash
   attention forward of ``csrc/flash_attention.cu`` on ``[B, H, T, D]``,
   the second also returning each row's raw running max ``m`` and
   denominator ``l`` (``[B, H, T]``).  They replace the Pallas
@@ -28,11 +28,21 @@ Three CUDA sources live under ``csrc/``:
   backward on the card (nor has the JAX package's): its differentiated
   use is the ring, whose VJP recomputes through the plain ring.
 
-Each source is compiled with ``nvcc`` at the first launch of one of its
-kernels into ``build/kernels/`` at the root of the checkout, keyed on a
-hash of the source and flags, and loaded with ``ctypes``; ``build()``
-compiles them all at once, one ``nvcc`` per source.  Nothing is compiled
-when the module is imported.
+Every kernel has an fp32 and a bf16 instance.  The bf16 ones take bf16
+operands, compute in fp32 and round where the Pallas kernels round at
+bf16: the GEMM once at the end (``matmul`` and its gradient only: the
+tile bodies' ``gemm`` with C, alpha and beta stays fp32), the forward p
+to bf16 before P.V (but not in l) and o once at the end, the backward
+dq, dk and dv once at the end (m, l and the scratch stay fp32).  The
+operands of one call share one of the two types; mixed types raise.
+
+Each source is built twice with ``nvcc``, into the fp32 library
+(``matmul``, ``flash_attention``, ``flash_attention_bwd``) and, with
+``-DPTT_BF16``, the bf16 one (the same names with ``_bf16``), at the
+first launch of one of its kernels, into ``build/kernels/`` at the root
+of the checkout, keyed on a hash of the source and flags, and loaded
+with ``ctypes``; ``build()`` compiles them all at once, one ``nvcc`` per
+library.  Nothing is compiled when the module is imported.
 
 A wrapper takes its kernel's plain PyTorch version (``gemm_plain``,
 ``flash_attention_plain``, ``flash_attention_stats_plain``,
@@ -46,6 +56,9 @@ instance, the STATS instance (``flash_attention_stats``, and
 ``flash_attention``'s forward while it records for a backward: a
 training forward counts there, one a call) and the backward (one a
 call, for its two launches: the delta pass and the persistent kernel).
+``matmul_bf16_launches``, ``flash_bf16_launches``,
+``flash_stats_bf16_launches`` and ``flash_bwd_bf16_launches`` count the
+bf16 instances' launches the same way.
 """
 from __future__ import annotations
 
@@ -61,19 +74,26 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-__all__ = ["build", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_plain",
-           "flash_attention_stats", "flash_attention_stats_plain",
-           "flash_bwd_launches", "flash_launches", "flash_stats_launches",
-           "gemm", "gemm_plain", "load", "matmul", "matmul_launches",
-           "thread_matmul_launches"]
+__all__ = ["attention_plain", "build", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_plain", "flash_attention_stats",
+           "flash_attention_stats_plain",
+           "flash_bf16_launches", "flash_bwd_bf16_launches",
+           "flash_bwd_launches", "flash_launches",
+           "flash_stats_bf16_launches", "flash_stats_launches", "gemm",
+           "gemm_plain", "load", "matmul", "matmul_bf16_launches",
+           "matmul_launches", "thread_matmul_launches"]
 
-#: launches of each kernel since the process started (or since a caller
-#: reset it to 0); the plain versions do not count
+#: launches of each kernel instance since the process started (or since a
+#: caller reset it to 0); the plain versions do not count
 matmul_launches = 0
 flash_launches = 0
 flash_stats_launches = 0
 flash_bwd_launches = 0
+matmul_bf16_launches = 0
+flash_bf16_launches = 0
+flash_stats_bf16_launches = 0
+flash_bwd_bf16_launches = 0
 #: the GEMM kernel's launches by the calling thread, counted at the same
 #: place: in-process rank threads share the module's totals
 _per_thread = threading.local()
@@ -94,40 +114,61 @@ FLASH_BWD_BQ = 64
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+#: ``-Xptxas -v``: ptxas reports each kernel's registers, spills and
+#: shared memory; ``build`` keeps the report beside the library
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+               "-v")
 
 
-def _declare_matmul(lib: ctypes.CDLL) -> None:
+def _declare(fn, argtypes) -> None:
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+
+
+def _declare_matmul(lib: ctypes.CDLL, tag: str) -> None:
     p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-    lib.ptt_matmul_f32.argtypes = [p, p, p, p, i, i, i, i, ll, ll, ll, ll,
-                                   i, i, i, i, i, f, f, p]
-    lib.ptt_matmul_f32.restype = ctypes.c_int
+    if tag == "f32":
+        _declare(lib.ptt_matmul_f32, [p, p, p, p, i, i, i, i, ll, ll, ll,
+                                      ll, i, i, i, i, i, f, f, p])
+    else:          # no C, alpha or beta
+        _declare(lib.ptt_matmul_bf16, [p, p, p, i, i, i, i, ll, ll, ll, i,
+                                       i, i, i, p])
 
 
-def _declare_flash(lib: ctypes.CDLL) -> None:
+def _declare_flash(lib: ctypes.CDLL, tag: str) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ptt_flash_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
-    lib.ptt_flash_fwd_f32.restype = ctypes.c_int
-    lib.ptt_flash_fwd_stats_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                            f, p]
-    lib.ptt_flash_fwd_stats_f32.restype = ctypes.c_int
+    _declare(getattr(lib, f"ptt_flash_fwd_{tag}"),
+             [p, p, p, p, i, i, i, i, i, f, p])
+    _declare(getattr(lib, f"ptt_flash_fwd_stats_{tag}"),
+             [p, p, p, p, p, p, i, i, i, i, i, f, p])
 
 
-def _declare_flash_bwd(lib: ctypes.CDLL) -> None:
+def _declare_flash_bwd(lib: ctypes.CDLL, tag: str) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ptt_flash_bwd_f32.argtypes = [p] * 12 + [ctypes.c_longlong, i, i, i,
-                                                 i, i, f, p]
-    lib.ptt_flash_bwd_f32.restype = ctypes.c_int
-    lib.ptt_flash_bwd_attributes.argtypes = [
-        i, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_char_p)]
-    lib.ptt_flash_bwd_attributes.restype = ctypes.c_int
+    # the bf16 entry takes one pointer more: dQ's fp32 scratch
+    _declare(getattr(lib, f"ptt_flash_bwd_{tag}"),
+             [p] * (12 if tag == "f32" else 13)
+             + [ctypes.c_longlong, i, i, i, i, i, f, p])
+    _declare(lib.ptt_flash_bwd_attributes,
+             [i, ctypes.POINTER(ctypes.c_int),
+              ctypes.POINTER(ctypes.c_char_p)])
 
 
-#: each CUDA source (``csrc/<name>.cu``) and the C signatures of its library
+#: each CUDA source (``csrc/<name>.cu``) and the C signatures of its
+#: libraries
 _SOURCES = {"matmul": _declare_matmul, "flash_attention": _declare_flash,
             "flash_attention_bwd": _declare_flash_bwd}
+#: the element types the kernels have instances for, and each one's tag:
+#: the suffix of its C entry points and of its counters
+_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: each library: its source, its element type's tag and its nvcc flags
+#: beyond ``_NVCC_FLAGS``; ``<source>`` is the fp32 build of
+#: ``csrc/<source>.cu``, ``<source>_bf16`` the bf16 one
+_LIBRARIES = {**{name: (name, "f32", ()) for name in _SOURCES},
+              **{f"{name}_bf16": (name, "bf16", ("-DPTT_BF16",))
+                 for name in _SOURCES}}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -144,19 +185,30 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _nvcc_command(name: str) -> list:
+    """nvcc's arguments for library ``name`` but the output: the flags,
+    the library's own and its source."""
+    source, _tag, flags = _LIBRARIES[name]
+    return [*_NVCC_FLAGS, *flags, str(_CSRC / f"{source}.cu")]
+
+
 def _library_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+    source, _tag, flags = _LIBRARIES[name]
+    src = (_CSRC / f"{source}.cu").read_bytes()
+    key = hashlib.sha256(
+        src + " ".join(_NVCC_FLAGS + flags).encode()).hexdigest()
     return _BUILD_DIR / f"{name}_{key[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
-    """Compile ``csrc/<name>.cu`` for each name (default: every source)
-    unless a build of the same source and flags exists, one ``nvcc`` per
-    source, all started together; return each library's path."""
-    names = list(_SOURCES if names is None else names)
+    """Compile each library named (default: every one, the fp32 and bf16
+    builds of every source) unless a build of the same source and flags
+    exists, one ``nvcc`` per library, all started together; return each
+    library's path.  nvcc's output (ptxas's report) is kept beside each
+    library it builds, as ``<library>.log``."""
+    names = list(_LIBRARIES if names is None else names)
     for name in names:
-        if name not in _SOURCES:
+        if name not in _LIBRARIES:
             raise ValueError(f"no CUDA source named {name!r}")
     out = {name: _library_path(name) for name in names}
     todo = [name for name in names if not out[name].exists()]
@@ -170,14 +222,15 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
             os.close(fd)
             jobs.append((name, tmp, subprocess.Popen(
-                [nvcc, *_NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")],
+                [nvcc, "-o", tmp, *_nvcc_command(name)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         failures = []
         for name, tmp, proc in jobs:
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                failures.append(f"nvcc failed to build {name}.cu:\n{log}")
+                failures.append(f"nvcc failed to build {name}:\n{log}")
             else:   # atomic: a concurrent build sees all or none
+                out[name].with_suffix(".log").write_text(log)
                 os.replace(tmp, out[name])
         if failures:
             raise RuntimeError("\n".join(failures))
@@ -192,32 +245,53 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``, loaded once per process
-    with its C signatures declared."""
+    """Library ``name`` (``_LIBRARIES``), loaded once per process with its
+    C signatures declared."""
     with _lib_lock:
         lib = _libs.get(name)
         if lib is None:
+            source, tag, _flags = _LIBRARIES[name]
             lib = ctypes.CDLL(str(build([name])[name]))
-            _SOURCES[name](lib)
+            _SOURCES[source](lib, tag)
             lib.ptt_error_string.argtypes = [ctypes.c_int]
             lib.ptt_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 
 
-def _check_cuda_operands(op: str, ts: Tuple[torch.Tensor, ...]) -> None:
-    """What every CUDA kernel here takes: contiguous fp32 on one device."""
-    dev = ts[0].device
+def _check_cuda_operands(op: str, ts: Tuple[torch.Tensor, ...],
+                         stats: Tuple[torch.Tensor, ...] = ()) -> str:
+    """What every CUDA kernel here takes: contiguous tensors on one
+    device, the operands ``ts`` all fp32 or all bf16 (an instance's type)
+    and the row statistics ``stats`` fp32; returns the instance's tag."""
+    dev, dtype = ts[0].device, ts[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"{op}: unsupported device {dev}")
-    for t in ts:
+    if dtype not in _TAGS:
+        raise TypeError(f"{op}: the CUDA kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    for t, want in [(t, dtype) for t in ts] + [(t, torch.float32)
+                                               for t in stats]:
         if t.device != dev:
             raise ValueError(f"{op}: tensors on {dev} and {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: the CUDA kernel takes float32, got "
-                            f"{t.dtype}")
+        if t.dtype != want:
+            raise TypeError(f"{op}: operands of mixed types: {want} and "
+                            f"{t.dtype} (the row statistics are float32)")
         if not t.is_contiguous():
             raise ValueError(f"{op}: the CUDA kernel takes contiguous tensors")
+    return _TAGS[dtype]
+
+
+def _count(name: str, tag: str) -> None:
+    """One launch more on the counter of ``name``'s ``tag`` instance."""
+    counter = name if tag == "f32" else name.replace("_launches",
+                                                     "_bf16_launches")
+    with _count_lock:
+        globals()[counter] += 1
+
+
+def _library(source: str, tag: str) -> ctypes.CDLL:
+    return load(source if tag == "f32" else f"{source}_bf16")
 
 
 def _raise_launch(op: str, lib: ctypes.CDLL, rc: int) -> None:
@@ -230,15 +304,18 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor,
                c: Optional[torch.Tensor] = None, *, trans_b: bool = False,
                alpha: float = 1.0, beta: float = 0.0) -> torch.Tensor:
     """The kernel's plain version: ``beta*C + alpha*(A @ op(B))`` with
-    ``torch.matmul`` in fp32.  A leading batch dimension is looped over,
-    so each slice is exactly the unbatched computation."""
+    ``torch.matmul`` in fp32 (bf16 operands widened: their products are
+    exact in fp32), rounded once to bf16 for bf16 operands.  A leading
+    batch dimension is looped over, so each slice is exactly the
+    unbatched computation."""
     if a.dim() == 3:
         return torch.stack([
             gemm_plain(a[i], b[i], None if c is None else c[i],
                        trans_b=trans_b, alpha=alpha, beta=beta)
             for i in range(a.shape[0])])
     p = alpha * torch.matmul(a.float(), (b.mT if trans_b else b).float())
-    return p if c is None else beta * c.float() + p
+    p = p if c is None else beta * c.float() + p
+    return p.to(torch.bfloat16) if a.dtype == torch.bfloat16 else p
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
@@ -248,8 +325,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
     ``trans_b``.  A is ``[M, K]``, B ``[N, K]`` (trans_b) or ``[K, N]``,
     C ``[M, N]`` or None; all may carry one leading batch dimension,
     which becomes the kernel's ``gridDim.z``.  CPU tensors take the plain
-    version; CUDA tensors must be contiguous fp32 on one device."""
-    global matmul_launches
+    version; CUDA tensors must be contiguous and on one device, fp32, or
+    bf16 without C and with alpha 1 (the bf16 instance: ``A @ op(B)``
+    summed in fp32, rounded once to bf16)."""
     ts = (a, b) if c is None else (a, b, c)
     if any(t.dim() != a.dim() for t in ts) or a.dim() not in (2, 3):
         raise ValueError(f"gemm: expected 2-D or batched 3-D tensors, got "
@@ -265,26 +343,35 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
                          f"{tuple(a.shape[:-1]) + (N,)}")
     if a.device.type == "cpu":
         return gemm_plain(a, b, c, trans_b=trans_b, alpha=alpha, beta=beta)
-    _check_cuda_operands("gemm", ts)
+    tag = _check_cuda_operands("gemm", ts)
+    if tag == "bf16" and (c is not None or alpha != 1.0):
+        raise ValueError("gemm: the bf16 instance computes A @ op(B) alone "
+                         "(no C, alpha 1), as the Pallas matmul does")
     if batch > 65535:
         raise ValueError(f"gemm: batch {batch} exceeds gridDim.z")
-    out = torch.empty(tuple(a.shape[:-1]) + (N,), dtype=torch.float32,
+    out = torch.empty(tuple(a.shape[:-1]) + (N,), dtype=a.dtype,
                       device=a.device)
     if out.numel() == 0:
         return out
-    lib = load("matmul")
+    lib = _library("matmul", tag)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.ptt_matmul_f32(
-            a.data_ptr(), b.data_ptr(), None if c is None else c.data_ptr(),
-            out.data_ptr(), batch, M, N, K,
-            M * K, b.shape[-2] * b.shape[-1], M * N, M * N,
-            K, b.shape[-1], N, N,
-            int(trans_b), float(alpha), float(beta), stream)
+        if tag == "f32":
+            rc = lib.ptt_matmul_f32(
+                a.data_ptr(), b.data_ptr(),
+                None if c is None else c.data_ptr(), out.data_ptr(), batch,
+                M, N, K, M * K, b.shape[-2] * b.shape[-1], M * N, M * N,
+                K, b.shape[-1], N, N, int(trans_b), float(alpha),
+                float(beta), stream)
+        else:
+            rc = lib.ptt_matmul_bf16(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, N, K,
+                M * K, b.shape[-2] * b.shape[-1], M * N, K, b.shape[-1], N,
+                int(trans_b), stream)
     _raise_launch("gemm", lib, rc)
-    with _count_lock:
-        matmul_launches += 1
-    _per_thread.matmul = getattr(_per_thread, "matmul", 0) + 1
+    _count("matmul_launches", tag)
+    if tag == "f32":
+        _per_thread.matmul = getattr(_per_thread, "matmul", 0) + 1
     return out
 
 
@@ -310,8 +397,8 @@ class _Matmul(torch.autograd.Function):
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``[M, K] @ [K, N]`` through the GEMM kernel, accumulated in fp32;
-    differentiable."""
+    """``[M, K] @ [K, N]`` through the GEMM kernel, accumulated in fp32,
+    in the operands' type (fp32 or bf16); differentiable."""
     return _Matmul.apply(a, b)
 
 
@@ -346,16 +433,29 @@ def _masked_scores(q, k, causal: bool, scale: float) -> torch.Tensor:
     return s
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """The forward kernel's plain version: a materialised masked softmax,
-    as the JAX package's ``local_attention`` computes it off the kernel."""
-    _attention_shapes("flash_attention", q, k, v)
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """A materialised masked softmax in fp32 times the widened v, rounded
+    once to q's type: the JAX package's ``local_attention`` off the
+    kernel."""
+    _attention_shapes("attention", q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     p = torch.softmax(_masked_scores(q, k, causal, scale), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The forward kernel's plain version: ``attention_plain`` at fp32;
+    at bf16 the stats kernel's plain version's ``o``, which rounds p to
+    bf16 before P.V as the Pallas kernel does."""
+    _attention_shapes("flash_attention", q, k, v)
+    if q.dtype == torch.bfloat16:
+        return flash_attention_stats_plain(q, k, v, causal, scale)[0]
+    return attention_plain(q, k, v, causal, scale)
 
 
 def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
@@ -364,7 +464,9 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
     """The stats kernel's plain version, the counterpart of
     ``_flash_stats_reference``: ``(o, m, l)`` with each row's raw max and
     denominator.  A row with no visible key keeps m = -1e30, l = 0 and
-    o = 0; only o is safe-normalised."""
+    o = 0; only o is safe-normalised.  p enters P.V in v's type (rounded
+    to bf16 at bf16, as the Pallas kernel's ``p.astype(v.dtype)``; the
+    reference does not round it) and l unrounded; o is rounded once."""
     _attention_shapes("flash_attention_stats", q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -374,7 +476,8 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
     dead = m <= NEG_INF
     l = torch.where(dead, 0.0, p.sum(dim=-1))
     l_safe = torch.where(l == 0.0, 1.0, l)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe[..., None]
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                     v.float()) / l_safe[..., None]
     o = torch.where(dead[..., None], 0.0, o).to(q.dtype)
     return o, m, l
 
@@ -382,11 +485,11 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
 def _flash_launch(op: str, q, k, v, causal: bool, scale: Optional[float],
                   stats: bool):
     """Check the operands and launch the kernel of
-    ``csrc/flash_attention.cu``, counting the instance launched; returns
-    ``o`` or ``(o, m, l)``."""
-    global flash_launches, flash_stats_launches
+    ``csrc/flash_attention.cu`` (its fp32 or bf16 instance, by the
+    operands' type), counting the instance launched; returns ``o`` or
+    ``(o, m, l)``."""
     B, H, T, Tk, D = _attention_shapes(op, q, k, v)
-    _check_cuda_operands(op, (q, k, v))
+    tag = _check_cuda_operands(op, (q, k, v))
     if not 1 <= D <= FLASH_D_MAX:
         raise ValueError(f"{op}: the CUDA kernel takes head widths "
                          f"1..{FLASH_D_MAX}, got {D}")
@@ -401,24 +504,20 @@ def _flash_launch(op: str, q, k, v, causal: bool, scale: Optional[float],
         l = torch.empty_like(m)
     if T == 0 or B * H == 0:
         return (o, m, l) if stats else o
-    lib = load("flash_attention")
+    lib = _library("flash_attention", tag)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if stats:
-            rc = lib.ptt_flash_fwd_stats_f32(
+            rc = getattr(lib, f"ptt_flash_fwd_stats_{tag}")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 m.data_ptr(), l.data_ptr(), B * H, T, Tk, D, int(causal),
                 float(scale), stream)
         else:
-            rc = lib.ptt_flash_fwd_f32(
+            rc = getattr(lib, f"ptt_flash_fwd_{tag}")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 B * H, T, Tk, D, int(causal), float(scale), stream)
     _raise_launch(op, lib, rc)
-    with _count_lock:
-        if stats:
-            flash_stats_launches += 1
-        else:
-            flash_launches += 1
+    _count("flash_stats_launches" if stats else "flash_launches", tag)
     return (o, m, l) if stats else o
 
 
@@ -456,10 +555,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention forward, ``q [B, H, T, D]``, ``k, v [B, H, Tk, D]``
     -> ``[B, H, T, D]``; ``scale`` defaults to ``D ** -0.5``.  CPU tensors
-    take the plain versions; CUDA tensors must be contiguous fp32 with
-    ``D <= 128``.  Differentiable: while grad mode is on and an input
-    needs a gradient, the forward keeps the row statistics and the
-    backward is ``flash_attention_bwd``."""
+    take the plain versions; CUDA tensors must be contiguous, all fp32 or
+    all bf16 (the kernel's instance of that type), with ``D <= 128``.
+    Differentiable: while grad mode is on and an input needs a gradient,
+    the forward keeps the row statistics and the backward is
+    ``flash_attention_bwd``."""
     _attention_shapes("flash_attention", q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -527,9 +627,10 @@ def flash_attention_bwd_plain(q, k, v, o, m, l, do, causal: bool = True,
     ``_pick_block(Tk, block_k)``.  Its first scan (the row statistics) is
     the forward's ``m`` and ``l``, given here; then dv and
     ``delta = rowsum(P * dP)`` block by block; then dq and dk.  The -1e30
-    mask with the local-index causal rule, and l == 0 -> 1.  ``o`` is
-    not read: the kernel takes ``delta = rowsum(dO * O)``, the same
-    number."""
+    mask with the local-index causal rule, and l == 0 -> 1.  All in fp32
+    from the widened inputs, each gradient rounded once to its input's
+    type.  ``o`` is not read: the kernel takes ``delta = rowsum(dO * O)``,
+    the same number in fp32 (at bf16 it carries o's rounding)."""
     B, H, T, Tk, D = _bwd_shapes(q, k, v, o, m, l, do)
     if scale is None:
         scale = D ** -0.5
@@ -583,14 +684,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v, causal, scale)``
     for the cotangent ``do``, given the forward's ``o`` and its raw row
     max ``m`` and denominator ``l`` (``flash_attention_stats``).  CPU
-    tensors take the plain version; CUDA tensors must be contiguous fp32
-    on one device with ``D <= 128``."""
-    global flash_bwd_launches
+    tensors take the plain version; CUDA tensors must be contiguous and on
+    one device with ``D <= 128``: q, k, v, o and do all fp32 or all bf16
+    (the kernel's instance of that type), m and l fp32.  At bf16 the
+    wrapper allocates an fp32 scratch for dQ's ordered sum, which the
+    kernel rounds once into dq."""
     B, H, T, Tk, D = _bwd_shapes(q, k, v, o, m, l, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, m, l, do, causal, scale)
     op = "flash_attention_bwd"
-    _check_cuda_operands(op, (q, k, v, o, m, l, do))
+    tag = _check_cuda_operands(op, (q, k, v, o, do), (m, l))
     if not 1 <= D <= FLASH_D_MAX:
         raise ValueError(f"{op}: the CUDA kernel takes head widths "
                          f"1..{FLASH_D_MAX}, got {D}")
@@ -602,16 +705,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     counters = _flash_bwd_counters(B * H, T, q.device)
-    lib = load("flash_attention_bwd")
+    lib = _library("flash_attention_bwd", tag)
+    args = [q, k, v, o, m, l, do, dq, dk, dv, delta]
+    if tag == "bf16":      # dQ's ordered sum, in fp32
+        args.append(torch.empty(q.shape, dtype=torch.float32,
+                                device=q.device))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ptt_flash_bwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            m.data_ptr(), l.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            counters.data_ptr(), counters.numel(), B * H, T, Tk, D,
+        rc = getattr(lib, f"ptt_flash_bwd_{tag}")(
+            *(x.data_ptr() for x in args), counters.data_ptr(),
+            counters.numel(), B * H, T, Tk, D,
             int(causal), float(scale), stream)
     _raise_launch(op, lib, rc)
-    with _count_lock:
-        flash_bwd_launches += 1
+    _count("flash_bwd_launches", tag)
     return dq, dk, dv

@@ -242,9 +242,10 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``use_kernel`` None = the flash kernel on a CUDA tensor (it masks its
     own ragged edges, so no shape gate is needed); False = the plain
-    materialised softmax (the tests' oracle)."""
+    materialised softmax (the tests' oracle; at bf16 it does not round p,
+    as the JAX package's jnp path does not)."""
     if use_kernel is None:
         use_kernel = q.is_cuda
     if use_kernel:
         return kernels.flash_attention(q, k, v, causal=causal, scale=scale)
-    return kernels.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    return kernels.attention_plain(q, k, v, causal=causal, scale=scale)
