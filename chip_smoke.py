@@ -6,11 +6,13 @@
 Phases, each reporting on its own lines:
 
 1. device   the card's name, and its name and power limit from nvidia-smi;
-2. build    every CUDA library of this checkout: each csrc/*.cu built
-            twice, as is (fp32) and with -DPTT_BF16 (bf16), one nvcc
-            for each, all started together; ptxas's report of each
-            build (-Xptxas -v) gives each kernel instance's registers
-            and spills;
+2. build    every CUDA library of this checkout, one nvcc for each, all
+            started together: matmul.cu and flash_attention_bwd.cu as
+            they are (fp32) and with -DPTT_BF16 (bf16), flash_attention.cu
+            (fp32) and flash_attention_bf16.cu (bf16, the tensor-core
+            forward); ptxas's report of each build (-Xptxas -v) gives
+            each kernel instance's registers, spills and static shared
+            memory;
 3. kernel   the GEMM kernel against its plain PyTorch version on the
             card, at the dpotrf path's tile shape (nb = 1024): matmul,
             gemm_nt, syrk_ln, a batched z = 8 launch, ragged 1000^3 and
@@ -42,13 +44,15 @@ Phases, each reporting on its own lines:
             waited for against a deadline, so a stuck dQ turn fails
             instead of hanging), misaligned operands bit-exact against
             aligned copies;
-4'. attention.bf16 the same cases with the bf16 instances: o, dq, dk
-            and dv within 1e-2 of the plain versions (which round where
-            the Pallas kernel does: p before P.V, the outputs once), m
-            and l (fp32) within 1e-4, repeats and misaligned views
-            bit-exact; then operands of mixed fp32 and bf16 (and bf16
-            row statistics, and a bf16 GEMM with C) raise and launch
-            nothing;
+4'. attention.bf16 the same cases with the bf16 instances (the
+            forward's the tensor-core kernel of flash_attention_bf16.cu):
+            o, dq, dk and dv within 1e-2 of the plain versions (which
+            round where the Pallas kernel does: p before P.V, the outputs
+            once), m and l (fp32) within 1e-4, repeats and misaligned
+            views bit-exact; then operands of mixed fp32 and bf16 (and
+            bf16 row statistics, and a bf16 GEMM with C) raise and launch
+            nothing.  At both types, three launches of each forward
+            instance are bit-equal at every case;
 4b. bodies  the DPLASMA family's product bodies (gemm_nn_sub, gemm_tn_sub,
             unmqr, tsmqr, gemm with alpha 1.5 and beta 0.5, and with B
             transposed) against the GEMM kernel's plain version on the
@@ -432,7 +436,14 @@ Phases, each reporting on its own lines:
             blocks an SM (cudaFuncGetAttributes); then the bf16 instances
             (matmul at nb = 1024 against torch.matmul, the flash kernels
             against SDPA and its backward, all bf16), their bounds from
-            the bf16 tensor-core peak and 2 bytes an element;
+            the bf16 tensor-core peak and 2 bytes an element, and each
+            instance of the bf16 forward (flash_attention_bf16.cu) with
+            its registers, local (spill) bytes, shared memory and
+            resident blocks an SM; then where a consumer warp of the bf16
+            forward spends its clocks, causal and not, phase by phase of
+            its loop (the source's measurement build,
+            flash_attention_bf16_phases, whose o is checked bit-equal to
+            the plain build's);
 9. profile  with --profile only (and rank 0 of multirank dposv_2, in its
             timed run, so that run's wall includes the profiler): the
             dpotrf, DTD Cholesky, dgeqrf and
@@ -587,8 +598,10 @@ def phase_build() -> None:
 
 
 def ptxas_report(libs: dict) -> None:
-    """Registers and spills of every kernel instance, from the ptxas
-    report (``-Xptxas -v``) that each library's build left beside it."""
+    """Registers, spills and static shared memory of every kernel
+    instance, from the ptxas report (``-Xptxas -v``) that each library's
+    build left beside it (dynamic shared memory: the timing phase's
+    ``instance=`` lines)."""
     import re
     for name, so in libs.items():
         report = so.with_suffix(".log")
@@ -602,9 +615,11 @@ def ptxas_report(libs: dict) -> None:
                                    r"spill loads", line)):
                 spills = hit.groups()
             elif (hit := re.search(r"Used (\d+) registers", line)) and fn:
+                smem = re.search(r"(\d+) bytes smem", line)
                 log("ptxas", library=name, kernel=demangle(fn),
                     registers=hit.group(1), spill_stores=spills[0],
-                    spill_loads=spills[1])
+                    spill_loads=spills[1],
+                    static_smem_bytes=smem.group(1) if smem else 0)
                 fn = None
 
 
@@ -874,6 +889,16 @@ def phase_attention(dev: torch.device, seed: int,
     for name, (q, k, v), causal, on_path in cases:
         o = kernels.flash_attention(q, k, v, causal=causal)
         stats = kernels.flash_attention_stats(q, k, v, causal=causal)
+        # no atomics: two more launches of each give the same bits
+        for _ in range(2):
+            check(torch.equal(kernels.flash_attention(q, k, v,
+                                                      causal=causal), o),
+                  f"flash {name}: launches on the same inputs differ")
+            check(all(map(torch.equal, kernels.flash_attention_stats(
+                q, k, v, causal=causal), stats)),
+                  f"flash_stats {name}: launches on the same inputs differ")
+        log("attention", kernel="flash,flash_stats", case=name,
+            dtype=str(dtype)[6:], repeat_launches=3, bit_exact=True)
         ref = kernels.flash_attention_plain(q, k, v, causal=causal)
         ref_stats = kernels.flash_attention_stats_plain(q, k, v,
                                                         causal=causal)
@@ -6034,7 +6059,7 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
     log("timing", case=f"scaled_dot_product_attention forward+backward "
                        f"{list(ATTN_SHAPE)} causal fp32",
         library_ms=sdpa_fwd_bwd_ms, forward_ms=library_ms)
-    backward_instances()
+    kernel_instances("flash_attention_bwd")
     del leaves, do, o, m, l
     recs.update(timing_bf16(dev, g))
     cases = {"gemm": (f"gemm_nt nb={nb} fp32", 2.0 * nb ** 3),
@@ -6057,7 +6082,8 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             plain_ms=rec["plain_ms"], library_ms=rec["library_ms"],
             kernel_tflops=f"{work / rec['ms'] / 1e9:.3f}",
-            roofline_share=f"{rec['bound_ms'] / rec['ms']:.4f}")
+            roofline_share=f"{rec['bound_ms'] / rec['ms']:.4f}",
+            kernel_over_library=f"{rec['ms'] / rec['library_ms']:.4f}")
     return recs
 
 
@@ -6114,27 +6140,87 @@ def timing_bf16(dev: torch.device, g) -> dict:
     log("timing", case=f"scaled_dot_product_attention forward+backward "
                        f"{list(ATTN_SHAPE)} causal bf16",
         library_ms=sdpa_fwd_bwd_ms, forward_ms=library_ms)
-    backward_instances("flash_attention_bwd_bf16")
+    kernel_instances("flash_attention_bwd_bf16")
+    kernel_instances("flash_attention_bf16", "ptt_flash_fwd_bf16_attributes")
+    for causal in (True, False):
+        phase_clocks(q, k, v, causal)
     return recs
 
 
-def backward_instances(library: str = "flash_attention_bwd") -> None:
-    """Each instance of a backward library (the delta pass first):
-    registers and local (spill) bytes a thread, static and dynamic shared
-    memory (at the instance's widest D) and resident blocks an SM, from
-    cudaFuncGetAttributes through ptt_flash_bwd_attributes."""
+#: the phases of the bf16 forward's consumer loop, in the order of
+#: flash_attention_bf16.cu's PH_* counts: waiting for Q (and an item's
+#: set-up), tile 0's scores and softmax alone; each later step's wait for
+#: its K and V tile, issuing S and P.V, waiting for S, the softmax,
+#: waiting for P.V, the rescale and P's packing; the last P.V and the
+#: epilogue
+PHASES = ("q_wait", "tile0", "full_wait", "issue", "wait_s", "softmax",
+          "wait_pv", "rescale_pack", "last_pv", "epilogue")
+
+
+def phase_clocks(q, k, v, causal: bool, launches: int = 10) -> None:
+    """Where a consumer warp of the bf16 forward spends its clocks, from
+    its measurement build (flash_attention_bf16_phases, -DPTT_PHASE_CLOCKS):
+    ``launches`` launches at the forward's shape, checked bit-equal to the
+    plain build's output, then each phase's clocks a warp, for each work
+    item and for each loop step (the tiles after an item's first)."""
+    import ctypes
+    from parsec_tpu_torch.ops import kernels
+    lib = kernels.load("flash_attention_bf16_phases")
+    read = lib.ptt_flash_fwd_bf16_phase_clocks
+    read.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    read.restype = ctypes.c_int
+    shape = (ctypes.c_int * 2)()
+    check(read(None, shape) == 0 and shape[1] == len(PHASES) + 2,
+          "phase clocks: the build's phases differ from the script's")
+    B, H, T, D = q.shape
+    sums = (ctypes.c_ulonglong * (shape[0] * shape[1]))()
+    check(read(sums, shape) == 0, "phase clocks: reading the sums failed")
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    for _ in range(launches):
+        rc = lib.ptt_flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    o.data_ptr(), B * H, T, T, D, int(causal),
+                                    float(D ** -0.5), stream)
+        check(rc == 0, f"phase clocks: {lib.ptt_error_string(rc).decode()}")
+    torch.cuda.synchronize()
+    check(torch.equal(o, kernels.flash_attention(q, k, v, causal=causal)),
+          "phase clocks: the measurement build's o differs from the plain "
+          "build's")
+    check(read(sums, shape) == 0, "phase clocks: reading the sums failed")
+    rows = torch.tensor(list(sums), dtype=torch.float64).view(shape[0],
+                                                             shape[1])
+    rows = rows[rows[:, -1] > 0]          # the warps of launched blocks
+    total = rows.sum(0)
+    steps, items = total[-2].item(), total[-1].item()
+    log("timing", case=f"flash_fwd_bf16 phase clocks {[B, H, T, D]} "
+                       f"{'causal' if causal else 'noncausal'}",
+        launches=launches, warps=rows.shape[0],
+        steps_per_item=f"{steps / items:.3f}",
+        clocks_per_item={n: round(total[i].item() / items)
+                         for i, n in enumerate(PHASES)},
+        clocks_per_step={n: round(total[i].item() / steps)
+                         for i, n in enumerate(PHASES[2:8], 2)})
+
+
+def kernel_instances(library: str,
+                     attributes: str = "ptt_flash_bwd_attributes") -> None:
+    """Each instance of a library (a backward's delta pass first, the bf16
+    forward's four): registers and local (spill) bytes a thread, static
+    and dynamic shared memory (at the instance's widest D) and resident
+    blocks an SM, from cudaFuncGetAttributes through the library's
+    ``attributes`` entry point."""
     import ctypes
     from parsec_tpu_torch.ops import kernels
     lib = kernels.load(library)
     out, name = (ctypes.c_int * 5)(), ctypes.c_char_p()
     i = 0
-    while (rc := lib.ptt_flash_bwd_attributes(i, out,
-                                              ctypes.byref(name))) == 0:
+    while (rc := getattr(lib, attributes)(i, out,
+                                          ctypes.byref(name))) == 0:
         log("timing", instance=name.value.decode(), registers=out[0],
             local_bytes=out[1], static_smem_bytes=out[2],
             dynamic_smem_bytes=out[3], blocks_per_sm=out[4])
         i += 1
-    check(rc == -1, f"ptt_flash_bwd_attributes({i}): "
+    check(rc == -1, f"{attributes}({i}): "
                     f"{lib.ptt_error_string(rc).decode()}")
 
 
@@ -6546,11 +6632,11 @@ def main(argv=None) -> int:
              launches={"matmul_and_grad_bf16": gemm16_launches},
              max_abs_err=gemm16_err, **recs["gemm_bf16"]),
         dict(name="flash_fwd_bf16", route="cuda",
-             source=src + "flash_attention.cu", replaces=tpu + "68",
+             source=src + "flash_attention_bf16.cu", replaces=tpu + "68",
              launches={"forward_flash_bf16": attn16_launches["flash"]},
              max_abs_err=attn16_err["flash"], **recs["flash_bf16"]),
         dict(name="flash_fwd_stats_bf16", route="cuda",
-             source=src + "flash_attention.cu", replaces=tpu + "115",
+             source=src + "flash_attention_bf16.cu", replaces=tpu + "115",
              launches={"forward_ring_bf16": attn16_launches["ring"],
                        **{f"train_{path}_bf16": n["flash_stats_bf16_launches"]
                           for path, n in train16_launches.items()}},

@@ -1,4 +1,4 @@
-// Flash attention forward for Hopper (sm_90a), fp32 and bf16, with optional
+// Flash attention forward for Hopper (sm_90a), fp32, with optional
 // export of each row's softmax statistics.
 //
 //   O[bh] = softmax(scale * Q[bh] . K[bh]^T, masked) . V[bh]
@@ -12,16 +12,10 @@
 // "local" and "ulysses" without the statistics, attention="ring" with
 // them (the ring merges blocks by m and l).
 //
-// The source is built twice (parsec_tpu_torch/ops/kernels.py): as it
-// stands into the fp32 library (ptt_flash_fwd_f32, ptt_flash_fwd_stats_f32)
-// and with -DPTT_BF16 into the bf16 one (ptt_flash_fwd_bf16,
-// ptt_flash_fwd_stats_bf16), one nvcc each, side by side.  The bf16
-// instances read bf16 Q, K and V and write bf16 O; m, l, the scores and
-// the accumulator stay fp32.  They round where the Pallas kernel rounds
-// at bf16: p to bf16 (nearest even) before P . V, while l sums the
-// unrounded p, and O once at the end.  p is rounded at the running max of
-// its 64-key tile (the Pallas kernel: of its 512-key block), so the two
-// agree to bf16's unit roundoff, not bit for bit.
+// This source builds the fp32 library (parsec_tpu_torch/ops/kernels.py):
+// ptt_flash_fwd_f32 and ptt_flash_fwd_stats_f32.  The bf16 forward is the
+// tensor-core kernel of flash_attention_bf16.cu; the element-type
+// parameter of the kernel below is instantiated at fp32 only.
 //
 // Arithmetic kept from the Pallas kernel: the score is (q . k) * scale;
 // a causally masked score is -1e30 (not -inf) with the local-index mask
@@ -68,15 +62,6 @@
 // pointers; otherwise the same kernel copies with 4-byte cp.async and
 // zero-fills the columns up to the next multiple of 4 (the ALIGNED = false
 // instance), with the same arithmetic.
-//
-// At bf16 the same shape moves 50.3 MB and the bound is the 989 TFLOP/s
-// bf16 tensor-core rate's 0.013 ms against 0.015 ms of memory.  The bf16
-// instances are the fp32 design with each Q, K and V element widened to
-// fp32 on its way into shared memory, through registers (cp.async moves
-// bytes as they are, so the next tile's loads are not in flight behind
-// the products), and no tensor cores: a later redesign's work (mma.sync
-// or wgmma on bf16 tiles, TMA).  8-byte loads of four elements need
-// D % 4 == 0 and 8-byte aligned pointers; otherwise 2-byte loads.
 //
 // Measured (chip_smoke.py --ptxas, sm_90a, -O3): the D <= 64 instances
 // take 100 to 128 registers a thread (the forward's, causal with D = 64
@@ -489,25 +474,6 @@ int dispatch(const T_* q, const T_* k, const T_* v, T_* o, float* m,
 
 extern "C" {
 
-#ifdef PTT_BF16
-// As ptt_flash_fwd_f32 over bf16 Q, K, V and O.
-int ptt_flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                       const __nv_bfloat16* v, __nv_bfloat16* o, int bh,
-                       int T, int Tk, int D, int causal, float scale,
-                       void* stream) {
-  return dispatch<__nv_bfloat16, false>(q, k, v, o, nullptr, nullptr, bh, T,
-                                        Tk, D, causal, scale, stream);
-}
-
-// As ptt_flash_fwd_stats_f32 over bf16 Q, K, V and O; M and L are fp32.
-int ptt_flash_fwd_stats_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                             const __nv_bfloat16* v, __nv_bfloat16* o,
-                             float* m, float* l, int bh, int T, int Tk,
-                             int D, int causal, float scale, void* stream) {
-  return dispatch<__nv_bfloat16, true>(q, k, v, o, m, l, bh, T, Tk, D, causal,
-                                       scale, stream);
-}
-#else
 // O = attention(Q, K, V) for bh (batch x head) slices, row-major fp32:
 // Q and O are [bh, T, D], K and V [bh, Tk, D], 1 <= D <= 128,
 // bh <= 65535.  Launches on `stream` and returns cudaGetLastError()
@@ -528,7 +494,6 @@ int ptt_flash_fwd_stats_f32(const float* q, const float* k, const float* v,
   return dispatch<float, true>(q, k, v, o, m, l, bh, T, Tk, D, causal, scale,
                                stream);
 }
-#endif
 
 const char* ptt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

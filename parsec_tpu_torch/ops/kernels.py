@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the hot operations.
 
 The port's counterpart of the JAX package's ``ops/pallas_kernels.py``.
-Three CUDA sources live under ``csrc/``:
+Four CUDA sources live under ``csrc/``:
 
 - ``gemm``: the blocked GEMM of ``csrc/matmul.cu``,
   ``Out = beta*C + alpha*(A @ op(B))`` over an optional leading batch
@@ -11,11 +11,13 @@ Three CUDA sources live under ``csrc/``:
   backward runs the same kernel on the transposes (dA = g B^T,
   dB = A^T g), as the Pallas version's custom VJP does.
 - ``flash_attention`` and ``flash_attention_stats``: the flash
-  attention forward of ``csrc/flash_attention.cu`` on ``[B, H, T, D]``,
-  the second also returning each row's raw running max ``m`` and
-  denominator ``l`` (``[B, H, T]``).  They replace the Pallas
-  ``_flash_fwd_kernel`` and ``_flash_fwd_stats_kernel`` and carry the
-  transformer's attention (models/transformer.py, parallel/).
+  attention forward on ``[B, H, T, D]``, the second also returning each
+  row's raw running max ``m`` and denominator ``l`` (``[B, H, T]``):
+  ``csrc/flash_attention.cu`` at fp32, the tensor-core kernel of
+  ``csrc/flash_attention_bf16.cu`` (wgmma on bf16 tiles fed by TMA) at
+  bf16.  They replace the Pallas ``_flash_fwd_kernel`` and
+  ``_flash_fwd_stats_kernel`` and carry the transformer's attention
+  (models/transformer.py, parallel/).
 - ``flash_attention_bwd``: the flash backward of
   ``csrc/flash_attention_bwd.cu``, dq, dk and dv from the forward's raw
   row statistics, in place of the jnp VJP ``_flash_vjp_bwd`` of the
@@ -36,12 +38,17 @@ to bf16 before P.V (but not in l) and o once at the end, the backward
 dq, dk and dv once at the end (m, l and the scratch stay fp32).  The
 operands of one call share one of the two types; mixed types raise.
 
-Each source is built twice with ``nvcc``, into the fp32 library
-(``matmul``, ``flash_attention``, ``flash_attention_bwd``) and, with
-``-DPTT_BF16``, the bf16 one (the same names with ``_bf16``), at the
-first launch of one of its kernels, into ``build/kernels/`` at the root
-of the checkout, keyed on a hash of the source and flags, and loaded
-with ``ctypes``; ``build()`` compiles them all at once, one ``nvcc`` per
+Each kernel is built with ``nvcc`` into a library of its type: the fp32
+libraries ``matmul``, ``flash_attention`` and ``flash_attention_bwd``,
+and the bf16 ones of the same names with ``_bf16``, which build
+``matmul.cu`` and ``flash_attention_bwd.cu`` again with ``-DPTT_BF16``
+and ``flash_attention_bf16.cu`` as it is; ``flash_attention_bf16_phases``
+builds that source once more with ``-DPTT_PHASE_CLOCKS``, a measurement
+build that sums the clocks of each phase of its loop and that no path
+launches.  Each is built at the first
+launch of one of its kernels, into ``build/kernels/`` at the root of the
+checkout, keyed on a hash of the source and flags, and loaded with
+``ctypes``; ``build()`` compiles them all at once, one ``nvcc`` per
 library.  Nothing is compiled when the module is imported.
 
 A wrapper takes its kernel's plain PyTorch version (``gemm_plain``,
@@ -145,6 +152,14 @@ def _declare_flash(lib: ctypes.CDLL, tag: str) -> None:
              [p, p, p, p, p, p, i, i, i, i, i, f, p])
 
 
+def _declare_flash_bf16(lib: ctypes.CDLL, tag: str) -> None:
+    _declare_flash(lib, tag)
+    # the tensor-core kernel's instances
+    _declare(lib.ptt_flash_fwd_bf16_attributes,
+             [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+              ctypes.POINTER(ctypes.c_char_p)])
+
+
 def _declare_flash_bwd(lib: ctypes.CDLL, tag: str) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the bf16 entry takes one pointer more: dQ's fp32 scratch
@@ -159,16 +174,25 @@ def _declare_flash_bwd(lib: ctypes.CDLL, tag: str) -> None:
 #: each CUDA source (``csrc/<name>.cu``) and the C signatures of its
 #: libraries
 _SOURCES = {"matmul": _declare_matmul, "flash_attention": _declare_flash,
+            "flash_attention_bf16": _declare_flash_bf16,
             "flash_attention_bwd": _declare_flash_bwd}
 #: the element types the kernels have instances for, and each one's tag:
 #: the suffix of its C entry points and of its counters
 _TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_BF16 = ("-DPTT_BF16",)
 #: each library: its source, its element type's tag and its nvcc flags
-#: beyond ``_NVCC_FLAGS``; ``<source>`` is the fp32 build of
-#: ``csrc/<source>.cu``, ``<source>_bf16`` the bf16 one
-_LIBRARIES = {**{name: (name, "f32", ()) for name in _SOURCES},
-              **{f"{name}_bf16": (name, "bf16", ("-DPTT_BF16",))
-                 for name in _SOURCES}}
+#: beyond ``_NVCC_FLAGS``; ``<name>`` is the fp32 library of a kernel,
+#: ``<name>_bf16`` its bf16 one
+_LIBRARIES = {"matmul": ("matmul", "f32", ()),
+              "matmul_bf16": ("matmul", "bf16", _BF16),
+              "flash_attention": ("flash_attention", "f32", ()),
+              "flash_attention_bf16": ("flash_attention_bf16", "bf16", ()),
+              # a measurement build, on no path: the clocks of each phase
+              "flash_attention_bf16_phases": ("flash_attention_bf16", "bf16",
+                                              ("-DPTT_PHASE_CLOCKS",)),
+              "flash_attention_bwd": ("flash_attention_bwd", "f32", ()),
+              "flash_attention_bwd_bf16": ("flash_attention_bwd", "bf16",
+                                           _BF16)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -484,10 +508,10 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _flash_launch(op: str, q, k, v, causal: bool, scale: Optional[float],
                   stats: bool):
-    """Check the operands and launch the kernel of
-    ``csrc/flash_attention.cu`` (its fp32 or bf16 instance, by the
-    operands' type), counting the instance launched; returns ``o`` or
-    ``(o, m, l)``."""
+    """Check the operands and launch the forward kernel of the operands'
+    type (``csrc/flash_attention.cu`` at fp32,
+    ``csrc/flash_attention_bf16.cu`` at bf16), counting the instance
+    launched; returns ``o`` or ``(o, m, l)``."""
     B, H, T, Tk, D = _attention_shapes(op, q, k, v)
     tag = _check_cuda_operands(op, (q, k, v))
     if not 1 <= D <= FLASH_D_MAX:

@@ -40,6 +40,7 @@ from parsec_tpu.ops import pallas_kernels as pk  # noqa: E402
 from parsec_tpu_torch import models  # noqa: E402
 from parsec_tpu_torch.models import train, transformer  # noqa: E402
 from parsec_tpu_torch.ops import kernels  # noqa: E402
+from test_torch_flash_tc import CARD_CASES  # noqa: E402
 
 BF16 = torch.bfloat16
 #: a kernel's plain version against the Pallas kernel, and one layer
@@ -461,12 +462,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda", 0)
-
-
-CARD_CASES = [(2, 3, 256, 256, 64, True), (2, 3, 256, 256, 64, False),
-              (1, 2, 1000, 1000, 40, True), (1, 2, 300, 300, 33, True),
-              (1, 2, 1000, 1500, 64, True), (1, 2, 1000, 300, 64, True),
-              (1, 1, 70, 130, 128, False)]
 
 
 def _card_qkv(dev, B, H, T, Tk, D, seed=7):
