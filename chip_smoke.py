@@ -7,12 +7,12 @@ Phases, each reporting on its own lines:
 
 1. device   the card's name, and its name and power limit from nvidia-smi;
 2. build    every CUDA library of this checkout, one nvcc for each, all
-            started together: matmul.cu and flash_attention_bwd.cu as
-            they are (fp32) and with -DPTT_BF16 (bf16), flash_attention.cu
-            (fp32) and flash_attention_bf16.cu (bf16, the tensor-core
-            forward); ptxas's report of each build (-Xptxas -v) gives
-            each kernel instance's registers, spills and static shared
-            memory;
+            started together: matmul.cu, flash_attention.cu and
+            flash_attention_bwd.cu (fp32), and the tensor-core sources
+            matmul_bf16.cu, flash_attention_bf16.cu (also once more with
+            -DPTT_PHASE_CLOCKS) and flash_attention_bwd_bf16.cu (bf16);
+            ptxas's report of each build (-Xptxas -v) gives each kernel
+            instance's registers, spills and static shared memory;
 3. kernel   the GEMM kernel against its plain PyTorch version on the
             card, at the dpotrf path's tile shape (nb = 1024): matmul,
             gemm_nt, syrk_ln, a batched z = 8 launch, ragged 1000^3 and
@@ -24,8 +24,9 @@ Phases, each reporting on its own lines:
 3'. kernel.bf16 the GEMM kernel's bf16 instance against its plain
             version: its path, kernels.matmul at 1024^3 and its gradient
             (3 launches, counted from 0), ragged 999 x 1001 x 997 in both
-            forms and z = 3, 2-byte-misaligned operands; relative max
-            error under 1e-2 (bf16 out, fp32 sums); batched launches
+            forms and z = 3, aligned z = 3 at 1024^3 in both forms (TMA
+            over 3-D tensor maps), 2-byte-misaligned operands; relative
+            max error under 1e-2 (bf16 out, fp32 sums); batched launches
             bit-exact against single ones, misaligned against aligned;
 4. attention both flash kernels against their plain versions on the
             card: [8, 12, 1024, 64] causal (the forward's shape) and
@@ -436,10 +437,14 @@ Phases, each reporting on its own lines:
             blocks an SM (cudaFuncGetAttributes); then the bf16 instances
             (matmul at nb = 1024 against torch.matmul, the flash kernels
             against SDPA and its backward, all bf16), their bounds from
-            the bf16 tensor-core peak and 2 bytes an element, and each
-            instance of the bf16 forward (flash_attention_bf16.cu) with
-            its registers, local (spill) bytes, shared memory and
-            resident blocks an SM; then where a consumer warp of the bf16
+            the bf16 tensor-core peak and 2 bytes an element; for the
+            bf16 GEMM and backward also their device time and their
+            library call's (torch.profiler's kernel events over the timed
+            calls), and SDPA's bf16 backward timed alone (its forward
+            run once) three times, with the spread; each instance of the
+            three tensor-core sources with its registers, local (spill)
+            bytes, shared memory and resident blocks an SM; then where a
+            consumer warp of the bf16
             forward spends its clocks, causal and not, phase by phase of
             its loop (the source's measurement build,
             flash_attention_bf16_phases, whose o is checked bit-equal to
@@ -729,10 +734,12 @@ def phase_kernel_bf16(dev: torch.device, seed: int) -> tuple:
     """The GEMM kernel's bf16 instance against its plain version on the
     card.  Its path: ``kernels.matmul`` at 1024^3 and its gradient (one
     forward, one backward: 3 launches, counted from 0), as a user calls
-    it.  Then ragged 999 x 1001 x 997 products in both forms, a batched
-    z = 3 launch bit-exact against single ones, 2-byte-misaligned
-    operands bit-exact against aligned copies.  Returns the path's max
-    abs error and its launches."""
+    it.  Then ragged 999 x 1001 x 997 products in both forms, batched
+    z = 3 launches bit-exact against single ones (ragged strides, which
+    take the per-thread copy, and aligned 3 x 1024^3 in both forms, which
+    take TMA over the 3-D tensor maps), 2-byte-misaligned operands
+    bit-exact against aligned copies.  Returns the path's max abs error
+    and its launches."""
     from parsec_tpu_torch.ops import kernels
     g = torch.Generator(device=dev).manual_seed(seed + 11)
 
@@ -753,6 +760,8 @@ def phase_kernel_bf16(dev: torch.device, seed: int) -> tuple:
                             f"expected {want}")
     ra, rb, rb_t = rnd(999, 997), rnd(997, 1001), rnd(1001, 997)
     a3, b3 = rnd(3, 999, 997), rnd(3, 1001, 997)
+    # 16-byte aligned bases and strides: the TMA batch path
+    ta3, tb3 = rnd(3, nb, nb), rnd(3, nb, nb)
     ua, ub = misaligned(rnd(nb, nb)), misaligned(rnd(nb, nb))
     # (case, kernel's result, plain version's, on the path)
     cases = [("matmul", out.detach(), kernels.gemm_plain(a, b), True),
@@ -765,6 +774,10 @@ def phase_kernel_bf16(dev: torch.device, seed: int) -> tuple:
               kernels.gemm_plain(ra, rb_t, trans_b=True), False),
              ("ragged_z3_nt", kernels.gemm(a3, b3, trans_b=True),
               kernels.gemm_plain(a3, b3, trans_b=True), False),
+             ("aligned_z3_nn", kernels.gemm(ta3, tb3),
+              kernels.gemm_plain(ta3, tb3), False),
+             ("aligned_z3_nt", kernels.gemm(ta3, tb3, trans_b=True),
+              kernels.gemm_plain(ta3, tb3, trans_b=True), False),
              ("misaligned_matmul", kernels.gemm(ua, ub),
               kernels.gemm_plain(ua, ub), False)]
     worst = 0.0
@@ -778,12 +791,15 @@ def phase_kernel_bf16(dev: torch.device, seed: int) -> tuple:
         check(got.dtype == torch.bfloat16, f"gemm bf16 {name}: {got.dtype}")
         check(rel < BF16_RTOL, f"gemm bf16 {name}: relative error {rel} "
                                f">= {BF16_RTOL}")
-    batched = kernels.gemm(a3, b3, trans_b=True)
-    for i in range(3):
-        check(torch.equal(batched[i], kernels.gemm(a3[i], b3[i],
-                                                   trans_b=True)),
-              f"gemm bf16 z=3: batched slice {i} differs from its single "
-              f"launch")
+    for name, x3, y3, trans_b in (("ragged nt", a3, b3, True),
+                                  ("aligned nn", ta3, tb3, False),
+                                  ("aligned nt", ta3, tb3, True)):
+        batched = kernels.gemm(x3, y3, trans_b=trans_b)
+        for i in range(3):
+            check(torch.equal(batched[i], kernels.gemm(x3[i], y3[i],
+                                                       trans_b=trans_b)),
+                  f"gemm bf16 z=3 {name}: batched slice {i} differs from "
+                  f"its single launch")
     check(torch.equal(kernels.gemm(ua, ub),
                       kernels.gemm(ua.clone(), ub.clone())),
           "gemm bf16: misaligned and aligned copies differ")
@@ -1780,12 +1796,18 @@ def stagec_xrank(seed: int, L_main: np.ndarray, n: int, nb: int) -> tuple:
         replays=lc["replays"], replayed_launches=lc["replayed_launches"],
         block_replayed_launches=sum(b["captured_gemm_launches"]
                                     * b["replays"] for b in blocks),
-        record_seconds=f"{sum(r['record_seconds'] for r in rows):.4f}",
+        # a downgraded stage recorded nothing: its row has no facts
+        record_seconds=f"{sum(r.get('record_seconds', 0) for r in rows):.4f}",
         block_record_seconds=f"{sum(b['record_seconds'] for b in blocks):.4f}",
-        replay_seconds=f"{sum(r['replay_ms'] or 0 for r in rows) / 1e3:.4f}",
+        replay_seconds=(
+            f"{sum(r.get('replay_ms') or 0 for r in rows) / 1e3:.4f}"),
         block_replay_seconds=(
             f"{sum(b['replay_ms'] or 0 for b in blocks) / 1e3:.4f}"),
         left_after_fini_gb=f"{left / 1e9:.3f}", identical=same)
+    for row in rows:
+        if row["status"] == "downgraded":
+            log("stagec.xrank", downgraded_stage=row["stage"],
+                reason=row.get("reason"))
     check(all(links), f"stagec.xrank: \"xs\" was not negotiated both "
                       f"ways ({links})")
     check(all(s["xstage_tasks"] > 0 and s["xstage_compiles"] > 0
@@ -5956,6 +5978,26 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int = 20) -> tuple:
+    """The device time of one call of ``fn``: torch.profiler's CUDA
+    kernel (and memset) events over ``iters`` calls after one warm-up,
+    summed and divided by ``iters``; returns it and its split by kernel
+    name, each in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            split[e.name] = split.get(e.name, 0.0) + e.device_time / 1e3
+    split = {k: v / iters for k, v in split.items()}
+    return sum(split.values()), split
+
+
 def bound(flops: float, nbytes: float, peak: float = F32_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations
     over the peak of their type (fp32 outside the tensor cores, or bf16)
@@ -6092,7 +6134,10 @@ def timing_bf16(dev: torch.device, g) -> dict:
     their bounds (the bf16 tensor-core peak, 2 bytes an element), their
     plain versions and one library call each: ``torch.matmul`` and SDPA
     (forward, and its backward as forward plus backward less forward) in
-    bf16."""
+    bf16.  For the GEMM and the backward also their device time and the
+    library call's (torch.profiler's kernel events over the timed calls),
+    and SDPA's backward timed alone: its forward run once, then
+    ``torch.autograd.grad`` on it, three times over, with their spread."""
     import torch.nn.functional as F
     from parsec_tpu_torch.ops import kernels
     nb = NB_MAIN
@@ -6104,6 +6149,14 @@ def timing_bf16(dev: torch.device, g) -> dict:
         library_ms=time_ms(lambda: torch.matmul(a, b)),
         # A, B read once, Out written once
         **bound(2.0 * nb ** 3, 3 * nb * nb * 2, BF16_FLOPS))}
+    dev_ms, split = device_ms(lambda: kernels.matmul(a, b), 50)
+    lib_ms, lib_split = device_ms(lambda: torch.matmul(a, b), 50)
+    recs["gemm_bf16"].update(device_ms=dev_ms, library_device_ms=lib_ms)
+    log("timing", case=f"matmul nb={nb} bf16 device time", device_ms=dev_ms,
+        kernels=split, library_device_ms=lib_ms, library_kernels=lib_split,
+        device_roofline_share=(
+            f"{recs['gemm_bf16']['bound_ms'] / dev_ms:.4f}"))
+    kernel_instances("matmul_bf16", "ptt_matmul_bf16_attributes")
     B, H, T, D = ATTN_SHAPE
     q, k, v, do = (torch.randn(B, H, T, D, generator=g, device=dev).to(
         torch.bfloat16) for _ in range(4))
@@ -6124,11 +6177,27 @@ def timing_bf16(dev: torch.device, g) -> dict:
             q, k, v, causal=True), iters=20),
         library_ms=library_ms,            # o alone: no call returns m, l
         **bound(flops, qkvo + 2 * B * H * T * 4, BF16_FLOPS))
+    # the forward's device time too: a short kernel's CUDA-event time is
+    # partly the host's
+    lib_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    for key, fn in (("flash_bf16", lambda: kernels.flash_attention(q, k, v)),
+                    ("flash_stats_bf16", lambda: kernels.flash_attention_stats(
+                        q, k, v, causal=True))):
+        dev_ms, split = device_ms(fn)
+        recs[key].update(device_ms=dev_ms, library_device_ms=lib_ms)
+        log("timing", case=f"{key} {list(ATTN_SHAPE)} causal device time",
+            device_ms=dev_ms, kernels=split, library_device_ms=lib_ms)
     o, m, l = kernels.flash_attention_stats(q, k, v, causal=True)
     leaves = tuple(x.clone().requires_grad_(True) for x in (q, k, v))
     sdpa_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, do),
         iters=20)
+    # SDPA's backward alone: the forward once, its graph kept
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        sdpa_out, leaves, do, retain_graph=True)
+    alone = [time_ms(sdpa_bwd, iters=20) for _ in range(3)]
     recs["flash_bwd_bf16"] = dict(
         ms=time_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, m, l, do),
                    iters=20),
@@ -6140,6 +6209,22 @@ def timing_bf16(dev: torch.device, g) -> dict:
     log("timing", case=f"scaled_dot_product_attention forward+backward "
                        f"{list(ATTN_SHAPE)} causal bf16",
         library_ms=sdpa_fwd_bwd_ms, forward_ms=library_ms)
+    dev_ms, split = device_ms(
+        lambda: kernels.flash_attention_bwd(q, k, v, o, m, l, do))
+    lib_ms, lib_split = device_ms(sdpa_bwd)
+    recs["flash_bwd_bf16"].update(
+        library_alone_ms=sorted(alone)[1], device_ms=dev_ms,
+        library_device_ms=lib_ms)
+    log("timing", case=f"scaled_dot_product_attention backward alone "
+                       f"{list(ATTN_SHAPE)} causal bf16",
+        library_ms=sorted(alone)[1], library_ms_runs=alone,
+        spread=f"{(max(alone) - min(alone)) / sorted(alone)[1]:.4f}",
+        library_device_ms=lib_ms, library_kernels=lib_split)
+    log("timing", case=f"flash_attention_bwd {list(ATTN_SHAPE)} causal bf16 "
+                       f"device time", device_ms=dev_ms, kernels=split,
+        device_roofline_share=(
+            f"{recs['flash_bwd_bf16']['bound_ms'] / dev_ms:.4f}"))
+    del sdpa_out
     kernel_instances("flash_attention_bwd_bf16")
     kernel_instances("flash_attention_bf16", "ptt_flash_fwd_bf16_attributes")
     for causal in (True, False):
@@ -6627,7 +6712,7 @@ def main(argv=None) -> int:
                        **spmd_counts(spmd_launches, "flash_bwd_launches")},
              max_abs_err=attn_err["flash_bwd"], **recs["flash_bwd"]),
         # the bf16 instances: bf16 in, fp32 sums, bf16 out
-        dict(name="gemm_bf16", route="cuda", source=src + "matmul.cu",
+        dict(name="gemm_bf16", route="cuda", source=src + "matmul_bf16.cu",
              replaces=tpu + "395",
              launches={"matmul_and_grad_bf16": gemm16_launches},
              max_abs_err=gemm16_err, **recs["gemm_bf16"]),
@@ -6643,7 +6728,7 @@ def main(argv=None) -> int:
              max_abs_err=attn16_err["flash_stats"],
              **recs["flash_stats_bf16"]),
         dict(name="flash_bwd_bf16", route="cuda",
-             source=src + "flash_attention_bwd.cu", replaces=tpu + "287",
+             source=src + "flash_attention_bwd_bf16.cu", replaces=tpu + "287",
              launches={f"train_{path}_bf16": n["flash_bwd_bf16_launches"]
                        for path, n in train16_launches.items()
                        if "flash_bwd_bf16_launches" in n},

@@ -14,8 +14,7 @@
 //
 // This source builds the fp32 library (parsec_tpu_torch/ops/kernels.py):
 // ptt_flash_fwd_f32 and ptt_flash_fwd_stats_f32.  The bf16 forward is the
-// tensor-core kernel of flash_attention_bf16.cu; the element-type
-// parameter of the kernel below is instantiated at fp32 only.
+// tensor-core kernel of flash_attention_bf16.cu.
 //
 // Arithmetic kept from the Pallas kernel: the score is (q . k) * scale;
 // a causally masked score is -1e30 (not -inf) with the local-index mask
@@ -69,10 +68,7 @@
 // forward's shape it reaches about 40 % of the fp32 bound, a little
 // faster than the library's fp32 attention; PERF.md says what still holds
 // it back.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -130,54 +126,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T>
-constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
-
-// four bf16 (8 bytes, the first in the low half) as four floats: a bf16
-// is the high half of the float of the same value
-__device__ __forceinline__ float4 widen4(uint2 u) {
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-// four floats as four bf16, each rounded to nearest even
-__device__ __forceinline__ uint2 narrow4(float a, float b, float c,
-                                         float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  return make_uint2(*reinterpret_cast<unsigned*>(&lo),
-                    *reinterpret_cast<unsigned*>(&hi));
-}
-
 // rows r0..r0+ROWS-1 of a [R, D] source into a [ROWS][ds] fp32 shared
-// tile, columns 0..4*ceil(D/4)-1; rows past R and columns past D are zero.
-// fp32 by cp.async (ALIGNED: 16-byte copies); bf16 loaded, widened and
-// stored (ALIGNED: 8-byte loads)
-template <typename T, bool ALIGNED, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
-                                          int R, int D, int ds, int tid) {
+// tile by cp.async (ALIGNED: 16-byte copies), columns 0..4*ceil(D/4)-1;
+// rows past R and columns past D are zero
+template <bool ALIGNED, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int R, int D, int ds,
+                                          int tid) {
   const int dv = (D + 3) / 4;
-  if constexpr (is_bf16<T>) {
-    for (int idx = tid; idx < ROWS * dv; idx += THREADS) {
-      const int r = idx / dv, c = (idx - r * dv) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < R) {
-        const T* row = src + static_cast<long long>(r0 + r) * D + c;
-        if (ALIGNED) {
-          x = widen4(*reinterpret_cast<const uint2*>(row));
-        } else {
-          float e[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            e[j] = c + j < D ? __bfloat162float(row[j]) : 0.f;
-          x = make_float4(e[0], e[1], e[2], e[3]);
-        }
-      }
-      *reinterpret_cast<float4*>(dst + r * ds + c) = x;
-    }
-  } else if (ALIGNED) {
+  if (ALIGNED) {
     for (int idx = tid; idx < ROWS * dv; idx += THREADS) {
       const int r = idx / dv, c = (idx - r * dv) * 4;
       const bool in = r0 + r < R;
@@ -201,14 +158,13 @@ __device__ __forceinline__ float part(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-// T_: the element type of Q, K, V and O (float or __nv_bfloat16).  DC: D
-// fixed at compile time (aligned inputs only), or 0 for any D.  Up to
+// DC: D fixed at compile time (aligned inputs only), or 0 for any D.  Up to
 // D = 64 (NJ = 4) two blocks share an SM, so 128 registers a thread; the
 // wider instance keeps one block an SM and more registers.
-template <typename T_, bool CAUSAL, bool STATS, int NJ, bool ALIGNED, int DC>
+template <bool CAUSAL, bool STATS, int NJ, bool ALIGNED, int DC>
 __global__ void __launch_bounds__(THREADS, NJ == 4 ? 2 : 1)
-flash_fwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
-                 const T_* __restrict__ V, T_* __restrict__ O,
+flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                 const float* __restrict__ V, float* __restrict__ O,
                  float* __restrict__ Mout, float* __restrict__ Lout, int T,
                  int Tk, int D_, float scale) {
   static_assert(DC == 0 || ALIGNED, "a fixed D takes 16-byte copies");
@@ -243,10 +199,10 @@ flash_fwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
 
   auto load_kv = [&](int stage, int k0) {
     float* kt = KVs + stage * 2 * BK * ds;
-    load_rows<T_, ALIGNED, BK>(kt, K, k0, Tk, D, ds, tid);
-    load_rows<T_, ALIGNED, BK>(kt + BK * ds, V, k0, Tk, D, ds, tid);
+    load_rows<ALIGNED, BK>(kt, K, k0, Tk, D, ds, tid);
+    load_rows<ALIGNED, BK>(kt + BK * ds, V, k0, Tk, D, ds, tid);
   };
-  load_rows<T_, ALIGNED, BQ>(Qs, Q, q0, T, D, ds, tid);
+  load_rows<ALIGNED, BQ>(Qs, Q, q0, T, D, ds, tid);
   load_kv(0, 0);
   cp_async_commit();
 
@@ -321,9 +277,7 @@ flash_fwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
       for (int j = 0; j < CN; ++j) {
         // a key past Tk does not exist: it adds nothing, whatever m is
         const float p = (k0 + tx + j * TX < Tk) ? expf(s[i][j] - mx) : 0.f;
-        // at bf16, P . V takes p rounded to bf16 and l the unrounded p
-        Ps[(wr + 2 * i) * PS + tx + j * TX] =
-            is_bf16<T_> ? __bfloat162float(__float2bfloat16_rn(p)) : p;
+        Ps[(wr + 2 * i) * PS + tx + j * TX] = p;
         rs += p;
       }
 #pragma unroll
@@ -378,7 +332,7 @@ flash_fwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
     const int r = q0 + wr + 2 * i;
     if (r >= T) continue;
     const float lsafe = l[i] == 0.f ? 1.f : l[i];
-    T_* orow = O + static_cast<long long>(r) * D;
+    float* orow = O + static_cast<long long>(r) * D;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int c = 4 * (tx + g * TX);
@@ -386,16 +340,7 @@ flash_fwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
       const float o0 = acc[i][4 * g] / lsafe, o1 = acc[i][4 * g + 1] / lsafe,
                   o2 = acc[i][4 * g + 2] / lsafe,
                   o3 = acc[i][4 * g + 3] / lsafe;
-      if constexpr (is_bf16<T_>) {   // one rounding, to nearest even
-        if (ALIGNED) {
-          *reinterpret_cast<uint2*>(orow + c) = narrow4(o0, o1, o2, o3);
-        } else {
-          const float oe[4] = {o0, o1, o2, o3};
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (c + e < D) orow[c + e] = __float2bfloat16_rn(oe[e]);
-        }
-      } else if (ALIGNED) {
+      if (ALIGNED) {
         *reinterpret_cast<float4*>(orow + c) = make_float4(o0, o1, o2, o3);
       } else {
 #pragma unroll
@@ -410,10 +355,11 @@ flash_fwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
   }
 }
 
-template <typename T_, bool CAUSAL, bool STATS, int NJ, bool ALIGNED, int DC>
-int launch(const T_* q, const T_* k, const T_* v, T_* o, float* m, float* l,
-           int bh, int T, int Tk, int D, float scale, cudaStream_t stream) {
-  const auto kernel = flash_fwd_kernel<T_, CAUSAL, STATS, NJ, ALIGNED, DC>;
+template <bool CAUSAL, bool STATS, int NJ, bool ALIGNED, int DC>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* m, float* l, int bh, int T, int Tk, int D, float scale,
+           cudaStream_t stream) {
+  const auto kernel = flash_fwd_kernel<CAUSAL, STATS, NJ, ALIGNED, DC>;
   const size_t smem = smem_bytes(D);
   // above 48 KB a block's dynamic shared memory must be asked for
   cudaError_t err = cudaFuncSetAttribute(
@@ -429,45 +375,44 @@ int launch(const T_* q, const T_* k, const T_* v, T_* o, float* m, float* l,
 
 // the instance for this D and alignment: NJ = 4 columns per lane up to
 // D = 64, 8 up to 128; D fixed at compile time when it is the widest
-template <typename T_, bool CAUSAL, bool STATS, int NJ>
-int launch_variant(const T_* q, const T_* k, const T_* v, T_* o, float* m,
-                   float* l, int bh, int T, int Tk, int D, bool aligned,
-                   float scale, cudaStream_t stream) {
+template <bool CAUSAL, bool STATS, int NJ>
+int launch_variant(const float* q, const float* k, const float* v, float* o,
+                   float* m, float* l, int bh, int T, int Tk, int D,
+                   bool aligned, float scale, cudaStream_t stream) {
   if (aligned && D == TX * NJ)
-    return launch<T_, CAUSAL, STATS, NJ, true, TX * NJ>(
+    return launch<CAUSAL, STATS, NJ, true, TX * NJ>(
         q, k, v, o, m, l, bh, T, Tk, D, scale, stream);
   if (aligned)
-    return launch<T_, CAUSAL, STATS, NJ, true, 0>(q, k, v, o, m, l, bh, T,
-                                                   Tk, D, scale, stream);
-  return launch<T_, CAUSAL, STATS, NJ, false, 0>(q, k, v, o, m, l, bh, T, Tk,
-                                                  D, scale, stream);
+    return launch<CAUSAL, STATS, NJ, true, 0>(q, k, v, o, m, l, bh, T, Tk, D,
+                                              scale, stream);
+  return launch<CAUSAL, STATS, NJ, false, 0>(q, k, v, o, m, l, bh, T, Tk, D,
+                                             scale, stream);
 }
 
 bool aligned_to(const void* ptr, int bytes) {
   return reinterpret_cast<unsigned long long>(ptr) % bytes == 0;
 }
 
-template <typename T_, bool STATS>
-int dispatch(const T_* q, const T_* k, const T_* v, T_* o, float* m,
-             float* l, int bh, int T, int Tk, int D, int causal, float scale,
-             void* stream) {
+template <bool STATS>
+int dispatch(const float* q, const float* k, const float* v, float* o,
+             float* m, float* l, int bh, int T, int Tk, int D, int causal,
+             float scale, void* stream) {
   if (bh < 1 || bh > 65535 || T < 1 || Tk < 1 || D < 1 || D > D_MAX ||
       (T + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // four elements a copy: 16 bytes of fp32, 8 of bf16
-  const int w = 4 * static_cast<int>(sizeof(T_));
-  const bool aligned = D % 4 == 0 && aligned_to(q, w) && aligned_to(k, w) &&
-                       aligned_to(v, w) && aligned_to(o, w);
+  // four elements (16 bytes) a copy
+  const bool aligned = D % 4 == 0 && aligned_to(q, 16) && aligned_to(k, 16) &&
+                       aligned_to(v, 16) && aligned_to(o, 16);
   if (D <= 4 * TX)   // 4 output columns a lane
-    return causal ? launch_variant<T_, true, STATS, 4>(
+    return causal ? launch_variant<true, STATS, 4>(
                         q, k, v, o, m, l, bh, T, Tk, D, aligned, scale, s)
-                  : launch_variant<T_, false, STATS, 4>(
+                  : launch_variant<false, STATS, 4>(
                         q, k, v, o, m, l, bh, T, Tk, D, aligned, scale, s);
-  return causal ? launch_variant<T_, true, STATS, 8>(q, k, v, o, m, l, bh, T,
-                                                     Tk, D, aligned, scale, s)
-                : launch_variant<T_, false, STATS, 8>(
-                      q, k, v, o, m, l, bh, T, Tk, D, aligned, scale, s);
+  return causal ? launch_variant<true, STATS, 8>(q, k, v, o, m, l, bh, T, Tk,
+                                                 D, aligned, scale, s)
+                : launch_variant<false, STATS, 8>(q, k, v, o, m, l, bh, T,
+                                                  Tk, D, aligned, scale, s);
 }
 
 }  // namespace
@@ -481,8 +426,8 @@ extern "C" {
 int ptt_flash_fwd_f32(const float* q, const float* k, const float* v,
                       float* o, int bh, int T, int Tk, int D, int causal,
                       float scale, void* stream) {
-  return dispatch<float, false>(q, k, v, o, nullptr, nullptr, bh, T, Tk, D,
-                                causal, scale, stream);
+  return dispatch<false>(q, k, v, o, nullptr, nullptr, bh, T, Tk, D, causal,
+                        scale, stream);
 }
 
 // As ptt_flash_fwd_f32, also writing each row's raw running max to M and
@@ -491,8 +436,8 @@ int ptt_flash_fwd_stats_f32(const float* q, const float* k, const float* v,
                             float* o, float* m, float* l, int bh, int T,
                             int Tk, int D, int causal, float scale,
                             void* stream) {
-  return dispatch<float, true>(q, k, v, o, m, l, bh, T, Tk, D, causal, scale,
-                               stream);
+  return dispatch<true>(q, k, v, o, m, l, bh, T, Tk, D, causal, scale,
+                       stream);
 }
 
 const char* ptt_error_string(int code) {

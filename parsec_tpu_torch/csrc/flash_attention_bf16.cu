@@ -10,7 +10,10 @@
 // parsec_tpu/ops/pallas_kernels.py.  Built alone into the bf16 flash
 // library (parsec_tpu_torch/ops/kernels.py): ptt_flash_fwd_bf16 and
 // ptt_flash_fwd_stats_bf16, one kernel, whose statistics are written when
-// M and L are given.  The fp32 instances stay in flash_attention.cu.
+// M and L are given.  The fp32 instances stay in flash_attention.cu.  The
+// building blocks it shares with the bf16 GEMM and backward (mbarriers,
+// TMA, the per-thread copy, wgmma descriptors and forms, tensor-map
+// encoding) are csrc/hopper.cuh's.
 //
 // Arithmetic kept from the Pallas kernel: the score is (q . k) * scale,
 // summed in fp32; a masked score is -1e30 (not -inf) with the local-index
@@ -86,17 +89,12 @@
 // warp also sums the clocks of each phase of its loop; chip_smoke.py's
 // timing phase prints them.  Times and clocks at the forward's shape:
 // PERF.md.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 #include <climits>
 #include <cmath>
-#include <cstdint>
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int CONSUMERS = 2;             // consumer warpgroups a block
 constexpr int WG_ROWS = 64;              // query rows a consumer warpgroup
@@ -108,8 +106,6 @@ constexpr int PRODUCER_WARP = CONSUMERS * 4;   // the one that works
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int PRODUCER_REGS = 40;        // 128 x 40 + 256 x 232 <= 65536
 constexpr int CONSUMER_REGS = 232;
-constexpr int CHUNK = 64;                // bf16 columns of a 128-byte row
-constexpr int ROW_BYTES = 128;
 constexpr int D_MAX = 128;
 constexpr float NEG_INF = -1e30f;        // the Pallas kernel's mask value
 constexpr float LOG2E = 1.4426950408889634f;
@@ -131,134 +127,6 @@ struct Smem {
   // + the slack that aligns the base
   static constexpr int BYTES = BARS + 8 * (2 * QBUFS + 2 * STAGES) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// until the phase of the given parity has completed (the loop inside the
-// asm, so the compiler sees no divergent path before a wgmma)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// box (64 columns, rows, 1) of a 3-D tensor map at (c0, c1, c2) into
-// shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-// the per-thread copy: rows r0.. of a [R, D] bf16 source into a
-// [DP / 64][rows][64] swizzled tile at `dst`, zeros past R and past D; the
-// producer warp's 32 lanes share it
-template <int DP>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const bf16* src,
-                                          int r0, int R, int rows, int D,
-                                          int lane) {
-  constexpr int G = DP / 8;   // 16-byte groups a row
-  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
-  for (int u = lane; u < rows * G; u += 32) {
-    const int row = u / G, grp = u - row * G;
-    uint32_t w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      uint32_t pair = 0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = grp * 8 + 2 * e + h;
-        if (r0 + row < R && col < D)
-          pair |= static_cast<uint32_t>(
-                      s[static_cast<long long>(r0 + row) * D + col])
-                  << (16 * h);
-      }
-      w[e] = pair;
-    }
-    const int chunk = grp / 8, g = grp & 7;
-    const uint32_t addr = dst + chunk * rows * ROW_BYTES + row * ROW_BYTES +
-                          ((g ^ (row & 7)) << 4);
-    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
-                 : "memory");
-  }
-}
-
-// the per-thread copy's stores made visible to wgmma (the async proxy),
-// then one arrival for the warp
-__device__ __forceinline__ void publish(uint32_t bar, int lane) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
-
-// a wgmma descriptor of a 128-byte swizzled operand at `addr`: rows of 128
-// bytes, 8-row groups 1024 bytes apart (the stride byte offset)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// until at most N of this warpgroup's committed groups are pending (they
-// complete in order)
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from touching a wgmma operand across the wait, or
-// giving its register to another value before it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
 
 #define PTT_F8(a, i)                                                       \
   "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),              \
@@ -285,36 +153,7 @@ __device__ __forceinline__ void wgmma_s(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d += A . B, 64 x 64 x 16: A (bf16 pairs) in registers, B MN-major in
-// shared memory (transposed)
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : PTT_F8(d, 0), PTT_F8(d, 8), PTT_F8(d, 16), PTT_F8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 #undef PTT_F8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats as bf16 (nearest even), the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // S = Q . K^T for one warpgroup's 64 rows and a 128-key tile, D in steps
 // of 16 (32 bytes of a swizzled row, 64 columns a chunk)
@@ -338,7 +177,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[NC][32],
   for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      wgmma_pv(o[c], pa[kk],
+      wgmma_rs_n64(o[c], pa[kk],
                sw128_desc(vs + c * BN * ROW_BYTES + kk * 16 * ROW_BYTES));
 }
 
@@ -531,7 +370,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, CONSUMERS * 4);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -549,11 +388,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       if (tma) {
         mbar_expect_tx(qbar, L::Q_BYTES);
         for (int c = 0; c < NC; ++c)
-          tma_load(qs + c * BM * ROW_BYTES, &tq, c * CHUNK, it.q0, it.bh,
-                   qbar);
+          tma_load_3d(qs + c * BM * ROW_BYTES, &tq, c * CHUNK, it.q0, it.bh,
+                      qbar);
       } else {
-        copy_rows<DP>(qs, Q + static_cast<long long>(it.bh) * T * D, it.q0,
-                      T, BM, D, lane);
+        copy_box(qs, Q + static_cast<long long>(it.bh) * T * D, D, it.q0, T,
+                 BM, 0, D, NC, lane, 32);
         publish(qbar, lane);
       }
       for (int t = 0; t < it.ntiles; ++t, ++gt) {
@@ -564,15 +403,16 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         if (tma) {
           mbar_expect_tx(bar, L::STAGE_BYTES);
           for (int c = 0; c < NC; ++c) {
-            tma_load(ks + c * BN * ROW_BYTES, &tk, c * CHUNK, t * BN, it.bh,
-                     bar);
-            tma_load(ks + L::KV_BYTES + c * BN * ROW_BYTES, &tv, c * CHUNK,
-                     t * BN, it.bh, bar);
+            tma_load_3d(ks + c * BN * ROW_BYTES, &tk, c * CHUNK, t * BN,
+                        it.bh, bar);
+            tma_load_3d(ks + L::KV_BYTES + c * BN * ROW_BYTES, &tv,
+                        c * CHUNK, t * BN, it.bh, bar);
           }
         } else {
           const long long off = static_cast<long long>(it.bh) * Tk * D;
-          copy_rows<DP>(ks, K + off, t * BN, Tk, BN, D, lane);
-          copy_rows<DP>(ks + L::KV_BYTES, V + off, t * BN, Tk, BN, D, lane);
+          copy_box(ks, K + off, D, t * BN, Tk, BN, 0, D, NC, lane, 32);
+          copy_box(ks + L::KV_BYTES, V + off, D, t * BN, Tk, BN, 0, D, NC,
+                   lane, 32);
           publish(bar, lane);
         }
       }
@@ -704,57 +544,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a [bh][rows][D] bf16 tensor as a 3-D map (D, rows, bh), boxes of 64
-// columns x box_rows rows, 128-byte swizzled, zeros out of bounds
-cudaError_t encode(CUtensorMap* map, const void* ptr, int D, int rows,
-                   int bh, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(D) * 2 * rows};
-  const cuuint32_t box[3] = {CHUNK, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-bool aligned_to(const void* ptr, int bytes) {
-  return reinterpret_cast<unsigned long long>(ptr) % bytes == 0;
-}
-
 template <bool CAUSAL, int DP>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* m,
            float* l, int bh, int T, int Tk, int D, float scale,
@@ -765,23 +554,24 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* m,
   const bool tma = D % 8 == 0 && aligned_to(q, 16) && aligned_to(k, 16) &&
                    aligned_to(v, 16);
   const bool o_pairs = D % 2 == 0 && aligned_to(o, 4);
-  CUtensorMap tq{}, tk{}, tv{};
-  cudaError_t err = cudaSuccess;
-  if (tma && ((err = encode(&tq, q, D, T, bh, BM)) != cudaSuccess ||
-              (err = encode(&tk, k, D, Tk, bh, BN)) != cudaSuccess ||
-              (err = encode(&tv, v, D, Tk, bh, BN)) != cudaSuccess))
-    return static_cast<int>(err);
-  // above 48 KB a block's dynamic shared memory must be asked for
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Smem<DP>::BYTES);
+  // above 48 KB a block's dynamic shared memory must be asked for; first,
+  // so that the card's context is current for the tensor maps' encoding
+  // (see matmul_bf16.cu)
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<DP>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // one block an SM, each walking its share of the work items
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
+  CUtensorMap tq{}, tk{}, tv{};
+  if (tma &&
+      ((err = encode_bf16_3d(&tq, q, D, T, bh, 2LL * D, 2LL * D * T, BM)) !=
+           cudaSuccess ||
+       (err = encode_bf16_3d(&tk, k, D, Tk, bh, 2LL * D, 2LL * D * Tk,
+                             BN)) != cudaSuccess ||
+       (err = encode_bf16_3d(&tv, v, D, Tk, bh, 2LL * D, 2LL * D * Tk,
+                             BN)) != cudaSuccess))
     return static_cast<int>(err);
+  // one block an SM, each walking its share of the work items
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return static_cast<int>(err);
   const int items = bh * ((T + BM - 1) / BM);
   kernel<<<min(items, sms), THREADS, Smem<DP>::BYTES, stream>>>(
       tq, tk, tv, q, k, v, o, m, l, bh, T, Tk, D, scale, tma, o_pairs);

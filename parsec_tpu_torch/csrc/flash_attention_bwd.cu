@@ -1,4 +1,4 @@
-// Flash attention backward for Hopper (sm_90a), fp32 and bf16.
+// Flash attention backward for Hopper (sm_90a), fp32.
 //
 //   O = softmax(scale * Q . K^T, masked) . V        (the forward)
 //   dV = P^T dO,  dP = dO . V^T,  dS = scale * P o (dP - delta),
@@ -18,18 +18,9 @@
 // a masked probability is exactly 0, as exp(-1e30 - m) is; l == 0 -> 1;
 // scale multiplies dS, as the JAX VJP's ds does.
 //
-// The source is built twice (parsec_tpu_torch/ops/kernels.py): as it
-// stands into the fp32 library (ptt_flash_bwd_f32) and with -DPTT_BF16
-// into the bf16 one (ptt_flash_bwd_bf16), one nvcc each, side by side.
-// The bf16 instances read bf16 Q, K, V, O and dO and write bf16 dQ, dK and
-// dV; everything between is fp32, as the JAX VJP upcasts its inputs and
-// casts each gradient once at the end.  dK and dV are rounded once from
-// their registers.  dQ's ordered sum stays fp32, in an fp32 scratch the
-// wrapper allocates: the key tile that visits a query tile last rounds the
-// sum once into the bf16 dQ (adding into a bf16 dQ would round once a key
-// tile).  delta = rowsum(dO o O) reads the forward's bf16 O, so it carries
-// O's rounding (the JAX VJP's rowsum(P o dP) does not): agreement is to
-// bf16's unit roundoff.
+// This source builds the fp32 library (parsec_tpu_torch/ops/kernels.py):
+// ptt_flash_bwd_f32.  The bf16 backward is the tensor-core kernel of
+// flash_attention_bwd_bf16.cu.
 //
 // What bounds it.  At the transformer's shape ([8, 12, 1024, 64], causal)
 // the five products (S and dP recomputed, dV, dK, dQ) do 10 * D flops per
@@ -106,19 +97,10 @@
 // past D are zero-filled, and masked probabilities are 0, so no tile size
 // has to divide T, Tk or D.
 //
-// At bf16 the same work moves 100.7 MB: the 989 TFLOP/s bf16 tensor-core
-// rate bounds it (0.033 ms), not the memory (0.030 ms).  The bf16
-// instances are this design with each element widened to fp32 on its way
-// into shared memory, through registers (cp.async moves bytes as they
-// are), and no tensor cores: a later redesign's work (mma.sync or wgmma
-// on bf16 tiles, TMA).  8-byte loads and stores of four elements need
-// D % 4 == 0 and 8-byte aligned operands; otherwise 2-byte ones.
-//
 // Measured: each instance's registers, spills and shared memory are
 // chip_smoke.py's `[timing] instance=` lines (cudaFuncGetAttributes
 // through ptt_flash_bwd_attributes), and its time at the transformer's
 // shape the `[timing]` line of flash_attention_bwd; PERF.md keeps them.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -210,54 +192,13 @@ __device__ __forceinline__ void store_release(int* p, int v) {
                : "memory");
 }
 
-template <typename T>
-constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
-
-// four bf16 (8 bytes, the first in the low half) as four floats: a bf16
-// is the high half of the float of the same value
-__device__ __forceinline__ float4 widen4(uint2 u) {
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-// four floats as four bf16, each rounded to nearest even
-__device__ __forceinline__ uint2 narrow4(float a, float b, float c,
-                                         float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  return make_uint2(*reinterpret_cast<unsigned*>(&lo),
-                    *reinterpret_cast<unsigned*>(&hi));
-}
-
 // rows r0..r0+ROWS-1 of a [R, D] source into a [ROWS][ds] fp32 shared
-// tile, columns 0..4*ceil(D/4)-1; rows past R and columns past D are zero.
-// fp32 by cp.async; bf16 loaded, widened and stored (ALIGNED: 8-byte loads
-// of four elements)
-template <typename T, bool ALIGNED, int ROWS>
-__device__ __forceinline__ void copy_rows(float* dst, const T* src, int r0,
-                                          int R, int D, int ds) {
-  if constexpr (is_bf16<T>) {
-    const int dv = (D + 3) / 4;
-    for (int idx = threadIdx.x; idx < ROWS * dv; idx += THREADS) {
-      const int r = idx / dv, c = (idx - r * dv) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < R) {
-        const T* row = src + static_cast<long long>(r0 + r) * D + c;
-        if (ALIGNED) {
-          x = widen4(*reinterpret_cast<const uint2*>(row));
-        } else {
-          float e[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            e[j] = c + j < D ? __bfloat162float(row[j]) : 0.f;
-          x = make_float4(e[0], e[1], e[2], e[3]);
-        }
-      }
-      *reinterpret_cast<float4*>(dst + r * ds + c) = x;
-    }
-  } else if (ALIGNED) {   // D % 4 == 0, 16-byte aligned rows
+// tile by cp.async, columns 0..4*ceil(D/4)-1; rows past R and columns past
+// D are zero
+template <bool ALIGNED, int ROWS>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int r0, int R, int D, int ds) {
+  if (ALIGNED) {   // D % 4 == 0, 16-byte aligned rows
     const int ch = D / 4;
     for (int idx = threadIdx.x; idx < ROWS * ch; idx += THREADS) {
       const int r = idx / ch, c = (idx - r * ch) * 4;
@@ -327,15 +268,10 @@ __device__ __forceinline__ void dots(const float* A, const float* B,
   }
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// delta[row] = sum_d dO[row, d] O[row, d] in fp32, one warp a row
-template <typename T>
+// delta[row] = sum_d dO[row, d] O[row, d], one warp a row
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_delta_kernel(const T* __restrict__ O, const T* __restrict__ dO,
+flash_bwd_delta_kernel(const float* __restrict__ O,
+                       const float* __restrict__ dO,
                        float* __restrict__ Delta, long long rows, int D) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (THREADS / 32) + (threadIdx.x >> 5);
@@ -343,7 +279,7 @@ flash_bwd_delta_kernel(const T* __restrict__ O, const T* __restrict__ dO,
   const int lane = threadIdx.x & 31;
   float acc = 0.f;
   for (int c = lane; c < D; c += 32)
-    acc = fmaf(to_float(dO[row * D + c]), to_float(O[row * D + c]), acc);
+    acc = fmaf(dO[row * D + c], O[row * D + c], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -351,22 +287,19 @@ flash_bwd_delta_kernel(const T* __restrict__ O, const T* __restrict__ dO,
 }
 
 // The persistent kernel: each block pulls (b*h, key tile) work items from
-// Counters[bh * nq] in key-major order until none is left.  T_ is the
-// element type of Q, K, V, dO, dK and dV (and of dQout); dQ is the fp32
-// ordered sum (the output at fp32; at bf16 a scratch whose last visitor
-// rounds it into dQout).  RK keys a thread (key tile BK = 16 RK), NG
-// float4 of output columns a thread (1 up to D = 64, 2 up to 128), STAGES
-// query tiles in flight, DC = D fixed at compile time or 0.
-template <typename T_, bool CAUSAL, int RK, int NG, int STAGES, int DC,
-          bool ALIGNED>
+// Counters[bh * nq] in key-major order until none is left; dQ is the
+// ordered sum.  RK keys a thread (key tile BK = 16 RK), NG float4 of
+// output columns a thread (1 up to D = 64, 2 up to 128), STAGES query
+// tiles in flight, DC = D fixed at compile time or 0.
+template <bool CAUSAL, int RK, int NG, int STAGES, int DC, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
-                 const T_* __restrict__ V, const T_* __restrict__ dO,
+flash_bwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                 const float* __restrict__ V, const float* __restrict__ dO,
                  const float* __restrict__ M, const float* __restrict__ L,
                  const float* __restrict__ Delta, float* __restrict__ dQ,
-                 T_* __restrict__ dQout, T_* __restrict__ dK,
-                 T_* __restrict__ dV, int* __restrict__ Counters, int bh_n,
-                 int T, int Tk, int D_, float scale) {
+                 float* __restrict__ dK, float* __restrict__ dV,
+                 int* __restrict__ Counters, int bh_n, int T, int Tk, int D_,
+                 float scale) {
   constexpr int BK = TY * RK;
   const int D = DC ? DC : D_;
   const int ds = row_stride(D);
@@ -399,13 +332,12 @@ flash_bwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
     const int kt = item / bh_n;
     const long long bh = item - static_cast<long long>(kt) * bh_n;
     const int k0 = kt * BK;
-    const T_* q = Q + bh * T * D;
-    const T_* dout = dO + bh * T * D;
+    const float* q = Q + bh * T * D;
+    const float* dout = dO + bh * T * D;
     const float* m = M + bh * T;
     const float* l = L + bh * T;
     const float* delta = Delta + bh * T;
     float* dq = dQ + bh * T * D;
-    T_* dqo = is_bf16<T_> ? dQout + bh * T * D : nullptr;
     int* cnt = Counters + bh * nq;
 
     // row i sees key j only when j <= i: the first query tile that sees
@@ -415,13 +347,13 @@ flash_bwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
     auto issue = [&](int t) {
       const int s = STAGES == 2 ? t & 1 : 0;
       const int q0 = (nq - 1 - t) * BQ;
-      copy_rows<T_, ALIGNED, BQ>(Qs + s * BQ * ds, q, q0, T, D, ds);
-      copy_rows<T_, ALIGNED, BQ>(dOs + s * BQ * ds, dout, q0, T, D, ds);
+      copy_rows<ALIGNED, BQ>(Qs + s * BQ * ds, q, q0, T, D, ds);
+      copy_rows<ALIGNED, BQ>(dOs + s * BQ * ds, dout, q0, T, D, ds);
       copy_stats(St + s * 3 * BQ, m, l, delta, q0, T);
     };
     if (n > 0) {
-      copy_rows<T_, ALIGNED, BK>(Ks, K + bh * Tk * D, k0, Tk, D, ds);
-      copy_rows<T_, ALIGNED, BK>(Vs, V + bh * Tk * D, k0, Tk, D, ds);
+      copy_rows<ALIGNED, BK>(Ks, K + bh * Tk * D, k0, Tk, D, ds);
+      copy_rows<ALIGNED, BK>(Vs, V + bh * Tk * D, k0, Tk, D, ds);
       issue(0);
       cp_async_commit();
     }
@@ -640,14 +572,9 @@ flash_bwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
       }
 
       // second half: sum so far + this pair's, stored through L2 (key tile
-      // 0 stores its own); thread 0 releases kt + 1 after the next barrier.
-      // At bf16 the last key tile to visit this query tile (the highest
-      // that sees its last row) rounds the sum once into dQout instead
+      // 0 stores its own); thread 0 releases kt + 1 after the next barrier
       if (owner) {
         if (ALIGNED && kt > 0) cp_async_wait_all();
-        const bool last =
-            is_bf16<T_> &&
-            kt == (CAUSAL ? min(nk - 1, (q0 + BQ - 1) / BK) : nk - 1);
 #pragma unroll
         for (int i = 0; i < DR; ++i) {
           if (dr0 + i >= T) continue;
@@ -664,14 +591,6 @@ flash_bwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
                 x = make_float4(old.x + x.x, old.y + x.y, old.z + x.z,
                                 old.w + x.w);
               }
-              if constexpr (is_bf16<T_>) {
-                if (last) {
-                  *reinterpret_cast<uint2*>(
-                      dqo + static_cast<long long>(dr0 + i) * D + c) =
-                      narrow4(x.x, x.y, x.z, x.w);
-                  continue;
-                }
-              }
               __stcg(reinterpret_cast<float4*>(row + c), x);
             } else {
 #pragma unroll
@@ -679,13 +598,6 @@ flash_bwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
                 if (c + e >= D) continue;
                 const float x = dqc[i][4 * g + e];
                 const float sum = kt > 0 ? __ldcg(row + c + e) + x : x;
-                if constexpr (is_bf16<T_>) {
-                  if (last) {
-                    dqo[static_cast<long long>(dr0 + i) * D + c + e] =
-                        __float2bfloat16_rn(sum);
-                    continue;
-                  }
-                }
                 __stcg(row + c + e, sum);
               }
             }
@@ -708,29 +620,13 @@ flash_bwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
     for (int i = 0; i < RK; ++i) {
       const int key = k0 + ty + TY * i;
       if (key >= Tk) continue;
-      T_* dkr = dK + (bh * Tk + key) * D;
-      T_* dvr = dV + (bh * Tk + key) * D;
+      float* dkr = dK + (bh * Tk + key) * D;
+      float* dvr = dV + (bh * Tk + key) * D;
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
         const int c = 4 * (tx + TX * g);
         if (c >= D) continue;
-        if constexpr (is_bf16<T_>) {   // one rounding, to nearest even
-          if (ALIGNED) {
-            *reinterpret_cast<uint2*>(dkr + c) =
-                narrow4(dk[i][4 * g], dk[i][4 * g + 1], dk[i][4 * g + 2],
-                        dk[i][4 * g + 3]);
-            *reinterpret_cast<uint2*>(dvr + c) =
-                narrow4(dv[i][4 * g], dv[i][4 * g + 1], dv[i][4 * g + 2],
-                        dv[i][4 * g + 3]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (c + e >= D) continue;
-              dkr[c + e] = __float2bfloat16_rn(dk[i][4 * g + e]);
-              dvr[c + e] = __float2bfloat16_rn(dv[i][4 * g + e]);
-            }
-          }
-        } else if (ALIGNED) {
+        if (ALIGNED) {
           *reinterpret_cast<float4*>(dkr + c) =
               make_float4(dk[i][4 * g], dk[i][4 * g + 1], dk[i][4 * g + 2],
                           dk[i][4 * g + 3]);
@@ -749,15 +645,6 @@ flash_bwd_kernel(const T_* __restrict__ Q, const T_* __restrict__ K,
     }
   }
 }
-
-// this build's element type: bf16 with -DPTT_BF16, else fp32
-#ifdef PTT_BF16
-using Elem = __nv_bfloat16;
-#define PTT_ELEM_NAME "bf16"
-#else
-using Elem = float;
-#define PTT_ELEM_NAME "float"
-#endif
 
 // the instances: (RK, NG, STAGES) is (8, 1, 2) up to D = 64 and
 // (4, 2, 1) up to 128; DC = 64 for D = 64, else 0
@@ -782,44 +669,38 @@ struct Instance {
 };
 
 #define PTT_BWD_ENTRY(C, RK, NG, S, DC, A)                                  \
-  {reinterpret_cast<const void*>(                                           \
-       flash_bwd_kernel<Elem, C, RK, NG, S, DC, A>),                        \
-   "flash_bwd_kernel<" PTT_ELEM_NAME ",causal=" #C ",RK=" #RK ",NG=" #NG    \
+  {reinterpret_cast<const void*>(flash_bwd_kernel<C, RK, NG, S, DC, A>),    \
+   "flash_bwd_kernel<float,causal=" #C ",RK=" #RK ",NG=" #NG                \
    ",STAGES=" #S ",DC=" #DC ",ALIGNED=" #A ">",                             \
    static_cast<int>(smem_floats(16 * RK, S, DC ? DC : 64 * NG) *            \
                     sizeof(float))},
 
 const Instance kInstances[] = {
-    {reinterpret_cast<const void*>(flash_bwd_delta_kernel<Elem>),
-     "flash_bwd_delta_kernel<" PTT_ELEM_NAME ">", 0},
+    {reinterpret_cast<const void*>(flash_bwd_delta_kernel),
+     "flash_bwd_delta_kernel<float>", 0},
     PTT_BWD_INSTANCES(PTT_BWD_ENTRY)};
 
-// the operands of one backward: T_ the element type, dq the fp32 ordered
-// sum, dq_out the bf16 dQ (unused at fp32)
-template <typename T_>
+// the operands of one backward
 struct BwdArgs {
-  const T_* q;
-  const T_* k;
-  const T_* v;
-  const T_* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
   const float* m;
   const float* l;
-  const T_* dout;
+  const float* dout;
   float* dq;
-  T_* dq_out;
-  T_* dk;
-  T_* dv;
+  float* dk;
+  float* dv;
   float* delta;
   int* counters;
   int bh, T, Tk, D;
   float scale;
 };
 
-template <typename T_, bool CAUSAL, int RK, int NG, int STAGES, int DC,
-          bool ALIGNED>
-int launch(const BwdArgs<T_>& a, cudaStream_t stream) {
-  const auto kernel =
-      flash_bwd_kernel<T_, CAUSAL, RK, NG, STAGES, DC, ALIGNED>;
+template <bool CAUSAL, int RK, int NG, int STAGES, int DC, bool ALIGNED>
+int launch(const BwdArgs& a, cudaStream_t stream) {
+  const auto kernel = flash_bwd_kernel<CAUSAL, RK, NG, STAGES, DC, ALIGNED>;
   const int smem = smem_floats(16 * RK, STAGES, a.D) * sizeof(float);
   // above 48 KB a block's dynamic shared memory must be asked for
   cudaError_t err = cudaFuncSetAttribute(
@@ -839,16 +720,16 @@ int launch(const BwdArgs<T_>& a, cudaStream_t stream) {
   const int grid = static_cast<int>(
       items < static_cast<long long>(sms) * per_sm ? items : sms * per_sm);
   kernel<<<grid, THREADS, smem, stream>>>(
-      a.q, a.k, a.v, a.dout, a.m, a.l, a.delta, a.dq, a.dq_out, a.dk, a.dv,
-      a.counters, a.bh, a.T, a.Tk, a.D, a.scale);
+      a.q, a.k, a.v, a.dout, a.m, a.l, a.delta, a.dq, a.dk, a.dv, a.counters,
+      a.bh, a.T, a.Tk, a.D, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T_, bool CAUSAL, bool ALIGNED>
-int dispatch(const BwdArgs<T_>& a, cudaStream_t s) {
-  if (a.D == 64) return launch<T_, CAUSAL, 8, 1, 2, 64, ALIGNED>(a, s);
-  if (a.D <= 64) return launch<T_, CAUSAL, 8, 1, 2, 0, ALIGNED>(a, s);
-  return launch<T_, CAUSAL, 4, 2, 1, 0, ALIGNED>(a, s);
+template <bool CAUSAL, bool ALIGNED>
+int dispatch(const BwdArgs& a, cudaStream_t s) {
+  if (a.D == 64) return launch<CAUSAL, 8, 1, 2, 64, ALIGNED>(a, s);
+  if (a.D <= 64) return launch<CAUSAL, 8, 1, 2, 0, ALIGNED>(a, s);
+  return launch<CAUSAL, 4, 2, 1, 0, ALIGNED>(a, s);
 }
 
 bool aligned_to(const void* p, int bytes) {
@@ -857,9 +738,7 @@ bool aligned_to(const void* p, int bytes) {
 
 // the delta pass, then the persistent kernel of the instance for D, the
 // mask and the operands' alignment
-template <typename T_>
-int run(const BwdArgs<T_>& a, int causal, long long n_counters,
-        void* stream) {
+int run(const BwdArgs& a, int causal, long long n_counters, void* stream) {
   if (a.bh < 1 || a.T < 1 || a.Tk < 1 || a.D < 1 || a.D > D_MAX ||
       static_cast<long long>(a.bh) * ((a.Tk + 63) / 64) > INT_MAX ||
       n_counters < static_cast<long long>(a.bh) * ((a.T + BQ - 1) / BQ) + 1)
@@ -867,47 +746,25 @@ int run(const BwdArgs<T_>& a, int causal, long long n_counters,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rows = static_cast<long long>(a.bh) * a.T;
   const long long blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
-  flash_bwd_delta_kernel<T_><<<static_cast<unsigned>(blocks), THREADS, 0,
-                               s>>>(a.o, a.dout, a.delta, rows, a.D);
+  flash_bwd_delta_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
+      a.o, a.dout, a.delta, rows, a.D);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // four elements a copy or store: every row and base on 16 bytes at
-  // fp32, on 8 at bf16, and the fp32 sum's on 16
-  const int w = 4 * static_cast<int>(sizeof(T_));
+  // four elements (16 bytes) a copy or store: every row and base on 16
+  // bytes
   const bool aligned =
-      a.D % 4 == 0 && aligned_to(a.q, w) && aligned_to(a.k, w) &&
-      aligned_to(a.v, w) && aligned_to(a.dout, w) && aligned_to(a.dq, 16) &&
-      (a.dq_out == nullptr || aligned_to(a.dq_out, w)) &&
-      aligned_to(a.dk, w) && aligned_to(a.dv, w);
+      a.D % 4 == 0 && aligned_to(a.q, 16) && aligned_to(a.k, 16) &&
+      aligned_to(a.v, 16) && aligned_to(a.dout, 16) && aligned_to(a.dq, 16) &&
+      aligned_to(a.dk, 16) && aligned_to(a.dv, 16);
   if (causal)
-    return aligned ? dispatch<T_, true, true>(a, s)
-                   : dispatch<T_, true, false>(a, s);
-  return aligned ? dispatch<T_, false, true>(a, s)
-                 : dispatch<T_, false, false>(a, s);
+    return aligned ? dispatch<true, true>(a, s) : dispatch<true, false>(a, s);
+  return aligned ? dispatch<false, true>(a, s) : dispatch<false, false>(a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-#ifdef PTT_BF16
-// As ptt_flash_bwd_f32 over bf16 Q, K, V, O, dO, dQ, dK and dV (M, L and
-// Delta fp32), with dq_acc an fp32 [bh, T, D] scratch for dQ's ordered
-// sum (16-byte aligned; no zeroing needed): each entry of dQ is that sum
-// rounded once.
-int ptt_flash_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                       const __nv_bfloat16* v, const __nv_bfloat16* o,
-                       const float* m, const float* l,
-                       const __nv_bfloat16* dout, __nv_bfloat16* dq,
-                       __nv_bfloat16* dk, __nv_bfloat16* dv, float* delta,
-                       float* dq_acc, int* counters, long long n_counters,
-                       int bh, int T, int Tk, int D, int causal, float scale,
-                       void* stream) {
-  const BwdArgs<__nv_bfloat16> a{q, k, v, o, m, l, dout, dq_acc, dq, dk, dv,
-                                 delta, counters, bh, T, Tk, D, scale};
-  return run(a, causal, n_counters, stream);
-}
-#else
 // dQ, dK, dV of O = attention(Q, K, V) for bh (batch x head) slices,
 // row-major fp32: Q, O, dO and dQ are [bh, T, D], K, V, dK and dV
 // [bh, Tk, D], M and L the forward's raw row max and denominator
@@ -922,11 +779,10 @@ int ptt_flash_bwd_f32(const float* q, const float* k, const float* v,
                       float* delta, int* counters, long long n_counters,
                       int bh, int T, int Tk, int D, int causal, float scale,
                       void* stream) {
-  const BwdArgs<float> a{q, k, v, o, m, l, dout, dq, nullptr, dk, dv, delta,
-                         counters, bh, T, Tk, D, scale};
+  const BwdArgs a{q, k, v, o, m, l, dout, dq, dk, dv, delta,
+                  counters, bh, T, Tk, D, scale};
   return run(a, causal, n_counters, stream);
 }
-#endif
 
 // Instance i of the library (0: the delta pass): its name and, in out[0..4],
 // registers a thread, local (spill) bytes a thread, static shared bytes,

@@ -1,12 +1,10 @@
-// Blocked GEMM for Hopper (sm_90a), batched over gridDim.z, fp32 and bf16.
+// Blocked GEMM for Hopper (sm_90a), batched over gridDim.z, fp32.
 //
 //   Out[z] = beta * C[z] + alpha * (A[z] . op(B[z])),   op(B) = B or B^T
 //
-// The source is built twice (parsec_tpu_torch/ops/kernels.py): as it
-// stands into the fp32 library (ptt_matmul_f32), and with -DPTT_BF16 into
-// the bf16 one (ptt_matmul_bf16: bf16 A and B, the products summed in
-// fp32, Out rounded once to bf16, no C, alpha 1: the Pallas kernel's
-// A . B in A's dtype).  The two builds run side by side, one nvcc each.
+// This source builds the fp32 library (parsec_tpu_torch/ops/kernels.py):
+// ptt_matmul_f32.  The bf16 GEMM is the tensor-core kernel of
+// matmul_bf16.cu.
 //
 // Replaces the JAX package's Pallas kernel `_matmul_kernel`
 // (parsec_tpu/ops/pallas_kernels.py, reached through `_matmul_impl`'s
@@ -21,18 +19,6 @@
 // C read once, Out written once), about 128 FLOP per byte, so the bound is
 // the 67 TFLOP/s fp32 (non-tensor-core) peak of an H100 SXM, 32 us per
 // tile, not the 3.35 TB/s of its memory (5 us).
-//
-// At bf16 (matmul and its gradient, off the Cholesky path) a 1024^3
-// product is bounded by the 989 TFLOP/s bf16 tensor-core rate (2.2 us),
-// not by its 6.3 MB of traffic (1.9 us).  This first bf16 kernel reads 2
-// bytes an element and widens each to fp32 as it stores it into
-// shared memory: the same fp32 tiles, products and order of sums, so a
-// bf16 product equals the fp32 kernel's on the widened operands, rounded
-// to nearest even at the end.  It does not use the tensor cores (989
-// TFLOP/s bf16 on an H100 SXM against 67 TFLOP/s fp32 outside them):
-// that is a later redesign (mma.sync or wgmma on bf16 tiles, TMA).  The
-// widening copy goes through registers (cp.async moves bytes as they
-// are), so the next slab's loads are not in flight behind the products.
 //
 // What the design does about it.  The TPU kernel carries an f32
 // accumulator in VMEM across a sequential K grid axis; blocks on Hopper run
@@ -64,10 +50,7 @@
 // memory a block.  At nb = 1024 it reaches about 45 % of the fp32 bound,
 // a few per cent slower than cuBLAS's fp32 kernel of the same block tile;
 // PERF.md says what still holds it back.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -87,14 +70,11 @@ constexpr int B_STAGE = BN * LDK;
 static_assert(BK * LDN <= B_STAGE, "k-major B slab must fit its stage");
 constexpr size_t SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) * sizeof(float);
 
-// T: the element type of A, B and Out (float or __nv_bfloat16); C, the
-// accumulator and alpha, beta are fp32
-template <typename T>
 struct GemmArgs {
-  const T* A;
-  const T* B;
+  const float* A;
+  const float* B;
   const float* C;
-  T* Out;
+  float* Out;
   int M, N, K;
   long long sA, sB, sC, sO;
   int lda, ldb, ldc, ldo;
@@ -132,24 +112,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// four bf16 (8 bytes, the first in the low half) as four floats: a bf16
-// is the high half of the float of the same value
-__device__ __forceinline__ float4 widen4(uint2 u) {
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
 // Rows r0.. of a row-major [R, C] source (row stride ld) into a ROWS x COLS
-// fp32 shared tile (row stride lds), columns c0..; what lies outside [R, C]
-// is zero.  fp32: cp.async, ALIGNED = 16-byte copies (rows and base on 16
-// bytes).  bf16: loads widened to fp32 and stored, ALIGNED = 8-byte loads
-// of four elements (rows and base on 8 bytes).
-template <typename T, bool ALIGNED, int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(float* dst, int lds, const T* src,
-                                          int ld, int r0, int c0, int R,
-                                          int C, int tid) {
+// fp32 shared tile (row stride lds), columns c0.., by cp.async; what lies
+// outside [R, C] is zero.  ALIGNED = 16-byte copies (rows and base on 16
+// bytes).
+template <bool ALIGNED, int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(float* dst, int lds,
+                                          const float* src, int ld, int r0,
+                                          int c0, int R, int C, int tid) {
   constexpr int CH = COLS / 4;   // chunks of 4 elements per row
   static_assert((ROWS * CH) % THREADS == 0, "tile must split evenly");
 #pragma unroll
@@ -158,20 +128,8 @@ __device__ __forceinline__ void load_tile(float* dst, int lds, const T* src,
     const int r = idx / CH, c = (idx % CH) * 4;
     const int gr = r0 + r, gc = c0 + c;
     float* d = dst + r * lds + c;
-    const T* s = src + static_cast<long long>(gr) * ld + gc;
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (ALIGNED && gr < R && gc + 4 <= C) {
-        x = widen4(*reinterpret_cast<const uint2*>(s));
-      } else if (gr < R) {
-        float e[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          e[j] = gc + j < C ? __bfloat162float(s[j]) : 0.f;
-        x = make_float4(e[0], e[1], e[2], e[3]);
-      }
-      *reinterpret_cast<float4*>(d) = x;
-    } else if (ALIGNED) {
+    const float* s = src + static_cast<long long>(gr) * ld + gc;
+    if (ALIGNED) {
       const int n = (gr < R && gc < C) ? 4 * min(4, C - gc) : 0;
       cp_async16(d, n ? s : src, n);
     } else {
@@ -184,16 +142,16 @@ __device__ __forceinline__ void load_tile(float* dst, int lds, const T* src,
   }
 }
 
-template <typename T, bool TRANS_B, bool HAS_C, bool ALIGNED>
+template <bool TRANS_B, bool HAS_C, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS, 2)
-gemm_kernel(const GemmArgs<T> p) {
+gemm_kernel(const GemmArgs p) {
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);   // [STAGES][BM][LDK]
   float* Bs = As + STAGES * A_STAGE;   // [STAGES][BN][LDK] or [BK][LDN]
 
   const long long z = blockIdx.z;
-  const T* A = p.A + z * p.sA;
-  const T* B = p.B + z * p.sB;
+  const float* A = p.A + z * p.sA;
+  const float* B = p.B + z * p.sB;
   const int M = p.M, N = p.N, K = p.K;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
@@ -203,14 +161,14 @@ gemm_kernel(const GemmArgs<T> p) {
 
   auto load_slab = [&](int stage, int kt) {
     const int k0 = kt * BK;
-    load_tile<T, ALIGNED, BM, BK>(As + stage * A_STAGE, LDK, A, p.lda, m0,
-                                  k0, M, K, tid);
+    load_tile<ALIGNED, BM, BK>(As + stage * A_STAGE, LDK, A, p.lda, m0, k0,
+                               M, K, tid);
     if (TRANS_B)   // B is [N, K]
-      load_tile<T, ALIGNED, BN, BK>(Bs + stage * B_STAGE, LDK, B, p.ldb, n0,
-                                    k0, N, K, tid);
+      load_tile<ALIGNED, BN, BK>(Bs + stage * B_STAGE, LDK, B, p.ldb, n0, k0,
+                                 N, K, tid);
     else           // B is [K, N]
-      load_tile<T, ALIGNED, BK, BN>(Bs + stage * B_STAGE, LDN, B, p.ldb, k0,
-                                    n0, K, N, tid);
+      load_tile<ALIGNED, BK, BN>(Bs + stage * B_STAGE, LDN, B, p.ldb, k0, n0,
+                                 K, N, tid);
   };
 
   float acc[TM][TN];
@@ -276,7 +234,7 @@ gemm_kernel(const GemmArgs<T> p) {
 
   // epilogue: 16 neighbouring threads store 16 neighbouring columns
   const float* C = HAS_C ? p.C + z * p.sC : nullptr;
-  T* Out = p.Out + z * p.sO;
+  float* Out = p.Out + z * p.sO;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty + i * TY;
@@ -287,18 +245,14 @@ gemm_kernel(const GemmArgs<T> p) {
       if (gn >= N) continue;
       float v = p.alpha * acc[i][j];
       if (HAS_C) v = fmaf(p.beta, C[static_cast<long long>(gm) * p.ldc + gn], v);
-      T* out = Out + static_cast<long long>(gm) * p.ldo + gn;
-      if constexpr (std::is_same<T, float>::value)
-        *out = v;
-      else   // one rounding, to nearest even
-        *out = __float2bfloat16_rn(v);
+      Out[static_cast<long long>(gm) * p.ldo + gn] = v;
     }
   }
 }
 
-template <typename T, bool TRANS_B, bool HAS_C, bool ALIGNED>
-int launch(const GemmArgs<T>& p, int batch, cudaStream_t stream) {
-  const auto kernel = gemm_kernel<T, TRANS_B, HAS_C, ALIGNED>;
+template <bool TRANS_B, bool HAS_C, bool ALIGNED>
+int launch(const GemmArgs& p, int batch, cudaStream_t stream) {
+  const auto kernel = gemm_kernel<TRANS_B, HAS_C, ALIGNED>;
   // above 48 KB a block's dynamic shared memory must be asked for
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -309,11 +263,11 @@ int launch(const GemmArgs<T>& p, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool TRANS_B, bool HAS_C>
-int launch_aligned_or_not(const GemmArgs<T>& p, int batch, bool aligned,
+template <bool TRANS_B, bool HAS_C>
+int launch_aligned_or_not(const GemmArgs& p, int batch, bool aligned,
                           cudaStream_t stream) {
-  return aligned ? launch<T, TRANS_B, HAS_C, true>(p, batch, stream)
-                 : launch<T, TRANS_B, HAS_C, false>(p, batch, stream);
+  return aligned ? launch<TRANS_B, HAS_C, true>(p, batch, stream)
+                 : launch<TRANS_B, HAS_C, false>(p, batch, stream);
 }
 
 bool aligned_to(const void* ptr, int bytes) {
@@ -324,32 +278,6 @@ bool aligned_to(const void* ptr, int bytes) {
 
 extern "C" {
 
-#ifdef PTT_BF16
-// Out[z] = A[z] . op(B[z]) for z < batch, row-major bf16: A is [M, K]; B
-// is [N, K] when trans_b, else [K, N]; Out is [M, N].  Each element sums
-// its K products in fp32 and is rounded once to bf16 (nearest even).  s*
-// are batch strides and ld* row strides, in elements.  Any alignment is
-// taken: rows of A and B on 8 bytes take 8-byte loads, others 2-byte
-// ones.  Launches on `stream` and returns cudaGetLastError() (0 =
-// launched).
-int ptt_matmul_bf16(const __nv_bfloat16* A, const __nv_bfloat16* B,
-                    __nv_bfloat16* Out, int batch, int M, int N, int K,
-                    long long sA, long long sB, long long sO, int lda,
-                    int ldb, int ldo, int trans_b, void* stream) {
-  if (batch < 1 || batch > 65535 || M < 1 || N < 1 || K < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const GemmArgs<__nv_bfloat16> p{A, B, nullptr, Out, M, N, K, sA, sB, 0,
-                                  sO, lda, ldb, 0, ldo, 1.f, 0.f};
-  const bool aligned = aligned_to(A, 8) && aligned_to(B, 8) && lda % 4 == 0 &&
-                       ldb % 4 == 0 && sA % 4 == 0 && sB % 4 == 0;
-  return trans_b
-             ? launch_aligned_or_not<__nv_bfloat16, true, false>(p, batch,
-                                                                 aligned, s)
-             : launch_aligned_or_not<__nv_bfloat16, false, false>(p, batch,
-                                                                  aligned, s);
-}
-#else
 // Out[z] = beta*C[z] + alpha*(A[z] . op(B[z])) for z < batch, row-major,
 // fp32.  A is [M, K]; B is [N, K] when trans_b, else [K, N]; C (read only
 // when non-null) and Out are [M, N].  s* are batch strides and ld* row
@@ -364,23 +292,18 @@ int ptt_matmul_f32(const float* A, const float* B, const float* C, float* Out,
   if (batch < 1 || batch > 65535 || M < 1 || N < 1 || K < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const GemmArgs<float> p{A, B, C, Out, M, N, K, sA, sB, sC, sO,
-                          lda, ldb, ldc, ldo, alpha, beta};
+  const GemmArgs p{A, B, C, Out, M, N, K, sA, sB, sC, sO,
+                   lda, ldb, ldc, ldo, alpha, beta};
   const bool aligned = aligned_to(A, 16) && aligned_to(B, 16) &&
                        lda % 4 == 0 && ldb % 4 == 0 && sA % 4 == 0 &&
                        sB % 4 == 0;
   const bool has_c = C != nullptr;
   if (trans_b)
-    return has_c ? launch_aligned_or_not<float, true, true>(p, batch, aligned,
-                                                            s)
-                 : launch_aligned_or_not<float, true, false>(p, batch,
-                                                             aligned, s);
-  return has_c ? launch_aligned_or_not<float, false, true>(p, batch, aligned,
-                                                           s)
-               : launch_aligned_or_not<float, false, false>(p, batch, aligned,
-                                                            s);
+    return has_c ? launch_aligned_or_not<true, true>(p, batch, aligned, s)
+                 : launch_aligned_or_not<true, false>(p, batch, aligned, s);
+  return has_c ? launch_aligned_or_not<false, true>(p, batch, aligned, s)
+               : launch_aligned_or_not<false, false>(p, batch, aligned, s);
 }
-#endif
 
 const char* ptt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

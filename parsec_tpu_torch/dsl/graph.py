@@ -33,6 +33,12 @@ launching on (its work would land in the graph), and graphs that replay
 on different streams must not share the cuBLAS workspace PyTorch keys
 by the capture stream.
 
+Python's cyclic collector is paused for the span of a capture.  A graph
+runner and the block that owns it refer to each other, so a dropped one
+is freed by the collector, in whatever thread allocates when it runs;
+destroying its CUDA graph in the capturing thread is refused and
+invalidates the capture under way.
+
 A body that cannot be recorded (it synchronises with the host, or calls
 a library routine that does) raises :class:`CaptureError` naming the
 task and the CUDA error.  There is no fallback to the interpreted
@@ -40,6 +46,7 @@ runtime.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from typing import Any, Callable, Dict, Hashable, Iterable, Optional
@@ -234,18 +241,26 @@ class GraphRunner:
         if replay_stream is None:
             replay_stream = torch.cuda.current_stream(device)
         capture = own_stream(device, ("capture", replay_stream.cuda_stream))
-        with torch.cuda.stream(capture):
-            # thread_local: the runtime's idle worker threads may poll
-            # their events meanwhile without breaking this capture
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                static_out = self._execute(static_in, device, note)
-            except Exception as exc:
-                failure = exc
-            try:
-                graph.capture_end()
-            except RuntimeError as exc:   # the capture was invalidated
-                failure = failure if failure is not None else exc
+        # a collection in this thread would destroy dropped graphs here;
+        # records hold _record_lock, so no capture runs while it is on
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(capture):
+                # thread_local: the runtime's idle worker threads may poll
+                # their events meanwhile without breaking this capture
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    static_out = self._execute(static_in, device, note)
+                except Exception as exc:
+                    failure = exc
+                try:
+                    graph.capture_end()
+                except RuntimeError as exc:   # the capture was invalidated
+                    failure = failure if failure is not None else exc
+        finally:
+            if collecting:
+                gc.enable()
         if failure is not None:
             raise CaptureError(f"{self.name}: task {label[0]} cannot be "
                                f"recorded into a CUDA graph: {failure}") \

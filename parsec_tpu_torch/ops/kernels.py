@@ -1,11 +1,13 @@
 """Hand-written CUDA kernels for the hot operations.
 
 The port's counterpart of the JAX package's ``ops/pallas_kernels.py``.
-Four CUDA sources live under ``csrc/``:
+Six CUDA sources live under ``csrc/``; the bf16 GEMM's and backward's
+share the header ``csrc/hopper.cuh``:
 
-- ``gemm``: the blocked GEMM of ``csrc/matmul.cu``,
+- ``gemm``: the blocked GEMM of ``csrc/matmul.cu`` at fp32,
   ``Out = beta*C + alpha*(A @ op(B))`` over an optional leading batch
-  dimension, one launch for the whole batch.  It replaces the Pallas
+  dimension, one launch for the whole batch, and the tensor-core GEMM of
+  ``csrc/matmul_bf16.cu`` at bf16 (wgmma fed by TMA).  It replaces the Pallas
   ``_matmul_kernel`` and carries the tile Cholesky's GEMM and SYRK
   updates (ops/linalg.py).  ``matmul`` is its differentiable form: the
   backward runs the same kernel on the transposes (dA = g B^T,
@@ -19,8 +21,9 @@ Four CUDA sources live under ``csrc/``:
   ``_flash_fwd_stats_kernel`` and carry the transformer's attention
   (models/transformer.py, parallel/).
 - ``flash_attention_bwd``: the flash backward of
-  ``csrc/flash_attention_bwd.cu``, dq, dk and dv from the forward's raw
-  row statistics, in place of the jnp VJP ``_flash_vjp_bwd`` of the
+  ``csrc/flash_attention_bwd.cu`` at fp32 and the tensor-core kernel of
+  ``csrc/flash_attention_bwd_bf16.cu`` at bf16, dq, dk and dv from the
+  forward's raw row statistics, in place of the jnp VJP ``_flash_vjp_bwd`` of the
   Pallas ``_flash``.  ``flash_attention`` is differentiable through it:
   while grad mode is on and an input needs a gradient, its forward
   launches the STATS instance of the forward kernel (to keep m and l for
@@ -31,24 +34,27 @@ Four CUDA sources live under ``csrc/``:
   use is the ring, whose VJP recomputes through the plain ring.
 
 Every kernel has an fp32 and a bf16 instance.  The bf16 ones take bf16
-operands, compute in fp32 and round where the Pallas kernels round at
-bf16: the GEMM once at the end (``matmul`` and its gradient only: the
-tile bodies' ``gemm`` with C, alpha and beta stays fp32), the forward p
-to bf16 before P.V (but not in l) and o once at the end, the backward
-dq, dk and dv once at the end (m, l and the scratch stay fp32).  The
-operands of one call share one of the two types; mixed types raise.
+operands, sum in fp32 and round where the Pallas kernels round at bf16:
+the GEMM once at the end (``matmul`` and its gradient only: the tile
+bodies' ``gemm`` with C, alpha and beta stays fp32), the forward p to
+bf16 before P.V (but not in l) and o once at the end, the backward dq,
+dk and dv once at the end (m, l and the dQ scratch stay fp32).  The bf16
+backward's tensor-core products also take P and dS rounded to bf16
+(the JAX VJP keeps both in fp32; FlashAttention and SDPA round them as
+this kernel does).  The operands of one call share one of the two
+types; mixed types raise.
 
 Each kernel is built with ``nvcc`` into a library of its type: the fp32
-libraries ``matmul``, ``flash_attention`` and ``flash_attention_bwd``,
-and the bf16 ones of the same names with ``_bf16``, which build
-``matmul.cu`` and ``flash_attention_bwd.cu`` again with ``-DPTT_BF16``
-and ``flash_attention_bf16.cu`` as it is; ``flash_attention_bf16_phases``
-builds that source once more with ``-DPTT_PHASE_CLOCKS``, a measurement
+libraries ``matmul``, ``flash_attention`` and ``flash_attention_bwd``
+from the sources of those names, and the bf16 ones of the same names
+with ``_bf16`` from ``matmul_bf16.cu``, ``flash_attention_bf16.cu`` and
+``flash_attention_bwd_bf16.cu``; ``flash_attention_bf16_phases`` builds
+the bf16 forward once more with ``-DPTT_PHASE_CLOCKS``, a measurement
 build that sums the clocks of each phase of its loop and that no path
-launches.  Each is built at the first
-launch of one of its kernels, into ``build/kernels/`` at the root of the
-checkout, keyed on a hash of the source and flags, and loaded with
-``ctypes``; ``build()`` compiles them all at once, one ``nvcc`` per
+launches.  Each is built at the first launch of one of its kernels, into
+``build/kernels/`` at the root of the checkout, keyed on a hash of the
+source, the headers of ``csrc/`` it includes and the flags, and loaded
+with ``ctypes``; ``build()`` compiles them all at once, one ``nvcc`` per
 library.  Nothing is compiled when the module is imported.
 
 A wrapper takes its kernel's plain PyTorch version (``gemm_plain``,
@@ -72,6 +78,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -116,7 +123,8 @@ def thread_matmul_launches() -> int:
 NEG_INF = -1e30
 #: the largest head width the flash kernel takes
 FLASH_D_MAX = 128
-#: query rows per tile of the backward kernel (``BQ`` in its source)
+#: query rows per tile of both backward kernels (``BQ`` in each source):
+#: the turn counters' scratch is sized for it
 FLASH_BWD_BQ = 64
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -133,15 +141,27 @@ def _declare(fn, argtypes) -> None:
     fn.restype = ctypes.c_int
 
 
+def _declare_attributes(fn) -> None:
+    """An ``..._attributes(i, out, name)`` entry point: a library's kernel
+    instances, one by one."""
+    _declare(fn, [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                  ctypes.POINTER(ctypes.c_char_p)])
+
+
 def _declare_matmul(lib: ctypes.CDLL, tag: str) -> None:
     p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-    if tag == "f32":
-        _declare(lib.ptt_matmul_f32, [p, p, p, p, i, i, i, i, ll, ll, ll,
-                                      ll, i, i, i, i, i, f, f, p])
-    else:          # no C, alpha or beta
-        _declare(lib.ptt_matmul_bf16, [p, p, p, i, i, i, i, ll, ll, ll, i,
-                                       i, i, i, p])
+    _declare(lib.ptt_matmul_f32, [p, p, p, p, i, i, i, i, ll, ll, ll, ll, i,
+                                  i, i, i, i, f, f, p])
+
+
+def _declare_matmul_bf16(lib: ctypes.CDLL, tag: str) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # no C, alpha or beta
+    _declare(lib.ptt_matmul_bf16, [p, p, p, i, i, i, i, ll, ll, ll, i, i, i,
+                                   i, p])
+    # the tensor-core kernel's instances
+    _declare_attributes(lib.ptt_matmul_bf16_attributes)
 
 
 def _declare_flash(lib: ctypes.CDLL, tag: str) -> None:
@@ -155,9 +175,7 @@ def _declare_flash(lib: ctypes.CDLL, tag: str) -> None:
 def _declare_flash_bf16(lib: ctypes.CDLL, tag: str) -> None:
     _declare_flash(lib, tag)
     # the tensor-core kernel's instances
-    _declare(lib.ptt_flash_fwd_bf16_attributes,
-             [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-              ctypes.POINTER(ctypes.c_char_p)])
+    _declare_attributes(lib.ptt_flash_fwd_bf16_attributes)
 
 
 def _declare_flash_bwd(lib: ctypes.CDLL, tag: str) -> None:
@@ -166,33 +184,32 @@ def _declare_flash_bwd(lib: ctypes.CDLL, tag: str) -> None:
     _declare(getattr(lib, f"ptt_flash_bwd_{tag}"),
              [p] * (12 if tag == "f32" else 13)
              + [ctypes.c_longlong, i, i, i, i, i, f, p])
-    _declare(lib.ptt_flash_bwd_attributes,
-             [i, ctypes.POINTER(ctypes.c_int),
-              ctypes.POINTER(ctypes.c_char_p)])
+    _declare_attributes(lib.ptt_flash_bwd_attributes)
 
 
 #: each CUDA source (``csrc/<name>.cu``) and the C signatures of its
 #: libraries
-_SOURCES = {"matmul": _declare_matmul, "flash_attention": _declare_flash,
+_SOURCES = {"matmul": _declare_matmul, "matmul_bf16": _declare_matmul_bf16,
+            "flash_attention": _declare_flash,
             "flash_attention_bf16": _declare_flash_bf16,
-            "flash_attention_bwd": _declare_flash_bwd}
+            "flash_attention_bwd": _declare_flash_bwd,
+            "flash_attention_bwd_bf16": _declare_flash_bwd}
 #: the element types the kernels have instances for, and each one's tag:
 #: the suffix of its C entry points and of its counters
 _TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_BF16 = ("-DPTT_BF16",)
 #: each library: its source, its element type's tag and its nvcc flags
 #: beyond ``_NVCC_FLAGS``; ``<name>`` is the fp32 library of a kernel,
-#: ``<name>_bf16`` its bf16 one
+#: ``<name>_bf16`` its bf16 one, each from a source of its own
 _LIBRARIES = {"matmul": ("matmul", "f32", ()),
-              "matmul_bf16": ("matmul", "bf16", _BF16),
+              "matmul_bf16": ("matmul_bf16", "bf16", ()),
               "flash_attention": ("flash_attention", "f32", ()),
               "flash_attention_bf16": ("flash_attention_bf16", "bf16", ()),
               # a measurement build, on no path: the clocks of each phase
               "flash_attention_bf16_phases": ("flash_attention_bf16", "bf16",
                                               ("-DPTT_PHASE_CLOCKS",)),
               "flash_attention_bwd": ("flash_attention_bwd", "f32", ()),
-              "flash_attention_bwd_bf16": ("flash_attention_bwd", "bf16",
-                                           _BF16)}
+              "flash_attention_bwd_bf16": ("flash_attention_bwd_bf16",
+                                           "bf16", ())}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -216,11 +233,23 @@ def _nvcc_command(name: str) -> list:
     return [*_NVCC_FLAGS, *flags, str(_CSRC / f"{source}.cu")]
 
 
+def _headers(source: str) -> list:
+    """The headers of ``csrc/`` that ``csrc/<source>.cu`` includes
+    (``#include "<name>"``), in the order it names them."""
+    text = (_CSRC / f"{source}.cu").read_text()
+    return re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M)
+
+
 def _library_path(name: str) -> Path:
+    """Where library ``name`` is built: keyed on its source, the headers
+    of ``csrc/`` it includes and the flags, so an edit to any of them
+    builds it anew."""
     source, _tag, flags = _LIBRARIES[name]
-    src = (_CSRC / f"{source}.cu").read_bytes()
+    text = (_CSRC / f"{source}.cu").read_bytes()
+    for header in _headers(source):
+        text += (_CSRC / header).read_bytes()
     key = hashlib.sha256(
-        src + " ".join(_NVCC_FLAGS + flags).encode()).hexdigest()
+        text + " ".join(_NVCC_FLAGS + flags).encode()).hexdigest()
     return _BUILD_DIR / f"{name}_{key[:16]}.so"
 
 

@@ -328,6 +328,7 @@ class _StageRec:
         self.xwave = None               # XWave when this rec joins one
         self.xblock = None              # its recorded block (xrank.XBlock)
         self.xfail = None               # why its block failed to build
+        self.downgrade_reason = None    # the capture error that downgraded it
         #: Data objects prestaged for this stage and not yet counted
         #: (single-owner by lifecycle: the buffering/spawn path)
         self.prestaged: List[Any] = []
@@ -846,8 +847,8 @@ class StageCompiler:
             plog.warning(
                 "stagec: stage %d of %s cannot be recorded (%s); its %d "
                 "member task(s) run interpreted",
-                rec.stage.index, self.tp.name, str(exc)[:200],
-                rec.stage.n_tasks)
+                rec.stage.index, self.tp.name, exc, rec.stage.n_tasks)
+            rec.downgrade_reason = str(exc)
             return self._downgrade(rec)
 
     def _slot_shapes(self, rec: _StageRec, bindings: Dict) -> Tuple:
@@ -1232,6 +1233,8 @@ class StageCompiler:
                          if p is not None), None)
             if prog is not None:
                 row.update(prog.facts())
+            if rec.downgrade_reason is not None:
+                row["reason"] = rec.downgrade_reason
             out.append(row)
         return out
 

@@ -708,7 +708,7 @@ def build_xblock(compiler, rec) -> XBlock:
     here is counted as the stage's, never as a dispatch's.  A block that
     cannot be recorded raises :class:`~..dsl.graph.CaptureError` (the
     caller downgrades the stage and declines the wave)."""
-    from ..devices.batching import STAGE_FAILED, cached_stage_callable
+    from ..devices.batching import cached_stage_callable
     from ..dsl.graph import CaptureError
     from .lower import stage_signature
     from .sharded import wavefront_info
@@ -750,18 +750,19 @@ def build_xblock(compiler, rec) -> XBlock:
         blk = XBlock(info, me, chip, shapes, bnd_flows, B, tshape, bidx)
         try:
             blk.record()
-        except CaptureError:
-            return STAGE_FAILED
+        except CaptureError as exc:
+            # the verdict is cached with what broke the capture
+            return CaptureError(f"stage {rec.stage.index} of {tp.name}, "
+                                f"wave {wave.wave_id}: {exc}")
         compiler._count(xstage_compiles=1,
                         stage_compile_ns=time.perf_counter_ns() - t0)
         return blk
 
     blk = cached_stage_callable(compiler._token, key, build,
                                 owner=compiler.context)
-    if blk is STAGE_FAILED:
-        raise CaptureError(f"stage {rec.stage.index} of {tp.name}: its "
-                           f"cross-rank block cannot be recorded (cached "
-                           f"verdict)")
+    if isinstance(blk, CaptureError):
+        raise CaptureError(f"its cross-rank block cannot be recorded "
+                           f"(cached verdict): {blk}")
     return blk
 
 

@@ -50,8 +50,8 @@ def _code(path: pathlib.Path) -> str:
 
 def test_bf16_flash_forward_builds_from_its_own_source():
     """The bf16 flash library is the tensor-core source built as it is;
-    the GEMM's and the backward's bf16 libraries are their fp32 sources
-    built again with -DPTT_BF16."""
+    so are the GEMM's and the backward's bf16 libraries, each from its
+    own tensor-core source."""
     assert kernels._LIBRARIES["flash_attention_bf16"] == (
         "flash_attention_bf16", "bf16", ())
     assert kernels._LIBRARIES["flash_attention"] == (
@@ -60,8 +60,8 @@ def test_bf16_flash_forward_builds_from_its_own_source():
     assert cmd[-1] == str(CSRC / "flash_attention_bf16.cu")
     assert "-DPTT_BF16" not in cmd
     for name in ("matmul", "flash_attention_bwd"):
-        assert kernels._LIBRARIES[f"{name}_bf16"] == (name, "bf16",
-                                                      ("-DPTT_BF16",))
+        assert kernels._LIBRARIES[f"{name}_bf16"] == (f"{name}_bf16", "bf16",
+                                                      ())
     assert kernels._LIBRARIES["flash_attention_bf16_phases"] == (
         "flash_attention_bf16", "bf16", ("-DPTT_PHASE_CLOCKS",))
     assert (kernels._library_path("flash_attention_bf16_phases")
@@ -85,8 +85,13 @@ def test_bf16_flash_forward_clocks_only_in_its_measurement_build():
 def test_bf16_flash_forward_source_runs_on_the_tensor_cores():
     """Its products are wgmma instructions fed by TMA, P reaches P.V from
     registers (the register-A form), and it has no atomics; the fp32
-    source no longer carries bf16 entry points."""
-    code = _code(CSRC / "flash_attention_bf16.cu")
+    source no longer carries bf16 entry points.  The forms it shares with
+    the other tensor-core sources live in their header, csrc/hopper.cuh."""
+    own = _code(CSRC / "flash_attention_bf16.cu")
+    assert '#include "hopper.cuh"' in (CSRC / "flash_attention_bf16.cu"
+                                       ).read_text()
+    assert "tma_load_3d(" in own and "wgmma_rs_n64(" in own
+    code = own + _code(CSRC / "hopper.cuh")
     assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in code
     assert "cp.async.bulk.tensor.3d" in code
     # P . V in the register-A form: A is 4 registers of bf16 pairs, B the

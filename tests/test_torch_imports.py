@@ -31,12 +31,14 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "kernel_parity.py")
+    yield os.path.join(ROOT, "record_parity.py")
 
 
 def test_sources_import_no_jax():
-    """Every import statement of the package and chip_smoke.py, lazy
-    ones inside functions included (the comm layer and the device data
-    plane among them)."""
+    """Every import statement of the package, chip_smoke.py,
+    kernel_parity.py and record_parity.py, lazy ones inside functions included (the comm
+    layer and the device data plane among them)."""
     bad = []
     seen = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for mod in ("comm/engine.py", "comm/wire.py", "comm/local.py",

@@ -556,6 +556,52 @@ def test_decline_sends_peers_rank_local(spd, interpreted, monkeypatch):
                                   interpreted)
 
 
+def test_capture_error_text_reaches_the_verdict(spd, interpreted,
+                                               monkeypatch):
+    """A block whose RECORD raises keeps the CaptureError's text: the
+    rank's downgrade warning names the stage, the wave and the op that
+    broke the capture (the cached verdict carries it), the stage's row
+    of ``program_report`` keeps it, and the run stays bit for bit."""
+    from parsec_tpu_torch.stagec.runtime import StageCompiler
+    from parsec_tpu_torch.utils import logging as plog
+    why = "task GEMM(2, 1, 0): aten::item synchronizes with the host"
+    orig_record = xrank.XBlock.record
+    failed, said, rows = [], [], []
+
+    def record(self):
+        if self.rank == 1 and not failed:
+            failed.append(self.info)
+            raise CaptureError(why)
+        return orig_record(self)
+
+    def warning(msg, *args):
+        said.append(msg % args)
+
+    orig_downgrade = StageCompiler._downgrade
+
+    def downgrade(self, rec):
+        ready = orig_downgrade(self, rec)
+        rows.extend(r for r in self.program_report()
+                    if r["stage"] == rec.stage.index)
+        return ready
+
+    monkeypatch.setattr(xrank.XBlock, "record", record)
+    monkeypatch.setattr(plog, "warning", warning)
+    monkeypatch.setattr(StageCompiler, "_downgrade", downgrade)
+    res = _ranks(spd, _legs(True, True))
+    st = [s for _o, s in res]
+    assert failed, "no block was recorded"
+    assert st[1]["stage_fallbacks"] == 1, st
+    hits = [m for m in said if why in m]
+    assert len(hits) == 1, said
+    assert "cached verdict" in hits[0] and ", wave " in hits[0], hits[0]
+    # the stage's own report row keeps the message
+    assert len(rows) == 1 and rows[0]["status"] == "downgraded", rows
+    assert why in rows[0]["reason"], rows
+    np.testing.assert_array_equal(_assemble([o for o, _s in res]),
+                                  interpreted)
+
+
 def test_waves_dispatch_in_one_order_on_every_rank(spd, interpreted,
                                                   monkeypatch):
     """A wave's rendezvous holds the rank's device manager, so ranks must
