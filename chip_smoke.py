@@ -424,6 +424,33 @@ Phases, each reporting on its own lines:
             bit-identical, the remat step's launches (the recompute runs
             each layer's forward kernels once more), and the peak memory
             (torch.cuda.max_memory_allocated) of each;
+7c'. spmd.bf16 the same meshes at dtype=bfloat16 from forward.bf16's
+            seeded bf16 parameters, at full width and depth: first each
+            bf16 kernel at each shape the meshes give it (the forward at
+            [4, 6, 1024, 64], [8, 3, 1024, 64] and [2, 12, 1024, 64], the
+            stats forward at [4, 6, 1024, 64], [8, 6, 1024, 64] and the
+            ring's [8, 12, 256, 64] blocks, causal and not, the backward
+            at [4, 6, 1024, 64] and [8, 6, 1024, 64]), launched twice on
+            a stream other than the default against its plain version
+            within 1e-2 (m and l 1e-4), the two launches bit-equal; then
+            7c's forwards, train paths, MoE step and remat, launching
+            only the bf16 instances in 7c's counts; the logits within
+            2e-2 of one chip's bf16 forward (else each layer and the head
+            within it); the loss and every gradient within 4e-2 of one
+            chip's and each within one chip's drift when every parameter
+            is one ulp up (else each layer's VJP so; a gradient the nudge
+            leaves unmoved, the embedding's, by 4e-2 alone); the leaf dtypes
+            after steps 1 and 2 as the JAX package's; a MoE layer held on
+            the tokens the mesh and one chip route to the same experts
+            (a token whose k-th and (k+1)-th gate probabilities are close
+            may route apart after a rounding), the others' cotangents
+            zeroed in its VJP;
+            and the MoE gate on the card against the CPU port from layer
+            0's gate input: the port's logits within an ulp, every token
+            that keeps other experts fragile (a bf16 torch.einsum, the
+            earlier product, reported beside it), layer 0 on sequence 0
+            within 4e-2 (ten roundings in a row) on the tokens both
+            sides route alike;
 8. timing   each kernel at its path's shape, by CUDA events: the GEMM
             at nb = 1024 against torch.addmm, batched at z = 1, 4 and 16
             against torch.baddbmm, and at tsmqr's shape (2048 x 1024 x
@@ -525,6 +552,10 @@ BF16_LAYER_RTOL = 2e-2
 #: of 2^-8; and each gradient no further from the CPU's than the CPU's
 #: own bf16 gradient is from its fp64 one
 BF16_GRAD_RTOL = 4e-2
+#: a bf16 MoE layer's output, on the tokens both sides route alike:
+#: about ten roundings in a row (the dense layer's four, and between them
+#: the gate's logits, exp, sum, quotient and renormalisation)
+BF16_MOE_LAYER_RTOL = 4e-2
 BF16_FORWARDS = 2      # timed bf16 forwards per attention, after one warm-up
 #: the JAX package's leaf dtypes after each Adam step from a bf16 tree:
 #: ``m / c1`` promotes to fp32, so the parameters are fp32 after step 1
@@ -5355,7 +5386,6 @@ def train_legs(phase: str, cfg, params, tokens, labels, paths: dict,
     after step i each leaf's dtype as ``step_dtypes[i]`` says.  Returns
     each path's launches by counter."""
     from parsec_tpu_torch import models
-    from parsec_tpu_torch.models import train
     launches = {}
     for name, (changes, per_step) in paths.items():
         step = models.make_train_step(dataclasses.replace(cfg, **changes),
@@ -5377,18 +5407,8 @@ def train_legs(phase: str, cfg, params, tokens, labels, paths: dict,
             check(got == want, f"{phase} {name} step {i}: launches {got}, "
                                f"expected {want}")
             losses.append(loss.item())
-            for part, dtype in (step_dtypes or {}).get(i + 1, {}).items():
-                leaves = train.tree_leaves(p if part == "params"
-                                           else state[part])
-                check(all(x.dtype == dtype for x in leaves),
-                      f"{phase} {name} step {i + 1}: {part} dtypes "
-                      f"{sorted({str(x.dtype) for x in leaves})}, "
-                      f"expected {dtype}")
-            if (step_dtypes or {}).get(i + 1):
-                log(phase, path=name, after_step=i + 1, dtypes_as_jax=True,
-                    **{part: str(d)[6:]
-                       for part, d in step_dtypes[i + 1].items()},
-                    count=str(state["count"].dtype)[6:])
+            check_step_dtypes(phase, name, i + 1, p, state,
+                              step_dtypes or {})
         launches[name] = {c: n * (1 + TRAIN_STEPS)
                           for c, n in per_step.items()}
         mean = sum(seconds) / len(seconds)
@@ -5565,6 +5585,61 @@ SPMD_MOE = ({"tp": 2, "ep": 2}, dict(attention="flash", n_experts=4,
 #: the SPMD_TRAIN paths stepped once more with remat on: each layer one
 #: node over its (tp, sp) group, recomputed in its shards in the backward
 SPMD_REMAT = ("dp2_tp2_flash", "sp4_ring")
+#: a token is fragile when its k-th and (k+1)-th gate probabilities lie
+#: within this many ulps of the k-th: one ulp of a logit moves its exp by
+#: about two ulps, so the gap between two probabilities by up to four,
+#: and logits an ulp apart may then send it to other experts (the gate
+#: check, from one gate input)
+FRAGILE_ULPS = 4
+#: each shape at which the bf16 meshes launch a flash kernel, [B, H, T,
+#: D] and causal: dp 2 x tp 2 (its forward, training forward and
+#: backward), Ulysses' heads over the whole sequence, a pp 2 microbatch,
+#: tp 2 x ep 2's training forward and backward, the ring's diagonal and
+#: past blocks
+SPMD_BF16_SHAPES = (
+    ("flash", (4, 6, 1024, 64), True), ("flash", (8, 3, 1024, 64), True),
+    ("flash", (2, 12, 1024, 64), True),
+    ("flash_stats", (4, 6, 1024, 64), True),
+    ("flash_stats", (8, 6, 1024, 64), True),
+    ("flash_stats", (8, 12, 256, 64), True),
+    ("flash_stats", (8, 12, 256, 64), False),
+    ("flash_bwd", (4, 6, 1024, 64), True),
+    ("flash_bwd", (8, 6, 1024, 64), True))
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmdLeg:
+    """What phase spmd's legs take from the model's dtype: their lines'
+    prefix, each kernel counter's instance, the gates, and the leaves'
+    dtypes after each train step."""
+    prefix: str
+    dtype: torch.dtype
+    logits_rtol: float
+    grad_rtol: float
+    step_dtypes: dict
+
+    @property
+    def bf16(self) -> bool:
+        return self.dtype == torch.bfloat16
+
+    def counter(self, name: str) -> str:
+        return name.replace("_launches", "_bf16_launches") if self.bf16 \
+            else name
+
+    def per_step(self, launches: dict) -> dict:
+        return {self.counter(c): n for c, n in launches.items()}
+
+    def key(self, kind: str, name: str) -> str:
+        """The kernels line's path name of a leg's run."""
+        return f"{self.prefix.replace('.', '_')}_{kind}_{name}"
+
+
+SPMD_FP32 = SpmdLeg("spmd", torch.float32, LOGITS_RTOL, GRAD_RTOL, {})
+#: bf16: each layer within four roundings (BF16_LAYER_RTOL), each
+#: gradient within ten (BF16_GRAD_RTOL) and below one chip's drift when
+#: every parameter is one ulp up
+SPMD_BF16 = SpmdLeg("spmd.bf16", torch.bfloat16, BF16_LAYER_RTOL,
+                    BF16_GRAD_RTOL, BF16_STEP_DTYPES)
 
 
 def restage(params: dict, cfg) -> dict:
@@ -5577,13 +5652,15 @@ def restage(params: dict, cfg) -> dict:
 
 def moe_params(params: dict, cfg, seed: int, dev: torch.device) -> dict:
     """The dense tree's embeddings, norms and attention, with a seeded
-    gate and expert FFNs drawn on the card at init_params' scales."""
+    gate and expert FFNs drawn on the card at init_params' scales, in the
+    config's dtype."""
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     S, L = cfg.n_stages, cfg.layers_per_stage
     D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
 
     def w(*shape, scale):
-        return torch.randn(*shape, generator=g, device=dev) * scale
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(cfg.dtype)
 
     stages = {n: params["stages"][n] for n in ("ln1", "ln2", "wqkv", "wo")}
     stages.update(gate=w(S, L, D, E, scale=0.02),
@@ -5602,6 +5679,43 @@ def nudged(params: dict) -> dict:
 def layer_params(params: dict, i: int) -> dict:
     return {n: a.reshape(-1, *a.shape[2:])[i]
             for n, a in params["stages"].items()}
+
+
+@contextlib.contextmanager
+def gates_seen():
+    """The gate inputs and logits of every MoE layer run in the block, in
+    order (``models.transformer``'s ``moe_ffn`` wrapped)."""
+    from parsec_tpu_torch.models import transformer
+    seen, real = [], transformer.moe_ffn
+
+    def recording(x, *args, gate_logits=None, **kw):
+        seen.append((x.detach(), gate_logits.detach()))
+        return real(x, *args, gate_logits=gate_logits, **kw)
+
+    transformer.moe_ffn = recording
+    try:
+        yield seen
+    finally:
+        transformer.moe_ffn = real
+
+
+def routes(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """The experts each token keeps from its gate logits: the
+    probabilities at or above its k-th (``parallel.moe``'s rule)."""
+    from parsec_tpu_torch.parallel import moe
+    probs = moe.softmax(logits)
+    return probs >= torch.topk(probs, k, dim=-1).values[..., -1:]
+
+
+def fragile(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token whose k-th and (k+1)-th gate probabilities lie within
+    FRAGILE_ULPS ulps (of the logits' type) of the k-th."""
+    from parsec_tpu_torch.parallel import moe
+    p = torch.sort(moe.softmax(logits).float(), dim=-1,
+                   descending=True).values
+    ulp = torch.exp2(torch.floor(torch.log2(p[..., k - 1]))) \
+        * torch.finfo(logits.dtype).eps
+    return p[..., k - 1] - p[..., k] <= FRAGILE_ULPS * ulp
 
 
 def spmd_pieces(cfg, mesh):
@@ -5636,41 +5750,77 @@ def _parts(out) -> list:
     return list(out) if isinstance(out, tuple) else [out]
 
 
-def spmd_forward_by_layer(name: str, cfg, mesh, params, tokens) -> float:
+def layer_pair(cfg, one_layer, layer, lp, x):
+    """One chip's layer and the mesh's on the same input, and for a MoE
+    layer the tokens both route to the same experts, each side by its own
+    gate input (else None): a token whose k-th and (k+1)-th gate
+    probabilities are close goes to other experts after a rounding of
+    the input, and its output then differs by O(1)."""
+    with gates_seen() as one:
+        want = _parts(one_layer(lp, x))
+    with gates_seen() as mesh:
+        got = _parts(layer(lp, x))
+    if not one:
+        return want, got, None
+    k = cfg.moe_top_k
+    alike = (routes(one[0][1], k) == routes(mesh[0][1], k)).all(-1)
+    return want, got, alike
+
+
+def spmd_forward_by_layer(leg: SpmdLeg, name: str, cfg, mesh, params,
+                          tokens) -> float:
     """The embedding, each layer (with a MoE layer's load-balance loss)
     and the head on the mesh against one chip's, from one chip's input to
-    each; returns the worst relative error."""
+    each; a MoE layer's output on the tokens both route alike
+    (``layer_pair``).  Returns the worst relative error."""
     model, embed, layer, head, one_layer = spmd_pieces(cfg, mesh)
     with torch.inference_mode():
         tok = torch.as_tensor(tokens).to(params["embed"].device)
         ep = {"embed": params["embed"], "pos": params["pos"]}
         x = model._embed(ep, tok)
         worst, absd = rel_err(embed(ep, tok), x)
-        log("spmd.forward", mesh=name, case="embed_vs_one_chip",
+        log(f"{leg.prefix}.forward", mesh=name, case="embed_vs_one_chip",
             rel_err=worst, max_abs_err=absd)
         for i in range(cfg.n_layers):
-            lp = layer_params(params, i)
-            want = _parts(one_layer(lp, x))
-            for part, got, ref in zip(("x", "aux"), _parts(layer(lp, x)),
-                                      want):
+            want, have, alike = layer_pair(cfg, one_layer, layer,
+                                           layer_params(params, i), x)
+            extra = {}
+            for part, got, ref in zip(("x", "aux"), have, want):
+                if part == "x" and alike is not None:
+                    got, ref = got[alike], ref[alike]
+                    extra = dict(routed_apart=int((~alike).sum()))
                 rel, absd = rel_err(got, ref)
-                log("spmd.forward", mesh=name, case="layer_vs_one_chip",
-                    layer=i, part=part, rel_err=rel, max_abs_err=absd)
+                log(f"{leg.prefix}.forward", mesh=name,
+                    case="layer_vs_one_chip", layer=i, part=part,
+                    rel_err=rel, max_abs_err=absd, **extra)
                 worst = max(worst, rel)
             x = want[0]
         hp = {"ln_f": params["ln_f"], "embed": params["embed"]}
         rel, absd = rel_err(head(hp, x), model._head(hp, x))
-    log("spmd.forward", mesh=name, case="head_vs_one_chip", rel_err=rel,
-        max_abs_err=absd)
+    log(f"{leg.prefix}.forward", mesh=name, case="head_vs_one_chip",
+        rel_err=rel, max_abs_err=absd)
     return max(worst, rel)
 
 
-def spmd_grads_by_layer(name: str, cfg, mesh, params, tokens,
+def within_nudge(rel: float, nudge: float) -> bool:
+    """A bf16 gradient's gate beside its mesh-vs-one-chip error: no
+    further than one chip's own drift when the piece's parameters are one
+    ulp up.  A gradient that drift leaves unmoved does not depend on
+    them (the embedding's is a sum of its cotangent's rows), and only
+    the leg's gradient gate holds it."""
+    return nudge == 0.0 or rel <= nudge
+
+
+def spmd_grads_by_layer(leg: SpmdLeg, name: str, cfg, mesh, params, tokens,
                         labels) -> float:
     """The VJPs of the head with the loss, of each layer (every parameter
-    and dx; a MoE layer's load-balance loss with its weight in the loss)
-    and of the embedding on the mesh against one chip's, from one chip's
-    inputs and cotangents; returns the worst relative error."""
+    and dx; a MoE layer's load-balance loss with its weight in the loss,
+    and the cotangents of the tokens the two route apart zeroed) and of
+    the embedding on
+    the mesh against one chip's, from one chip's inputs and cotangents;
+    at bf16 each gradient also within one chip's drift when the piece's
+    parameters are one ulp up (``within_nudge``).  Returns the worst
+    relative error."""
     import torch.nn.functional as F
     model, embed, layer, head, one_layer = spmd_pieces(cfg, mesh)
     # d loss / d (a layer's load-balance loss), as loss_shard weighs it
@@ -5695,35 +5845,51 @@ def spmd_grads_by_layer(name: str, cfg, mesh, params, tokens,
         grads = torch.autograd.grad(out, wrt, cots)
         return dict(zip((["x"] if wrt_x else []) + names, grads))
 
-    def compare(part, got, ref):
+    def compare(part, fn, one, tree, *args, **kw):
+        ref = vjp(one, tree, *args, **kw)
+        got = vjp(fn, tree, *args, **kw)
+        drift = vjp(one, nudged(tree), *args, **kw) if leg.bf16 else {}
         worst = 0.0
         for g in ref:
             rel, absd = rel_err(got[g], ref[g])
-            log("spmd.train", mesh=name, case="grad_vs_one_chip_by_layer",
-                part=part, grad=g, rel_err=rel, max_abs_err=absd)
+            extra = {}
+            if leg.bf16:
+                nudge = rel_err(drift[g], ref[g])[0]
+                extra = dict(one_chip_one_ulp_nudge_rel=nudge)
+                check(within_nudge(rel, nudge),
+                      f"{leg.prefix} {name} {part} {g}: mesh vs one chip "
+                      f"{rel} is above one chip's one-ulp nudge drift "
+                      f"{nudge}")
+            log(f"{leg.prefix}.train", mesh=name,
+                case="grad_vs_one_chip_by_layer", part=part, grad=g,
+                rel_err=rel, max_abs_err=absd, **extra)
             worst = max(worst, rel)
-        return worst
+        return worst, ref
 
     ep = {"embed": params["embed"], "pos": params["pos"]}
+    xs, alike = [], []
     with torch.no_grad():
-        xs = [model._embed(ep, tokens)]
+        xs.append(model._embed(ep, tokens))
         for i in range(cfg.n_layers):
-            xs.append(_parts(one_layer(layer_params(params, i), xs[-1]))[0])
+            out, _, same = layer_pair(cfg, one_layer, layer,
+                                      layer_params(params, i), xs[-1])
+            xs.append(out[0])
+            alike.append(same)
     hp = {"ln_f": params["ln_f"], "embed": params["embed"]}
     with torch.enable_grad():
-        ref = vjp(model._head, hp, xs[-1], labels=labels)
-        worst = compare("head", vjp(head, hp, xs[-1], labels=labels), ref)
+        worst, ref = compare("head", head, model._head, hp, xs[-1],
+                             labels=labels)
         dy = ref["x"]
         for i in reversed(range(cfg.n_layers)):
-            lp = layer_params(params, i)
-            ref = vjp(one_layer, lp, xs[i], dy)
-            worst = max(worst, compare(f"layer{i}",
-                                       vjp(layer, lp, xs[i], dy), ref))
+            cot = dy if alike[i] is None else dy.masked_fill(
+                ~alike[i][..., None], 0)
+            rel, ref = compare(f"layer{i}", layer, one_layer,
+                               layer_params(params, i), xs[i], cot)
+            worst = max(worst, rel)
             dy = ref["x"]
-        ref = vjp(model._embed, ep, tokens, dy, wrt_x=False)
-        worst = max(worst, compare("embed", vjp(embed, ep, tokens, dy,
-                                                wrt_x=False), ref))
-    return worst
+        rel, _ = compare("embed", embed, model._embed, ep, tokens, dy,
+                         wrt_x=False)
+    return max(worst, rel)
 
 
 def spmd_mesh(sizes: dict):
@@ -5739,10 +5905,13 @@ def spmd_mesh(sizes: dict):
     return mesh
 
 
-def spmd_grads(name: str, cfg, mesh, params, tokens, labels) -> None:
+def spmd_grads(leg: SpmdLeg, name: str, cfg, mesh, params, tokens,
+               labels) -> None:
     """The first step's loss and gradients on the mesh, twice (bit-equal),
-    against one chip's value_and_grad within GRAD_RTOL: the loss at whole
-    depth, the gradients per layer when a whole-depth one misses it."""
+    against one chip's value_and_grad within the leg's gradient gate: the
+    loss at whole depth, the gradients at whole depth or per layer when a
+    whole-depth one misses it (at bf16 each gradient also within one
+    chip's drift when every parameter is one ulp up, ``within_nudge``)."""
     from parsec_tpu_torch.models import train
     t = torch.as_tensor(tokens, dtype=torch.int64, device=params[
         "embed"].device)
@@ -5751,38 +5920,51 @@ def spmd_grads(name: str, cfg, mesh, params, tokens, labels) -> None:
     b = train.value_and_grad(cfg, params, t, y, mesh=mesh)
     same = bool(torch.equal(a[0], b[0])) and all(
         map(torch.equal, train.tree_leaves(a[1]), train.tree_leaves(b[1])))
-    log("spmd.train", mesh=name, case="repeat_grads", bit_identical=same)
-    check(same, f"{name}: two gradients from the same state differ")
+    phase = f"{leg.prefix}.train"
+    log(phase, mesh=name, case="repeat_grads", bit_identical=same)
+    check(same, f"{leg.prefix} {name}: two gradients from the same state "
+                f"differ")
     del b
     r = train.value_and_grad(cfg, params, t, y)
+    n = train.value_and_grad(cfg, nudged(params), t, y) if leg.bf16 else r
     loss_rel = rel_err(a[0], r[0])[0]
-    log("spmd.train", mesh=name, case="loss_vs_one_chip",
-        loss=repr(a[0].item()), one_chip=repr(r[0].item()), rel_err=loss_rel)
-    check(loss_rel < GRAD_RTOL, f"{name}: loss vs one chip {loss_rel} >= "
-                                f"{GRAD_RTOL}")
-    worst = 0.0
+    log(phase, mesh=name, case="loss_vs_one_chip", loss=repr(a[0].item()),
+        one_chip=repr(r[0].item()), rel_err=loss_rel)
+    check(loss_rel < leg.grad_rtol, f"{leg.prefix} {name}: loss vs one chip "
+                                    f"{loss_rel} >= {leg.grad_rtol}")
+    worst, whole = 0.0, True
     flat = zip(_leaf_names(a[1]), train.tree_leaves(a[1]),
-               train.tree_leaves(r[1]))
-    for leaf_name, g, ref in flat:
+               train.tree_leaves(r[1]), train.tree_leaves(n[1]))
+    for leaf_name, g, ref, nud in flat:
         rel, absd = rel_err(g, ref)
-        log("spmd.train", mesh=name, case="grad_vs_one_chip", grad=leaf_name,
-            rel_err=rel, max_abs_err=absd)
+        extra = {}
+        if leg.bf16:
+            nudge = rel_err(nud, ref)[0]
+            extra = dict(one_chip_one_ulp_nudge_rel=nudge)
+            whole &= within_nudge(rel, nudge)
+        log(phase, mesh=name, case="grad_vs_one_chip", grad=leaf_name,
+            rel_err=rel, max_abs_err=absd, **extra)
         worst = max(worst, rel)
-    del a, r
-    torch.cuda.empty_cache()
-    if worst < GRAD_RTOL:
-        return
-    by_layer = spmd_grads_by_layer(name, cfg, mesh, params, t, y)
-    r = train.value_and_grad(cfg, params, t, y)
-    n = train.value_and_grad(cfg, nudged(params), t, y)
     drift = max(rel_err(g, ref)[0] for g, ref in zip(
-        train.tree_leaves(n[1]), train.tree_leaves(r[1])))
-    del r, n
-    log("spmd.train", mesh=name, case="whole_depth_missed_gate",
+        train.tree_leaves(n[1]), train.tree_leaves(r[1]))) if leg.bf16 \
+        else None
+    del a, r, n
+    torch.cuda.empty_cache()
+    if worst < leg.grad_rtol and whole:
+        return
+    by_layer = spmd_grads_by_layer(leg, name, cfg, mesh, params, t, y)
+    if drift is None:
+        r = train.value_and_grad(cfg, params, t, y)
+        n = train.value_and_grad(cfg, nudged(params), t, y)
+        drift = max(rel_err(g, ref)[0] for g, ref in zip(
+            train.tree_leaves(n[1]), train.tree_leaves(r[1])))
+        del r, n
+    log(phase, mesh=name, case="whole_depth_missed_gate",
         whole_depth_worst_rel=worst, by_layer_worst_rel=by_layer,
         one_chip_one_ulp_nudge_worst_rel=drift)
-    check(by_layer < GRAD_RTOL, f"{name}: gradients by layer vs one chip "
-                                f"{by_layer} >= {GRAD_RTOL}")
+    check(by_layer < leg.grad_rtol, f"{leg.prefix} {name}: gradients by "
+                                    f"layer vs one chip {by_layer} >= "
+                                    f"{leg.grad_rtol}")
 
 
 def _leaf_names(tree, prefix=""):
@@ -5798,14 +5980,131 @@ def spmd_counts(launches: dict, counter: str) -> dict:
             if counter in n}
 
 
-def phase_spmd(dev: torch.device, seed: int, host_params: dict) -> dict:
-    """The transformer over meshes of the card's logical chips
-    (``device_cuda_virtual_chips``): each mesh forward against one chip's
-    logits, each mesh train path's steps, determinism and gradients
-    against one chip's, and expert parallelism's step.  Returns each
-    path's launches by counter."""
+def spmd_kernel_shapes(dev: torch.device, seed: int) -> dict:
+    """Each bf16 kernel at each shape the meshes give it
+    (SPMD_BF16_SHAPES), launched twice on a stream of its own (not the
+    default, as a chip's), against its plain version within BF16_RTOL (m
+    and l within RTOL), the two launches bit-equal.  Returns each
+    kernel's largest absolute error."""
+    from parsec_tpu_torch.ops import kernels
+    worst = {"flash": 0.0, "flash_stats": 0.0, "flash_bwd": 0.0}
+    side = torch.cuda.Stream(dev)
+    check(side != torch.cuda.default_stream(dev), "no side stream")
+    for i, (kernel, (B, H, T, D), causal) in enumerate(SPMD_BF16_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(seed + 31 + i)
+        q, k, v, do = (torch.randn(B, H, T, D, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        plain = kernels.flash_attention_stats_plain(q, k, v, causal=causal)
+        ref = {"flash": plain[:1], "flash_stats": plain,
+               "flash_bwd": kernels.flash_attention_bwd_plain(
+                   q, k, v, *plain, do, causal)}[kernel]
+        side.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            def launch():
+                if kernel == "flash":
+                    return (kernels.flash_attention(q, k, v, causal=causal),)
+                if kernel == "flash_stats":
+                    return kernels.flash_attention_stats(q, k, v,
+                                                         causal=causal)
+                return kernels.flash_attention_bwd(q, k, v, *plain, do,
+                                                   causal)
+            outs = [launch(), launch()]
+        side.synchronize()
+        seconds = time.perf_counter() - t0
+        same = all(map(torch.equal, *outs))
+        errs = []
+        for j, (a, b) in enumerate(zip(outs[0], ref)):
+            rel, absd = rel_err(a, b)
+            tol = RTOL if kernel == "flash_stats" and j else BF16_RTOL
+            check(a.dtype == b.dtype and rel < tol,
+                  f"spmd.bf16 {kernel} {(B, H, T, D)} causal={causal} "
+                  f"output {j}: {rel} >= {tol} or dtype {a.dtype}")
+            errs.append(rel)
+            if a.dtype == torch.bfloat16:
+                worst[kernel] = max(worst[kernel], absd)
+        log("spmd.bf16.kernels", kernel=kernel, shape="x".join(
+            map(str, (B, H, T, D))), causal=causal, stream="side",
+            rel_err=",".join(f"{e:.3e}" for e in errs),
+            repeat_bit_equal=same, seconds=f"{seconds:.4f}")
+        check(same, f"spmd.bf16 {kernel} {(B, H, T, D)}: two launches on "
+                    f"the same inputs differ")
+    return worst
+
+
+def spmd_gate(cfg, params: dict, tokens) -> None:
+    """The MoE gate at bf16 on the card against the CPU port from one
+    input: layer 0's gate input (the card's, every token of the batch)
+    through the port's gate product on the card and on the CPU, and
+    through a bf16 ``torch.einsum`` on the card (a cuBLAS bf16 GEMM, the
+    parent's product): the logits apart, in ulps, and the tokens whose
+    kept experts differ, each of which must be fragile, the port's
+    logits within an ulp of the CPU's; then the layer's output on
+    sequence 0 against the CPU port's on the same input, on the tokens
+    that both route to the same experts, within BF16_MOE_LAYER_RTOL."""
     from parsec_tpu_torch import models
-    cfg = gpt2_small("flash")
+    from parsec_tpu_torch.parallel import moe
+    model = models.Transformer(cfg)
+    lp = layer_params(params, 0)
+    k = cfg.moe_top_k
+    with torch.inference_mode():
+        x = model._embed({"embed": params["embed"], "pos": params["pos"]},
+                         torch.as_tensor(tokens).to(params["embed"].device))
+        with gates_seen() as seen:
+            y = model._layer(lp, x, 0.0)[0]
+        h2, logits = seen[0]
+        host = moe.gate_product(h2.cpu(), lp["gate"].cpu())
+        einsum = torch.einsum("btd,de->bte", h2, lp["gate"]).cpu()
+        ulp = torch.exp2(torch.floor(torch.log2(host.float().abs().clamp(
+            min=2.0 ** -126)))) * torch.finfo(host.dtype).eps
+        weak = fragile(host, k)
+        want = routes(host, k)
+        result = {}
+        for what, got in (("gate_product", logits.cpu()),
+                          ("torch_einsum_bf16", einsum)):
+            apart = (got.float() - host.float()).abs() / ulp
+            other = (routes(got, k) != want).any(-1)
+            result[what] = (apart, other)
+            log("spmd.bf16.gate", product=what, tokens=other.numel(),
+                logits_apart_share=f"{(apart > 0).float().mean().item():.3e}",
+                max_ulps_apart=apart.max().item(),
+                tokens_with_other_experts=int(other.sum()),
+                of_them_fragile=int((other & weak).sum()),
+                fragile_tokens=int(weak.sum()))
+        apart, other = result["gate_product"]
+        check(apart.max().item() <= 1 and not (other & ~weak).any(),
+              f"spmd.bf16 gate: logits {apart.max().item()} ulps from the "
+              f"CPU's or a token that is not fragile keeps other experts")
+        host_lp = tree_map(torch.Tensor.cpu, lp)
+        with gates_seen() as seen:
+            ref = model._layer(host_lp, x[:1].cpu(), 0.0)[0]
+        # each side routes by its own gate input, which the attention
+        # kernels and their plain versions round apart
+        keep = (routes(seen[0][1], k) == routes(logits[:1].cpu(), k)).all(-1)
+        got, want = y[:1].cpu()[keep].double(), ref[keep].double()
+        rel, absd = rel_err(got, want)
+        per_token = (got - want).abs().amax(-1) / want.abs().max()
+    log("spmd.bf16.gate", case="layer0_vs_cpu", sequence=0,
+        routed_apart=int((~keep).sum()),
+        of_them_fragile=int((~keep & fragile(seen[0][1], k)).sum()),
+        rel_err=rel, max_abs_err=absd,
+        tokens_over_layer_rtol=int((per_token >= BF16_LAYER_RTOL).sum()))
+    check(rel < BF16_MOE_LAYER_RTOL, f"spmd.bf16 gate: MoE layer vs the "
+                                     f"CPU {rel} >= {BF16_MOE_LAYER_RTOL}")
+
+
+def phase_spmd(dev: torch.device, seed: int, host_params: dict,
+               leg: SpmdLeg = SPMD_FP32) -> dict:
+    """The transformer over meshes of the card's logical chips
+    (``device_cuda_virtual_chips``) in the leg's dtype: each mesh forward
+    against one chip's logits, each mesh train path's steps, determinism
+    and gradients against one chip's, expert parallelism's step and
+    remat; at bf16 first each kernel at the meshes' shapes on a stream of
+    its own, and the MoE gate against the CPU.  Returns each path's
+    launches by counter, and at bf16 the kernels' largest errors at the
+    shard shapes."""
+    from parsec_tpu_torch import models
+    cfg = dataclasses.replace(gpt2_small("flash"), dtype=leg.dtype)
     params = models.params_to(host_params, dev)
     rng = np.random.RandomState(seed + 9)
     batches = [rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
@@ -5813,10 +6112,13 @@ def phase_spmd(dev: torch.device, seed: int, host_params: dict) -> dict:
     tokens = np.random.RandomState(seed + 7).randint(
         0, cfg.vocab, (cfg.batch, cfg.seq_len))
     labels = np.roll(tokens, -1, axis=1)
-    launches = {}
+    launches, errs = {}, {}
+    if leg.bf16:
+        errs = spmd_kernel_shapes(dev, seed)
     with knobs({"device_cuda_virtual_chips": SPMD_CHIPS}):
         for name, (sizes, changes, counter, per_fwd) in \
                 SPMD_FORWARDS.items():
+            counter = leg.counter(counter)
             c = dataclasses.replace(cfg, **changes)
             p = restage(params, c)
             ref = models.make_forward(c)(p, batches[1])   # one chip
@@ -5836,8 +6138,8 @@ def phase_spmd(dev: torch.device, seed: int, host_params: dict) -> dict:
                 check(tuple(logits.shape) == (cfg.batch, cfg.seq_len,
                                               cfg.vocab)
                       and bool(torch.isfinite(logits).all()),
-                      f"spmd {name}: logits {tuple(logits.shape)} or not "
-                      f"finite")
+                      f"{leg.prefix} {name}: logits {tuple(logits.shape)} "
+                      f"or not finite")
                 if i == 0:
                     first = logits
             got = counts()
@@ -5846,30 +6148,33 @@ def phase_spmd(dev: torch.device, seed: int, host_params: dict) -> dict:
                     for k in COUNTERS}
             rel, absd = rel_err(first, ref)
             mean = sum(seconds) / len(seconds)
-            log("spmd.forward", mesh=name, chips=mesh.size, forwards=n_fwd,
-                seconds=",".join(f"{x:.6f}" for x in seconds),
+            log(f"{leg.prefix}.forward", mesh=name, chips=mesh.size,
+                forwards=n_fwd, seconds=",".join(f"{x:.6f}" for x in seconds),
                 mean_seconds=f"{mean:.6f}",
                 tokens_per_s=f"{cfg.batch * cfg.seq_len / mean:.1f}",
                 peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
                 rel_err_vs_one_chip=rel, max_abs_err=absd, **got)
-            check(got == want, f"spmd {name}: launches {got}, expected "
-                               f"{want}")
-            launches[f"spmd_forward_{name}"] = {counter: got[counter]}
+            check(got == want, f"{leg.prefix} {name}: launches {got}, "
+                               f"expected {want}")
+            launches[leg.key("forward", name)] = {counter: got[counter]}
             del first, logits, ref, fwd
-            if rel >= LOGITS_RTOL:
-                worst = spmd_forward_by_layer(name, c, mesh, p, batches[1])
+            if rel >= leg.logits_rtol:
+                worst = spmd_forward_by_layer(leg, name, c, mesh, p,
+                                              batches[1])
                 one = models.make_forward(c)
                 drift = rel_err(one(nudged(p), batches[1]),
                                 one(p, batches[1]))[0]
-                log("spmd.forward", mesh=name,
+                log(f"{leg.prefix}.forward", mesh=name,
                     case="whole_depth_missed_gate", whole_depth_rel=rel,
                     by_layer_worst_rel=worst,
                     one_chip_one_ulp_nudge_rel=drift)
-                check(worst < LOGITS_RTOL, f"spmd {name}: by layer vs one "
-                                           f"chip {worst} >= {LOGITS_RTOL}")
+                check(worst < leg.logits_rtol,
+                      f"{leg.prefix} {name}: by layer vs one chip {worst} "
+                      f">= {leg.logits_rtol}")
             torch.cuda.empty_cache()
         train_paths = dict(SPMD_TRAIN, moe_tp2_ep2=SPMD_MOE)
         for name, (sizes, changes, per_step) in train_paths.items():
+            per_step = leg.per_step(per_step)
             c = dataclasses.replace(cfg, **changes)
             p0 = moe_params(params, c, seed, dev) if c.n_experts else params
             mesh = spmd_mesh(sizes)
@@ -5888,43 +6193,70 @@ def phase_spmd(dev: torch.device, seed: int, host_params: dict) -> dict:
                 torch.cuda.synchronize()
                 seconds.append(time.perf_counter() - t0)
                 got = counts()
-                check(got == want, f"spmd train {name} step {i}: launches "
-                                   f"{got}, expected {want}")
+                check(got == want, f"{leg.prefix} train {name} step {i}: "
+                                   f"launches {got}, expected {want}")
                 for k in ran:
                     ran[k] += got[k]
                 losses.append(loss.item())
+                check_step_dtypes(f"{leg.prefix}.train", name, i + 1, p,
+                                  state, leg.step_dtypes)
             timed = seconds[1:] or seconds
             mean = sum(timed) / len(timed)
-            log("spmd.train", mesh=name, chips=mesh.size, steps=n_steps,
-                seconds=",".join(f"{x:.6f}" for x in seconds),
+            log(f"{leg.prefix}.train", mesh=name, chips=mesh.size,
+                steps=n_steps, seconds=",".join(f"{x:.6f}" for x in seconds),
                 mean_seconds=f"{mean:.6f}",
                 tokens_per_s=f"{cfg.batch * cfg.seq_len / mean:.1f}",
                 peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
                 losses=",".join(repr(x) for x in losses), **got)
-            check(all(np.isfinite(losses)), f"spmd {name}: losses {losses}")
+            check(all(np.isfinite(losses)), f"{leg.prefix} {name}: losses "
+                                            f"{losses}")
             check(n_steps == 1 or losses[-1] < losses[0],
-                  f"spmd {name}: the loss did not fall: {losses}")
-            launches[f"spmd_train_{name}"] = ran
+                  f"{leg.prefix} {name}: the loss did not fall: {losses}")
+            launches[leg.key("train", name)] = ran
             del p, state, step
             torch.cuda.empty_cache()
-            spmd_grads(name, c, mesh, p0, tokens, labels)
+            spmd_grads(leg, name, c, mesh, p0, tokens, labels)
+            if c.n_experts and leg.bf16:
+                spmd_gate(c, p0, tokens)
             del p0
             torch.cuda.empty_cache()
         for name in SPMD_REMAT:
-            launches[f"spmd_remat_{name}"] = spmd_remat(
-                name, cfg, params, tokens, labels)
-    return launches
+            launches[leg.key("remat", name)] = spmd_remat(
+                leg, name, cfg, params, tokens, labels)
+    return launches, errs
 
 
-def spmd_remat(name: str, cfg, params: dict, tokens, labels) -> dict:
+def check_step_dtypes(phase: str, name: str, step: int, params, state,
+                      step_dtypes: dict) -> None:
+    """Each leaf's dtype after train step ``step`` as ``step_dtypes``
+    says (nothing to check where it says nothing)."""
+    from parsec_tpu_torch.models import train
+    want = step_dtypes.get(step)
+    if not want:
+        return
+    for part, dtype in want.items():
+        leaves = train.tree_leaves(params if part == "params"
+                                   else state[part])
+        check(all(x.dtype == dtype for x in leaves),
+              f"{phase} {name} step {step}: {part} dtypes "
+              f"{sorted({str(x.dtype) for x in leaves})}, expected {dtype}")
+    log(phase, path=name, after_step=step, dtypes_as_jax=True,
+        **{part: str(d)[6:] for part, d in want.items()},
+        count=str(state["count"].dtype)[6:])
+
+
+def spmd_remat(leg: SpmdLeg, name: str, cfg, params: dict, tokens,
+               labels) -> dict:
     """One train step of an SPMD_TRAIN path from the same state with
     remat off, then on: the loss, the new parameters and the Adam moments
     bit-identical, the remat step's launches (each layer's forward kernels
-    once more, in the recompute; the same backward), each step's peak
-    memory.  Returns the remat step's launches."""
+    once more, in the recompute; the same backward), each step's seconds,
+    tokens/s and peak memory.  Returns the remat step's launches."""
     from parsec_tpu_torch import models
     from parsec_tpu_torch.models import train
     sizes, changes, per_step = SPMD_TRAIN[name]
+    per_step = leg.per_step(per_step)
+    stats = leg.counter("flash_stats_launches")
     mesh = spmd_mesh(sizes)
     got = {}
     for remat in (False, True):
@@ -5948,17 +6280,20 @@ def spmd_remat(name: str, cfg, params: dict, tokens, labels) -> dict:
     (a, la, na, pa, sa), (b, lb, nb, pb, sb) = got[False], got[True]
     same = la == lb and len(a) == len(b) and all(map(torch.equal, a, b))
     want = {k: 0 for k in COUNTERS}
-    want.update({k: v * (2 if k == "flash_stats_launches" else 1)
+    want.update({k: v * (2 if k == stats else 1)
                  for k, v in per_step.items()})
-    log("spmd.remat", mesh=name, chips=mesh.size, loss=repr(lb),
+    tokens_n = cfg.batch * cfg.seq_len
+    log(f"{leg.prefix}.remat", mesh=name, chips=mesh.size, loss=repr(lb),
         loss_no_remat=repr(la), bit_identical=same,
         seconds=f"{sb:.6f}", seconds_no_remat=f"{sa:.6f}",
+        tokens_per_s=f"{tokens_n / sb:.1f}",
+        tokens_per_s_no_remat=f"{tokens_n / sa:.1f}",
         peak_mem_gb=f"{pb / 1e9:.2f}", peak_mem_gb_no_remat=f"{pa / 1e9:.2f}",
         **nb)
-    check(same, f"spmd remat {name}: the step differs from the step "
-                f"without remat")
+    check(same, f"{leg.prefix} remat {name}: the step differs from the "
+                f"step without remat")
     check(na == {k: per_step.get(k, 0) for k in COUNTERS} and nb == want,
-          f"spmd remat {name}: launches {nb} (without remat {na}), "
+          f"{leg.prefix} remat {name}: launches {nb} (without remat {na}), "
           f"expected {want}")
     torch.cuda.empty_cache()
     return {k: nb[k] for k in per_step}
@@ -6665,10 +7000,13 @@ def main(argv=None) -> int:
         attn16_launches, host16 = phase_forward_bf16(dev, args.seed)
     with phase_clock("train.bf16"):
         train16_launches = phase_train_bf16(dev, args.seed, host16)
-    del host16
     with phase_clock("spmd"):
-        spmd_launches = phase_spmd(dev, args.seed, host_params)
+        spmd_launches, _ = phase_spmd(dev, args.seed, host_params)
     del host_params
+    with phase_clock("spmd.bf16"):
+        spmd16_launches, spmd16_err = phase_spmd(dev, args.seed, host16,
+                                                 SPMD_BF16)
+    del host16
     with phase_clock("timing"):
         recs = phase_timing(dev, args.seed)
     if args.profile:
@@ -6718,21 +7056,29 @@ def main(argv=None) -> int:
              max_abs_err=gemm16_err, **recs["gemm_bf16"]),
         dict(name="flash_fwd_bf16", route="cuda",
              source=src + "flash_attention_bf16.cu", replaces=tpu + "68",
-             launches={"forward_flash_bf16": attn16_launches["flash"]},
-             max_abs_err=attn16_err["flash"], **recs["flash_bf16"]),
+             launches={"forward_flash_bf16": attn16_launches["flash"],
+                       **spmd_counts(spmd16_launches, "flash_bf16_launches")},
+             max_abs_err=max(attn16_err["flash"], spmd16_err["flash"]),
+             **recs["flash_bf16"]),
         dict(name="flash_fwd_stats_bf16", route="cuda",
              source=src + "flash_attention_bf16.cu", replaces=tpu + "115",
              launches={"forward_ring_bf16": attn16_launches["ring"],
                        **{f"train_{path}_bf16": n["flash_stats_bf16_launches"]
-                          for path, n in train16_launches.items()}},
-             max_abs_err=attn16_err["flash_stats"],
+                          for path, n in train16_launches.items()},
+                       **spmd_counts(spmd16_launches,
+                                     "flash_stats_bf16_launches")},
+             max_abs_err=max(attn16_err["flash_stats"],
+                             spmd16_err["flash_stats"]),
              **recs["flash_stats_bf16"]),
         dict(name="flash_bwd_bf16", route="cuda",
              source=src + "flash_attention_bwd_bf16.cu", replaces=tpu + "287",
-             launches={f"train_{path}_bf16": n["flash_bwd_bf16_launches"]
-                       for path, n in train16_launches.items()
-                       if "flash_bwd_bf16_launches" in n},
-             max_abs_err=attn16_err["flash_bwd"], **recs["flash_bwd_bf16"]),
+             launches={**{f"train_{path}_bf16": n["flash_bwd_bf16_launches"]
+                          for path, n in train16_launches.items()
+                          if "flash_bwd_bf16_launches" in n},
+                       **spmd_counts(spmd16_launches,
+                                     "flash_bwd_bf16_launches")},
+             max_abs_err=max(attn16_err["flash_bwd"], spmd16_err["flash_bwd"]),
+             **recs["flash_bwd_bf16"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

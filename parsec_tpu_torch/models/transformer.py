@@ -52,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
 from ..parallel.mesh import AXES
-from ..parallel.moe import load_balance_loss, moe_ffn
+from ..parallel.moe import gate_product, load_balance_loss, moe_ffn
 from ..parallel.pipeline import gpipe, last_stage_value
 from ..parallel.ring_attention import local_attention, ring_attention
 from ..parallel.sequence import ulysses_attention
@@ -239,9 +239,12 @@ class Transformer(nn.Module):
         x = x + psum(o, "tp")      # heads are tp-sharded
         h2 = self._rmsnorm(x, lp["ln2"])
         if "w1e" in lp:
-            gate_logits = torch.einsum("btd,de->bte", h2, lp["gate"])
+            gate_logits = gate_product(h2, lp["gate"])
+            # in the stream's type, as the dense FFN's (h2 is fp32 once
+            # Adam has made ln2 fp32; the JAX package's scan then raises)
             f = moe_ffn(h2, lp["gate"], lp["w1e"], lp["w2e"], "ep",
-                        top_k=self.cfg.moe_top_k, gate_logits=gate_logits)
+                        top_k=self.cfg.moe_top_k,
+                        gate_logits=gate_logits).to(x.dtype)
             aux = aux + load_balance_loss(gate_logits)
         else:
             # GELU on the fp32 product, rounded once after it

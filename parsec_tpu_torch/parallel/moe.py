@@ -8,6 +8,13 @@ summed over ep by a psum (the identity at ep = 1); no capacity
 dropping.  Top-k gating keeps the probabilities at or above the k-th
 largest and renormalises them.  Differentiable end to end: the
 top-k mask carries no gradient, the kept probabilities do.
+
+The gate follows the JAX package's arithmetic, since at bf16 one ulp of
+a probability can add or drop an expert at the top-k threshold: its
+logits are the product summed in fp32 and rounded once to the operands'
+type, as XLA's dot computes it (:func:`gate_product`), and its
+probabilities follow ``jax.nn.softmax`` step by step in that type
+(:func:`softmax`).
 """
 from __future__ import annotations
 
@@ -17,6 +24,29 @@ import torch
 import torch.nn.functional as F
 
 from .shard_map import axis_index, axis_size, psum
+
+
+def gate_product(x: torch.Tensor, gate_w: torch.Tensor) -> torch.Tensor:
+    """``einsum("...d,de->...e", x, gate_w)`` as XLA's dot computes it:
+    the operands widened to fp32 (a bf16 product is exact there), the
+    sum in fp32, the result rounded once to their promoted type.  A bf16
+    ``torch.einsum`` on the card is a cuBLAS bf16 GEMM, which PyTorch's
+    default lets reduce in bf16."""
+    dt = torch.promote_types(x.dtype, gate_w.dtype)
+    return torch.matmul(x.to(torch.promote_types(dt, torch.float32)),
+                        gate_w.to(torch.promote_types(dt, torch.float32))
+                        ).to(dt)
+
+
+def softmax(logits: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis, with its roundings: ``exp``
+    of the logits less their (non-differentiated) max in the logits'
+    type, the sum of those in fp32 rounded back to that type, and the
+    quotient in it.  ``torch.softmax`` computes a bf16 softmax in fp32
+    and rounds once, so a quarter of its bf16 probabilities differ from
+    JAX's by an ulp."""
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
+    return e / e.float().sum(dim=-1, keepdim=True).to(e.dtype)
 
 
 def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,
@@ -31,8 +61,8 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,
     if top_k < 1:
         raise ValueError(f"moe_ffn: top_k must be at least 1, got {top_k}")
     logits = (gate_logits if gate_logits is not None
-              else torch.einsum("...d,de->...e", x, gate_w))
-    probs = torch.softmax(logits, dim=-1)
+              else gate_product(x, gate_w))
+    probs = softmax(logits)
     if top_k < E_total:
         thresh = torch.topk(probs, top_k, dim=-1).values[..., -1:]
         probs = probs * (probs >= thresh)
@@ -52,7 +82,7 @@ def load_balance_loss(gate_logits: torch.Tensor,
     """The Switch auxiliary load-balancing loss: E times the sum over
     experts of the mean gate probability and the fraction of tokens whose
     argmax is that expert (the first index on a tie)."""
-    probs = torch.softmax(gate_logits, dim=-1)
+    probs = softmax(gate_logits)
     E = probs.shape[-1]
     mean_prob = probs.reshape(-1, E).mean(dim=0)
     hard = F.one_hot(probs.argmax(dim=-1), E).to(probs.dtype)

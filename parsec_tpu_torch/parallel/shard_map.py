@@ -36,11 +36,14 @@ issuer's before it reads its result; a tensor read on another stream than
 its allocation's is recorded on that stream for the caching allocator.
 Sums go in coordinate order, and the issuer is always member 0, so the
 graph, and its backward's order, are the same on every run: two runs are
-bit-identical.  The calling thread watches the run: when no shard has
-deposited, issued or returned for :data:`RENDEZVOUS_TIMEOUT` seconds, the
-call raises, naming each open rendezvous's group and the shards missing
-from it, and the shards still in their bodies; a shard that raises makes
-every peer leave its wait and the call raise.
+bit-identical.  A sum of bf16 operands accumulates in fp32 and rounds
+once, as XLA's all-reduce of bf16 does (the JAX package's ``psum`` on
+the CPU); adding in bf16 would round each add.  The calling thread
+watches the run: when no shard has deposited, issued or returned for
+:data:`RENDEZVOUS_TIMEOUT` seconds, the call raises, naming each open
+rendezvous's group and the shards missing from it, and the shards still
+in their bodies; a shard that raises makes every peer leave its wait and
+the call raise.
 
 A mesh of one chip runs the body on the calling thread, and every
 collective over a group of one is the identity.
@@ -367,12 +370,23 @@ def group_call(op: str, axis_name, operand: Any, issue: Callable) -> Any:
 # ---------------------------------------------------------------------- #
 # the collectives: one autograd node over the group                      #
 # ---------------------------------------------------------------------- #
+def _acc_type(dtype: torch.dtype) -> torch.dtype:
+    """The type a sum of ``dtype`` operands accumulates in: fp32 for a
+    16-bit float, as XLA's all-reduce of bf16 sums in fp32 and rounds
+    once; the operands' own type otherwise."""
+    if dtype.is_floating_point and torch.finfo(dtype).bits < 32:
+        return torch.float32
+    return dtype
+
+
 def _sum_in_order(xs: Sequence[torch.Tensor], chips, at) -> torch.Tensor:
-    """x_0 + x_1 + ... in coordinate order, on chip ``at``."""
-    acc = _move(xs[0], chips[0], at)
+    """x_0 + x_1 + ... in coordinate order, on chip ``at``; bf16 operands
+    summed in fp32 and rounded once (see :func:`_acc_type`)."""
+    dtype = xs[0].dtype
+    acc = _move(xs[0], chips[0], at).to(_acc_type(dtype))
     for x, c in zip(xs[1:], chips[1:]):
         acc = acc + _move(x, c, at)
-    return acc
+    return acc.to(dtype)
 
 
 class _Psum(torch.autograd.Function):
@@ -598,7 +612,8 @@ class _Layout:
 
 class _Scatter(torch.autograd.Function):
     """The differentiable leaves split over every shard in one node; its
-    backward sums each leaf's cotangents in shard coordinate order."""
+    backward sums each leaf's cotangents in shard coordinate order (a
+    bf16 leaf's in fp32, rounded once, as ``_sum_in_order``)."""
 
     @staticmethod
     def forward(ctx, run, home, layouts, *xs):
@@ -623,10 +638,11 @@ class _Scatter(torch.autograd.Function):
             for k, chip in enumerate(run.chips):
                 part = _move(gs[k * n + i], chip, home)
                 if g is None:
-                    g = torch.zeros(ctx.shapes[i], dtype=part.dtype,
+                    dtype = part.dtype
+                    g = torch.zeros(ctx.shapes[i], dtype=_acc_type(dtype),
                                     device=part.device)
                 g[lay.slices[k]] += part
-            grads.append(g)
+            grads.append(g.to(dtype))
         return (None, None, None) + tuple(grads)
 
 
