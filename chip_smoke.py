@@ -8,9 +8,11 @@ Phases, each reporting on its own lines:
 1. device   the card's name, and its name and power limit from nvidia-smi;
 2. build    every CUDA library of this checkout, one nvcc for each, all
             started together: matmul.cu, flash_attention.cu and
-            flash_attention_bwd.cu (fp32), and the tensor-core sources
+            flash_attention_bwd.cu (fp32), the tensor-core sources
             matmul_bf16.cu, flash_attention_bf16.cu (also once more with
-            -DPTT_PHASE_CLOCKS) and flash_attention_bwd_bf16.cu (bf16);
+            -DPTT_PHASE_CLOCKS) and flash_attention_bwd_bf16.cu (bf16),
+            and the wide-head sources flash_attention_wide.cu and
+            flash_attention_bwd_wide.cu (both types, 128 < D <= 256);
             ptxas's report of each build (-Xptxas -v) gives each kernel
             instance's registers, spills and static shared memory;
 3. kernel   the GEMM kernel against its plain PyTorch version on the
@@ -54,6 +56,41 @@ Phases, each reporting on its own lines:
             bf16 row statistics, and a bf16 GEMM with C) raise and launch
             nothing.  At both types, three launches of each forward
             instance are bit-equal at every case;
+4w. kernel.wide the wide kernels (head widths 129..256) against their
+            plain versions, fp32 and bf16: D = 160, 200 and 256 at
+            T = Tk = 1000 causal and not, T = 300 with Tk = 1000
+            (non-causal), T = 1000 with Tk = 300 at D = 200, and the wide
+            path's [1, 8, 8192, 256] causal; o, dq, dk, dv within 1e-4
+            (fp32) or 1e-2 (bf16), m and l within 1e-4; three backward
+            launches bit-equal; misaligned operands bit-exact against
+            aligned copies; launch counts exact with no launch of a
+            D <= 128 instance; a D = 257 call raises a ValueError naming
+            FLASH_D_MAX and launches nothing;
+4x. forward.wide the transformer at Gemma 2B's widths (google/gemma-2b's
+            config.json: vocab 256000, d_model 2048, 8 heads of 256, 18
+            layers, d_ff 16384, 8192 positions; the repo's model, not
+            Gemma: 8 KV heads, a GELU up-projection, learned positions;
+            2,051,090,432 parameters drawn on the card from a seed)
+            through models.make_forward on [1, 8192], "flash" and
+            "ring", fp32 and bf16: a warm-up and 2 timed forwards each,
+            seconds, tokens/s, peak memory, 18 launches a forward of the
+            path's wide instance and none of any other; ring vs flash
+            within 2e-4 at fp32 (reported at bf16); layers 0 and 17 and
+            the head against the CPU port on the card's input over a
+            1024-token prefix (causal: the prefix's outputs do not depend
+            on later tokens), within 2e-4 (fp32) or 2e-2 (bf16);
+4y. train.wide the same model through models.make_train_step with
+            "flash" and remat, fp32 and bf16: first the VJPs of layers 0
+            and 17 against the CPU port over the prefix with a seeded
+            cotangent (1e-3 fp32, 4e-2 bf16), then a warm-up and 2 timed
+            Adam steps: seconds, tokens/s, peak memory, the loss finite
+            and falling, 36 launches of the wide stats instance and 18 of
+            the wide backward a step and none of any other, at bf16 the
+            leaf dtypes after steps 1 and 2 as the JAX package's.  4w to
+            4y run right after attention.bf16, while the process holds
+            nothing on the card; 4x's and 4y's CPU references run on a
+            worker thread beside the card's legs, and their gates are
+            read after 4y ([phase_seconds] name=wide.cpu_checks);
 4b. bodies  the DPLASMA family's product bodies (gemm_nn_sub, gemm_tn_sub,
             unmqr, tsmqr, gemm with alpha 1.5 and beta 0.5, and with B
             transposed) against the GEMM kernel's plain version on the
@@ -179,7 +216,9 @@ Phases, each reporting on its own lines:
             its residual under 1e-4;
 5d. dtd_gemm the reference's dtd_test_simple_gemm shape: C += A B over
             NT^3 = 4096 tasks, chore ops.gemm_nn, chained on C(m, n) in
-            k order; all on cuda:0, GFLOP/s (2 N^3 over the wall), the
+            k order, at N = 8192 and NB = 512 (DTD_GEMM_N, DTD_GEMM_NB:
+            cut from 16384 and 1024, NT = 16 kept, to keep the script's
+            margin); all on cuda:0, GFLOP/s (2 N^3 over the wall), the
             residual;
 5d'. wave_dist the distributed wave (dsl/ptg/wave_dist.py) in this
             process: 4 SPMD rank threads on MeshFabric([cuda:0] * 4),
@@ -356,7 +395,9 @@ Phases, each reporting on its own lines:
             launches recorded in the graph and the replays (apart: a
             replay counts nothing), the peak device memory; dpotrf runs
             twice, on main's input (bit-identical factor) and on another
-            seeded matrix; every residual under 1e-4;
+            seeded matrix; the other four at N = 8192 (CAPTURE_CUT_N,
+            cut from 16384 to keep the script's margin; each held by its
+            residual); every residual under 1e-4;
 6c. dtd_capture phase dtd's Cholesky recorded through dtd_capture() and
             replayed; bit-identical to phase dtd's factor;
 7. forward  the transformer path at GPT-2-small widths (vocab 50257,
@@ -475,7 +516,12 @@ Phases, each reporting on its own lines:
             forward spends its clocks, causal and not, phase by phase of
             its loop (the source's measurement build,
             flash_attention_bf16_phases, whose o is checked bit-equal to
-            the plain build's);
+            the plain build's); then the wide instances at the wide
+            path's [1, 8, 8192, 256] causal, fp32 and bf16, by CUDA
+            events and by device time, beside their bounds, their plain
+            versions and SDPA at D = 256 (forward and backward), and each
+            wide instance's registers, spills, shared memory and resident
+            blocks an SM;
 9. profile  with --profile only (and rank 0 of multirank dposv_2, in its
             timed run, so that run's wall includes the profiler): the
             dpotrf, DTD Cholesky, dgeqrf and
@@ -494,7 +540,9 @@ own, printed when the phase ends.
 Any failure raises and exits non-zero; so does a machine where PyTorch
 sees no CUDA device.  The line before the last is the kernels' record
 {"kernels": [...]} (gemm_f32, flash_fwd_f32, flash_fwd_stats_f32,
-flash_bwd_f32 and their bf16 instances); the last line is
+flash_bwd_f32 and their bf16 instances, then the wide instances
+flash_wide, flash_stats_wide and flash_bwd_wide at f32 and bf16); the
+last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -567,8 +615,11 @@ BF16_STEP_DTYPES = {1: {"params": torch.float32, "mu": torch.bfloat16,
 
 
 def log(phase: str, **kv) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
-          flush=True)
+    # one write a line: the wide phases' CPU worker logs beside the main
+    # thread
+    sys.stdout.write(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in
+                                              kv.items()) + "\n")
+    sys.stdout.flush()
 
 
 def check(ok: bool, msg: str) -> None:
@@ -592,7 +643,10 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor):
 COUNTERS = ("matmul_launches", "flash_launches", "flash_stats_launches",
             "flash_bwd_launches", "matmul_bf16_launches",
             "flash_bf16_launches", "flash_stats_bf16_launches",
-            "flash_bwd_bf16_launches")
+            "flash_bwd_bf16_launches", "flash_wide_launches",
+            "flash_stats_wide_launches", "flash_bwd_wide_launches",
+            "flash_wide_bf16_launches", "flash_stats_wide_bf16_launches",
+            "flash_bwd_wide_bf16_launches")
 
 
 def reset_counts() -> None:
@@ -1373,6 +1427,13 @@ def phase_dposv(seed: int, n: int = N_MAIN, nb: int = NB_MAIN,
 # ---------------------------------------------------------------------- #
 STAGEC_EXCLUDE = "SYRK"   # (4): the device class left to the residue
 STAGEC_CUT_N = 8192       # (4) and (5): their N, cut from N_MAIN
+#: phase capture's dposv, pdgemm, dgetrf_nopiv and dgeqrf legs: their N,
+#: cut from N_MAIN to keep the script's margin (they are held by their
+#: residuals; dpotrf stays at N_MAIN, bit for bit against phase main's)
+CAPTURE_CUT_N = 8192
+#: phase dtd_gemm's N and NB, cut from N_MAIN and NB_MAIN with the
+#: reference's NT = 16 (4096 tasks) kept (held by its residual)
+DTD_GEMM_N, DTD_GEMM_NB = 8192, 512
 #: the multirank spawns whose ranks run dposv once more with the knob on
 STAGEC_IN_SPAWNS = ("dposv_2",)
 XRANK_RANKS = 2           # (6): rank threads on loopback TCP, P = 2, Q = 1
@@ -4909,7 +4970,8 @@ def phase_dtd(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
     return launches, L
 
 
-def phase_dtd_gemm(seed: int, n: int = N_MAIN, nb: int = NB_MAIN) -> int:
+def phase_dtd_gemm(seed: int, n: int = DTD_GEMM_N,
+                   nb: int = DTD_GEMM_NB) -> int:
     """dtd_test_simple_gemm's shape: C += A B over NT^3 tasks, chore
     ops.gemm_nn, chained on C(m, n) in k order."""
     from parsec_tpu_torch import dtd, ops
@@ -5000,13 +5062,14 @@ def free_graph(cg) -> None:
 
 
 def phase_capture(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
-                  nb: int = NB_MAIN) -> tuple:
+                  nb: int = NB_MAIN, n_cut: int = CAPTURE_CUT_N) -> tuple:
     """dpotrf, dposv (capture_sequence of its three pools), pdgemm
     (op(A) = A), dgetrf_nopiv and dgeqrf each recorded as ONE CUDA graph
-    and replayed; dpotrf run twice, on phase main's input (bit-identical
-    factor) and on another seeded matrix.  Returns, by routine, the GEMM
-    kernel's launches that ran through its wrapper (the warm-up's), and
-    each graph's recorded launches and replays (graph_report)."""
+    and replayed; dpotrf at ``n``, run twice, on phase main's input
+    (bit-identical factor) and on another seeded matrix; the others,
+    held by their residuals, at ``n_cut``.  Returns, by routine, the
+    GEMM kernel's launches that ran through its wrapper (the warm-up's),
+    and each graph's recorded launches and replays (graph_report)."""
     import parsec_tpu_torch as ptt
     from parsec_tpu_torch.dsl import ptg
     from parsec_tpu_torch.ops.dtrsm import (dtrsm_lower_taskpool,
@@ -5036,7 +5099,10 @@ def phase_capture(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
     check(same, "capture dpotrf: the captured factor differs from the "
                 "interpreted one")
     free_graph(cg)
-    del A, M2, L0, L2
+    del A, M, M2, L0, L2
+    # the legs held by residuals, at n_cut
+    n, nt = n_cut, n_cut // nb
+    M = synth_spd(n, seed)
     # dposv: one graph over the three pools
     Bm = uniform(n, NRHS, seed=seed + 10)
     A, B = tiled(M, nb), tiled(Bm, nb)
@@ -5047,7 +5113,7 @@ def phase_capture(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
                                dtrsm_lower_trans_taskpool(A, B)])
     cg.record()
     runs = [run_graph(cg)]
-    WALLS["dposv_captured"] = runs[0][0]
+    WALLS[f"dposv_captured_n{n}"] = runs[0][0]
     mt, rt = A.mt, B.nt
     # each substitution: its TRSM and GEMM tasks, and a host task reading
     # each tile of the factor
@@ -5056,7 +5122,7 @@ def phase_capture(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
         "capture", "dposv", cg, runs,
                  solve_residual(M, B.to_numpy(), Bm, seed),
                  mt * (mt + 1) * (mt + 2) // 6 + 2 * solve,
-                 torch.cuda.max_memory_allocated())
+                 torch.cuda.max_memory_allocated(), n=n)
     free_graph(cg)
     del A, B, Bm, M
     # pdgemm: run(device=<the context's device module>), results kept as
@@ -5081,7 +5147,7 @@ def phase_capture(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
         launches["pdgemm"], graphs["pdgemm"] = graph_report(
             "capture", "pdgemm_nn", cg, runs,
                      rel_inf(matvec(Cout, X) - ref, ref), nt ** 3 + 2 * nt * nt,
-                     torch.cuda.max_memory_allocated(),
+                     torch.cuda.max_memory_allocated(), n=n,
                      tiles_left_on_device=on_device)
         check(on_device == nt * nt, f"capture pdgemm: {on_device} of "
                                     f"{nt * nt} C tiles left on the card")
@@ -5111,7 +5177,7 @@ def phase_capture(seed: int, L_ptg: np.ndarray, n: int = N_MAIN,
             resid = rel_inf(got - ref, ref)
         launches[routine], graphs[routine] = graph_report(
             "capture", routine, cg, runs, resid, lu_counts(nt)[0],
-            torch.cuda.max_memory_allocated())
+            torch.cuda.max_memory_allocated(), n=n)
         free_graph(cg)
         del A, out
     return launches, graphs
@@ -5549,6 +5615,423 @@ def check_grads_against_cpu(cfg, params, host_params, tokens0,
         cpu=repr(cpu_loss), cpu_fp64=repr(cpu64_loss),
         rel_err=abs(card_loss - cpu_loss) / abs(cpu_loss),
         cpu_vs_fp64=abs(cpu_loss - cpu64_loss) / abs(cpu64_loss))
+
+
+# ---------------------------------------------------------------------- #
+# head widths up to 256: the wide kernels and Gemma 2B's widths          #
+# ---------------------------------------------------------------------- #
+#: the wide path's attention: B, H, T, D of one layer at Gemma 2B's widths
+WIDE_SHAPE = (1, 8, 8192, 256)
+#: the wide kernels' cases: (case, B, H, T, Tk, D, causal); ragged
+#: T = Tk = 1000 at D = 160, 200 and 256 causal and not, T above and below
+#: Tk, and the path's shape
+WIDE_CASES = [(f"t1000_d{D}_{'causal' if c else 'noncausal'}", 1, 4, 1000,
+               1000, D, c) for D in (160, 200, 256) for c in (True, False)] + [
+    ("t300_tk1000_d256_noncausal", 1, 4, 300, 1000, 256, False),
+    ("t1000_tk300_d200_causal", 1, 4, 1000, 300, 200, True),
+    ("path_1x8x8192_d256_causal", *WIDE_SHAPE[:3], WIDE_SHAPE[2],
+     WIDE_SHAPE[3], True)]
+WIDE_PREFIX = 1024     # tokens of the card-vs-CPU checks
+WIDE_FORWARDS = 2      # timed forwards per attention and type, after a warm-up
+WIDE_STEPS = 2         # timed train steps per type, after a warm-up
+WIDE_LAYERS = (0, 17)  # the layers held to the CPU port
+
+
+def wide_counter(counter: str, dtype: torch.dtype) -> str:
+    """The counter of a wide instance at the given type."""
+    return counter if dtype == torch.float32 else counter.replace(
+        "_launches", "_bf16_launches")
+
+
+def rel_err_rows(out: torch.Tensor, ref: torch.Tensor, rows: int = 512):
+    """``rel_err`` in fp64 a block of rows at a time: whole logits of the
+    wide model are 8.4 GB in fp32."""
+    a, b = out.reshape(-1, out.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    diff = top = 0.0
+    for i in range(0, a.shape[0], rows):
+        x, y = a[i:i + rows].double(), b[i:i + rows].double()
+        diff = max(diff, (x - y).abs().max().item())
+        top = max(top, y.abs().max().item())
+    return diff / top, diff
+
+
+def phase_kernel_wide(dev: torch.device, seed: int) -> dict:
+    """The wide kernels (flash_attention_wide.cu, flash_attention_bwd_wide.cu)
+    against their plain versions on the card, fp32 and bf16, at every
+    WIDE_CASES case: o, dq, dk and dv within RTOL (fp32) or BF16_RTOL, m
+    and l within RTOL; three backward launches bit-equal; misaligned
+    operands (misaligned()) bit-exact against aligned copies; exact
+    launch counts, none of a D <= 128 instance; a D = 257 call raises by
+    name and launches nothing.  Returns each wide instance's max abs
+    error at the path's shape."""
+    from parsec_tpu_torch.ops import kernels
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = RTOL if dtype == torch.float32 else BF16_RTOL
+        name = str(dtype)[6:]
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        reset_counts()
+        for case, B, H, T, Tk, D, causal in WIDE_CASES:
+            q, k, v = (torch.randn(B, H, t, D, generator=g, device=dev)
+                       .to(dtype) for t in (T, Tk, Tk))
+            do = torch.randn(B, H, T, D, generator=g, device=dev).to(dtype)
+            o = kernels.flash_attention(q, k, v, causal=causal)
+            stats = kernels.flash_attention_stats(q, k, v, causal=causal)
+            grads = kernels.flash_attention_bwd(q, k, v, *stats, do, causal)
+            finish_within(f"flash_bwd_wide {case}", BWD_DEADLINE_S)
+            for _ in range(2):     # no float atomics: the same bits
+                again = kernels.flash_attention_bwd(q, k, v, *stats, do,
+                                                    causal)
+                check(all(map(torch.equal, grads, again)),
+                      f"flash_bwd_wide {case} {name}: launches on the same "
+                      f"inputs differ")
+            del again
+            # the 4-byte-copy (fp32) and one-value (bf16) paths: the same
+            # arithmetic as the 16-byte one
+            mis = [misaligned(x) for x in (q, k, v, stats[0], do)]
+            check(torch.equal(kernels.flash_attention(*mis[:3],
+                                                      causal=causal), o)
+                  and all(map(torch.equal, kernels.flash_attention_stats(
+                      *mis[:3], causal=causal), stats))
+                  and all(map(torch.equal, kernels.flash_attention_bwd(
+                      *mis[:4], *stats[1:], mis[4], causal), grads)),
+                  f"wide {case} {name}: misaligned and aligned copies "
+                  f"differ")
+            del mis
+            refs = [("flash_wide", "o", o, kernels.flash_attention_plain(
+                q, k, v, causal=causal))]
+            refs += [("flash_stats_wide", part, a, b) for part, a, b in zip(
+                "oml", stats, kernels.flash_attention_stats_plain(
+                    q, k, v, causal=causal))]
+            refs += [("flash_bwd_wide", part, a, b) for part, a, b in zip(
+                ("dq", "dk", "dv"), grads, kernels.flash_attention_bwd_plain(
+                    q, k, v, *stats, do, causal))]
+            torch.cuda.synchronize()
+            for kernel, part, a, b in refs:
+                rel, absd = rel_err(a, b)
+                if case.startswith("path"):
+                    key = f"{kernel}_{tag}"
+                    worst[key] = max(worst.get(key, 0.0), absd)
+                bar = tol if part not in "ml" else RTOL
+                log("kernel.wide", kernel=kernel, case=case, out=part,
+                    dtype=str(a.dtype)[6:], shape=tuple(a.shape),
+                    causal=causal, rel_err=rel, max_abs_err=absd)
+                check(a.dtype == (dtype if part not in "ml"
+                                  else torch.float32),
+                      f"{kernel} {case} {part}: dtype {a.dtype}")
+                check(rel < bar, f"{kernel} {case} {part} {name}: relative "
+                                 f"error {rel} >= {bar}")
+            log("kernel.wide", case=case, dtype=name, bwd_repeats=3,
+                bit_exact=True, misaligned_bit_exact=True)
+            del q, k, v, do, o, stats, grads, refs
+        got, n = counts(), len(WIDE_CASES)
+        want = {c: 0 for c in COUNTERS}
+        want.update({wide_counter("flash_wide_launches", dtype): 2 * n,
+                     wide_counter("flash_stats_wide_launches", dtype): 2 * n,
+                     wide_counter("flash_bwd_wide_launches", dtype): 4 * n})
+        log("kernel.wide", dtype=name, **got)
+        check(got == want, f"kernel.wide {name}: launches {got}, expected "
+                           f"{want}")
+        torch.cuda.empty_cache()
+    # past FLASH_D_MAX: a ValueError naming the limit, nothing launched
+    x = torch.randn(1, 1, 16, 257, generator=g, device=dev)
+    ml = torch.zeros(1, 1, 16, device=dev)
+    before = counts()
+    for call in (lambda: kernels.flash_attention(x, x, x),
+                 lambda: kernels.flash_attention_stats(x, x, x),
+                 lambda: kernels.flash_attention_bwd(x, x, x, x, ml, ml, x)):
+        try:
+            call()
+        except ValueError as exc:
+            check("FLASH_D_MAX" in str(exc), f"D = 257: {exc}")
+            log("kernel.wide", case="d257", raised=repr(str(exc)))
+        else:
+            check(False, "D = 257 on the card did not raise")
+    check(counts() == before, f"a refused D = 257 call launched: {counts()}")
+    return worst
+
+
+def gemma2b_widths(attention: str, dtype: torch.dtype = torch.float32):
+    """Gemma 2B's widths (google/gemma-2b config.json: hidden_size 2048,
+    intermediate_size 16384, num_attention_heads 8, head_dim 256,
+    num_hidden_layers 18, vocab_size 256000, max_position_embeddings
+    8192) as the JAX model's config, batch 1 at the full 8192 positions:
+    2,051,090,432 parameters.  It is the repo's model at those widths, not
+    Gemma: 8 KV heads (Gemma 2B has one), one GELU up-projection of width
+    16384 (no GeGLU gate), learned positions (no rotary ones), RMSNorm and
+    a tied head, as parsec_tpu/models/transformer.py has them."""
+    from parsec_tpu_torch.models import TransformerConfig
+    return TransformerConfig(vocab=256000, d_model=2048, n_heads=8,
+                             d_head=256, n_stages=1, layers_per_stage=18,
+                             d_ff=16384, n_experts=0, seq_len=8192, batch=1,
+                             n_micro=1, attention=attention, dtype=dtype)
+
+
+def wide_params(cfg, seed: int, dev: torch.device) -> dict:
+    """The model's tree drawn on the card from a seeded torch.Generator at
+    init_params's scales (embed and pos 0.02, every other weight
+    1/sqrt of its second-to-last dimension, the norms ones), in the
+    config's dtype: a host init_params of two billion normals would take
+    minutes and 16 GB of host memory.  The CPU tests hold init_params to
+    the JAX package's tree."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape, scale=None):
+        scale = scale or shape[-2] ** -0.5
+        return torch.randn(shape, generator=g, device=dev).mul_(scale).to(
+            cfg.dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+
+    S, L = cfg.n_stages, cfg.layers_per_stage
+    D, H, Dh, Fd = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff
+    return {"embed": w(cfg.vocab, D, scale=0.02),
+            "pos": w(cfg.seq_len, D, scale=0.02), "ln_f": ones(D),
+            "stages": {"ln1": ones(S, L, D), "ln2": ones(S, L, D),
+                       "wqkv": w(S, L, D, 3, H, Dh), "wo": w(S, L, H, Dh, D),
+                       "w1": w(S, L, D, Fd), "w2": w(S, L, Fd, D)}}
+
+
+def wide_layer(tree: dict, i: int) -> dict:
+    return tree_map(lambda a: a.reshape(-1, *a.shape[2:])[i], tree)
+
+
+def wide_inputs(cfg, params: dict, tokens) -> dict:
+    """The card's input to each layer of WIDE_LAYERS and to the head, over
+    the whole sequence, cut to its WIDE_PREFIX-token prefix: under the
+    causal mask a prefix's outputs do not depend on later tokens."""
+    from parsec_tpu_torch import models
+    model = models.Transformer(cfg)
+    xs = {}
+    with torch.inference_mode():
+        x = model._embed(params, torch.as_tensor(tokens, device=params[
+            "embed"].device))
+        for i in range(cfg.n_layers):
+            if i in WIDE_LAYERS:
+                xs[i] = x[:, :WIDE_PREFIX].clone()
+            x = model._layer(wide_layer(params["stages"], i), x, 0.0)[0]
+        xs["head"] = x[:, :WIDE_PREFIX].clone()
+    return xs
+
+
+def wide_forward_vs_cpu(phase: str, cfg, params: dict, xs: dict,
+                        tol: float):
+    """Layers WIDE_LAYERS and the head on the card on the card's input
+    over the prefix, now; returns the check that holds them to the CPU
+    port (plain versions) on the same input within tol, to run on the
+    CPU worker (wide_cpu_worker) while the card goes on."""
+    from parsec_tpu_torch import models
+    model = models.Transformer(cfg)
+    with torch.inference_mode():
+        card, host = {}, {}
+        for i in WIDE_LAYERS:
+            lp = wide_layer(params["stages"], i)
+            y = model._layer(lp, xs[i], 0.0)[0]
+            check(y.dtype == cfg.dtype, f"layer {i}: output {y.dtype}")
+            card[i], host[i] = y.cpu(), tree_map(lambda a: a.cpu(), lp)
+        card["head"] = model._head(params, xs["head"]).cpu()
+        host["head"] = {n: params[n].cpu() for n in ("embed", "ln_f")}
+        inputs = {k: x.cpu() for k, x in xs.items()}
+
+    def on_cpu() -> None:
+        t0 = time.perf_counter()
+        worst = 0.0
+        with torch.inference_mode():
+            for i in WIDE_LAYERS:
+                rel, absd = rel_err(card[i], model._layer(
+                    host[i], inputs[i], 0.0)[0])
+                log(phase, case="layer_vs_cpu", layer=i, tokens=WIDE_PREFIX,
+                    rel_err=rel, max_abs_err=absd)
+                worst = max(worst, rel)
+            rel, absd = rel_err_rows(card["head"], model._head(
+                host["head"], inputs["head"]))
+        log(phase, case="head_vs_cpu", tokens=WIDE_PREFIX, rel_err=rel,
+            max_abs_err=absd, cpu_seconds=f"{time.perf_counter() - t0:.3f}")
+        worst = max(worst, rel)
+        check(worst < tol, f"{phase}: card vs CPU on the same input: "
+                           f"relative error {worst} >= {tol}")
+
+    return on_cpu
+
+
+def wide_cpu_worker():
+    """One worker thread for the wide phases' CPU references, so that
+    they run while the card does the next leg's work (the host mostly
+    waits on the card there); its torch threads leave one core to the
+    thread that drives the card.  Returns the executor and a function
+    that restores the thread count."""
+    from concurrent.futures import ThreadPoolExecutor
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 1))
+    return (ThreadPoolExecutor(max_workers=1),
+            lambda: torch.set_num_threads(threads))
+
+
+def phase_forward_wide(dev: torch.device, seed: int, cpu) -> tuple:
+    """The transformer at Gemma 2B's widths (gemma2b_widths) through
+    make_forward on [1, 8192] with attention="flash" and "ring", fp32 and
+    bf16, from seeded weights drawn on the card: a warm-up and
+    WIDE_FORWARDS timed forwards each, seconds, tokens/s and peak memory,
+    18 launches a forward of the path's wide instance (the forward for
+    flash, stats for ring) and none of any other; ring vs flash logits
+    within LOGITS_RTOL at fp32, reported at bf16; layers WIDE_LAYERS and
+    the head against the CPU port on the card's input over a
+    WIDE_PREFIX-token prefix, within LOGITS_RTOL (fp32) or
+    BF16_LAYER_RTOL; those checks run on the CPU worker ``cpu``.
+    Returns each path's launches and the checks' futures."""
+    from parsec_tpu_torch import models
+    from parsec_tpu_torch.models import train
+    launches, checks = {}, []
+    for dtype, tol in ((torch.float32, LOGITS_RTOL),
+                       (torch.bfloat16, BF16_LAYER_RTOL)):
+        name = str(dtype)[6:]
+        phase = f"forward.wide.{name}"
+        cfg = gemma2b_widths("flash", dtype)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = wide_params(cfg, seed + 23, dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in train.tree_leaves(params))
+        log(phase, params=n_params,
+            init_seconds=f"{time.perf_counter() - t0:.3f}")
+        rng = np.random.RandomState(seed + 25)
+        batches = [rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
+                   for _ in range(1 + WIDE_FORWARDS)]
+        per_layer = {"flash": wide_counter("flash_wide_launches", dtype),
+                     "ring": wide_counter("flash_stats_wide_launches",
+                                          dtype)}
+        first, got = forward_legs(phase, cfg, params, batches, per_layer)
+        launches.update({f"{a}_{name}": n for a, n in got.items()})
+        rel, absd = rel_err_rows(first["ring"], first["flash"])
+        log(phase, case="ring_vs_flash", rel_err=rel, max_abs_err=absd)
+        check(dtype != torch.float32 or rel < LOGITS_RTOL,
+              f"{phase}: ring vs flash logits {rel} >= {LOGITS_RTOL}")
+        del first
+        checks.append(cpu.submit(wide_forward_vs_cpu(
+            phase, cfg, params, wide_inputs(cfg, params, batches[1]), tol)))
+        del params
+    torch.cuda.empty_cache()
+    return launches, checks
+
+
+def wide_grads_vs_cpu(phase: str, cfg, params: dict, xs: dict, seed: int,
+                      tol: float):
+    """The VJPs of layers WIDE_LAYERS on the card, on the card's input over
+    the WIDE_PREFIX-token prefix with a seeded cotangent, now; returns the
+    check that holds every parameter's gradient and dx to the CPU port's
+    within tol, to run on the CPU worker."""
+    from parsec_tpu_torch import models
+    model = models.Transformer(cfg)
+    g = torch.Generator().manual_seed(seed)
+
+    def vjp(lp, x, dy):
+        lp = tree_map(lambda a: a.detach().clone().requires_grad_(True), lp)
+        x = x.detach().clone().requires_grad_(True)
+        out = model._layer(lp, x, 0.0)[0]
+        names = sorted(lp)
+        return dict(zip(["x"] + names, torch.autograd.grad(
+            out, [x] + [lp[n] for n in names], dy)))
+
+    card, host = {}, {}
+    with torch.enable_grad():
+        for i in WIDE_LAYERS:
+            lp = wide_layer(params["stages"], i)
+            dy = torch.randn(xs[i].shape, generator=g).to(cfg.dtype)
+            card[i] = {n: a.cpu() for n, a in vjp(
+                lp, xs[i], dy.to(xs[i].device)).items()}
+            host[i] = (tree_map(lambda a: a.cpu(), lp), xs[i].cpu(), dy)
+
+    def on_cpu() -> None:
+        t0 = time.perf_counter()
+        worst = 0.0
+        with torch.enable_grad():
+            for i in WIDE_LAYERS:
+                cpu = vjp(*host[i])
+                for name, a in card[i].items():
+                    rel, absd = rel_err(a, cpu[name])
+                    log(phase, case="grad_vs_cpu", part=f"layer{i}",
+                        grad=name, dtype=str(a.dtype)[6:],
+                        tokens=WIDE_PREFIX, rel_err=rel, max_abs_err=absd)
+                    worst = max(worst, rel)
+        log(phase, case="grads_vs_cpu", layers=list(WIDE_LAYERS),
+            worst_rel=worst, cpu_seconds=f"{time.perf_counter() - t0:.3f}")
+        check(worst < tol, f"{phase}: card vs CPU gradients on the same "
+                           f"input: relative error {worst} >= {tol}")
+
+    return on_cpu
+
+
+def phase_train_wide(dev: torch.device, seed: int, cpu) -> tuple:
+    """The transformer at Gemma 2B's widths trained through
+    make_train_step with attention="flash" and remat=True on [1, 8192],
+    fp32 and bf16, from seeded weights drawn on the card: first the VJPs
+    of layers WIDE_LAYERS against the CPU port over the prefix (GRAD_RTOL,
+    BF16_GRAD_RTOL), then a warm-up and WIDE_STEPS timed Adam steps (lr
+    TRAIN_LR, labels roll(tokens, -1)): seconds, tokens/s, peak memory,
+    the loss finite and falling, launches exact a step (36 of the wide
+    stats instance: remat runs each layer's forward twice; 18 of the
+    wide backward; none of any other), and at bf16 the leaf dtypes after
+    steps 1 and 2 as the JAX package's (BF16_STEP_DTYPES).  Only the
+    step's own tree is held, so the initial parameters go with the first
+    step.  The VJPs' CPU references run on the CPU worker ``cpu``
+    beside the steps.  Returns each type's launches by counter and the
+    checks' futures."""
+    from parsec_tpu_torch import models
+    launches, checks = {}, []
+    for dtype, tol in ((torch.float32, GRAD_RTOL),
+                       (torch.bfloat16, BF16_GRAD_RTOL)):
+        name = str(dtype)[6:]
+        phase = f"train.wide.{name}"
+        cfg = gemma2b_widths("flash", dtype)
+        torch.cuda.empty_cache()
+        p = wide_params(cfg, seed + 27, dev)
+        rng = np.random.RandomState(seed + 29)
+        tokens = rng.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len))
+        labels = np.roll(tokens, -1, axis=1)
+        checks.append(cpu.submit(wide_grads_vs_cpu(
+            phase, cfg, p, wide_inputs(cfg, p, tokens), seed + 31, tol)))
+        step = models.make_train_step(dataclasses.replace(cfg, remat=True),
+                                      lr=TRAIN_LR)
+        state = models.adam_init(p)
+        want = {c: 0 for c in COUNTERS}
+        want[wide_counter("flash_stats_wide_launches", dtype)] = \
+            2 * cfg.n_layers
+        want[wide_counter("flash_bwd_wide_launches", dtype)] = cfg.n_layers
+        dtypes = BF16_STEP_DTYPES if dtype == torch.bfloat16 else {}
+        losses, seconds = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1 + WIDE_STEPS):           # a warm-up, then timed
+            reset_counts()
+            t0 = time.perf_counter()
+            p, state, loss = step(p, state, tokens, labels)
+            torch.cuda.synchronize()
+            if i:
+                seconds.append(time.perf_counter() - t0)
+            got = counts()
+            check(got == want, f"{phase} step {i}: launches {got}, "
+                               f"expected {want}")
+            losses.append(loss.item())
+            check_step_dtypes(phase, "flash_remat", i + 1, p, state, dtypes)
+        mean = sum(seconds) / len(seconds)
+        log(phase, path="flash_remat", dtype=name, steps=1 + WIDE_STEPS,
+            seconds=",".join(f"{x:.6f}" for x in seconds),
+            mean_seconds=f"{mean:.6f}",
+            tokens_per_s=f"{cfg.batch * cfg.seq_len / mean:.1f}",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            losses=",".join(repr(x) for x in losses), **got)
+        check(all(np.isfinite(losses)), f"{phase}: losses {losses}")
+        check(losses[-1] < losses[0], f"{phase}: the loss did not fall: "
+                                      f"{losses}")
+        launches[name] = {c: n * (1 + WIDE_STEPS) for c, n in want.items()
+                          if n}
+        del p, state, step
+        torch.cuda.empty_cache()
+    return launches, checks
+
 
 
 # ---------------------------------------------------------------------- #
@@ -6439,6 +6922,7 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
     kernel_instances("flash_attention_bwd")
     del leaves, do, o, m, l
     recs.update(timing_bf16(dev, g))
+    recs.update(timing_wide(dev, g))
     cases = {"gemm": (f"gemm_nt nb={nb} fp32", 2.0 * nb ** 3),
              "flash": (f"flash_attention {list(ATTN_SHAPE)} causal fp32",
                        flops),
@@ -6453,6 +6937,18 @@ def phase_timing(dev: torch.device, seed: int) -> dict:
                                   f"{list(ATTN_SHAPE)} causal bf16", flops),
              "flash_bwd_bf16": (f"flash_attention_bwd {list(ATTN_SHAPE)} "
                                 f"causal bf16", 2.5 * flops)}
+    B, H, T, D = WIDE_SHAPE
+    wide = 4.0 * B * H * D * T * (T + 1) / 2
+    for tag in ("f32", "bf16"):
+        cases.update({
+            f"flash_wide_{tag}": (f"flash_attention {list(WIDE_SHAPE)} "
+                                  f"causal {tag} wide", wide),
+            f"flash_stats_wide_{tag}": (f"flash_attention_stats "
+                                        f"{list(WIDE_SHAPE)} causal {tag} "
+                                        f"wide", wide),
+            f"flash_bwd_wide_{tag}": (f"flash_attention_bwd "
+                                      f"{list(WIDE_SHAPE)} causal {tag} "
+                                      f"wide", 2.5 * wide)})
     for key, (case, work) in cases.items():
         rec = recs[key]
         log("timing", case=case, kernel_ms=rec["ms"],
@@ -6564,6 +7060,79 @@ def timing_bf16(dev: torch.device, g) -> dict:
     kernel_instances("flash_attention_bf16", "ptt_flash_fwd_bf16_attributes")
     for causal in (True, False):
         phase_clocks(q, k, v, causal)
+    return recs
+
+
+def timing_wide(dev: torch.device, g) -> dict:
+    """The wide instances at the wide path's shape (WIDE_SHAPE, causal),
+    fp32 and bf16, by CUDA events and by torch.profiler's kernel time,
+    beside their bounds (fp32 outside the tensor cores at fp32, the bf16
+    tensor-core peak at bf16), their plain versions and SDPA at D = 256
+    in the same type (forward; backward as forward plus backward less
+    forward, and alone by device time)."""
+    import torch.nn.functional as F
+    from parsec_tpu_torch.ops import kernels
+    B, H, T, D = WIDE_SHAPE
+    flops = 4.0 * B * H * D * T * (T + 1) / 2
+    recs = {}
+    for dtype, peak in ((torch.float32, F32_FLOPS),
+                        (torch.bfloat16, BF16_FLOPS)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        size = torch.finfo(dtype).bits // 8
+        q, k, v, do = (torch.randn(B, H, T, D, generator=g, device=dev).to(
+            dtype) for _ in range(4))
+        qkvo = 4 * B * H * T * D * size
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True)
+        library_ms = time_ms(sdpa, iters=10, warmup=2)
+        lib_dev, lib_split = device_ms(sdpa, 5)
+        fwd = lambda: kernels.flash_attention(q, k, v)  # noqa: E731
+        stats = lambda: kernels.flash_attention_stats(  # noqa: E731
+            q, k, v, causal=True)
+        recs[f"flash_wide_{tag}"] = dict(
+            ms=time_ms(fwd, iters=10, warmup=2),
+            plain_ms=time_ms(lambda: kernels.flash_attention_plain(q, k, v),
+                             iters=3, warmup=1),
+            library_ms=library_ms, library_device_ms=lib_dev,
+            device_ms=device_ms(fwd, 5)[0], **bound(flops, qkvo, peak))
+        recs[f"flash_stats_wide_{tag}"] = dict(
+            ms=time_ms(stats, iters=10, warmup=2),
+            plain_ms=time_ms(lambda: kernels.flash_attention_stats_plain(
+                q, k, v, causal=True), iters=3, warmup=1),
+            library_ms=library_ms,        # o alone: no call returns m, l
+            library_device_ms=lib_dev, device_ms=device_ms(stats, 5)[0],
+            **bound(flops, qkvo + 2 * B * H * T * 4, peak))
+        o, m, l = stats()
+        leaves = tuple(x.clone().requires_grad_(True) for x in (q, k, v))
+        fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, is_causal=True), leaves,
+            do), iters=5, warmup=1)
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        bwd_dev, bwd_split = device_ms(lambda: torch.autograd.grad(
+            sdpa_out, leaves, do, retain_graph=True), 5)
+        bwd = lambda: kernels.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, m, l, do)
+        dev_ms, split = device_ms(bwd, 5)
+        recs[f"flash_bwd_wide_{tag}"] = dict(
+            ms=time_ms(bwd, iters=5, warmup=1),
+            plain_ms=time_ms(lambda: kernels.flash_attention_bwd_plain(
+                q, k, v, o, m, l, do), iters=2, warmup=1),
+            library_ms=fwd_bwd_ms - library_ms, library_device_ms=bwd_dev,
+            device_ms=dev_ms,
+            **bound(2.5 * flops, 2 * qkvo + 2 * B * H * T * 4, peak))
+        log("timing", case=f"scaled_dot_product_attention {list(WIDE_SHAPE)} "
+                           f"causal {tag}", forward_ms=library_ms,
+            forward_device_ms=lib_dev, forward_kernels=lib_split,
+            forward_backward_ms=fwd_bwd_ms, backward_device_ms=bwd_dev,
+            backward_kernels=bwd_split)
+        log("timing", case=f"flash_attention_bwd {list(WIDE_SHAPE)} causal "
+                           f"{tag} wide device time", device_ms=dev_ms,
+            kernels=split)
+        del q, k, v, do, o, m, l, leaves, sdpa_out
+        torch.cuda.empty_cache()
+    kernel_instances("flash_attention_wide", "ptt_flash_fwd_wide_attributes")
+    kernel_instances("flash_attention_bwd_wide",
+                     "ptt_flash_bwd_wide_attributes")
     return recs
 
 
@@ -6896,6 +7465,21 @@ def main(argv=None) -> int:
         attn_err = phase_attention(dev, args.seed)
     with phase_clock("attention.bf16"):
         attn16_err = phase_attention(dev, args.seed, torch.bfloat16)
+    # head widths up to 256, while the process holds nothing on the card:
+    # the wide model's training takes most of its 80 GB
+    with phase_clock("kernel.wide"):
+        wide_err = phase_kernel_wide(dev, args.seed)
+    cpu, restore_threads = wide_cpu_worker()
+    with phase_clock("forward.wide"):
+        wide_fwd_launches, checks = phase_forward_wide(dev, args.seed, cpu)
+    with phase_clock("train.wide"):
+        wide_train_launches, more = phase_train_wide(dev, args.seed, cpu)
+    # the wide phases' CPU references, each gate raising here
+    with phase_clock("wide.cpu_checks"):
+        for done in checks + more:
+            done.result()
+        cpu.shutdown()
+        restore_threads()
     with phase_clock("bodies"):
         gemm_err = max(gemm_err, phase_bodies(dev, args.seed))
     with phase_clock("batch_semantics"):
@@ -7014,6 +7598,25 @@ def main(argv=None) -> int:
             phase_profile(dev, args.seed)
     src = "parsec_tpu_torch/csrc/"
     tpu = "parsec_tpu/ops/pallas_kernels.py:"
+    wide_records = []
+    for tag, name in (("f32", "float32"), ("bf16", "bfloat16")):
+        c = "" if tag == "f32" else "_bf16"
+        trained = wide_train_launches[name]
+        for kernel, source, line, launches in (
+                ("flash_wide", "flash_attention_wide.cu", "68",
+                 {"forward_flash_wide": wide_fwd_launches[f"flash_{name}"]}),
+                ("flash_stats_wide", "flash_attention_wide.cu", "115",
+                 {"forward_ring_wide": wide_fwd_launches[f"ring_{name}"],
+                  "train_flash_remat_wide":
+                      trained[f"flash_stats_wide{c}_launches"]}),
+                ("flash_bwd_wide", "flash_attention_bwd_wide.cu", "287",
+                 {"train_flash_remat_wide":
+                      trained[f"flash_bwd_wide{c}_launches"]})):
+            wide_records.append(dict(
+                name=f"{kernel}_{tag}", route="cuda", source=src + source,
+                replaces=tpu + line, launches=launches,
+                max_abs_err=wide_err[f"{kernel}_{tag}"],
+                **recs[f"{kernel}_{tag}"]))
     print(json.dumps({"kernels": [
         dict(name="gemm_f32", route="cuda", source=src + "matmul.cu",
              replaces=tpu + "395", launches=gemm_launches,
@@ -7079,6 +7682,8 @@ def main(argv=None) -> int:
                                      "flash_bwd_bf16_launches")},
              max_abs_err=max(attn16_err["flash_bwd"], spmd16_err["flash_bwd"]),
              **recs["flash_bwd_bf16"]),
+        # head widths 129..256, fp32 and bf16 (CUDA cores)
+        *wide_records,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for the hot operations.
 
 The port's counterpart of the JAX package's ``ops/pallas_kernels.py``.
-Six CUDA sources live under ``csrc/``; the bf16 GEMM's and backward's
-share the header ``csrc/hopper.cuh``:
+Eight CUDA sources live under ``csrc/``; the bf16 GEMM's and backward's
+share the header ``csrc/hopper.cuh``, the two wide-head sources
+``csrc/flash_wide.cuh``:
 
 - ``gemm``: the blocked GEMM of ``csrc/matmul.cu`` at fp32,
   ``Out = beta*C + alpha*(A @ op(B))`` over an optional leading batch
@@ -17,12 +18,15 @@ share the header ``csrc/hopper.cuh``:
   row's raw running max ``m`` and denominator ``l`` (``[B, H, T]``):
   ``csrc/flash_attention.cu`` at fp32, the tensor-core kernel of
   ``csrc/flash_attention_bf16.cu`` (wgmma on bf16 tiles fed by TMA) at
-  bf16.  They replace the Pallas ``_flash_fwd_kernel`` and
-  ``_flash_fwd_stats_kernel`` and carry the transformer's attention
-  (models/transformer.py, parallel/).
+  bf16, for head widths D <= 128; ``csrc/flash_attention_wide.cu`` at
+  both types for 128 < D <= ``FLASH_D_MAX`` (256).  They replace the
+  Pallas ``_flash_fwd_kernel`` and ``_flash_fwd_stats_kernel`` and carry
+  the transformer's attention (models/transformer.py, parallel/).
 - ``flash_attention_bwd``: the flash backward of
   ``csrc/flash_attention_bwd.cu`` at fp32 and the tensor-core kernel of
-  ``csrc/flash_attention_bwd_bf16.cu`` at bf16, dq, dk and dv from the
+  ``csrc/flash_attention_bwd_bf16.cu`` at bf16 for D <= 128,
+  ``csrc/flash_attention_bwd_wide.cu`` at both types for 128 < D <= 256,
+  dq, dk and dv from the
   forward's raw row statistics, in place of the jnp VJP ``_flash_vjp_bwd`` of the
   Pallas ``_flash``.  ``flash_attention`` is differentiable through it:
   while grad mode is on and an input needs a gradient, its forward
@@ -41,8 +45,10 @@ bf16 before P.V (but not in l) and o once at the end, the backward dq,
 dk and dv once at the end (m, l and the dQ scratch stay fp32).  The bf16
 backward's tensor-core products also take P and dS rounded to bf16
 (the JAX VJP keeps both in fp32; FlashAttention and SDPA round them as
-this kernel does).  The operands of one call share one of the two
-types; mixed types raise.
+this kernel does; the wide backward keeps them fp32, as the VJP does).
+The operands of one call share one of the two types; mixed types raise.
+A CUDA tensor with D > ``FLASH_D_MAX`` raises ``ValueError``; a CPU
+tensor computes at any D, as the JAX package does.
 
 Each kernel is built with ``nvcc`` into a library of its type: the fp32
 libraries ``matmul``, ``flash_attention`` and ``flash_attention_bwd``
@@ -51,11 +57,13 @@ with ``_bf16`` from ``matmul_bf16.cu``, ``flash_attention_bf16.cu`` and
 ``flash_attention_bwd_bf16.cu``; ``flash_attention_bf16_phases`` builds
 the bf16 forward once more with ``-DPTT_PHASE_CLOCKS``, a measurement
 build that sums the clocks of each phase of its loop and that no path
-launches.  Each is built at the first launch of one of its kernels, into
-``build/kernels/`` at the root of the checkout, keyed on a hash of the
-source, the headers of ``csrc/`` it includes and the flags, and loaded
-with ``ctypes``; ``build()`` compiles them all at once, one ``nvcc`` per
-library.  Nothing is compiled when the module is imported.
+launches.  The wide sources build one library each,
+``flash_attention_wide`` and ``flash_attention_bwd_wide``, holding both
+types' instances.  Each is built at the first launch of one of its
+kernels, into ``build/kernels/`` at the root of the checkout, keyed on a
+hash of the source, the headers of ``csrc/`` it includes and the flags,
+and loaded with ``ctypes``; ``build()`` compiles them all at once, one
+``nvcc`` per library.  Nothing is compiled when the module is imported.
 
 A wrapper takes its kernel's plain PyTorch version (``gemm_plain``,
 ``flash_attention_plain``, ``flash_attention_stats_plain``,
@@ -71,7 +79,10 @@ training forward counts there, one a call) and the backward (one a
 call, for its two launches: the delta pass and the persistent kernel).
 ``matmul_bf16_launches``, ``flash_bf16_launches``,
 ``flash_stats_bf16_launches`` and ``flash_bwd_bf16_launches`` count the
-bf16 instances' launches the same way.
+bf16 instances' launches the same way, and ``flash_wide_launches``,
+``flash_stats_wide_launches`` and ``flash_bwd_wide_launches`` (with
+their ``..._wide_bf16_launches`` twins) the wide instances' (the wide
+backward: one a call, for its three launches: delta, dK and dV, dQ).
 """
 from __future__ import annotations
 
@@ -93,8 +104,11 @@ __all__ = ["attention_plain", "build", "flash_attention",
            "flash_attention_plain", "flash_attention_stats",
            "flash_attention_stats_plain",
            "flash_bf16_launches", "flash_bwd_bf16_launches",
-           "flash_bwd_launches", "flash_launches",
-           "flash_stats_bf16_launches", "flash_stats_launches", "gemm",
+           "flash_bwd_launches", "flash_bwd_wide_bf16_launches",
+           "flash_bwd_wide_launches", "flash_launches",
+           "flash_stats_bf16_launches", "flash_stats_launches",
+           "flash_stats_wide_bf16_launches", "flash_stats_wide_launches",
+           "flash_wide_bf16_launches", "flash_wide_launches", "gemm",
            "gemm_plain", "load", "matmul", "matmul_bf16_launches",
            "matmul_launches", "thread_matmul_launches"]
 
@@ -108,6 +122,12 @@ matmul_bf16_launches = 0
 flash_bf16_launches = 0
 flash_stats_bf16_launches = 0
 flash_bwd_bf16_launches = 0
+flash_wide_launches = 0
+flash_stats_wide_launches = 0
+flash_bwd_wide_launches = 0
+flash_wide_bf16_launches = 0
+flash_stats_wide_bf16_launches = 0
+flash_bwd_wide_bf16_launches = 0
 #: the GEMM kernel's launches by the calling thread, counted at the same
 #: place: in-process rank threads share the module's totals
 _per_thread = threading.local()
@@ -121,10 +141,16 @@ def thread_matmul_launches() -> int:
 
 #: the Pallas kernels' mask value, kept so masked rows match
 NEG_INF = -1e30
-#: the largest head width the flash kernel takes
-FLASH_D_MAX = 128
-#: query rows per tile of both backward kernels (``BQ`` in each source):
-#: the turn counters' scratch is sized for it
+#: the largest head width the flash kernels take on a CUDA tensor (the
+#: wide sources' ``D_MAX``); the Pallas kernels take any: wider heads are
+#: ROADMAP Queue 2(a)
+FLASH_D_MAX = 256
+#: the largest head width of the tuned sources (their ``D_MAX``); wider
+#: heads take the wide sources
+FLASH_D_NARROW = 128
+#: query rows per tile of both D <= 128 backward kernels (``BQ`` in each
+#: source): the turn counters' scratch is sized for it (the wide backward
+#: takes none)
 FLASH_BWD_BQ = 64
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -178,6 +204,22 @@ def _declare_flash_bf16(lib: ctypes.CDLL, tag: str) -> None:
     _declare_attributes(lib.ptt_flash_fwd_bf16_attributes)
 
 
+def _declare_flash_wide(lib: ctypes.CDLL, tag: Optional[str]) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for t in _TAGS.values():     # both types' instances in one library
+        _declare(getattr(lib, f"ptt_flash_fwd_wide_{t}"),
+                 [p] * 6 + [i] * 5 + [f, p])
+    _declare_attributes(lib.ptt_flash_fwd_wide_attributes)
+
+
+def _declare_flash_bwd_wide(lib: ctypes.CDLL, tag: Optional[str]) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for t in _TAGS.values():
+        _declare(getattr(lib, f"ptt_flash_bwd_wide_{t}"),
+                 [p] * 11 + [i] * 5 + [f, p])
+    _declare_attributes(lib.ptt_flash_bwd_wide_attributes)
+
+
 def _declare_flash_bwd(lib: ctypes.CDLL, tag: str) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the bf16 entry takes one pointer more: dQ's fp32 scratch
@@ -193,13 +235,17 @@ _SOURCES = {"matmul": _declare_matmul, "matmul_bf16": _declare_matmul_bf16,
             "flash_attention": _declare_flash,
             "flash_attention_bf16": _declare_flash_bf16,
             "flash_attention_bwd": _declare_flash_bwd,
-            "flash_attention_bwd_bf16": _declare_flash_bwd}
+            "flash_attention_bwd_bf16": _declare_flash_bwd,
+            "flash_attention_wide": _declare_flash_wide,
+            "flash_attention_bwd_wide": _declare_flash_bwd_wide}
 #: the element types the kernels have instances for, and each one's tag:
 #: the suffix of its C entry points and of its counters
 _TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
-#: each library: its source, its element type's tag and its nvcc flags
-#: beyond ``_NVCC_FLAGS``; ``<name>`` is the fp32 library of a kernel,
-#: ``<name>_bf16`` its bf16 one, each from a source of its own
+#: each library: its source, its element type's tag (None: both types'
+#: instances in one library) and its nvcc flags beyond ``_NVCC_FLAGS``;
+#: ``<name>`` is the fp32 library of a kernel, ``<name>_bf16`` its bf16
+#: one, each from a source of its own; the wide sources' libraries hold
+#: both types
 _LIBRARIES = {"matmul": ("matmul", "f32", ()),
               "matmul_bf16": ("matmul_bf16", "bf16", ()),
               "flash_attention": ("flash_attention", "f32", ()),
@@ -209,7 +255,11 @@ _LIBRARIES = {"matmul": ("matmul", "f32", ()),
                                               ("-DPTT_PHASE_CLOCKS",)),
               "flash_attention_bwd": ("flash_attention_bwd", "f32", ()),
               "flash_attention_bwd_bf16": ("flash_attention_bwd_bf16",
-                                           "bf16", ())}
+                                           "bf16", ()),
+              # 128 < D <= 256, fp32 and bf16
+              "flash_attention_wide": ("flash_attention_wide", None, ()),
+              "flash_attention_bwd_wide": ("flash_attention_bwd_wide", None,
+                                           ())}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -345,6 +395,14 @@ def _count(name: str, tag: str) -> None:
 
 def _library(source: str, tag: str) -> ctypes.CDLL:
     return load(source if tag == "f32" else f"{source}_bf16")
+
+
+def _check_head_width(op: str, D: int) -> None:
+    """A CUDA call's head width: the kernels take 1..FLASH_D_MAX."""
+    if not 1 <= D <= FLASH_D_MAX:
+        raise ValueError(f"{op}: the CUDA kernels take head widths "
+                         f"1..{FLASH_D_MAX} (FLASH_D_MAX), got {D}; wider "
+                         f"heads are ROADMAP Queue 2(a), still to port")
 
 
 def _raise_launch(op: str, lib: ctypes.CDLL, rc: int) -> None:
@@ -538,14 +596,13 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
 def _flash_launch(op: str, q, k, v, causal: bool, scale: Optional[float],
                   stats: bool):
     """Check the operands and launch the forward kernel of the operands'
-    type (``csrc/flash_attention.cu`` at fp32,
-    ``csrc/flash_attention_bf16.cu`` at bf16), counting the instance
-    launched; returns ``o`` or ``(o, m, l)``."""
+    type and head width (``csrc/flash_attention.cu`` at fp32,
+    ``csrc/flash_attention_bf16.cu`` at bf16, ``csrc/flash_attention_wide.cu``
+    at either for D > 128), counting the instance launched; returns ``o``
+    or ``(o, m, l)``."""
     B, H, T, Tk, D = _attention_shapes(op, q, k, v)
     tag = _check_cuda_operands(op, (q, k, v))
-    if not 1 <= D <= FLASH_D_MAX:
-        raise ValueError(f"{op}: the CUDA kernel takes head widths "
-                         f"1..{FLASH_D_MAX}, got {D}")
+    _check_head_width(op, D)
     if B * H > 65535:
         raise ValueError(f"{op}: B*H = {B * H} exceeds gridDim.y")
     if scale is None:
@@ -557,10 +614,18 @@ def _flash_launch(op: str, q, k, v, causal: bool, scale: Optional[float],
         l = torch.empty_like(m)
     if T == 0 or B * H == 0:
         return (o, m, l) if stats else o
-    lib = _library("flash_attention", tag)
+    wide = D > FLASH_D_NARROW
+    lib = load("flash_attention_wide") if wide else _library(
+        "flash_attention", tag)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if stats:
+        if wide:     # one entry point: m and l are written when given
+            rc = getattr(lib, f"ptt_flash_fwd_wide_{tag}")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                m.data_ptr() if stats else None,
+                l.data_ptr() if stats else None, B * H, T, Tk, D,
+                int(causal), float(scale), stream)
+        elif stats:
             rc = getattr(lib, f"ptt_flash_fwd_stats_{tag}")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 m.data_ptr(), l.data_ptr(), B * H, T, Tk, D, int(causal),
@@ -570,7 +635,9 @@ def _flash_launch(op: str, q, k, v, causal: bool, scale: Optional[float],
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 B * H, T, Tk, D, int(causal), float(scale), stream)
     _raise_launch(op, lib, rc)
-    _count("flash_stats_launches" if stats else "flash_launches", tag)
+    counter = "flash_stats_launches" if stats else "flash_launches"
+    _count(counter.replace("_launches", "_wide_launches") if wide
+           else counter, tag)
     return (o, m, l) if stats else o
 
 
@@ -609,7 +676,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention forward, ``q [B, H, T, D]``, ``k, v [B, H, Tk, D]``
     -> ``[B, H, T, D]``; ``scale`` defaults to ``D ** -0.5``.  CPU tensors
     take the plain versions; CUDA tensors must be contiguous, all fp32 or
-    all bf16 (the kernel's instance of that type), with ``D <= 128``.
+    all bf16 (the kernel's instance of that type), with
+    ``D <= FLASH_D_MAX`` (256; the wide kernels above 128).
     Differentiable: while grad mode is on and an input needs a gradient,
     the forward keeps the row statistics and the backward is
     ``flash_attention_bwd``."""
@@ -738,18 +806,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for the cotangent ``do``, given the forward's ``o`` and its raw row
     max ``m`` and denominator ``l`` (``flash_attention_stats``).  CPU
     tensors take the plain version; CUDA tensors must be contiguous and on
-    one device with ``D <= 128``: q, k, v, o and do all fp32 or all bf16
-    (the kernel's instance of that type), m and l fp32.  At bf16 the
-    wrapper allocates an fp32 scratch for dQ's ordered sum, which the
-    kernel rounds once into dq."""
+    one device with ``D <= FLASH_D_MAX``: q, k, v, o and do all fp32 or
+    all bf16 (the kernel's instance of that type), m and l fp32.  Up to
+    D = 128 at bf16 the wrapper allocates an fp32 scratch for dQ's
+    ordered sum, which the kernel rounds once into dq; wider heads take
+    the wide kernel (``csrc/flash_attention_bwd_wide.cu``), which sums
+    each dq row in registers and needs no scratch or turn counters."""
     B, H, T, Tk, D = _bwd_shapes(q, k, v, o, m, l, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, m, l, do, causal, scale)
     op = "flash_attention_bwd"
     tag = _check_cuda_operands(op, (q, k, v, o, do), (m, l))
-    if not 1 <= D <= FLASH_D_MAX:
-        raise ValueError(f"{op}: the CUDA kernel takes head widths "
-                         f"1..{FLASH_D_MAX}, got {D}")
+    _check_head_width(op, D)
     if scale is None:
         scale = D ** -0.5
     dq = torch.empty_like(q)
@@ -757,6 +825,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, torch.zeros_like(k), torch.zeros_like(v)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    if D > FLASH_D_NARROW:
+        lib = load("flash_attention_bwd_wide")
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = getattr(lib, f"ptt_flash_bwd_wide_{tag}")(
+                *(x.data_ptr() for x in (q, k, v, o, m, l, do, dq, dk, dv,
+                                         delta)),
+                B * H, T, Tk, D, int(causal), float(scale), stream)
+        _raise_launch(op, lib, rc)
+        _count("flash_bwd_wide_launches", tag)
+        return dq, dk, dv
     counters = _flash_bwd_counters(B * H, T, q.device)
     lib = _library("flash_attention_bwd", tag)
     args = [q, k, v, o, m, l, do, dq, dk, dv, delta]

@@ -47,8 +47,12 @@ def _with_header(source: str) -> str:
 def test_bf16_gemm_and_backward_build_from_their_own_sources():
     """The two bf16 libraries are their tensor-core sources built as they
     are: no library of the table is built with -DPTT_BF16, and the table
-    keeps its seven libraries."""
-    assert len(kernels._LIBRARIES) == 7
+    keeps its seven libraries beside the two wide-head ones (128 < D <=
+    256, both types in each)."""
+    assert len(kernels._LIBRARIES) == 9
+    assert sorted(n for n, (_s, tag, _f) in kernels._LIBRARIES.items()
+                  if tag is None) == ["flash_attention_bwd_wide",
+                                      "flash_attention_wide"]
     for name, source in NEW.items():
         assert kernels._LIBRARIES[name] == (source, "bf16", ())
         cmd = kernels._nvcc_command(name)
